@@ -1,0 +1,668 @@
+#!/usr/bin/env python3
+"""Smoke run of the PyTorch/CUDA port (``src/repro_torch``) on one GPU.
+
+    python3 chip_smoke.py
+
+Run from the root of a checkout on a machine with a CUDA device. Phases, in
+order; any failure raises and the script exits nonzero:
+
+1. Environment: the card's name and power limit (``nvidia-smi``), then the
+   kernels built from ``src/repro_torch/csrc`` (one ``nvcc`` per source, in
+   parallel) with the build time.
+2. Kernels against their plain versions on the card, tolerance 0
+   (``torch.equal``). Every GEMM shape and every chain and sweep program the
+   main path launches, at the batch the main path launches it (trunk at 2
+   and 8, resnet18-small at 4); besides, for the GEMM odd and prime M and K,
+   K = 4608 and the int8 extremes, and for the ALU stage-program kernel the
+   real chains and sweeps of a depthwise and two pool programs, forced
+   scatter stores, a store with duplicate and masked lanes, and integer edge
+   cases, at N = 3.
+3. The main path: ``VTAServeEngine(backend="torch")`` serves the full-width
+   ResNet-18 trunk (``SERVE_REPS`` full dispatches each of buckets 2 and 8)
+   and the resnet18-small served model (``SERVE_REPS`` full dispatches of
+   bucket 4). Launch counts are zeroed just before and read just after;
+   every kernel must have launched. Every output must equal the same image
+   on ``"torch-cpu"``, and request 0's output must hash to ``TRUNK_DIGEST``,
+   the JAX package's numpy-backend result (tests/test_torch_serve.py pins the
+   same digest).
+
+Output: one line per kernel, ms per dispatch per bucket (median, min, max),
+then a JSON line of serving numbers, a JSON line of kernel numbers, the
+``nvidia-smi`` line, and last the device line. Kernel times are medians of
+CUDA-event timings; each kernel row sums its launches over one forward of
+the model named in ``per`` (``launches_per_forward``), while ``launches``
+is the count over the whole serve run.
+"""
+from __future__ import annotations
+
+import hashlib
+import json
+import os
+import statistics
+import subprocess
+import sys
+import time
+
+import numpy as np
+
+ROOT = os.path.dirname(os.path.abspath(__file__))
+SRC = os.path.join(ROOT, "src")
+
+# sha256 of the trunk's output for image 0 of random_images(8, seed=0), from
+# the JAX package's numpy backend (tests/test_torch_serve.py asserts it)
+TRUNK_DIGEST = \
+    "93a27c05b40128f109a1f863874468b3e9137bfb386ecd58fa59a5e5b7191b3e"
+
+HBM_BYTES_PER_S = 3.35e12        # H100 SXM, NVIDIA data sheet
+INT8_TENSOR_OPS_PER_S = 1979e12  # dense int8 tensor-core rate
+SCALAR_OPS_PER_S = 67e12         # float32 rate outside the tensor cores
+TRUNK_BUCKETS = (2, 8)
+SMALL_BUCKET = 4
+SERVE_REPS = 5           # full dispatches timed per bucket
+
+
+def log(*a) -> None:
+    print(*a, flush=True)
+
+
+def median_ms(fn, reps: int = 20, trials: int = 3) -> float:
+    """Median over ``trials`` of the mean per-call time of ``reps`` calls,
+    by CUDA events, after one warm-up call."""
+    import torch
+    fn()
+    torch.cuda.synchronize()
+    out = []
+    for _ in range(trials):
+        s = torch.cuda.Event(enable_timing=True)
+        e = torch.cuda.Event(enable_timing=True)
+        s.record()
+        for _ in range(reps):
+            fn()
+        e.record()
+        e.synchronize()
+        out.append(s.elapsed_time(e) / reps)
+    return statistics.median(out)
+
+
+def graph_ms(fn, reps: int = 20, trials: int = 3) -> float:
+    """Device time per call: ``reps`` calls captured in one CUDA graph and
+    replayed, so host launch overhead is not counted. Median of ``trials``
+    replays timed with CUDA events, after one warm-up call."""
+    import torch
+    fn()
+    torch.cuda.synchronize()
+    g = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(g):
+        for _ in range(reps):
+            fn()
+    g.replay()
+    torch.cuda.synchronize()
+    out = []
+    for _ in range(trials):
+        s = torch.cuda.Event(enable_timing=True)
+        e = torch.cuda.Event(enable_timing=True)
+        s.record()
+        g.replay()
+        e.record()
+        e.synchronize()
+        out.append(s.elapsed_time(e) / reps)
+    return statistics.median(out)
+
+
+# ---------------------------------------------------------------------------
+# what the main path launches
+# ---------------------------------------------------------------------------
+def model_ops(model, device):
+    """(device entries, tensor shapes) of every segment of ``model``."""
+    from repro_torch.vta.fsim_torch import _device_ops
+    from repro_torch.vta.lowering import lower_cached
+    shapes = dict(model.shapes)
+    shapes.update({k: v.shape for k, v in model.weights.items()})
+    out = []
+    for seg in model.segments:
+        tr = lower_cached(seg.program, model.hw, shapes)
+        out.extend(_device_ops(tr, device))
+    return out, shapes
+
+
+def gemm_shapes(ops, hw) -> dict:
+    """{(w_d, M, K): launches per forward} of the GEMM entries."""
+    counts: dict = {}
+    for e in ops:
+        if e[0] == "gemm":
+            _, R, w_d, uidx, _, _ = e
+            g = len(uidx)
+            key = (w_d, (g // w_d) * hw.batch, R * hw.block_in)
+            counts[key] = counts.get(key, 0) + 1
+    return counts
+
+
+# ---------------------------------------------------------------------------
+# phase 2: kernels against their plain versions
+# ---------------------------------------------------------------------------
+def check_gemm(dev, rng, main_path: list, trunk_shapes: dict,
+               n: int) -> dict:
+    """``main_path``: (batch, {(w_d, M, K): launches}) the serve run launches;
+    ``trunk_shapes`` at batch ``n`` are timed."""
+    import torch
+    from repro_torch.kernels.vta_gemm import gemm_plain, vta_gemm
+
+    def case(nb, w_d, m, k, lo=-128, hi=128, fill=None):
+        if fill is None:
+            x = rng.integers(lo, hi, (nb, w_d, m, k), dtype=np.int8)
+            w = rng.integers(lo, hi, (1, w_d, k, 16), dtype=np.int8)
+        else:
+            x = np.full((nb, w_d, m, k), fill, np.int8)
+            w = np.full((1, w_d, k, 16), fill, np.int8)
+        return (torch.from_numpy(x).to(dev), torch.from_numpy(w).to(dev))
+
+    cases = [case(nb, *s) for nb, shapes in main_path for s in sorted(shapes)]
+    cases += [case(3, 2, 97, 131), case(2, 1, 1, 16), case(3, 3, 3, 5),
+              case(2, 2, 53, 4608), case(2, 1, 37, 4608, fill=-128),
+              case(2, 1, 19, 1024, fill=127)]
+    # a weight scratchpad filled from per-image tensors has a batch axis
+    xb, _ = case(3, 2, 45, 96)
+    wb = torch.from_numpy(rng.integers(-128, 128, (3, 2, 96, 16),
+                                       dtype=np.int8)).to(dev)
+    cases.append((xb, wb))
+    err = 0
+    for x, w in cases:
+        a = vta_gemm(x, w)
+        b = gemm_plain(x, w)
+        torch.cuda.synchronize()
+        err = max(err, int((a.long() - b.long()).abs().max()))
+        if not torch.equal(a, b):
+            raise AssertionError(f"gemm differs from its plain version at "
+                                 f"x {tuple(x.shape)} w {tuple(w.shape)}")
+
+    # timings over one trunk forward at batch n: sum of count x per-launch
+    ms = eager = plain = lib = bound = t_bytes = t_ops = 0.0
+    for (w_d, m, k), cnt in sorted(trunk_shapes.items()):
+        x, w = case(n, w_d, m, k)
+        ms += cnt * graph_ms(lambda: vta_gemm(x, w))
+        eager += cnt * median_ms(lambda: vta_gemm(x, w))
+        plain += cnt * median_ms(lambda: gemm_plain(x, w), reps=5)
+        rows = max(n * m, 17)        # torch._int_mm takes > 16 rows
+        xs = [torch.zeros((rows, k), dtype=torch.int8, device=dev)
+              for _ in range(w_d)]
+        for j in range(w_d):
+            xs[j][:n * m] = x[:, j].reshape(n * m, k)
+        ws = [w[0, j].contiguous() for j in range(w_d)]
+
+        def library():
+            for j in range(w_d):
+                torch._int_mm(xs[j], ws[j])
+        lib += cnt * graph_ms(library, reps=5)
+        nbytes = n * w_d * m * k + w_d * k * 16 + n * w_d * m * 16 * 4
+        ops = 2 * n * w_d * m * k * 16
+        tb, to = nbytes / HBM_BYTES_PER_S, ops / INT8_TENSOR_OPS_PER_S
+        bound += cnt * 1e3 * max(tb, to)
+        t_bytes += cnt * tb
+        t_ops += cnt * to
+    by = "bytes" if t_bytes >= t_ops else "operations"
+    log(f"gemm: {len(cases)} cases equal; trunk forward at batch {n}: "
+        f"kernel {ms:.3f} ms (eager launches {eager:.3f} ms), plain "
+        f"{plain:.3f} ms, torch._int_mm {lib:.3f} ms, bound {bound:.4f} ms "
+        f"({by})")
+    return {"max_abs_err": err, "ms": ms, "plain_ms": plain,
+            "library_ms": lib, "bound_ms": bound, "bound_by": by,
+            "eager_ms": eager,
+            "launches_per_forward": sum(trunk_shapes.values())}
+
+
+def sweep_inputs(prog, shapes, shared: dict, n: int, dev, rng, hw):
+    """Random full-range inputs for one program at batch ``n``; ``shared``
+    maps the tensors the batch shares to their dtype."""
+    import torch
+    acc = torch.from_numpy(rng.integers(
+        -2**31, 2**31, (n, hw.acc_depth, hw.batch, hw.block_out),
+        dtype=np.int32)).to(dev)
+    flats = []
+    for t in prog.slab_tensors:
+        size = int(np.prod(shapes[t]))
+        shp = (size,) if t in shared else (n, size)
+        dtype = shared.get(t, np.int8)
+        info = np.iinfo(dtype)
+        flats.append(torch.from_numpy(rng.integers(
+            info.min, int(info.max) + 1, shp, dtype=dtype)).to(dev))
+    out = None
+    if prog.store is not None:
+        size = int(np.prod(shapes[prog.store_tensor]))
+        out = torch.from_numpy(rng.integers(-128, 128, (n, size),
+                                            dtype=np.int8)).to(dev)
+    return acc, flats, out
+
+
+def run_sweep_pair(prog, acc, flats, out) -> int:
+    """Largest |kernel - plain| over acc and the output tensor."""
+    import torch
+    from repro_torch.kernels.alu_sweep import (alu_chain, alu_sweep,
+                                               chain_plain, sweep_plain)
+    clone = (lambda t: None if t is None else t.clone())
+    if prog.slabs or prog.store is not None:
+        a1, o1 = alu_sweep(acc.clone(), prog, flats, clone(out))
+        a2, o2 = sweep_plain(acc.clone(), prog, flats, clone(out))
+    else:
+        a1, o1 = alu_chain(acc.clone(), prog), None
+        a2, o2 = chain_plain(acc.clone(), prog), None
+    torch.cuda.synchronize()
+    err = int((a1.long() - a2.long()).abs().max())
+    if o1 is not None:
+        err = max(err, int((o1.long() - o2.long()).abs().max()))
+    return err
+
+
+def sweep_bound_s(prog, shared: dict, n: int) -> tuple:
+    """(bytes time, operations time) of one launch in seconds: each input
+    byte read once, each output byte written once, over the memory rate;
+    one int32 operation per stage tap and lane over the scalar rate."""
+    lanes = prog.lanes
+    nbytes = 0
+    for t, index, mask, _ in prog.slabs:
+        live = index.size if mask is None else int(mask.sum())
+        esize = np.dtype(shared.get(t, np.int8)).itemsize
+        nbytes += live * esize * (1 if t in shared else n)
+    acc_rows = set()
+    for kind, rows in prog.operands:
+        if kind == "acc":
+            acc_rows.update(np.asarray(rows).reshape(-1).tolist())
+    if any(s[0] == "read_dst" for s in prog.stages):
+        acc_rows.update(prog.dst.tolist())
+    nbytes += len(acc_rows) * lanes * 4 * n
+    if prog.write_acc:
+        nbytes += prog.g * lanes * 4 * n
+    if prog.store is not None:
+        nbytes += int((prog.meta[prog.offsets["off_store"]:
+                                 prog.offsets["off_store"]
+                                 + prog.g * lanes] >= 0).sum()) * n
+    taps = sum(int(s[1]) if s[0] == "mac" else int(s[2]) if s[0] == "red"
+               else 1 for s in prog.stages)
+    ops = n * prog.g * lanes * taps
+    return nbytes / HBM_BYTES_PER_S, ops / SCALAR_OPS_PER_S
+
+
+def real_sweep_cases(hw):
+    """(program, tensor shapes, shared tensors) of the chains and sweeps
+    lowered from a depthwise and two pool programs."""
+    from repro_torch.core.tps import ConvWorkload
+    from repro_torch.vta.fsim_torch import _device_ops
+    from repro_torch.vta.lowering import lower
+    from repro_torch.vta.scheduler import schedule_depthwise, schedule_pool
+    progs = []
+    dw = ConvWorkload("dw", 1, 8, 8, 3, 3, 16, 16, 1, 1, 1, 1,
+                      depthwise=True)
+    progs.append((schedule_depthwise(dw, hw).program,
+                  {"inp": (1, 16, 8, 8), "dw_wgt": (16, 3, 3),
+                   "out": (1, 16, 8, 8)}, {"dw_wgt": np.int8}))
+    for mode, wl in (("max", ConvWorkload("p", 1, 14, 14, 3, 3, 16, 16, 1,
+                                          1, 2, 2)),
+                     ("avg", ConvWorkload("gap", 1, 7, 7, 7, 7, 64, 64, 0,
+                                          0, 7, 7))):
+        progs.append((schedule_pool(wl, hw, mode=mode).program,
+                      {"inp": (1, wl.fi, wl.h, wl.w),
+                       "out": (1, wl.fo, wl.oh, wl.ow)}, {}))
+    out = []
+    for prog, shapes, shared in progs:
+        tr = lower(prog, hw, shapes)
+        for e in _device_ops(tr, "cpu"):
+            if e[0] in ("aluchain", "alusweep"):
+                out.append((e[1], shapes, shared))
+    return out
+
+
+def edge_cases(hw, rng):
+    """Synthetic programs: int32 wrap, SHR counts outside [0, 31], CLIP of a
+    negative bound, a MAC/reduce chain, and a store with duplicate and
+    masked lanes (last writer wins)."""
+    from repro_torch.kernels.alu_sweep import SweepProgram
+    g, lanes = 24, (hw.batch, hw.block_out)
+    dst = np.arange(g, dtype=np.int32)
+    rows = (lambda k: np.arange(100 + 40 * k, 100 + 40 * k + g,
+                                dtype=np.int32))
+    p1 = SweepProgram(
+        (("seed_copy",), ("src", "mul"), ("src", "shr"), ("src", "add"),
+         ("imm", "clip", -70000), ("imm", "mul", 3)),
+        dst, [("acc", rows(0)), ("acc", rows(1)), ("acc", rows(2)),
+              ("acc", rows(3))], lane_shape=lanes)
+    p2 = SweepProgram(
+        (("read_dst",), ("mac", 3), ("red", "max", 2), ("imm", "shr", 35),
+         ("imm", "add", -5)),
+        dst, [("acc", np.stack([rows(k) for k in range(3)])),
+              ("acc", np.array([90, 91, 92], np.int32)),
+              ("acc", np.stack([rows(k) for k in (4, 5)]))],
+        lane_shape=lanes)
+    size = 300
+    index = rng.integers(0, 60, (g,) + lanes).astype(np.int32)
+    mask = rng.random((g,) + lanes) < 0.7
+    p3 = SweepProgram(
+        (("seed_copy",), ("imm", "shr", 20)), dst, [("acc", rows(0))],
+        lane_shape=lanes, write_acc=False,
+        store=("out", index, mask, False, None, None))
+    shapes = {"out": (size,)}
+    return [(p, shapes, {}) for p in (p1, p2, p3)]
+
+
+def shift_rows(acc, rng):
+    """Put shift counts in [-40, 40] where the edge programs read SHR."""
+    import torch
+    acc[:, 180:204] = torch.from_numpy(rng.integers(
+        -40, 41, (acc.shape[0], 24) + tuple(acc.shape[2:]),
+        dtype=np.int32)).to(acc.device)
+
+
+def kernel_of(p) -> str:
+    return "alu_sweep" if (p.slabs or p.store is not None) else "alu_chain"
+
+
+def check_sweeps(dev, rng, hw, main_path: list, timed: dict) -> tuple:
+    """Coverage cases at N = 3, then every program of ``main_path``
+    ((batch, entries, tensor shapes, shared tensors), one per model and
+    bucket the serve run launches) at its batch. ``timed`` maps each kernel
+    to the ``main_path`` index whose launches its row times."""
+    from repro_torch.kernels.alu_sweep import (SweepProgram, alu_chain,
+                                               alu_sweep, chain_plain,
+                                               sweep_plain)
+    err = {"alu_chain": 0, "alu_sweep": 0}
+    cases = real_sweep_cases(hw)
+    forced = []
+    for p, shapes, shared in cases + [(e[1], shapes, shared)
+                                      for _, ops, shapes, shared in main_path
+                                      for e in ops if e[0] == "alusweep"]:
+        st = p.store
+        if st is not None and st[4] is not None:
+            forced.append((SweepProgram(
+                p.stages, p.dst, p.operands, lane_shape=p.lane_shape,
+                slabs=p.slabs, write_acc=p.write_acc,
+                store=(st[0], st[1], st[2], st[3], None, None)),
+                shapes, shared))
+    cases += forced[:8]
+    edges = edge_cases(hw, rng)
+    cases += edges
+    seen = {"chain": 0, "sweep": 0, "affine": 0, "scatter": 0,
+            "masked": 0, "no_acc_write": 0}
+    for p, shapes, shared in cases:
+        acc, flats, out = sweep_inputs(p, shapes, shared, 3, dev, rng, hw)
+        if any(p is e[0] for e in edges):
+            shift_rows(acc, rng)
+        e = run_sweep_pair(p, acc, flats, out)
+        err[kernel_of(p)] = max(err[kernel_of(p)], e)
+        if e:
+            raise AssertionError(f"alu kernel differs from its plain version "
+                                 f"on stages {p.stages}")
+        seen["sweep" if kernel_of(p) == "alu_sweep" else "chain"] += 1
+        if p.store is not None:
+            seen["affine" if p.store[4] is not None else "scatter"] += 1
+            if p.store[2] is not None:
+                seen["masked"] += 1
+        if not p.write_acc:
+            seen["no_acc_write"] += 1
+    for k, v in seen.items():
+        if v == 0:
+            raise AssertionError(f"no {k} case among the kernel checks")
+    log(f"alu_sweep kernel: {len(cases)} coverage programs equal at N=3 "
+        f"{seen}")
+
+    rows = {k: {"ms": 0.0, "eager_ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0,
+                "t_bytes": 0.0, "t_ops": 0.0, "launches_per_forward": 0}
+            for k in err}
+    for at, (nb, ops, shapes, shared) in enumerate(main_path):
+        progs = [e[1] for e in ops if e[0] in ("aluchain", "alusweep")]
+        for p in progs:
+            name = kernel_of(p)
+            acc, flats, out = sweep_inputs(p, shapes, shared, nb, dev, rng,
+                                           hw)
+            e = run_sweep_pair(p, acc, flats, out)
+            err[name] = max(err[name], e)
+            if e:
+                raise AssertionError(f"{name} differs from its plain version "
+                                     f"at batch {nb} on stages {p.stages}")
+            if timed[name] != at:
+                continue
+            r = rows[name]
+            if name == "alu_sweep":
+                r["ms"] += graph_ms(lambda: alu_sweep(acc, p, flats, out),
+                                    reps=5)
+                r["eager_ms"] += median_ms(
+                    lambda: alu_sweep(acc, p, flats, out), reps=5)
+                r["plain_ms"] += median_ms(
+                    lambda: sweep_plain(acc, p, flats, out), reps=2, trials=1)
+            else:
+                r["ms"] += graph_ms(lambda: alu_chain(acc, p), reps=5)
+                r["eager_ms"] += median_ms(lambda: alu_chain(acc, p), reps=5)
+                r["plain_ms"] += median_ms(lambda: chain_plain(acc, p),
+                                           reps=2, trials=1)
+            tb, to = sweep_bound_s(p, shared, nb)
+            r["bound_ms"] += 1e3 * max(tb, to)
+            r["t_bytes"] += tb
+            r["t_ops"] += to
+            r["launches_per_forward"] += 1
+        log(f"alu kernels: {len(progs)} programs equal at batch {nb}")
+    out = []
+    for name in ("alu_chain", "alu_sweep"):
+        r = rows[name]
+        r["bound_by"] = "bytes" if r.pop("t_bytes") >= r.pop("t_ops") \
+            else "operations"
+        r["max_abs_err"] = err[name]
+        r["library_ms"] = None
+        if not r["launches_per_forward"]:
+            raise AssertionError(f"the timed model launches no {name}")
+        log(f"{name}: {r['launches_per_forward']} launches per forward at "
+            f"batch {main_path[timed[name]][0]}: kernel {r['ms']:.3f} ms "
+            f"(eager launches {r['eager_ms']:.3f} ms), plain "
+            f"{r['plain_ms']:.3f} ms, bound {r['bound_ms']:.4f} ms "
+            f"({r['bound_by']})")
+        out.append(r)
+    return tuple(out)
+
+
+# ---------------------------------------------------------------------------
+# phase 3: serve
+# ---------------------------------------------------------------------------
+def serve(models: dict, trunk_imgs, small_imgs):
+    """The main path: ``SERVE_REPS`` full dispatches of each trunk bucket and
+    of the small model's bucket. Returns (outputs with the image index each
+    answers, launch counts, per-dispatch timings)."""
+    import torch
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.serve.engine import BackendExecutor, VTAServeEngine
+    from repro_torch.serve.model import ServedModel
+
+    inner = BackendExecutor(models, "torch")
+    timings = []
+
+    def timed(key, images, bucket):
+        t0 = time.perf_counter()
+        out = inner(key, images, bucket)
+        torch.cuda.synchronize()
+        timings.append((key, bucket, len(images), time.perf_counter() - t0))
+        return out
+
+    eng = VTAServeEngine(models, executor=timed)
+    assert isinstance(models["resnet18-trunk"], ServedModel)
+    tickets = []                                # (model, image index, ticket)
+
+    def submit(key, imgs, idx):
+        tickets.extend((key, i, eng.submit("t0" if key == "resnet18-trunk"
+                                           else "t1", key, imgs[i]))
+                       for i in idx)
+
+    reset_launch_counts()
+    small, big = TRUNK_BUCKETS
+    for r in range(SERVE_REPS):
+        submit("resnet18-trunk", trunk_imgs,
+               [(small * r + j) % len(trunk_imgs) for j in range(small)])
+        eng.drain()
+    for r in range(SERVE_REPS):
+        submit("resnet18-trunk", trunk_imgs, range(big))
+        submit("resnet18-small", small_imgs, range(SMALL_BUCKET))
+        eng.drain()
+    counts = dict(launch_counts())
+    outs = [(key, i, t.result(timeout=0)) for key, i, t in tickets]
+    return outs, counts, timings
+
+
+def profile_forward(model, imgs) -> None:
+    """Where one trunk forward's time goes: device time by kernel name
+    (``torch.profiler``), device busy time against host wall time."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    model.run_batch(imgs, "torch")
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        model.run_batch(imgs, "torch")
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    rows = []
+    for ev in prof.key_averages():
+        if ev.device_type != DeviceType.CUDA:
+            continue                    # host ops: their kernels are rows
+        dev_us = ev.self_device_time_total
+        if dev_us:
+            rows.append((dev_us, ev.count, ev.key))
+    rows.sort(reverse=True)
+    busy = sum(r[0] for r in rows) / 1e6
+    log(f"profile: trunk forward at batch {len(imgs)}: wall {wall * 1e3:.1f}"
+        f" ms (profiled), device busy {busy * 1e3:.2f} ms, device idle share "
+        f"{1 - busy / wall:.3f}; device kernels {sum(r[1] for r in rows)}")
+    for dev_us, cnt, key in rows[:12]:
+        log(f"  {dev_us / 1e3:9.3f} ms  {cnt:6d}x  {key[:90]}")
+
+
+def main() -> int:
+    if not os.path.isdir(os.path.join(SRC, "repro_torch")):
+        print("chip_smoke.py: src/repro_torch not found beside this script; "
+              "run it from the root of a checkout", file=sys.stderr)
+        return 2
+    sys.path.insert(0, SRC)
+    import torch
+    if not torch.cuda.is_available():
+        print("chip_smoke.py: no CUDA device", file=sys.stderr)
+        return 3
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.set_float32_matmul_precision("highest")
+
+    # -- phase 1 ----------------------------------------------------------
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True, check=True).stdout.strip().splitlines()[0]
+    log(f"card: {smi}")
+    from repro_torch.kernels import _build
+    t0 = time.perf_counter()
+    _build.build_all()
+    each = ", ".join(f"{k} {v['seconds']:.1f} s"
+                     for k, v in _build.BUILD_LOG.items())
+    log(f"build: {time.perf_counter() - t0:.1f} s ({each})")
+    for k, v in _build.BUILD_LOG.items():
+        for line in v["ptxas"].splitlines():
+            if "registers" in line or "spill" in line:
+                log(f"  {k}: {line.strip()}")
+
+    # -- phase 2 ----------------------------------------------------------
+    from repro_torch.serve.model import (ServedModel, resnet18_trunk_graph,
+                                         served_model)
+    from repro_torch.vta.isa import DEFAULT_VTA
+    dev = torch.device("cuda")
+    rng = np.random.default_rng(0)
+    hw = DEFAULT_VTA
+    t0 = time.perf_counter()
+    trunk = ServedModel.compile("resnet18-trunk", resnet18_trunk_graph(), hw)
+    small = served_model("resnet18", "small")
+    log(f"compile: trunk {len(trunk.segments)} segments in "
+        f"{time.perf_counter() - t0:.2f} s")
+    trunk_ops, trunk_shapes_all = model_ops(trunk, dev)
+    small_ops, small_shapes = model_ops(small, dev)
+    n = max(TRUNK_BUCKETS)
+    trunk_gemm = gemm_shapes(trunk_ops, hw)
+    small_gemm = gemm_shapes(small_ops, hw)
+    gemm_row = check_gemm(
+        dev, rng, [(b, trunk_gemm) for b in TRUNK_BUCKETS]
+        + [(SMALL_BUCKET, small_gemm)], trunk_gemm, n)
+    shared_trunk = {k: v.dtype.type for k, v in trunk.weights.items()}
+    shared_small = {k: v.dtype.type for k, v in small.weights.items()}
+    main_path = [(b, trunk_ops, trunk_shapes_all, shared_trunk)
+                 for b in TRUNK_BUCKETS]
+    main_path.append((SMALL_BUCKET, small_ops, small_shapes, shared_small))
+    chain_row, sweep_row = check_sweeps(
+        dev, rng, hw, main_path,
+        {"alu_sweep": TRUNK_BUCKETS.index(n), "alu_chain": len(main_path) - 1})
+
+    # -- phase 3 ----------------------------------------------------------
+    trunk_imgs = trunk.random_images(8, seed=0)
+    small_imgs = small.random_images(SMALL_BUCKET, seed=0)
+    for b in TRUNK_BUCKETS:                     # first-use costs, uncounted
+        trunk.run_batch(trunk_imgs[:b], "torch")
+    small.run_batch(small_imgs, "torch")
+    models = {"resnet18-trunk": trunk, "resnet18-small": small}
+    outs, counts, timings = serve(models, trunk_imgs, small_imgs)
+    serve_rows = []
+    for key, bucket in sorted({(k, b) for k, b, _, _ in timings}):
+        runs = [(f, t) for k, b, f, t in timings if (k, b) == (key, bucket)]
+        if any(f != bucket for f, _ in runs):
+            raise AssertionError(f"{key} bucket {bucket} dispatched partly "
+                                 f"filled: {[f for f, _ in runs]}")
+        ms = [t * 1e3 for _, t in runs]
+        med = statistics.median(ms)
+        serve_rows.append(dict(
+            model=key, bucket=bucket, dispatches=len(ms), ms_median=med,
+            ms_min=min(ms), ms_max=max(ms), images_per_s=bucket * 1e3 / med))
+        log(f"serve {key} bucket {bucket}: {len(ms)} full dispatches, ms per "
+            f"batch median {med:.1f} (min {min(ms):.1f}, max {max(ms):.1f}), "
+            f"{bucket * 1e3 / med:.2f} images/s")
+    log(f"launches on the main path: {counts}")
+    for k in ("gemm", "alu_chain", "alu_sweep"):
+        if counts.get(k, 0) <= 0:
+            raise AssertionError(f"kernel {k} was not launched on the main "
+                                 f"path")
+    want = {("resnet18-trunk", b) for b in TRUNK_BUCKETS}
+    want.add(("resnet18-small", SMALL_BUCKET))
+    got = {(r["model"], r["bucket"]) for r in serve_rows}
+    if got != want or any(r["dispatches"] != SERVE_REPS for r in serve_rows):
+        raise AssertionError(f"served {serve_rows}, want {SERVE_REPS} full "
+                             f"dispatches of each of {sorted(want)}")
+
+    t0 = time.perf_counter()
+    ref = {"resnet18-trunk": trunk.run_batch(trunk_imgs, "torch-cpu"),
+           "resnet18-small": small.run_batch(small_imgs, "torch-cpu")}
+    log(f"torch-cpu reference: {time.perf_counter() - t0:.1f} s")
+    for j, (key, i, o) in enumerate(outs):
+        if o.shape != models[key].output_shape or o.dtype != np.int8 or \
+                not np.array_equal(o, ref[key][i]):
+            raise AssertionError(f"request {j} ({key}, image {i}) differs "
+                                 f"from torch-cpu")
+    digest = hashlib.sha256(outs[0][2].tobytes()).hexdigest()
+    if outs[0][:2] != ("resnet18-trunk", 0) or digest != TRUNK_DIGEST:
+        raise AssertionError(f"trunk request 0 digest {digest} != pinned "
+                             f"{TRUNK_DIGEST}")
+    log(f"serve: {len(outs)} outputs equal torch-cpu; trunk digest matches "
+        f"the JAX numpy backend")
+    profile_forward(trunk, trunk_imgs)
+
+    src = "src/repro_torch/csrc/"
+    kernels = [
+        dict(name="gemm", route="cuda", source=src + "vta_gemm.cu",
+             replaces="src/repro/kernels/vta_gemm.py:89",
+             launches=counts["gemm"], **gemm_row,
+             per=f"resnet18-trunk forward, batch {n}"),
+        dict(name="alu_chain", route="cuda", source=src + "alu_sweep.cu",
+             replaces="src/repro/kernels/alu_sweep.py:300",
+             launches=counts["alu_chain"], **chain_row,
+             per=f"resnet18-small forward, batch {SMALL_BUCKET}"),
+        dict(name="alu_sweep", route="cuda", source=src + "alu_sweep.cu",
+             replaces="src/repro/kernels/alu_sweep.py:225",
+             launches=counts["alu_sweep"], **sweep_row,
+             per=f"resnet18-trunk forward, batch {n}"),
+    ]
+    log(json.dumps({"serve": serve_rows}))
+    log(json.dumps({"kernels": kernels}))
+    log(smi)
+    log(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,0 +1,101 @@
+"""Execution-backend protocol + registry of the port.
+
+A *backend* executes the typed trace ``vta/lowering.py`` produces from a
+Program. Built-ins:
+
+  * ``"torch"``     — ``TorchBackend()`` (vta/fsim_torch.py) on the CUDA
+    device, compute through the hand-written kernels. Raises where there is
+    no CUDA device: the card path never falls back to the CPU.
+  * ``"torch-cpu"`` — ``TorchBackend(device="cpu")``: the same executor with
+    the kernels' plain PyTorch versions, used only when asked for.
+
+The reference for both is the JAX package's numpy ``FSim``; the port's
+tests hold them to it bit for bit.
+
+``run_batched``'s contract: ``batched`` maps tensor names to ``(N, ...)``
+stacks (numpy arrays or tensors), ``shared`` maps names to single arrays
+every image reuses (weights, biases); the return value maps every tensor the
+program stores to its ``(N, ...)`` result as a tensor on the backend's
+device.
+"""
+from __future__ import annotations
+
+from typing import Callable, Dict, Protocol, Union, runtime_checkable
+
+from repro_torch.vta.isa import VTAConfig
+from repro_torch.vta.runtime import Program
+
+
+@runtime_checkable
+class Backend(Protocol):
+    name: str
+
+    def run(self, prog: Program, hw: VTAConfig, dram: dict) -> None:
+        """Execute one image in place: stored tensors in ``dram`` are
+        overwritten with the program's outputs."""
+        ...
+
+    def run_batched(self, prog: Program, hw: VTAConfig, *, shared: dict,
+                    batched: dict) -> dict:
+        """Execute N images; returns {stored tensor name: (N, ...) tensor}."""
+        ...
+
+
+_FACTORIES: Dict[str, Callable[[], Backend]] = {}
+_INSTANCES: Dict[str, Backend] = {}
+
+
+def register_backend(name: str, factory: Callable[[], Backend], *,
+                     replace: bool = False) -> None:
+    if not replace and name in _FACTORIES:
+        raise ValueError(f"backend {name!r} already registered")
+    _FACTORIES[name] = factory
+    _INSTANCES.pop(name, None)
+
+
+def available_backends() -> list:
+    return sorted(_FACTORIES)
+
+
+def get_backend(backend: Union[str, Backend, None]) -> Backend:
+    """Resolve a backend name (or pass an instance through). ``None`` means
+    ``"torch"``, the card."""
+    if backend is None:
+        backend = "torch"
+    if not isinstance(backend, str):
+        return backend
+    if backend in _INSTANCES:
+        return _INSTANCES[backend]
+    if backend not in _FACTORIES:
+        raise KeyError(f"unknown backend {backend!r}; "
+                       f"available: {available_backends()}")
+    _INSTANCES[backend] = _FACTORIES[backend]()
+    return _INSTANCES[backend]
+
+
+def _torch_factory() -> Backend:
+    from repro_torch.vta.fsim_torch import TorchBackend
+    return TorchBackend()
+
+
+def _torch_cpu_factory() -> Backend:
+    from repro_torch.vta.fsim_torch import TorchBackend
+    return TorchBackend(device="cpu")
+
+
+register_backend("torch", _torch_factory)
+register_backend("torch-cpu", _torch_cpu_factory)
+
+
+def backend_kernel_impls(backend: Union[str, Backend]) -> tuple:
+    """The registry (kernel, impl) pairs the resolved backend instance
+    routes compute through — the coordinates ``kernel.impl`` fault specs
+    are scoped by."""
+    be = get_backend(backend)
+    pairs = []
+    for kernel, attr in (("gemm", "gemm_impl"), ("alu_chain", "alu_impl"),
+                         ("alu_sweep", "alu_impl")):
+        impl = getattr(be, attr, None)
+        if impl is not None:
+            pairs.append((kernel, impl))
+    return tuple(pairs)

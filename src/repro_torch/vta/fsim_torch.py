@@ -1,0 +1,439 @@
+"""PyTorch executor of the lowered tensor-op trace (port of vta/fsim_jax.py).
+
+Executes exactly the trace ``vta/lowering.py`` produces, batched over a
+leading image axis N: scratchpads are (N, depth, ...) tensors, per-image DRAM
+tensors are flat (N, L) tensors, and tensors the batch shares (weights,
+biases) are flat (L,) tensors with no N axis — gathers from them broadcast.
+
+A trace is split once into entries whose index maps live on the device
+(``_device_ops``, the port of ``fsim_jax._spec_of`` with ``alu_fusion=True``,
+memoized on the Trace per device), so a dispatch copies no index map. Each
+entry runs eagerly (``_exec``):
+
+  * ``gemm`` — the instruction's products through the ``"gemm"`` kernel
+    (``csrc/vta_gemm.cu`` on the card), one launch for all weight blocks and
+    all images, then an exact int32 ``index_add_`` into acc. The per-group
+    weight form (``w_d = 0`` in the JAX backend: the ResNet ``fc``) is the
+    same product with one weight block per group.
+  * ``aluchain`` / ``alusweep`` — the fused stage programs through the
+    ``"alu_chain"`` / ``"alu_sweep"`` kernels (``csrc/alu_sweep.cu``).
+  * ``gather`` / ``alu`` / ``alufused`` / ``store`` / ``spill`` — PyTorch
+    indexing on the device, as in the JAX backend.
+
+Integer semantics match numpy bit for bit: int32 wraparound, arithmetic right
+shift (counts outside [0, 31] give the sign fill), stores clamp to
+[-128, 127] before the int8 cast, masked gather lanes take ``fill`` in the
+tensor's dtype. Scatters whose indices lowering does not prove unique keep
+the last writer, precomputed on the host; masked store lanes are filtered out
+before the write.
+
+``TorchBackend()`` runs on the card (``"cuda"`` kernels) and raises where
+there is none; ``TorchBackend(device="cpu")`` runs the plain versions.
+"""
+from __future__ import annotations
+
+from typing import Optional
+
+import numpy as np
+import torch
+
+from repro_torch.kernels.alu_sweep import SweepProgram, last_writer_positions
+from repro_torch.kernels.registry import get_kernel
+from repro_torch.vta.isa import AluOp, Buffer, VTAConfig
+from repro_torch.vta.lowering import (AluSweep, GatherLoad, GemmOp,
+                                      ScatterStore, SpillStore, Trace,
+                                      UopLoad, lower_cached, scatter_hints)
+from repro_torch.vta.runtime import Program
+
+_BUF_KEY = {int(Buffer.INP): "inp", int(Buffer.WGT): "wgt",
+            int(Buffer.ACC): "acc"}
+_BUF_DTYPE = {int(Buffer.INP): torch.int8, int(Buffer.WGT): torch.int8,
+              int(Buffer.ACC): torch.int32}
+_SCALARS: dict = {}
+
+
+def _scalar(value: int, dtype: torch.dtype, device) -> torch.Tensor:
+    """A 0-d tensor of ``value`` in ``dtype`` (wrapping) on ``device``, made
+    once: a fresh one per op would be a host-to-device copy per op."""
+    key = (value, dtype, str(device))
+    t = _SCALARS.get(key)
+    if t is None:
+        t = _SCALARS[key] = torch.tensor(value).to(dtype).to(device)
+    return t
+
+
+# ---------------------------------------------------------------------------
+# Host-side helpers (ports of fsim_jax's static proofs)
+# ---------------------------------------------------------------------------
+def _winners(idx: np.ndarray, mask: Optional[np.ndarray] = None):
+    """(target indices, lane positions) that reproduce a sequential
+    ``x[idx] = v`` with masked lanes dropped: the last writer of each index
+    wins. Lane positions are None when every lane writes."""
+    flat = np.asarray(idx).reshape(-1)
+    unique = mask is None and scatter_hints(flat)[0]
+    pos = last_writer_positions(flat, mask, unique)
+    lanes = np.flatnonzero(pos >= 0)
+    if len(lanes) == pos.size:
+        return pos, None
+    return pos[lanes], lanes
+
+
+def _fuse_sweep(op: AluSweep):
+    """``fsim_jax._fuse_sweep``: a multi-step ADD/MAX/MIN/MAC macro sweep
+    whose steps all write the SAME destination grid from sources disjoint
+    with it runs as one gather -> reduce -> scatter. Returns
+    ``(alu_op, dst, srcs, src2)`` or None."""
+    if op.use_imm or op.overwrite or len(op.steps) < 2:
+        return None
+    if op.alu_op not in (AluOp.MAC, AluOp.ADD, AluOp.MAX, AluOp.MIN):
+        return None
+    s0 = op.steps[0]
+    for s in op.steps:
+        if s.src is None or not np.array_equal(s.dst, s0.dst):
+            return None
+    dset = set(s0.dst.tolist())
+    for s in op.steps:
+        if dset.intersection(s.src.tolist()):
+            return None
+        if op.alu_op == AluOp.MAC and s.src2 in dset:
+            return None
+    srcs = np.stack([s.src for s in op.steps])          # (T, g)
+    src2 = np.array([max(s.src2, 0) for s in op.steps], np.int32)
+    return int(op.alu_op), s0.dst, srcs, src2
+
+
+def _weight_blocks(rows: np.ndarray):
+    """``fsim_jax._weight_blocks``: (distinct weight-index blocks, group
+    permutation) for a GEMM whose per-group weight rows repeat, else None."""
+    g = len(rows)
+    same0 = (rows == rows[0]).all(axis=1)
+    p = int(np.argmax(same0[1:])) + 1 if same0[1:].any() else g
+    if p <= 16 and g % p == 0 and \
+            bool((rows.reshape(g // p, p, -1) == rows[:p]).all()):
+        perm = np.arange(g).reshape(g // p, p).T.reshape(-1)
+        return rows[:p], perm
+    wrows, inv = np.unique(rows, axis=0, return_inverse=True)
+    counts = np.bincount(inv)
+    if len(wrows) <= 16 and bool((counts == counts[0]).all()):
+        return wrows, np.argsort(inv, kind="stable")
+    return None
+
+
+def _reduction_run(acc_idx: np.ndarray) -> int:
+    """Largest R with ``acc_idx.reshape(-1, R)`` constant per row."""
+    n = len(acc_idx)
+    changes = np.flatnonzero(np.diff(acc_idx))
+    R = int(changes[0]) + 1 if len(changes) else n
+    if R <= 1 or n % R:
+        return 1
+    rows = acc_idx.reshape(-1, R)
+    return R if bool((rows == rows[:, :1]).all()) else 1
+
+
+def _sweep_program(c, hw: VTAConfig) -> SweepProgram:
+    """Encode one lowered ``AluChain`` (scratchpad-only or DRAM-direct)."""
+    lanes = (hw.batch, hw.block_out)
+    if not (c.store is not None or c.slabs):
+        return SweepProgram(c.stages, c.dst, [("acc", a) for a in c.args],
+                            lane_shape=lanes, unique=c.unique)
+    ops = []
+    for src, arr in zip(c.arg_src, c.args):
+        ops.append(("acc", arr) if isinstance(src, str) else ("local", src[1]))
+    store = None
+    if c.store is not None:
+        st = c.store
+        affine = starts = None
+        if st.affine is not None:
+            view_shape, perm, sizes, starts = st.affine
+            affine = (view_shape, perm, sizes)
+        store = (st.tensor, st.index, st.mask, st.unique, affine, starts)
+    return SweepProgram(
+        c.stages, c.dst, ops, lane_shape=lanes,
+        slabs=tuple((t.tensor, t.index, t.mask, t.fill) for t in c.slabs),
+        write_acc=c.write_acc, unique=c.unique, store=store)
+
+
+# ---------------------------------------------------------------------------
+# Trace -> host entries -> device entries
+# ---------------------------------------------------------------------------
+def _device_ops(trace: Trace, device: torch.device) -> list:
+    """The trace as device entries, ALU chains fused: the port of
+    ``fsim_jax._spec_of(trace, alu_fusion=True)``, with every index map
+    moved to ``device`` once and memoized on the Trace (serving replays one
+    trace per dispatch). Each entry is a tuple whose first element is its
+    kind; scatters carry their last-writer winners (``_winners``)."""
+    memo = trace.__dict__.setdefault("_torch_ops", {})
+    hit = memo.get(str(device))
+    if hit is not None:
+        return hit
+
+    def ix(a):
+        if a is None:
+            return None
+        return torch.from_numpy(np.asarray(a, np.int64).copy()).to(device)
+
+    def put_args(idx, mask=None):
+        tgt, lanes = _winners(idx, mask)
+        return ix(tgt), ix(lanes)
+
+    heads = {c.members[0]: c for c in trace.alu_chains}
+    members = {m for c in trace.alu_chains for m in c.members}
+    ops: list = []
+    for i, op in enumerate(trace.ops):
+        if op is None or isinstance(op, UopLoad):
+            continue
+        if i in trace.elided:
+            continue     # feeder gather / absorbed store of a direct sweep
+        if i in members:
+            c = heads.get(i)
+            if c is None:
+                continue              # executed by the head's chain kernel
+            kind = "alusweep" if (c.store is not None or c.slabs) \
+                else "aluchain"
+            ops.append((kind, _sweep_program(c, trace.hw)))
+        elif isinstance(op, GatherLoad):
+            mask = None if op.mask is None else torch.from_numpy(
+                op.mask.reshape(-1).copy()).to(device)
+            ops.append(("gather", int(op.buffer), op.tensor, int(op.base),
+                        ix(op.index.reshape(-1)), mask, int(op.fill),
+                        tuple(op.index.shape)))
+        elif isinstance(op, GemmOp):
+            if op.reset:
+                ops.append(("gemm_reset", ix(np.unique(op.acc_idx))))
+                continue
+            R = _reduction_run(op.acc_idx)
+            uidx = op.acc_idx[::R]
+            g = len(uidx)
+            grouped = _weight_blocks(op.wgt_idx.reshape(g, R))
+            if grouped is not None:
+                wrows, perm = grouped
+                ops.append(("gemm", R, len(wrows), ix(uidx[perm]),
+                            ix(op.inp_idx.reshape(g, R)[perm].reshape(-1)),
+                            ix(wrows.reshape(-1))))
+            else:
+                # per-group weights (the fc): one weight block per group
+                ops.append(("gemm", R, g, ix(uidx), ix(op.inp_idx),
+                            ix(op.wgt_idx)))
+        elif isinstance(op, AluSweep):
+            fused = _fuse_sweep(op)
+            if fused is not None:
+                alu_op, dst, srcs, src2 = fused
+                ops.append(("alufused", alu_op, ix(dst), *put_args(dst),
+                            ix(srcs), ix(src2)))
+                continue
+            steps = [(max(s.src2, 0), ix(s.dst), *put_args(s.dst), ix(s.src))
+                     for s in op.steps]
+            ops.append(("alu", int(op.alu_op), op.use_imm, int(op.imm),
+                        op.overwrite, steps))
+        elif isinstance(op, ScatterStore):
+            ops.append(("store", op.tensor, int(op.base), op.index.shape[0],
+                        *put_args(op.index, op.mask)))
+        elif isinstance(op, SpillStore):
+            ops.append(("spill", ix(op.src), *put_args(op.dst)))
+        else:
+            raise TypeError(type(op))
+    memo[str(device)] = ops
+    return ops
+
+
+def _put(arr, tgt, lanes, val) -> None:
+    """``arr[:, idx] = val`` as a sequential scatter: ``tgt``/``lanes`` are
+    ``_winners(idx)`` on the device."""
+    arr[:, tgt] = val if lanes is None else val[:, lanes]
+
+
+def _binop(alu_op: int, dst, src):
+    if alu_op == int(AluOp.ADD):
+        return dst + src
+    if alu_op == int(AluOp.MAX):
+        return torch.maximum(dst, src)
+    if alu_op == int(AluOp.MIN):
+        return torch.minimum(dst, src)
+    if alu_op == int(AluOp.SHR):
+        return torch.bitwise_right_shift(dst, src)
+    if alu_op == int(AluOp.MUL):
+        return dst * src
+    raise ValueError(alu_op)
+
+
+def _exec(ops: list, st: dict, gemm_impl: str, alu_impl: str) -> None:
+    """Apply the device entries to ``st`` (scratchpads + flat tensors)."""
+    acc = st["acc"]
+    n = acc.shape[0]
+    gemm = get_kernel("gemm", gemm_impl)
+    chain = get_kernel("alu_chain", alu_impl)
+    sweep = get_kernel("alu_sweep", alu_impl)
+    tensors = st["tensors"]
+    for e in ops:
+        kind = e[0]
+        if kind == "gather":
+            _, buf, tensor, base, idx, m, fill, shape = e
+            flat = tensors[tensor]
+            src = flat[..., idx]
+            if m is not None:
+                src = torch.where(m.reshape(-1), src,
+                                  _scalar(fill, src.dtype, src.device))
+            src = src.reshape(src.shape[:-1] + shape)
+            st[_BUF_KEY[buf]][:, base:base + shape[0]] = \
+                src.to(_BUF_DTYPE[buf])
+        elif kind == "gemm_reset":
+            acc[:, e[1]] = _scalar(0, torch.int32, acc.device)
+        elif kind == "gemm":
+            _, R, w_d, uidx, inp_idx, wrows = e
+            x = st["inp"][:, inp_idx]                    # (N, g*R, BV, BI)
+            w = st["wgt"][:, wrows]                      # (Nw, w_d*R, BO, BI)
+            g = x.shape[1] // R
+            gb = g // w_d
+            BV, BI, BO = x.shape[2], x.shape[3], w.shape[2]
+            x = x.reshape(n, w_d, gb, R, BV, BI).permute(0, 1, 2, 4, 3, 5) \
+                .reshape(n, w_d, gb * BV, R * BI)
+            w = w.reshape(w.shape[0], w_d, R, BO, BI).permute(0, 1, 2, 4, 3) \
+                .reshape(w.shape[0], w_d, R * BI, BO)
+            prod = gemm(x.contiguous(), w.contiguous())  # (N, w_d, gb*BV, BO)
+            acc.index_add_(1, uidx, prod.reshape(n, g, BV, BO))
+        elif kind == "alu":
+            _, alu_op, use_imm, imm, overwrite, steps = e
+            imm_t = _scalar(imm, torch.int32, acc.device)
+            for src2, dst, tgt, lanes, src in steps:
+                if alu_op == int(AluOp.MAC):
+                    prod = acc[:, src] * acc[:, src2][:, None]
+                    _put(acc, tgt, lanes,
+                         prod if overwrite else acc[:, dst] + prod)
+                    continue
+                s = imm_t if use_imm else acc[:, src]
+                if overwrite:
+                    _put(acc, tgt, lanes, s.expand(acc[:, dst].shape))
+                    continue
+                d = acc[:, dst]
+                if alu_op == int(AluOp.CLIP):
+                    bound = abs(int(imm))
+                    r = torch.clamp(d, -bound, bound)
+                else:
+                    r = _binop(alu_op, d, s)
+                _put(acc, tgt, lanes, r)
+        elif kind == "aluchain":
+            chain(acc, e[1])
+        elif kind == "alusweep":
+            prog = e[1]
+            flats = [tensors[t] for t in prog.slab_tensors]
+            out = tensors[prog.store_tensor] if prog.store is not None \
+                else None
+            sweep(acc, prog, flats, out)
+        elif kind == "alufused":
+            _, alu_op, dst, tgt, lanes, srcs, src2 = e
+            src = acc[:, srcs]                           # (N, T, g, BV, BO)
+            if alu_op == int(AluOp.MAC):
+                r = acc[:, dst] + (src * acc[:, src2][:, :, None]).sum(
+                    1, dtype=torch.int64).to(torch.int32)
+            elif alu_op == int(AluOp.ADD):
+                r = acc[:, dst] + src.sum(1, dtype=torch.int64).to(
+                    torch.int32)
+            elif alu_op == int(AluOp.MAX):
+                r = torch.maximum(acc[:, dst], src.amax(1))
+            else:
+                r = torch.minimum(acc[:, dst], src.amin(1))
+            _put(acc, tgt, lanes, r)
+        elif kind == "store":
+            _, tensor, base, cnt, tgt, lanes = e
+            vals = torch.clamp(acc[:, base:base + cnt], -128, 127) \
+                .to(torch.int8).reshape(n, -1)
+            _put(tensors[tensor], tgt, lanes, vals)
+        elif kind == "spill":
+            _, src, tgt, lanes = e
+            vals = torch.clamp(acc[:, src], -128, 127).to(torch.int8)
+            _put(st["inp"], tgt, lanes, vals)
+        else:
+            raise ValueError(kind)
+
+
+# ---------------------------------------------------------------------------
+# The backend object
+# ---------------------------------------------------------------------------
+class TorchBackend:
+    """Eager PyTorch executor of the lowered trace, batched over images.
+
+    ``device`` defaults to ``"cuda"`` with the hand-written kernels
+    (``gemm_impl = alu_impl = "cuda"``) and raises when no CUDA device is
+    present; ``device="cpu"`` runs the plain versions (``"torch"``).
+    """
+
+    name = "torch"
+
+    def __init__(self, device: Optional[str] = None):
+        device = torch.device(device or "cuda")
+        if device.type == "cuda":
+            if not torch.cuda.is_available():
+                raise RuntimeError(
+                    "the 'torch' backend runs on a CUDA device and none is "
+                    "available; use TorchBackend(device='cpu') ('torch-cpu')")
+            impl = "cuda"
+        elif device.type == "cpu":
+            impl = "torch"
+            self.name = "torch-cpu"
+        else:
+            raise ValueError(f"unsupported device {device}")
+        self.device = device
+        self.gemm_impl = impl
+        self.alu_impl = impl
+
+    def _tensor(self, v, copy: bool) -> torch.Tensor:
+        if isinstance(v, torch.Tensor):
+            t = v.to(self.device)
+            if copy and t.data_ptr() == v.data_ptr():
+                t = t.clone()
+            return t
+        # a copy, never a view of the caller's numpy buffer
+        return torch.tensor(np.asarray(v), device=self.device)
+
+    def _execute(self, trace: Trace, hw: VTAConfig, batched: dict,
+                 shared: Optional[dict] = None) -> dict:
+        """``batched``: tensors with a leading batch axis N; ``shared``:
+        single tensors every image reads (never stores into). Returns the
+        stored tensors as (N, ...) tensors on the device."""
+        shared = shared or {}
+        assert not (set(trace.tensors_written) & set(shared)), \
+            "programs must not store into shared tensors"
+        written = set(trace.tensors_written)
+        n = next(iter(batched.values())).shape[0]
+        shapes = {k: tuple(v.shape) for k, v in batched.items()}
+        tensors = {k: self._tensor(v, k in written).reshape(n, -1)
+                   for k, v in batched.items()}
+        tensors.update({k: self._tensor(v, False).reshape(-1)
+                        for k, v in shared.items()})
+        wgt_src = trace.__dict__.get("_wgt_sources")
+        if wgt_src is None:             # tensors gathered into WGT, once
+            wgt_src = trace.__dict__["_wgt_sources"] = {
+                op.tensor for op in trace.ops if isinstance(op, GatherLoad)
+                and op.buffer == Buffer.WGT}
+        wgt_batched = not wgt_src <= set(shared)
+        dev = self.device
+        st = {"inp": torch.zeros((n, hw.inp_depth, hw.batch, hw.block_in),
+                                 dtype=torch.int8, device=dev),
+              "wgt": torch.zeros((n if wgt_batched else 1, hw.wgt_depth,
+                                  hw.block_out, hw.block_in),
+                                 dtype=torch.int8, device=dev),
+              "acc": torch.zeros((n, hw.acc_depth, hw.batch, hw.block_out),
+                                 dtype=torch.int32, device=dev),
+              "tensors": tensors}
+        _exec(_device_ops(trace, dev), st, self.gemm_impl, self.alu_impl)
+        return {t: tensors[t].reshape(shapes[t]) for t in trace.tensors_written}
+
+    # -- Backend protocol --------------------------------------------------
+    def run(self, prog: Program, hw: VTAConfig, dram: dict) -> None:
+        """One image, in place on the caller's numpy ``dram`` dict."""
+        shapes = {k: np.asarray(v).shape for k, v in dram.items()}
+        trace = lower_cached(prog, hw, shapes)
+        outs = self._execute(trace, hw,
+                             {k: np.asarray(v)[None] for k, v in dram.items()})
+        for name, val in outs.items():
+            dram[name][...] = val[0].cpu().numpy()
+
+    def run_batched(self, prog: Program, hw: VTAConfig, *, shared: dict,
+                    batched: dict) -> dict:
+        """N images; ``shared``/``batched`` hold numpy arrays or tensors.
+        Returns ``{stored tensor: (N, ...) tensor on this backend's
+        device}``; the caller's arrays are never written."""
+        shapes = {k: tuple(v.shape) for k, v in shared.items()}
+        shapes.update({k: tuple(v.shape[1:]) for k, v in batched.items()})
+        trace = lower_cached(prog, hw, shapes)
+        return self._execute(trace, hw, batched, shared)

@@ -1,0 +1,110 @@
+"""Guards against drift between the port's copies and the JAX package.
+
+The port keeps its own copies of the JAX-free VTA plane (tps, isa, runtime,
+graph, workloads, lowering, scheduler, compiler): the Program and the Trace
+they build must stay identical to the JAX package's. Tolerance: 0 — the
+128-bit instruction encodings and every index array are compared exactly.
+"""
+import dataclasses
+import enum
+import os
+import subprocess
+import sys
+
+import numpy as np
+import pytest
+
+from repro.serve import model as jmodel
+from repro.vta import isa as jisa
+from repro.vta.lowering import lower_cached as j_lower_cached
+from repro_torch.serve import model as tmodel
+from repro_torch.vta import isa as tisa
+from repro_torch.vta.lowering import lower_cached as t_lower_cached
+from test_torch_serve import _j_trunk_graph
+
+SRC = os.path.join(os.path.dirname(__file__), os.pardir, "src")
+
+
+def test_port_imports_neither_jax_nor_repro():
+    code = (
+        "import sys\n"
+        "import repro_torch, repro_torch.kernels\n"
+        "import repro_torch.kernels.vta_gemm, repro_torch.kernels.alu_sweep\n"
+        "import repro_torch.kernels._build\n"
+        "import repro_torch.vta.fsim_torch, repro_torch.vta.backend\n"
+        "import repro_torch.serve.engine, repro_torch.serve.model\n"
+        "from repro_torch.serve.model import served_model\n"
+        "m = served_model('resnet18', 'tiny')\n"
+        "m.run_batch(m.random_images(1), 'torch-cpu')\n"
+        "bad = sorted(k for k in sys.modules\n"
+        "             if k.split('.')[0] in ('jax', 'jaxlib', 'repro'))\n"
+        "assert not bad, bad\n"
+        "print('clean')\n")
+    env = dict(os.environ, PYTHONPATH=os.path.abspath(SRC))
+    r = subprocess.run([sys.executable, "-c", code], env=env,
+                       capture_output=True, text=True, timeout=300)
+    assert r.returncode == 0, r.stderr
+    assert r.stdout.strip() == "clean"
+
+
+def _canon(x):
+    """A comparable, package-independent form of lowering output."""
+    if x is None or isinstance(x, (bool, int, float, str)):
+        return x
+    if isinstance(x, enum.Enum):
+        return int(x.value)
+    if isinstance(x, np.ndarray):
+        return ("nd", x.dtype.str, x.shape, x.tobytes())
+    if isinstance(x, np.generic):
+        return x.item()
+    if dataclasses.is_dataclass(x):
+        return (type(x).__name__,) + tuple(
+            (f.name, _canon(getattr(x, f.name)))
+            for f in dataclasses.fields(x)
+            if f.name not in ("hw", "insns"))
+    if isinstance(x, (list, tuple)):
+        return tuple(_canon(v) for v in x)
+    if isinstance(x, (set, frozenset)):
+        return tuple(sorted(x))
+    if isinstance(x, dict):
+        return tuple(sorted((k, _canon(v)) for k, v in x.items()))
+    raise TypeError(type(x))
+
+
+def _assert_same_model(a, b):
+    assert len(a.segments) == len(b.segments)
+    assert (a.input_name, a.output_name) == (b.input_name, b.output_name)
+    shapes_a = dict(a.shapes) | {k: v.shape for k, v in a.weights.items()}
+    shapes_b = dict(b.shapes) | {k: v.shape for k, v in b.weights.items()}
+    assert shapes_a == shapes_b
+    for sa, sb in zip(a.segments, b.segments):
+        pa, pb = sa.program, sb.program
+        assert len(pa.order) == len(pb.order)
+        assert [jisa.encode_insn(i, a.hw) for i in pa.order] == \
+            [tisa.encode_insn(i, b.hw) for i in pb.order]
+        assert [u.encode(a.hw) for u in pa.uop_mem] == \
+            [u.encode(b.hw) for u in pb.uop_mem]
+        assert bool(getattr(pa, "fused_segment", False)) == \
+            bool(getattr(pb, "fused_segment", False))
+        ta = j_lower_cached(pa, a.hw, shapes_a)
+        tb = t_lower_cached(pb, b.hw, shapes_b)
+        assert _canon(ta) == _canon(tb)
+
+
+@pytest.mark.parametrize("name", ["resnet18", "mobilenet"])
+@pytest.mark.parametrize("scale", ["tiny", "small"])
+def test_serve_graphs_compile_identically(name, scale):
+    _assert_same_model(jmodel.served_model(name, scale),
+                       tmodel.served_model(name, scale))
+
+
+def test_full_width_trunk_compiles_identically():
+    a = jmodel.ServedModel.compile("resnet18-trunk", _j_trunk_graph(),
+                                   jisa.DEFAULT_VTA)
+    b = tmodel.ServedModel.compile("resnet18-trunk",
+                                   tmodel.resnet18_trunk_graph(),
+                                   tisa.DEFAULT_VTA)
+    assert a.graph.describe() == b.graph.describe()
+    for k, v in a.weights.items():
+        np.testing.assert_array_equal(b.weights[k], v)
+    _assert_same_model(a, b)
