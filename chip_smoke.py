@@ -25,13 +25,35 @@ order; any failure raises and the script exits nonzero:
    on ``"torch-cpu"``, and request 0's output must hash to ``TRUNK_DIGEST``,
    the JAX package's numpy-backend result (tests/test_torch_serve.py pins the
    same digest).
+4. The float layer ops at full width, through ``repro_torch.kernels.ops``
+   at batch ``LAYER_BATCH`` (NHWC), shapes from the port's layer tables:
+   the 13 MobileNet-1.0 depthwise layers, each followed by its relu_shift
+   post-op ``alu(op="max", imm=0, shift=8, clip=127)``; the 13 pointwise
+   convs as GEMMs with ``act="relu", clip=6``; both fc layers with bias;
+   ResNet-18's 8 residual adds (``clip=127``); ``resnet18.pool1`` (max),
+   ``resnet18.gap`` and ``mbn.gap`` (avg); besides, the (4096, 1024) @
+   (1024, 4096) bf16 product of benchmarks/bench_kernels.py, gelu and silu
+   epilogues and an unclipped multiply. Each op also runs in bf16 on at least
+   one shape. Launch counts are zeroed just before the cases are driven once
+   and read just after; each of the four kernels must have launched once per
+   case. Then each output is held against the plain version on the same
+   inputs: alu, depthwise and pool2d exactly (max_abs_err 0); the GEMM, whose
+   sums run in another order, by its error against a float64 product, which
+   may be at most 2x the plain version's plus 1e-6*K.
 
-Output: one line per kernel, ms per dispatch per bucket (median, min, max),
-then a JSON line of serving numbers, a JSON line of kernel numbers, the
-``nvidia-smi`` line, and last the device line. Kernel times are medians of
-CUDA-event timings; each kernel row sums its launches over one forward of
-the model named in ``per`` (``launches_per_forward``), while ``launches``
-is the count over the whole serve run.
+Output: one line per kernel (and per phase-4 case), ms per dispatch per
+bucket (median, min, max), then a JSON line of serving numbers, a JSON line
+of kernel numbers, the ``nvidia-smi`` line, and last the device line. Kernel
+times are medians of CUDA-event timings. Each VTA kernel row sums its
+launches over one forward of the model named in ``per``
+(``launches_per_forward``), while ``launches`` is the count over the whole
+serve run. Each layer-op row (``gemm_float``, ``alu``, ``depthwise``,
+``pool2d``) sums one pass over its phase-4 cases (``cases``): the kernel by
+CUDA-graph replay, the plain version eagerly, and the one PyTorch call that
+computes the same function (``torch.matmul``/``addmm``, ``torch.mul``,
+``F.conv2d(groups=C)`` on channels-last, ``F.max_pool2d``/``avg_pool2d``;
+cuDNN's TF32 off) by CUDA-graph replay over the ``library_cases`` that have
+one, beside the kernel's time on those same cases (``ms_library_cases``).
 """
 from __future__ import annotations
 
@@ -56,9 +78,28 @@ TRUNK_DIGEST = \
 HBM_BYTES_PER_S = 3.35e12        # H100 SXM, NVIDIA data sheet
 INT8_TENSOR_OPS_PER_S = 1979e12  # dense int8 tensor-core rate
 SCALAR_OPS_PER_S = 67e12         # float32 rate outside the tensor cores
+BF16_TENSOR_OPS_PER_S = 989e12   # dense bf16 tensor-core rate
 TRUNK_BUCKETS = (2, 8)
 SMALL_BUCKET = 4
 SERVE_REPS = 5           # full dispatches timed per bucket
+LAYER_BATCH = 8          # batch of the phase-4 layer-op cases
+# phase-4 ops: (launch counter, CUDA source, the TPU kernel it replaces,
+# the cases its row sums over)
+LAYER_OPS = {
+    "gemm": ("gemm_float", "gemm_f32.cu", "src/repro/kernels/gemm.py:21",
+             "13 MobileNet-1.0 pointwise convs (relu, clip 6; pw12 also bf16),"
+             " mbn.fc and resnet18.fc with bias, qkv 4096x1024x4096 bf16, "
+             "gelu and silu 392x1024x1008"),
+    "alu": ("alu", "alu.cu", "src/repro/kernels/alu.py:44",
+            "relu_shift post-op on the 14 depthwise outputs, 8 ResNet-18 "
+            "residual adds (clip 127; s0b0 also bf16), one mul 56x56x64"),
+    "depthwise_conv": ("depthwise", "depthwise.cu",
+                       "src/repro/kernels/depthwise.py:38",
+                       "13 MobileNet-1.0 depthwise layers (dw1 also bf16)"),
+    "pool2d": ("pool2d", "pool2d.cu", "src/repro/kernels/pool2d.py:41",
+               "resnet18.pool1 max (also bf16), resnet18.gap avg, mbn.gap "
+               "avg (also bf16)"),
+}
 
 
 def log(*a) -> None:
@@ -531,6 +572,251 @@ def profile_forward(model, imgs) -> None:
         log(f"  {dev_us / 1e3:9.3f} ms  {cnt:6d}x  {key[:90]}")
 
 
+# ---------------------------------------------------------------------------
+# phase 4: the float layer ops at full width
+# ---------------------------------------------------------------------------
+def layer_op_cases(dev, rng, n: int) -> list:
+    """The phase's cases at batch ``n``, in the order they are driven: each
+    (op, name, args, kwargs); an arg that is a string names the case whose
+    output it takes. Shapes come from the port's layer tables, NHWC."""
+    import torch
+    from repro_torch.vta.workloads import mobilenet_graph, resnet_graph
+
+    def t(shape, scale=1.0, dtype=torch.float32):
+        a = rng.standard_normal(shape, dtype=np.float32) * np.float32(scale)
+        return torch.from_numpy(a).to(dev, dtype)
+
+    bf16 = torch.bfloat16
+    mbn = mobilenet_graph(n).layers()
+    r18 = resnet_graph(18, n).layers()
+    cases = []
+    for ly in mbn:
+        wl = ly.wl
+        if ly.kind == "depthwise":
+            for dt in ((torch.float32, bf16) if wl.name == "mbn.dw1"
+                       else (torch.float32,)):
+                tag = "" if dt == torch.float32 else "/bf16"
+                cases.append(("depthwise_conv", wl.name + tag,
+                              (t((n, wl.h, wl.w, wl.fi), 2 ** 13, dt),
+                               t((wl.kh, wl.kw, wl.fi), 1.0, dt)),
+                              dict(stride=wl.sh, pad=wl.ph)))
+                # the layer's relu_shift post-op on the depthwise output
+                cases.append(("alu", wl.name + ".post" + tag,
+                              (wl.name + tag,),
+                              dict(op="max", imm=0.0, shift=8, clip=127.0)))
+        elif ly.kind == "conv" and not ly.on_cpu:
+            k, m = wl.fi, n * wl.h * wl.w
+            for dt in ((torch.float32, bf16) if wl.name == "mbn.pw12"
+                       else (torch.float32,)):
+                tag = "" if dt == torch.float32 else "/bf16"
+                cases.append(("gemm", wl.name + tag,
+                              (t((m, k), 1.0, dt),
+                               t((k, wl.fo), 3.0 / k ** 0.5, dt)),
+                              dict(act="relu", clip=6.0)))
+    for ly in mbn + r18:
+        wl = ly.wl
+        if ly.kind == "dense":
+            cases.append(("gemm", wl.name,
+                          (t((n, wl.fi)), t((wl.fi, wl.fo), wl.fi ** -0.5),
+                           t((wl.fo,))), {}))
+        elif ly.kind in ("maxpool", "avgpool"):
+            mode = "max" if ly.kind == "maxpool" else "avg"
+            kw = dict(k=wl.kh, stride=wl.sh, pad=wl.ph, mode=mode)
+            for dt in ((torch.float32, bf16) if wl.name != "resnet18.gap"
+                       else (torch.float32,)):
+                tag = "" if dt == torch.float32 else "/bf16"
+                cases.append(("pool2d", wl.name + tag,
+                              (t((n, wl.h, wl.w, wl.fi), 1.0, dt),), kw))
+        elif ly.kind == "add":
+            shape = (n, wl.h, wl.w, wl.fi)
+            cases.append(("alu", wl.name, (t(shape, 64.0), t(shape, 64.0)),
+                          dict(op="add", clip=127.0)))
+    shape = (n, 56, 56, 64)
+    cases.append(("alu", "resnet18.s0b0.add/bf16",
+                  (t(shape, 64.0, bf16), t(shape, 64.0, bf16)),
+                  dict(op="add", clip=127.0)))
+    cases.append(("alu", "mul (56x56x64)", (t(shape), t(shape)),
+                  dict(op="mul")))
+    # bench_kernels.py's "qwen3 qkv" product, and the two other activations
+    cases.append(("gemm", "qkv 4096x1024x4096/bf16",
+                  (t((4096, 1024), 1.0, bf16), t((1024, 4096), 1 / 32, bf16)),
+                  {}))
+    x, w = t((n * 49, 1024)), t((1024, 1008), 3 / 32)
+    cases.append(("gemm", "gelu (392x1024x1008)", (x, w, t((1008,))),
+                  dict(act="gelu", clip=4.0)))
+    cases.append(("gemm", "silu (392x1024x1008)", (x, w), dict(act="silu")))
+    return cases
+
+
+def resolve(case, outs: dict) -> tuple:
+    return tuple(outs[a] if isinstance(a, str) else a for a in case[2])
+
+
+def drive_layer_ops(cases) -> tuple:
+    """The main path of the phase: every case once through
+    ``repro_torch.kernels.ops``, launch counts zeroed just before and read
+    just after. Returns (outputs by case name, launch counts)."""
+    import torch
+    from repro_torch.kernels import launch_counts, ops, reset_launch_counts
+    outs = {}
+    reset_launch_counts()
+    for case in cases:
+        op, name, _, kw = case
+        outs[name] = getattr(ops, op)(*resolve(case, outs), **kw)
+    torch.cuda.synchronize()
+    return outs, dict(launch_counts())
+
+
+def gemm_err64(out, x, w, bias, act, clip) -> float:
+    """Largest |out - the same function in float64| over the output."""
+    import torch
+    import torch.nn.functional as F
+    r = x.double() @ w.double()
+    if bias is not None:
+        r = r + bias.double()
+    if act == "relu":
+        r = torch.relu(r)
+    elif act == "silu":
+        r = F.silu(r)
+    elif act == "gelu":
+        r = F.gelu(r, approximate="tanh")
+    if clip is not None:
+        r = torch.clamp(r, -clip, clip)
+    return float((out.double() - r).abs().max())
+
+
+def op_cost(op, args, kw, out) -> tuple:
+    """(bytes, operations, operations per second) of one case: each input
+    and output byte once; the GEMM's 2MNK at the f32 or bf16 tensor rate,
+    the others' f32 operations at the scalar rate."""
+    import torch
+    nbytes = sum(a.numel() * a.element_size() for a in args if a is not None)
+    nbytes += out.numel() * out.element_size()
+    if op == "gemm":
+        (m, k), nn = args[0].shape, args[1].shape[1]
+        rate = SCALAR_OPS_PER_S if args[0].dtype == torch.float32 \
+            else BF16_TENSOR_OPS_PER_S
+        return nbytes, 2 * m * nn * k, rate
+    if op == "alu":
+        steps = 1 + bool(kw.get("shift")) + 2 * (kw.get("clip") is not None)
+        return nbytes, steps * out.numel(), SCALAR_OPS_PER_S
+    if op == "depthwise_conv":
+        kh, kw_, _ = args[1].shape
+        return nbytes, 2 * kh * kw_ * out.numel(), SCALAR_OPS_PER_S
+    return nbytes, kw["k"] ** 2 * out.numel(), SCALAR_OPS_PER_S
+
+
+def library_call(op, args, kw):
+    """One PyTorch call computing the same function, or None."""
+    import torch
+    import torch.nn.functional as F
+    if op == "gemm":
+        if kw.get("act") or kw.get("clip") is not None:
+            return None
+        if len(args) > 2 and args[2] is not None:
+            return lambda: torch.addmm(args[2], args[0], args[1])
+        return lambda: torch.matmul(args[0], args[1])
+    if op == "alu":
+        if kw.get("shift") or kw.get("clip") is not None or len(args) < 2:
+            return None
+        fn = {"add": torch.add, "mul": torch.mul, "max": torch.maximum,
+              "min": torch.minimum}[kw["op"]]
+        return lambda: fn(args[0], args[1])
+    x = args[0].permute(0, 3, 1, 2)             # NCHW view, channels-last
+    if op == "depthwise_conv":
+        w = args[1].permute(2, 0, 1).unsqueeze(1).contiguous(
+            memory_format=torch.channels_last)
+        return lambda: F.conv2d(x, w, stride=kw["stride"], padding=kw["pad"],
+                                groups=x.shape[1])
+    if kw["mode"] == "max":
+        return lambda: F.max_pool2d(x, kw["k"], kw["stride"], kw["pad"])
+    return lambda: F.avg_pool2d(x, kw["k"], kw["stride"], kw["pad"],
+                                count_include_pad=True)
+
+
+def check_layer_ops(cases, outs: dict) -> dict:
+    """Each case's output against its plain version on the same inputs
+    (alu, depthwise, pool: max_abs_err 0; GEMM: error against float64 at
+    most 2x the plain version's plus 1e-6*K), then the kernel (CUDA-graph
+    replay), the plain version (eager) and the library call (CUDA-graph
+    replay) timed. Returns {op: row of sums over its cases}."""
+    import torch
+    from repro_torch.kernels import alu, depthwise, gemm, pool2d
+    impl = {"gemm": (gemm.gemm, gemm.gemm_plain),
+            "alu": (alu.alu, alu.alu_plain),
+            "depthwise_conv": (depthwise.depthwise_conv,
+                               depthwise.depthwise_plain),
+            "pool2d": (pool2d.pool2d, pool2d.pool2d_plain)}
+    rows = {op: {"cases": 0, "max_abs_err": 0.0, "ms": 0.0, "plain_ms": 0.0,
+                 "bound_ms": 0.0, "t_bytes": 0.0, "t_ops": 0.0,
+                 "library_ms": None, "library_cases": 0,
+                 "ms_library_cases": 0.0} for op in impl}
+    rows["gemm"].update(max_err_vs_f64=0.0, plain_max_err_vs_f64=0.0)
+    for case in cases:
+        op, name, _, kw = case
+        args = resolve(case, outs)
+        kernel, plain = impl[op]
+        got = outs[name]
+        want = plain(*args, **kw)
+        torch.cuda.synchronize()
+        if got.shape != want.shape or got.dtype != want.dtype:
+            raise AssertionError(f"{name}: kernel gives {tuple(got.shape)} "
+                                 f"{got.dtype}, plain {tuple(want.shape)} "
+                                 f"{want.dtype}")
+        if not bool(torch.isfinite(got).all()):
+            raise AssertionError(f"{name}: non-finite output")
+        err = float((got.float() - want.float()).abs().max())
+        r = rows[op]
+        r["max_abs_err"] = max(r["max_abs_err"], err)
+        note = f"err {err:.3g}"
+        if op == "gemm":
+            bias = args[2] if len(args) > 2 else None
+            ek = gemm_err64(got, args[0], args[1], bias, kw.get("act"),
+                            kw.get("clip"))
+            ep = gemm_err64(want, args[0], args[1], bias, kw.get("act"),
+                            kw.get("clip"))
+            k = args[0].shape[1]
+            if ek > 2 * ep + 1e-6 * k:
+                raise AssertionError(f"{name}: error vs float64 {ek:.3g} > "
+                                     f"2 x plain's {ep:.3g} + 1e-6 K")
+            r["max_err_vs_f64"] = max(r["max_err_vs_f64"], ek)
+            r["plain_max_err_vs_f64"] = max(r["plain_max_err_vs_f64"], ep)
+            note = f"err vs f64 {ek:.3g} (plain {ep:.3g})"
+        elif err != 0:
+            raise AssertionError(f"{name}: kernel differs from its plain "
+                                 f"version, max |diff| {err}")
+        ms = graph_ms(lambda: kernel(*args, **kw), reps=5)
+        pms = median_ms(lambda: plain(*args, **kw), reps=3)
+        lib = library_call(op, args, kw)
+        lms = None if lib is None else graph_ms(lib, reps=5)
+        nbytes, nops, rate = op_cost(op, args, kw, got)
+        tb, to = nbytes / HBM_BYTES_PER_S, nops / rate
+        r["cases"] += 1
+        r["ms"] += ms
+        r["plain_ms"] += pms
+        r["bound_ms"] += 1e3 * max(tb, to)
+        r["t_bytes"] += tb
+        r["t_ops"] += to
+        if lms is not None:
+            r["library_ms"] = (r["library_ms"] or 0.0) + lms
+            r["library_cases"] += 1
+            r["ms_library_cases"] += ms
+        log(f"  {op} {name} {str(got.dtype)[6:]}: {note}; kernel {ms:.4f} "
+            f"ms, plain {pms:.4f} ms, library "
+            f"{'none' if lms is None else f'{lms:.4f} ms'}, bound "
+            f"{1e3 * max(tb, to):.4f} ms")
+    for op, r in rows.items():
+        r["bound_by"] = "bytes" if r.pop("t_bytes") >= r.pop("t_ops") \
+            else "operations"
+        log(f"{op}: {r['cases']} cases, max_abs_err vs plain "
+            f"{r['max_abs_err']:.3g}; kernel {r['ms']:.3f} ms, plain "
+            f"{r['plain_ms']:.3f} ms, bound {r['bound_ms']:.4f} ms "
+            f"({r['bound_by']}); library {r['library_ms']} ms on "
+            f"{r['library_cases']} cases (kernel {r['ms_library_cases']:.3f}"
+            f" ms on those)")
+    return rows
+
+
 def main() -> int:
     if not os.path.isdir(os.path.join(SRC, "repro_torch")):
         print("chip_smoke.py: src/repro_torch not found beside this script; "
@@ -542,6 +828,7 @@ def main() -> int:
         print("chip_smoke.py: no CUDA device", file=sys.stderr)
         return 3
     torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False     # library convolutions in f32
     torch.set_float32_matmul_precision("highest")
 
     # -- phase 1 ----------------------------------------------------------
@@ -640,6 +927,20 @@ def main() -> int:
         f"the JAX numpy backend")
     profile_forward(trunk, trunk_imgs)
 
+    # -- phase 4 ----------------------------------------------------------
+    t0 = time.perf_counter()
+    cases = layer_op_cases(dev, rng, LAYER_BATCH)
+    outs4, counts4 = drive_layer_ops(cases)
+    log(f"layer ops: {len(cases)} cases through repro_torch.kernels.ops at "
+        f"batch {LAYER_BATCH}; launches {counts4}")
+    for op, (key, *_) in LAYER_OPS.items():
+        want = sum(c[0] == op for c in cases)
+        if not want or counts4.get(key) != want:
+            raise AssertionError(f"{op}: {counts4.get(key)} launches of "
+                                 f"{key} for {want} cases")
+    rows4 = check_layer_ops(cases, outs4)
+    log(f"phase 4: {time.perf_counter() - t0:.1f} s")
+
     src = "src/repro_torch/csrc/"
     kernels = [
         dict(name="gemm", route="cuda", source=src + "vta_gemm.cu",
@@ -655,6 +956,12 @@ def main() -> int:
              launches=counts["alu_sweep"], **sweep_row,
              per=f"resnet18-trunk forward, batch {n}"),
     ]
+    for op, (key, source, replaces, per) in LAYER_OPS.items():
+        kernels.append(dict(
+            name=key, route="cuda", source=src + source, replaces=replaces,
+            launches=counts4[key], **rows4[op],
+            per=f"one pass over the phase-4 cases at batch {LAYER_BATCH}: "
+                f"{per}"))
     log(json.dumps({"serve": serve_rows}))
     log(json.dumps({"kernels": kernels}))
     log(smi)

@@ -1,5 +1,6 @@
 """Custom-kernel layer of the port: the registry plus the hand-written CUDA
-kernels (``csrc/``) behind it, each with its plain PyTorch version.
+kernels (``csrc/``) behind it, and the float layer ops behind ``ops.py``,
+each kernel with its plain PyTorch version.
 
 Every kernel wrapper counts its CUDA launches (and nothing else);
 ``launch_counts`` reads the counters and ``reset_launch_counts`` zeroes
@@ -13,8 +14,10 @@ __all__ = ["available_impls", "get_kernel", "register_kernel",
 
 
 def _counters() -> tuple:
-    from repro_torch.kernels import alu_sweep, vta_gemm
-    return vta_gemm.LAUNCHES, alu_sweep.LAUNCHES
+    from repro_torch.kernels import (alu, alu_sweep, depthwise, gemm, pool2d,
+                                     vta_gemm)
+    return (vta_gemm.LAUNCHES, alu_sweep.LAUNCHES, gemm.LAUNCHES,
+            alu.LAUNCHES, depthwise.LAUNCHES, pool2d.LAUNCHES)
 
 
 def launch_counts() -> dict:

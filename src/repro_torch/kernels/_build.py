@@ -8,10 +8,14 @@ with a plain C interface (no PyTorch headers, so a build takes seconds):
 
 All sources build in parallel, one ``nvcc`` each, at the first call that
 needs a kernel (never at import). The library name carries a hash of the
-source and flags, so an edited source is rebuilt and a stale library is
-never loaded. The build directory is ``build/torch_ext`` at the root of the
-checkout, or ``$REPRO_TORCH_BUILD_DIR``. Any failure raises: there is no
-fallback to the plain versions on the card.
+source, the shared headers (``csrc/*.cuh``) and the flags, so an edited
+source or header is rebuilt and a stale library is never loaded. The build
+directory is ``build/torch_ext`` at the root of the checkout, or
+``$REPRO_TORCH_BUILD_DIR``. Any failure raises: there is no fallback to the
+plain versions on the card.
+
+``on_card`` and ``float_code`` are the float wrappers' common checks: where
+the operands lie, and which element type the C entry point is told.
 """
 from __future__ import annotations
 
@@ -23,6 +27,8 @@ import shutil
 import subprocess
 import threading
 import time
+
+import torch
 
 CSRC = pathlib.Path(__file__).resolve().parent.parent / "csrc"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
@@ -54,7 +60,9 @@ def _nvcc() -> str:
 
 
 def _target(src: pathlib.Path) -> pathlib.Path:
-    h = hashlib.sha256(src.read_bytes() + " ".join(NVCC_FLAGS).encode())
+    headers = b"".join(p.read_bytes() for p in sorted(CSRC.glob("*.cuh")))
+    h = hashlib.sha256(src.read_bytes() + headers
+                       + " ".join(NVCC_FLAGS).encode())
     return build_dir() / f"{src.stem}-{h.hexdigest()[:12]}.so"
 
 
@@ -105,3 +113,29 @@ def check(status: int, what: str) -> None:
     """Raise on a nonzero ``cudaError_t`` returned by a C entry point."""
     if status != 0:
         raise RuntimeError(f"{what}: CUDA error {status} at launch")
+
+
+# element types the float kernels take, as their C entry points number them
+FLOAT_CODES = {torch.float32: 0, torch.bfloat16: 1}
+
+
+def on_card(what: str, *tensors) -> bool:
+    """Where a wrapper runs: False when every tensor (``None`` skipped) lies
+    on the CPU, True when all lie on one CUDA device; raises otherwise."""
+    devs = {t.device for t in tensors if t is not None}
+    if all(d.type == "cpu" for d in devs):
+        return False
+    if len(devs) != 1 or next(iter(devs)).type != "cuda":
+        raise ValueError(f"{what}: operands must lie on one CUDA device or "
+                         f"on the CPU, got {sorted(map(str, devs))}")
+    return True
+
+
+def float_code(what: str, *tensors) -> int:
+    """The C entry points' code of the tensors' common dtype (f32 or bf16);
+    raises on any other dtype or on mixed dtypes."""
+    dts = {t.dtype for t in tensors if t is not None}
+    if len(dts) != 1 or next(iter(dts)) not in FLOAT_CODES:
+        raise TypeError(f"{what}: the CUDA kernel takes float32 or bfloat16 "
+                        f"operands of one dtype, got {sorted(map(str, dts))}")
+    return FLOAT_CODES[dts.pop()]
