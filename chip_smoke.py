@@ -2,13 +2,15 @@
 """Smoke run of the PyTorch/CUDA port (``src/repro_torch``) on one GPU.
 
     python3 chip_smoke.py
+    python3 chip_smoke.py --plant-faults
 
 Run from the root of a checkout on a machine with a CUDA device. Phases, in
 order; any failure raises and the script exits nonzero:
 
 1. Environment: the card's name and power limit (``nvidia-smi``), then the
    kernels built from ``src/repro_torch/csrc`` (one ``nvcc`` per source, in
-   parallel) with the build time.
+   parallel) with the build time, and per source the number of compiled
+   kernels, their registers and spill stores (``ptxas -v``).
 2. Kernels against their plain versions on the card, tolerance 0
    (``torch.equal``). Every GEMM shape and every chain and sweep program the
    main path launches, at the batch the main path launches it (trunk at 2
@@ -40,6 +42,25 @@ order; any failure raises and the script exits nonzero:
    inputs: alu, depthwise and pool2d exactly (max_abs_err 0); the GEMM, whose
    sums run in another order, by its error against a float64 product, which
    may be at most 2x the plain version's plus 1e-6*K.
+5. Attention at full width, through ``repro_torch.kernels.ops.
+   flash_attention``, at the head counts, head_dim, windows, softcap and
+   query scale of ``configs/archs.py`` (written out in ``ATTENTION_CASES``;
+   this script imports nothing of ``repro``): Gemma-2 27B local and global
+   layers at prefill (8192 x 8192) and decode (one row against a 32768-key
+   cache, or the 4096-key window), Qwen3-0.6B prefill and decode, Mixtral
+   8x22B's windowed prefill and RecurrentGemma-9B's MQA at head_dim 256, in
+   bf16 and some in f32; besides, the shapes of tests/test_kernels.py's
+   attention tests, a case with tails in both tiles, and causal rows that see
+   no key (``edge.empty_rows``). Launch counts are zeroed just before the
+   cases are driven once and read just after: one launch per case. Each
+   output must have the plain version's shape and dtype and be finite; on
+   ``ATTENTION_ROWS`` sampled query rows (first, last, the window's edge and
+   the rest spread evenly) over all heads, the kernel's error against a
+   float64 attention of the same operands may be at most 2x the plain
+   version's plus 1e-6 in f32; in bf16, element by element, the plain
+   version's error there plus one bf16 step at that element (2^-7 |out|)
+   plus 2^-7 * 1e-2 of the row's largest value; ``edge.empty_rows`` must be
+   exactly 0 in rows 0-31 from both.
 
 Output: one line per kernel (and per phase-4 case), ms per dispatch per
 bucket (median, min, max), then a JSON line of serving numbers, a JSON line
@@ -54,15 +75,34 @@ computes the same function (``torch.matmul``/``addmm``, ``torch.mul``,
 ``F.conv2d(groups=C)`` on channels-last, ``F.max_pool2d``/``avg_pool2d``;
 cuDNN's TF32 off) by CUDA-graph replay over the ``library_cases`` that have
 one, beside the kernel's time on those same cases (``ms_library_cases``).
+The ``flash_attention`` row sums one pass over the phase-5 cases the same
+way; its library call is one ``scaled_dot_product_attention`` with
+``enable_gqa=True`` where that computes the same function (no softcap; its
+``is_causal`` is aligned top-left, so it stands in only where Sq = Sk, and a
+boolean mask carries a window). The call is a yardstick here only: the port
+never makes it.
+
+``--plant-faults`` runs none of the phases. It shows that phase 5's limits
+fail a wrong kernel: the checkout is copied into a temporary directory once
+as it is and once per fault of ``PLANTED_FAULTS`` (a text substitution in
+``csrc/flash_attention.cu``), every copy builds its kernel and runs phase
+5's cases through ``attention_error`` (``--attention-errors``, all copies at
+once), and one JSON line per (fault, case) gives the kernel's and the plain
+version's largest error against float64, the largest |out| and the elements
+over the limit. It exits 0 only if the unchanged kernel passes every case and
+each fault fails at least one.
 """
 from __future__ import annotations
 
 import hashlib
 import json
 import os
+import re
 import statistics
+import shutil
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -100,6 +140,54 @@ LAYER_OPS = {
                "resnet18.pool1 max (also bf16), resnet18.gap avg, mbn.gap "
                "avg (also bf16)"),
 }
+
+# phase-5 cases: (name, B, H, KV, D, Sq, Sk, causal, window, softcap, scale,
+# dtypes, library call). Widths from src/repro/configs/archs.py: gemma2-27b
+# (:39-47; query scale (4608 / 32) ** -0.5 = 1/12; its local layers decode
+# against a cache of the window's length, models/attention.py:144-148),
+# qwen3-0.6b (:21-25), mixtral-8x22b (:79-84), recurrentgemma-9b (:65-70).
+# Library: "causal" is SDPA's is_causal (top-left, so only where Sq = Sk),
+# "none" no mask (every key visible), "mask" a boolean mask.
+BF, F32 = "bfloat16", "float32"
+ATTENTION_CASES = [
+    ("g2.local.prefill", 1, 32, 16, 128, 8192, 8192, True, 4096, 50.0,
+     1 / 12, (BF, F32), None),
+    ("g2.global.prefill", 1, 32, 16, 128, 8192, 8192, True, None, 50.0,
+     1 / 12, (BF,), None),
+    ("g2.global.decode", 8, 32, 16, 128, 1, 32768, True, None, 50.0, 1 / 12,
+     (BF, F32), None),
+    ("g2.local.decode", 8, 32, 16, 128, 1, 4096, True, 4096, 50.0, 1 / 12,
+     (BF,), None),
+    ("qwen3.prefill", 1, 16, 8, 128, 8192, 8192, True, None, None, None,
+     (BF,), "causal"),
+    ("qwen3.decode", 8, 16, 8, 128, 1, 32768, True, None, None, None, (BF,),
+     "none"),
+    ("mixtral.local.prefill", 1, 48, 8, 128, 8192, 8192, True, 4096, None,
+     None, (BF,), "mask"),
+    ("rgemma.local.prefill", 1, 16, 1, 256, 8192, 8192, True, 2048, None,
+     None, (BF, F32), "mask"),
+]
+# tests/test_kernels.py:77-110: gqa 1 and 4 x four masks, and decode (whose
+# q and k are not scaled by 0.4 there, nor here)
+ATTENTION_CASES += [
+    (f"edge.gqa{g}.{m}", 2, 4, 4 // g, 32, 128, 128, c, w, sc, None, (F32,),
+     None)
+    for g in (1, 4)
+    for m, c, w, sc in (("causal", True, None, None),
+                        ("window32", True, 32, None),
+                        ("softcap15", True, None, 15.0),
+                        ("full", False, None, None))]
+ATTENTION_CASES += [
+    ("edge.decode", 2, 4, 4, 32, 1, 256, True, None, None, None, (F32,),
+     None),
+    # partial q and key tiles, a head_dim that is not a multiple of 32
+    ("edge.tails", 1, 4, 2, 40, 37, 101, True, 50, 15.0, None, (F32, BF),
+     None),
+    # causal with Sq > Sk: rows 0-31 see no key
+    ("edge.empty_rows", 1, 2, 1, 16, 64, 32, True, None, None, None, (F32,),
+     None),
+]
+ATTENTION_ROWS = 256     # query rows per case held against float64
 
 
 def log(*a) -> None:
@@ -817,7 +905,326 @@ def check_layer_ops(cases, outs: dict) -> dict:
     return rows
 
 
-def main() -> int:
+# ---------------------------------------------------------------------------
+# phase 5: attention at full width
+# ---------------------------------------------------------------------------
+def attention_cases(dev) -> list:
+    """One dict per (case, dtype) of ``ATTENTION_CASES``, inputs drawn on the
+    card from one ``torch.Generator`` seeded 0: q, k, v standard normal, q
+    and k times 0.4 as in tests/test_kernels.py (not for ``edge.decode``)."""
+    import torch
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(0)
+    out = []
+    for (name, b, h, kv, d, sq, sk, causal, window, softcap, scale, dtypes,
+         lib) in ATTENTION_CASES:
+        qk = 1.0 if name == "edge.decode" else 0.4
+        for dt in dtypes:
+            dtype = getattr(torch, dt)
+
+            def draw(*shape, mul=1.0):
+                t = torch.randn(shape, generator=gen, device=dev,
+                                dtype=torch.float32)
+                return (t * mul if mul != 1.0 else t).to(dtype)
+            out.append(dict(
+                name=f"{name}/{'bf16' if dt == BF else 'f32'}",
+                q=draw(b, h, sq, d, mul=qk), k=draw(b, kv, sk, d, mul=qk),
+                v=draw(b, kv, sk, d), library=lib,
+                kw=dict(causal=causal, window=window, softcap=softcap,
+                        scale=scale)))
+    return out
+
+
+def drive_attention(cases) -> tuple:
+    """The main path of the phase: every case once through
+    ``repro_torch.kernels.ops.flash_attention``, launch counts zeroed just
+    before and read just after. Returns (outputs by name, launch counts)."""
+    import torch
+    from repro_torch.kernels import launch_counts, ops, reset_launch_counts
+    outs = {}
+    reset_launch_counts()
+    for c in cases:
+        outs[c["name"]] = ops.flash_attention(c["q"], c["k"], c["v"],
+                                              **c["kw"])
+    torch.cuda.synchronize()
+    return outs, dict(launch_counts())
+
+
+def visible(sq: int, sk: int, causal: bool, window) -> tuple:
+    """(rows that see no key, visible (query, key) pairs) of one head under
+    the bottom-right-aligned mask."""
+    qpos = np.arange(sq, dtype=np.int64) + (sk - sq)
+    hi = np.minimum(qpos, sk - 1) if causal else np.full(sq, sk - 1)
+    lo = np.maximum(qpos - window + 1, 0) if window is not None \
+        else np.zeros(sq, np.int64)
+    n = np.maximum(hi - lo + 1, 0)
+    return int((n == 0).sum()), int(n.sum())
+
+
+def sample_rows(sq: int, sk: int, window) -> list:
+    """First and last row, the rows at the window's edge, the rest spread
+    evenly: ``ATTENTION_ROWS`` rows, or all of them."""
+    rows = set(np.linspace(0, sq - 1, min(ATTENTION_ROWS, sq))
+               .round().astype(int).tolist())
+    if window is not None:
+        edge = window - (sk - sq)         # the first row whose window cuts
+        rows.update(r for r in range(edge - 2, edge + 2) if 0 <= r < sq)
+    return sorted(rows)
+
+
+def key_mask(rows, sq: int, sk: int, causal: bool, window, device):
+    """(len(rows), Sk) booleans: the keys each query row sees."""
+    import torch
+    qpos = torch.as_tensor(rows, device=device).view(-1, 1) + (sk - sq)
+    kpos = torch.arange(sk, device=device).view(1, -1)
+    mask = torch.ones((len(rows), sk), dtype=torch.bool, device=device)
+    if causal:
+        mask &= kpos <= qpos
+    if window is not None:
+        mask &= kpos > qpos - window
+    return mask
+
+
+def attention64(q, k, v, rows, *, causal, window, softcap, scale):
+    """The same attention in float64 on query ``rows`` (B, H, R, D); a row
+    that sees no key is 0, as in the kernel."""
+    import torch
+    b, h, sq, d = q.shape
+    kv, sk = k.shape[1], k.shape[2]
+    scale = d ** -0.5 if scale is None else scale
+    idx = torch.tensor(rows, device=q.device)
+    mask = key_mask(rows, sq, sk, causal, window, q.device)
+    out = []
+    for i in range(b):
+        qb = q[i][:, idx].double().reshape(kv, h // kv, len(rows), d) * scale
+        s = qb @ k[i].double().unsqueeze(1).transpose(-1, -2)
+        if softcap is not None:
+            s = softcap * torch.tanh(s / softcap)
+        s = s.masked_fill(~mask, float("-inf"))
+        mx = s.amax(dim=-1, keepdim=True)
+        w = torch.exp(s - torch.where(torch.isfinite(mx), mx, 0.0))
+        den = w.sum(dim=-1, keepdim=True)
+        o = (w @ v[i].double().unsqueeze(1)) / torch.where(den > 0, den, 1.0)
+        out.append(o.reshape(h, len(rows), d))
+    return torch.stack(out)
+
+
+def attention_library(c):
+    """One ``scaled_dot_product_attention`` call computing the case's
+    function, or None (a softcap, or no call named for the case)."""
+    import torch.nn.functional as F
+    q, k, v, kw = c["q"], c["k"], c["v"], c["kw"]
+    if c["library"] is None or kw["softcap"] is not None:
+        return None
+    if c["library"] == "causal":
+        if q.shape[2] != k.shape[2]:
+            raise AssertionError(f"{c['name']}: is_causal is top-left")
+        return lambda: F.scaled_dot_product_attention(
+            q, k, v, is_causal=True, scale=kw["scale"], enable_gqa=True)
+    if c["library"] == "none":
+        if visible(q.shape[2], k.shape[2], kw["causal"], kw["window"])[1] \
+                != q.shape[2] * k.shape[2]:
+            raise AssertionError(f"{c['name']}: not every key is visible")
+        return lambda: F.scaled_dot_product_attention(
+            q, k, v, scale=kw["scale"], enable_gqa=True)
+    sq, sk = q.shape[2], k.shape[2]
+    mask = key_mask(range(sq), sq, sk, kw["causal"], kw["window"], q.device)
+    return lambda: F.scaled_dot_product_attention(
+        q, k, v, attn_mask=mask, scale=kw["scale"], enable_gqa=True)
+
+
+def attention_error(got, want, r64) -> tuple:
+    """(kernel's largest error, plain version's largest error, what broke the
+    limit or "") against float64 on the sampled rows. f32: the kernel's
+    largest error at most 2x the plain version's plus 1e-6. bf16, element by
+    element: at most the plain version's error there plus one bf16 step at
+    that element (2^-7 |plain|), since the two round nearly equal f32 values
+    to the same or neighbouring bf16 values, plus 2^-7 * 1e-2 of the row's
+    largest |float64| value for the f32 sums' own order near 0."""
+    import torch
+    ek = (got.double() - r64).abs()
+    ep = (want.double() - r64).abs()
+    emax, pmax = float(ek.max()), float(ep.max())
+    if got.dtype == torch.float32:
+        limit = 2 * pmax + 1e-6
+        return emax, pmax, "" if emax <= limit else f"limit {limit:.3g}"
+    row = r64.abs().amax(dim=-1, keepdim=True)
+    limit = ep + 2.0 ** -7 * want.double().abs() + 2.0 ** -7 * 1e-2 * row
+    over = ek > limit
+    if not bool(over.any()):
+        return emax, pmax, ""
+    i = int((ek - limit).flatten().argmax())
+    return emax, pmax, (f"{int(over.sum())} elements, worst "
+                        f"{float(ek.flatten()[i]):.3g} > "
+                        f"{float(limit.flatten()[i]):.3g} at |float64| "
+                        f"{float(r64.abs().flatten()[i]):.3g}")
+
+
+def check_attention(cases, outs: dict) -> dict:
+    """Each case's output against the plain version on the same inputs and
+    both against float64 on sampled rows (``attention_error``),
+    ``edge.empty_rows`` exactly 0 where no key is seen; then
+    the kernel (CUDA-graph replay), the plain version (eager) and the
+    library call (CUDA-graph replay) timed. Returns the row of sums."""
+    import torch
+    from repro_torch.kernels.flash_attention import (flash_attention,
+                                                     flash_attention_plain)
+    row = {"cases": 0, "max_abs_err": 0.0, "ms": 0.0, "plain_ms": 0.0,
+           "bound_ms": 0.0, "library_ms": None, "library_cases": 0,
+           "ms_library_cases": 0.0, "max_err_vs_f64": 0.0,
+           "plain_max_err_vs_f64": 0.0, "ms_prefill": 0.0, "ms_decode": 0.0}
+    t_bytes = t_ops = 0.0
+    for c in cases:
+        name, q, k, v, kw = c["name"], c["q"], c["k"], c["v"], c["kw"]
+        got = outs[name]
+        want = flash_attention_plain(q, k, v, **kw)
+        torch.cuda.synchronize()
+        if got.shape != want.shape or got.dtype != want.dtype:
+            raise AssertionError(f"{name}: kernel gives {tuple(got.shape)} "
+                                 f"{got.dtype}, plain {tuple(want.shape)} "
+                                 f"{want.dtype}")
+        if not bool(torch.isfinite(got).all()):
+            raise AssertionError(f"{name}: non-finite output")
+        err = float((got.float() - want.float()).abs().max())
+        b, h, sq, d = q.shape
+        sk = k.shape[2]
+        empty, pairs = visible(sq, sk, kw["causal"], kw["window"])
+        if name.startswith("edge.empty_rows"):
+            if empty != 32 or bool(got[:, :, :empty].any()) or \
+                    bool(want[:, :, :empty].any()):
+                raise AssertionError(f"{name}: rows that see no key are not "
+                                     f"exactly 0")
+        rows = sample_rows(sq, sk, kw["window"])
+        r64 = attention64(q, k, v, rows, **kw)
+        idx = torch.tensor(rows, device=q.device)
+        ek, ep, bad = attention_error(got[:, :, idx], want[:, :, idx], r64)
+        if bad:
+            raise AssertionError(f"{name}: error vs float64 {ek:.3g} (plain's "
+                                 f"{ep:.3g}) over its limit: {bad}")
+        reps = 2 if sq * sk >= 2 ** 24 else 5 if b * sk >= 2 ** 15 else 20
+        ms = graph_ms(lambda: flash_attention(q, k, v, **kw), reps=reps)
+        pms = median_ms(lambda: flash_attention_plain(q, k, v, **kw), reps=1,
+                        trials=1)
+        lib = attention_library(c)
+        lms = lib_err = None
+        if lib is not None:
+            lib_err = float((lib().float() - want.float()).abs().max())
+            lms = graph_ms(lib, reps=reps)
+            lib_note = f"{lms:.4f} ms (max|lib - plain| {lib_err:.3g})"
+        nbytes = sum(t.numel() * t.element_size() for t in (q, k, v, got))
+        rate = SCALAR_OPS_PER_S if q.dtype == torch.float32 \
+            else BF16_TENSOR_OPS_PER_S
+        tb, to = nbytes / HBM_BYTES_PER_S, 4 * b * h * d * pairs / rate
+        row["cases"] += 1
+        row["max_abs_err"] = max(row["max_abs_err"], err)
+        row["max_err_vs_f64"] = max(row["max_err_vs_f64"], ek)
+        row["plain_max_err_vs_f64"] = max(row["plain_max_err_vs_f64"], ep)
+        row["ms"] += ms
+        row["ms_decode" if sq == 1 else "ms_prefill"] += ms
+        row["plain_ms"] += pms
+        row["bound_ms"] += 1e3 * max(tb, to)
+        t_bytes += tb
+        t_ops += to
+        if lms is not None:
+            row["library_ms"] = (row["library_ms"] or 0.0) + lms
+            row["library_cases"] += 1
+            row["ms_library_cases"] += ms
+        log(f"  flash_attention {name} B{b} H{h}/{k.shape[1]} D{d} {sq}x{sk}"
+            f": max|kernel - plain| {err:.3g}; vs f64 on {len(rows)} rows "
+            f"{ek:.3g} (plain {ep:.3g}); kernel {ms:.4f} ms, plain "
+            f"{pms:.4f} ms, library "
+            f"{'none' if lms is None else lib_note}"
+            f", bound {1e3 * max(tb, to):.4f} ms "
+            f"({'bytes' if tb >= to else 'operations'})")
+    row["bound_by"] = "bytes" if t_bytes >= t_ops else "operations"
+    log(f"flash_attention: {row['cases']} cases, max_abs_err vs plain "
+        f"{row['max_abs_err']:.3g}; kernel {row['ms']:.3f} ms (prefill "
+        f"{row['ms_prefill']:.3f}, decode {row['ms_decode']:.3f}), plain "
+        f"{row['plain_ms']:.3f} ms, bound {row['bound_ms']:.4f} ms "
+        f"({row['bound_by']}); library {row['library_ms']} ms on "
+        f"{row['library_cases']} cases (kernel {row['ms_library_cases']:.3f}"
+        f" ms on those)")
+    return row
+
+
+# ---------------------------------------------------------------------------
+# --plant-faults: phase 5's limits against wrong kernels
+# ---------------------------------------------------------------------------
+PLANTED_FAULTS = {   # name: (text of csrc/flash_attention.cu, its stand-in)
+    "skip_tile_4096": ("|| j0 + BK <= wbeg) continue;",
+                       "|| j0 + BK <= wbeg || j0 == 4096) continue;"),
+    "window_plus_64": ("           window, softcap, scale};",
+                       "           window + 64, softcap, scale};"),
+}
+
+
+def attention_errors(fault: str) -> int:
+    """``--attention-errors FAULT``: phase 5's cases once through
+    ``ops.flash_attention``, each held to float64 by ``attention_error``;
+    one JSON line per case."""
+    import torch
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.flash_attention import flash_attention_plain
+    for c in attention_cases(torch.device("cuda")):
+        q, k, v, kw = c["q"], c["k"], c["v"], c["kw"]
+        got = ops.flash_attention(q, k, v, **kw)
+        want = flash_attention_plain(q, k, v, **kw)
+        rows = sample_rows(q.shape[2], k.shape[2], kw["window"])
+        idx = torch.tensor(rows, device=q.device)
+        ek, ep, bad = attention_error(got[:, :, idx], want[:, :, idx],
+                                      attention64(q, k, v, rows, **kw))
+        print(json.dumps({"fault": fault, "case": c["name"], "err_f64": ek,
+                          "plain_err_f64": ep, "out_max": float(
+                              want.float().abs().max()), "over": bad}),
+              flush=True)
+    return 0
+
+
+def plant_faults() -> int:
+    """``--plant-faults``: see the module's docstring."""
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_faults_")
+    procs = {}
+    try:
+        for fault, sub in [("none", None), *PLANTED_FAULTS.items()]:
+            dst = os.path.join(tmp, fault)
+            shutil.copytree(ROOT, dst, ignore=shutil.ignore_patterns(
+                "build", "chiprun_out", ".git", "__pycache__"))
+            if sub is not None:
+                cu = os.path.join(dst, "src", "repro_torch", "csrc",
+                                  "flash_attention.cu")
+                text = open(cu).read()
+                if text.count(sub[0]) != 1:
+                    raise AssertionError(f"{fault}: its text is not in "
+                                         f"flash_attention.cu once")
+                with open(cu, "w") as f:
+                    f.write(text.replace(*sub))
+            procs[fault] = subprocess.Popen(
+                [sys.executable, "chip_smoke.py", "--attention-errors",
+                 fault], cwd=dst, stdout=subprocess.PIPE, text=True)
+        failed = {}
+        for fault, proc in procs.items():
+            out, _ = proc.communicate(timeout=900)
+            if proc.returncode:
+                raise AssertionError(f"{fault}: exit {proc.returncode}")
+            lines = [json.loads(x) for x in out.splitlines()
+                     if x.startswith("{")]
+            for x in lines:
+                log(json.dumps(x))
+            failed[fault] = [x["case"] for x in lines if x["over"]]
+            log(f"{fault}: {len(lines)} cases, over the limit in "
+                f"{len(failed[fault])}: {failed[fault]}")
+    finally:
+        for proc in procs.values():
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+        shutil.rmtree(tmp, ignore_errors=True)
+    if failed["none"] or not all(failed[f] for f in PLANTED_FAULTS):
+        raise AssertionError("the unchanged kernel failed, or a fault passed")
+    return 0
+
+
+def main(argv: list) -> int:
     if not os.path.isdir(os.path.join(SRC, "repro_torch")):
         print("chip_smoke.py: src/repro_torch not found beside this script; "
               "run it from the root of a checkout", file=sys.stderr)
@@ -830,6 +1237,10 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False     # library convolutions in f32
     torch.set_float32_matmul_precision("highest")
+    if argv[1:2] == ["--plant-faults"]:
+        return plant_faults()
+    if argv[1:2] == ["--attention-errors"]:
+        return attention_errors(argv[2])
 
     # -- phase 1 ----------------------------------------------------------
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
@@ -842,10 +1253,14 @@ def main() -> int:
     each = ", ".join(f"{k} {v['seconds']:.1f} s"
                      for k, v in _build.BUILD_LOG.items())
     log(f"build: {time.perf_counter() - t0:.1f} s ({each})")
-    for k, v in _build.BUILD_LOG.items():
-        for line in v["ptxas"].splitlines():
-            if "registers" in line or "spill" in line:
-                log(f"  {k}: {line.strip()}")
+    for k, v in _build.BUILD_LOG.items():       # ptxas, one line a source
+        regs = [int(x) for x in re.findall(r"Used (\d+) registers",
+                                           v["ptxas"])]
+        spill = sum(int(x) for x in re.findall(r"(\d+) bytes spill stores",
+                                               v["ptxas"]))
+        if regs:
+            log(f"  {k}: {len(regs)} kernels, registers {min(regs)}-"
+                f"{max(regs)}, spill stores {spill} bytes in all")
 
     # -- phase 2 ----------------------------------------------------------
     from repro_torch.serve.model import (ServedModel, resnet18_trunk_graph,
@@ -941,6 +1356,19 @@ def main() -> int:
     rows4 = check_layer_ops(cases, outs4)
     log(f"phase 4: {time.perf_counter() - t0:.1f} s")
 
+    # -- phase 5 ----------------------------------------------------------
+    t0 = time.perf_counter()
+    cases5 = attention_cases(dev)
+    outs5, counts5 = drive_attention(cases5)
+    log(f"attention: {len(cases5)} cases through "
+        f"repro_torch.kernels.ops.flash_attention; launches {counts5}")
+    if counts5.get("flash_attention") != len(cases5):
+        raise AssertionError(f"{counts5.get('flash_attention')} launches of "
+                             f"flash_attention for {len(cases5)} cases")
+    row5 = check_attention(cases5, outs5)
+    del cases5, outs5
+    log(f"phase 5: {time.perf_counter() - t0:.1f} s")
+
     src = "src/repro_torch/csrc/"
     kernels = [
         dict(name="gemm", route="cuda", source=src + "vta_gemm.cu",
@@ -962,6 +1390,14 @@ def main() -> int:
             launches=counts4[key], **rows4[op],
             per=f"one pass over the phase-4 cases at batch {LAYER_BATCH}: "
                 f"{per}"))
+    kernels.append(dict(
+        name="flash_attention", route="cuda",
+        source=src + "flash_attention.cu",
+        replaces="src/repro/kernels/flash_attention.py:77",
+        launches=counts5["flash_attention"], **row5,
+        per="one pass over the phase-5 cases: Gemma-2 27B, Qwen3-0.6B, "
+            "Mixtral 8x22B and RecurrentGemma-9B attention at prefill 8192 "
+            "and decode 1 x 32768 / 4096, and the edge cases"))
     log(json.dumps({"serve": serve_rows}))
     log(json.dumps({"kernels": kernels}))
     log(smi)
@@ -972,4 +1408,4 @@ def main() -> int:
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    sys.exit(main(sys.argv))

@@ -14,10 +14,11 @@ __all__ = ["available_impls", "get_kernel", "register_kernel",
 
 
 def _counters() -> tuple:
-    from repro_torch.kernels import (alu, alu_sweep, depthwise, gemm, pool2d,
-                                     vta_gemm)
+    from repro_torch.kernels import (alu, alu_sweep, depthwise,
+                                     flash_attention, gemm, pool2d, vta_gemm)
     return (vta_gemm.LAUNCHES, alu_sweep.LAUNCHES, gemm.LAUNCHES,
-            alu.LAUNCHES, depthwise.LAUNCHES, pool2d.LAUNCHES)
+            alu.LAUNCHES, depthwise.LAUNCHES, pool2d.LAUNCHES,
+            flash_attention.LAUNCHES)
 
 
 def launch_counts() -> dict:

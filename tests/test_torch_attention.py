@@ -1,0 +1,200 @@
+"""Parity of the port's attention (``repro_torch.kernels.ops.flash_attention``
+and ``repro_torch.kernels.ref.attention_ref``) with the JAX package's
+``repro.kernels.ops.flash_attention`` (Pallas, interpret mode on the CPU) and
+``repro.kernels.ref.attention_ref``, on the CPU.
+
+Each case makes its inputs with numpy from a seed and hands the same arrays
+to both packages. Tolerances are those of tests/test_kernels.py, 2e-5 atol
+and rtol in f32, and 2e-2 in bf16 (sums taken in another order, rounded once
+to bf16). On CPU tensors ``flash_attention`` takes its plain version and
+counts no launch.
+"""
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.kernels import ops as jops
+from repro.kernels import ref as jref
+from repro_torch.kernels import launch_counts, ops, ref
+from repro_torch.kernels.flash_attention import (_blocks, attention_tile,
+                                                 flash_attention_plain)
+
+DTYPES = {"float32": (jnp.float32, torch.float32, 2e-5),
+          "bfloat16": (jnp.bfloat16, torch.bfloat16, 2e-2)}
+
+
+def _case(b, h, kv, sq, sk, d, *, qk_scale=0.4, dtype="float32", **kw):
+    return dict(shape=(b, h, kv, sq, sk, d), qk_scale=qk_scale, dtype=dtype,
+                kw=kw)
+
+
+# tests/test_kernels.py:77-110: gqa 1/4 x four masks, blocks 32, and decode
+CASES = {
+    f"gqa{g}-{name}": _case(2, 4, 4 // g, 128, 128, 32, causal=causal,
+                            window=window, softcap=softcap, block_q=32,
+                            block_k=32)
+    for g in (1, 4)
+    for name, causal, window, softcap in (
+        ("causal", True, None, None), ("window32", True, 32, None),
+        ("softcap15", True, None, 15.0), ("full", False, None, None))
+}
+CASES["decode"] = _case(2, 4, 4, 1, 256, 32, qk_scale=1.0, causal=True,
+                        block_q=1, block_k=64)
+# SMOKE_ARCHS["gemma2-27b"]: 4 heads over 2 kv heads, D 16, window 8,
+# softcap 50, query scale 16 ** -0.5
+CASES["gemma2-smoke"] = _case(2, 4, 2, 32, 32, 16, causal=True, window=8,
+                              softcap=50.0, scale=16.0 ** -0.5)
+CASES["mqa-d256"] = _case(1, 4, 1, 32, 32, 256, causal=True)
+CASES["sq48-sk128"] = _case(1, 4, 2, 48, 128, 32, causal=True, window=40)
+CASES["odd-37x101"] = _case(1, 2, 1, 37, 101, 16, causal=True, window=50)
+CASES["bf16-softcap"] = _case(1, 4, 2, 64, 64, 32, dtype="bfloat16",
+                              causal=True, softcap=15.0)
+
+
+def _inputs(shape, qk_scale, seed=0):
+    b, h, kv, sq, sk, d = shape
+    rng = np.random.default_rng(seed)
+    q = (rng.standard_normal((b, h, sq, d)) * qk_scale).astype(np.float32)
+    k = (rng.standard_normal((b, kv, sk, d)) * qk_scale).astype(np.float32)
+    v = rng.standard_normal((b, kv, sk, d)).astype(np.float32)
+    return q, k, v
+
+
+def _to(a, dtype):
+    jd, td, _ = DTYPES[dtype]
+    return jnp.asarray(a).astype(jd), torch.from_numpy(a).to(td)
+
+
+def _np(x):
+    if isinstance(x, torch.Tensor):
+        return x.to(torch.float32).numpy()
+    return np.asarray(x.astype(jnp.float32))
+
+
+def _expanded(q, k, v, g):
+    """(B, S, H, D) views for attention_ref, kv heads repeated g times."""
+    return (q.transpose(0, 2, 1, 3),
+            np.repeat(k, g, axis=1).transpose(0, 2, 1, 3),
+            np.repeat(v, g, axis=1).transpose(0, 2, 1, 3))
+
+
+@pytest.mark.parametrize("name", list(CASES))
+def test_flash_attention_matches_jax(name):
+    c = CASES[name]
+    b, h, kv, sq, sk, d = c["shape"]
+    tol = DTYPES[c["dtype"]][2]
+    q, k, v = _inputs(c["shape"], c["qk_scale"])
+    (qj, qt), (kj, kt), (vj, vt) = (_to(a, c["dtype"]) for a in (q, k, v))
+    kw = c["kw"]
+    got = ops.flash_attention(qt, kt, vt, **kw)
+    assert got.shape == (b, h, sq, d) and got.dtype == qt.dtype
+    want = _np(jops.flash_attention(qj, kj, vj, interpret=True, **kw))
+    np.testing.assert_allclose(_np(got), want, atol=tol, rtol=tol)
+
+    mask_kw = {x: kw[x] for x in ("causal", "window", "softcap", "scale")
+               if x in kw}
+    jr = _np(jref.attention_ref(*(jnp.asarray(a).astype(qj.dtype)
+                                  for a in _expanded(q, k, v, h // kv)),
+                                **mask_kw)).transpose(0, 2, 1, 3)
+    np.testing.assert_allclose(_np(got), jr, atol=tol, rtol=tol)
+    tr = ref.attention_ref(*(torch.from_numpy(np.ascontiguousarray(a))
+                             .to(qt.dtype)
+                             for a in _expanded(q, k, v, h // kv)), **mask_kw)
+    np.testing.assert_allclose(_np(tr).transpose(0, 2, 1, 3), jr, atol=tol,
+                               rtol=tol)
+    if name == "odd-37x101":
+        # requested blocks 16 and 32 halve to 1 and 1 on 37 and 101
+        assert _blocks(sq, sk, 16, 32, attention_tile(d, qt.dtype, sq)) \
+            == (1, 1)
+        blocked = flash_attention_plain(qt, kt, vt, block_q=16, block_k=32,
+                                        **mask_kw)
+        np.testing.assert_allclose(_np(blocked), want, atol=tol, rtol=tol)
+
+
+def test_rows_that_see_no_key():
+    """Causal with Sq > Sk: query rows 0..Sk-1 see no key. The kernel and
+    its port give exactly 0 there; attention_ref (JAX and port) gives the
+    mean of v. Rows that see a key agree everywhere."""
+    b, h, kv, sq, sk, d = shape = (1, 2, 1, 64, 32, 16)
+    q, k, v = _inputs(shape, 0.4)
+    qt, kt, vt = (torch.from_numpy(a) for a in (q, k, v))
+    got = _np(ops.flash_attention(qt, kt, vt, causal=True))
+    jk = _np(jops.flash_attention(jnp.asarray(q), jnp.asarray(k),
+                                  jnp.asarray(v), causal=True,
+                                  interpret=True))
+    empty = slice(0, sq - sk)
+    assert np.array_equal(got[:, :, empty], np.zeros_like(got[:, :, empty]))
+    assert np.array_equal(jk[:, :, empty], np.zeros_like(jk[:, :, empty]))
+
+    ex = _expanded(q, k, v, h // kv)
+    jr = _np(jref.attention_ref(*map(jnp.asarray, ex), causal=True))
+    tr = _np(ref.attention_ref(*(torch.from_numpy(np.ascontiguousarray(a))
+                                 for a in ex), causal=True))
+    mean_v = v.astype(np.float64).mean(axis=2)[:, :, None, :]  # (B,KV,1,D)
+    for r in (jr, tr):
+        rows = r.transpose(0, 2, 1, 3)[:, :, empty]
+        np.testing.assert_allclose(rows, np.broadcast_to(mean_v, rows.shape),
+                                   atol=1e-6, rtol=0)
+    seen = slice(sq - sk, sq)
+    np.testing.assert_allclose(got[:, :, seen], jk[:, :, seen], atol=2e-5,
+                               rtol=2e-5)
+    np.testing.assert_allclose(tr.transpose(0, 2, 1, 3)[:, :, seen],
+                               got[:, :, seen], atol=2e-5, rtol=2e-5)
+
+
+def test_cpu_tensors_count_no_launch():
+    before = dict(launch_counts())
+    q, k, v = (torch.from_numpy(a) for a in _inputs((1, 2, 1, 8, 16, 8), 1))
+    ops.flash_attention(q, k, v, window=4, softcap=5.0)
+    after = launch_counts()
+    assert "flash_attention" in after
+    assert after == before
+
+
+@pytest.mark.parametrize("what,shapes,dtypes,err", [
+    ("mixed dtypes", ((1, 2, 4, 16), (1, 2, 4, 16)),
+     (torch.float32, torch.bfloat16), TypeError),
+    ("float16", ((1, 2, 4, 16), (1, 2, 4, 16)),
+     (torch.float16, torch.float16), TypeError),
+    ("H % KV != 0", ((1, 3, 4, 16), (1, 2, 4, 16)),
+     (torch.float32, torch.float32), ValueError),
+    ("D = 12", ((1, 2, 4, 12), (1, 1, 4, 12)),
+     (torch.float32, torch.float32), ValueError),
+    ("D = 264", ((1, 2, 4, 264), (1, 1, 4, 264)),
+     (torch.float32, torch.float32), ValueError),
+    ("3-D", ((2, 4, 16), (2, 4, 16)),
+     (torch.float32, torch.float32), ValueError),
+])
+def test_wrapper_rejects_what_the_kernel_does_not_take(what, shapes, dtypes,
+                                                       err):
+    q = torch.zeros(shapes[0], dtype=dtypes[0])
+    k = torch.zeros(shapes[1], dtype=dtypes[1])
+    with pytest.raises(err):
+        ops.flash_attention(q, k, k)
+
+
+def test_wrapper_rejects_a_device_that_is_neither_cpu_nor_cuda():
+    q = torch.zeros((1, 2, 4, 16))
+    meta = torch.empty((1, 2, 4, 16), device="meta")
+    with pytest.raises(ValueError, match="CUDA device"):
+        ops.flash_attention(q, meta, meta)
+
+
+@pytest.mark.parametrize("dtype,d,sq,tile", [
+    (torch.float32, 128, 100, (64, 64)), (torch.float32, 256, 1, (8, 32)),
+    (torch.bfloat16, 256, 100, (64, 64)), (torch.bfloat16, 40, 8, (8, 64)),
+])
+def test_plain_default_block_is_the_kernel_tile(dtype, d, sq, tile):
+    """Without block arguments the plain version sums in key blocks of the
+    kernel's own tile; any other block changes only the order of summation."""
+    assert attention_tile(d, dtype, sq) == tile
+    q, k, v = (torch.from_numpy(a).to(dtype)
+               for a in _inputs((1, 2, 1, sq, 128, d), 0.4))
+    kw = dict(causal=True, window=100, softcap=20.0)
+    got = flash_attention_plain(q, k, v, **kw)
+    assert torch.equal(got, flash_attention_plain(q, k, v, block_k=tile[1],
+                                                  **kw))
+    other = flash_attention_plain(q, k, v, block_k=16, **kw)
+    tol = 2e-5 if dtype == torch.float32 else 2e-2
+    np.testing.assert_allclose(_np(got), _np(other), atol=tol, rtol=tol)

@@ -31,11 +31,17 @@ def test_port_imports_neither_jax_nor_repro():
         "import repro_torch, repro_torch.kernels\n"
         "import repro_torch.kernels.vta_gemm, repro_torch.kernels.alu_sweep\n"
         "import repro_torch.kernels._build\n"
+        "import repro_torch.kernels.ops, repro_torch.kernels.ref\n"
+        "import repro_torch.kernels.flash_attention\n"
         "import repro_torch.vta.fsim_torch, repro_torch.vta.backend\n"
         "import repro_torch.serve.engine, repro_torch.serve.model\n"
         "from repro_torch.serve.model import served_model\n"
         "m = served_model('resnet18', 'tiny')\n"
         "m.run_batch(m.random_images(1), 'torch-cpu')\n"
+        "import torch\n"
+        "x = torch.ones((1, 2, 4, 8))\n"
+        "repro_torch.kernels.ops.flash_attention(x, x[:, :1], x[:, :1],\n"
+        "                                        window=2, softcap=5.0)\n"
         "bad = sorted(k for k in sys.modules\n"
         "             if k.split('.')[0] in ('jax', 'jaxlib', 'repro'))\n"
         "assert not bad, bad\n"
