@@ -35,13 +35,18 @@ order; any failure raises and the script exits nonzero:
    ResNet-18's 8 residual adds (``clip=127``); ``resnet18.pool1`` (max),
    ``resnet18.gap`` and ``mbn.gap`` (avg); besides, the (4096, 1024) @
    (1024, 4096) bf16 product of benchmarks/bench_kernels.py, gelu and silu
-   epilogues and an unclipped multiply. Each op also runs in bf16 on at least
-   one shape. Launch counts are zeroed just before the cases are driven once
-   and read just after; each of the four kernels must have launched once per
-   case. Then each output is held against the plain version on the same
-   inputs: alu, depthwise and pool2d exactly (max_abs_err 0); the GEMM, whose
-   sums run in another order, by its error against a float64 product, which
-   may be at most 2x the plain version's plus 1e-6*K.
+   epilogues, a bf16 product with K = 1020 and an unclipped multiply. Each
+   op also runs in bf16 on at least one shape (``mbn.fc`` at M = 8). A GEMM
+   case runs on ``csrc/gemm_bf16_sm90.cu`` (``wgmma``, launch key
+   ``gemm_bf16``) when it is bf16 with K and N multiples of 8, else on
+   ``csrc/gemm_f32.cu`` (``gemm_float``): ``LAYER_OPS``, ``layer_key``.
+   Launch counts are zeroed just before the cases are driven once and read
+   just after; each of the five kernels must have launched exactly once per
+   case of its route. Then each output is held against the plain version
+   on the same inputs: alu, depthwise and pool2d exactly (max_abs_err 0);
+   the GEMM, whose sums run in another order, by its error against a
+   float64 product, which may be at most 2x the plain version's plus
+   1e-6*K.
 5. Attention at full width, through ``repro_torch.kernels.ops.
    flash_attention``, at the head counts, head_dim, windows, softcap and
    query scale of ``configs/archs.py`` (written out in ``ATTENTION_CASES``;
@@ -51,8 +56,14 @@ order; any failure raises and the script exits nonzero:
    8x22B's windowed prefill and RecurrentGemma-9B's MQA at head_dim 256, in
    bf16 and some in f32; besides, the shapes of tests/test_kernels.py's
    attention tests, a case with tails in both tiles, and causal rows that see
-   no key (``edge.empty_rows``). Launch counts are zeroed just before the
-   cases are driven once and read just after: one launch per case. Each
+   no key (``edge.empty_rows``). A case takes one of three routes
+   (``kernels/flash_attention.py::attention_route``): Sq <= 8 the split-K
+   decode kernel and its combine (``csrc/flash_decode.cu``), bf16 prefill
+   the tensor-core kernel (``csrc/flash_attention_mma.cu``), f32 prefill
+   the SIMT kernel (``csrc/flash_attention.cu``). Launch counts are zeroed
+   just before the cases are driven once and read just after:
+   ``flash_attention`` once per case, ``flash_attention.<route>`` once per
+   case of the route, ``flash_attention_combine`` once per decode case. Each
    output must have the plain version's shape and dtype and be finite; on
    ``ATTENTION_ROWS`` sampled query rows (first, last, the window's edge and
    the rest spread evenly) over all heads, the kernel's error against a
@@ -60,7 +71,9 @@ order; any failure raises and the script exits nonzero:
    version's plus 1e-6 in f32; in bf16, element by element, the plain
    version's error there plus one bf16 step at that element (2^-7 |out|)
    plus 2^-7 * 1e-2 of the row's largest value; ``edge.empty_rows`` must be
-   exactly 0 in rows 0-31 from both.
+   exactly 0 in rows 0-31 from both. The combine kernel is also held alone
+   against its plain version on the decode kernel's partials (one step of
+   the output type, plus 1e-6).
 
 Output: one line per kernel (and per phase-4 case), ms per dispatch per
 bucket (median, min, max), then a JSON line of serving numbers, a JSON line
@@ -75,22 +88,26 @@ computes the same function (``torch.matmul``/``addmm``, ``torch.mul``,
 ``F.conv2d(groups=C)`` on channels-last, ``F.max_pool2d``/``avg_pool2d``;
 cuDNN's TF32 off) by CUDA-graph replay over the ``library_cases`` that have
 one, beside the kernel's time on those same cases (``ms_library_cases``).
-The ``flash_attention`` row sums one pass over the phase-5 cases the same
-way; its library call is one ``scaled_dot_product_attention`` with
+The ``flash_attention.<route>`` rows sum one pass over the phase-5 cases of
+their route the same way (the decode route with its combine; the
+``flash_attention_combine`` row times the combine alone); the library call is one ``scaled_dot_product_attention`` with
 ``enable_gqa=True`` where that computes the same function (no softcap; its
 ``is_causal`` is aligned top-left, so it stands in only where Sq = Sk, and a
 boolean mask carries a window). The call is a yardstick here only: the port
 never makes it.
 
 ``--plant-faults`` runs none of the phases. It shows that phase 5's limits
-fail a wrong kernel: the checkout is copied into a temporary directory once
-as it is and once per fault of ``PLANTED_FAULTS`` (a text substitution in
-``csrc/flash_attention.cu``), every copy builds its kernel and runs phase
-5's cases through ``attention_error`` (``--attention-errors``, all copies at
-once), and one JSON line per (fault, case) gives the kernel's and the plain
-version's largest error against float64, the largest |out| and the elements
-over the limit. It exits 0 only if the unchanged kernel passes every case and
-each fault fails at least one.
+fail a wrong kernel on every route: the checkout is copied into a temporary
+directory once as it is and once per fault of ``PLANTED_FAULTS`` (a text
+substitution: a key tile from 4096 skipped, or the window 64 keys too wide,
+in each of the three routes), the unchanged sources are built once into a
+build directory the copies share, and each copy builds its changed source
+and runs the phase-5 cases of its route, and those of ``FAULT_CASES``,
+through ``attention_error`` (``--attention-errors``, three copies at a
+time; the unchanged copy runs every case). One JSON line per (fault, case)
+gives the kernel's and the plain version's largest error against float64,
+the largest |out| and the elements over the limit. It exits 0 only if the
+unchanged kernels pass every case and each fault fails at least one.
 """
 from __future__ import annotations
 
@@ -123,23 +140,37 @@ TRUNK_BUCKETS = (2, 8)
 SMALL_BUCKET = 4
 SERVE_REPS = 5           # full dispatches timed per bucket
 LAYER_BATCH = 8          # batch of the phase-4 layer-op cases
-# phase-4 ops: (launch counter, CUDA source, the TPU kernel it replaces,
-# the cases its row sums over)
+# phase-4 kernels: launch key -> (op, CUDA source, the TPU kernel it
+# replaces, the cases its row sums over). A gemm case goes to the key
+# kernels/gemm.py::gemm_route names for its dtype and shape.
 LAYER_OPS = {
-    "gemm": ("gemm_float", "gemm_f32.cu", "src/repro/kernels/gemm.py:21",
-             "13 MobileNet-1.0 pointwise convs (relu, clip 6; pw12 also bf16),"
-             " mbn.fc and resnet18.fc with bias, qkv 4096x1024x4096 bf16, "
-             "gelu and silu 392x1024x1008"),
+    "gemm_float": ("gemm", "gemm_f32.cu", "src/repro/kernels/gemm.py:21",
+                   "13 MobileNet-1.0 pointwise convs (relu, clip 6), mbn.fc "
+                   "and resnet18.fc with bias, gelu and silu 392x1024x1008, "
+                   "bf16 392x1020x1008 (K % 8 != 0)"),
+    "gemm_bf16": ("gemm", "gemm_bf16_sm90.cu", "src/repro/kernels/gemm.py:21",
+                  "mbn.pw12 bf16 (relu, clip 6), mbn.fc bf16 with bias (M 8), "
+                  "qkv 4096x1024x4096 bf16"),
     "alu": ("alu", "alu.cu", "src/repro/kernels/alu.py:44",
             "relu_shift post-op on the 14 depthwise outputs, 8 ResNet-18 "
             "residual adds (clip 127; s0b0 also bf16), one mul 56x56x64"),
-    "depthwise_conv": ("depthwise", "depthwise.cu",
-                       "src/repro/kernels/depthwise.py:38",
-                       "13 MobileNet-1.0 depthwise layers (dw1 also bf16)"),
+    "depthwise": ("depthwise_conv", "depthwise.cu",
+                  "src/repro/kernels/depthwise.py:38",
+                  "13 MobileNet-1.0 depthwise layers (dw1 also bf16)"),
     "pool2d": ("pool2d", "pool2d.cu", "src/repro/kernels/pool2d.py:41",
                "resnet18.pool1 max (also bf16), resnet18.gap avg, mbn.gap "
                "avg (also bf16)"),
 }
+
+
+def layer_key(case) -> str:
+    """The launch key of the kernel a phase-4 case runs on the card."""
+    from repro_torch.kernels.gemm import gemm_route
+    op, _, args, _ = case
+    if op == "gemm":
+        return gemm_route(args[0].dtype, args[0].shape[1], args[1].shape[1])
+    return next(k for k, v in LAYER_OPS.items() if v[0] == op)
+
 
 # phase-5 cases: (name, B, H, KV, D, Sq, Sk, causal, window, softcap, scale,
 # dtypes, library call). Widths from src/repro/configs/archs.py: gemma2-27b
@@ -704,9 +735,13 @@ def layer_op_cases(dev, rng, n: int) -> list:
     for ly in mbn + r18:
         wl = ly.wl
         if ly.kind == "dense":
-            cases.append(("gemm", wl.name,
-                          (t((n, wl.fi)), t((wl.fi, wl.fo), wl.fi ** -0.5),
-                           t((wl.fo,))), {}))
+            for dt in ((torch.float32, bf16) if wl.name == "mbn.fc"
+                       else (torch.float32,)):
+                tag = "" if dt == torch.float32 else "/bf16"
+                cases.append(("gemm", wl.name + tag,
+                              (t((n, wl.fi), 1.0, dt),
+                               t((wl.fi, wl.fo), wl.fi ** -0.5, dt),
+                               t((wl.fo,), 1.0, dt)), {}))
         elif ly.kind in ("maxpool", "avgpool"):
             mode = "max" if ly.kind == "maxpool" else "avg"
             kw = dict(k=wl.kh, stride=wl.sh, pad=wl.ph, mode=mode)
@@ -733,6 +768,10 @@ def layer_op_cases(dev, rng, n: int) -> list:
     cases.append(("gemm", "gelu (392x1024x1008)", (x, w, t((1008,))),
                   dict(act="gelu", clip=4.0)))
     cases.append(("gemm", "silu (392x1024x1008)", (x, w), dict(act="silu")))
+    # a bf16 product whose K is not a multiple of 8 (gemm_f32.cu's route)
+    cases.append(("gemm", "relu (392x1020x1008)/bf16",
+                  (t((n * 49, 1020), 1.0, bf16), t((1020, 1008), 3 / 32, bf16),
+                   t((1008,), 1.0, bf16)), dict(act="relu")))
     return cases
 
 
@@ -827,7 +866,7 @@ def check_layer_ops(cases, outs: dict) -> dict:
     (alu, depthwise, pool: max_abs_err 0; GEMM: error against float64 at
     most 2x the plain version's plus 1e-6*K), then the kernel (CUDA-graph
     replay), the plain version (eager) and the library call (CUDA-graph
-    replay) timed. Returns {op: row of sums over its cases}."""
+    replay) timed. Returns {launch key: row of sums over its cases}."""
     import torch
     from repro_torch.kernels import alu, depthwise, gemm, pool2d
     impl = {"gemm": (gemm.gemm, gemm.gemm_plain),
@@ -835,13 +874,15 @@ def check_layer_ops(cases, outs: dict) -> dict:
             "depthwise_conv": (depthwise.depthwise_conv,
                                depthwise.depthwise_plain),
             "pool2d": (pool2d.pool2d, pool2d.pool2d_plain)}
-    rows = {op: {"cases": 0, "max_abs_err": 0.0, "ms": 0.0, "plain_ms": 0.0,
-                 "bound_ms": 0.0, "t_bytes": 0.0, "t_ops": 0.0,
-                 "library_ms": None, "library_cases": 0,
-                 "ms_library_cases": 0.0} for op in impl}
-    rows["gemm"].update(max_err_vs_f64=0.0, plain_max_err_vs_f64=0.0)
+    rows = {key: {"cases": 0, "max_abs_err": 0.0, "ms": 0.0,
+                  "plain_ms": 0.0, "bound_ms": 0.0, "t_bytes": 0.0,
+                  "t_ops": 0.0, "library_ms": None, "library_cases": 0,
+                  "ms_library_cases": 0.0} for key in LAYER_OPS}
+    for key in ("gemm_float", "gemm_bf16"):
+        rows[key].update(max_err_vs_f64=0.0, plain_max_err_vs_f64=0.0)
     for case in cases:
         op, name, _, kw = case
+        key = layer_key(case)
         args = resolve(case, outs)
         kernel, plain = impl[op]
         got = outs[name]
@@ -854,7 +895,7 @@ def check_layer_ops(cases, outs: dict) -> dict:
         if not bool(torch.isfinite(got).all()):
             raise AssertionError(f"{name}: non-finite output")
         err = float((got.float() - want.float()).abs().max())
-        r = rows[op]
+        r = rows[key]
         r["max_abs_err"] = max(r["max_abs_err"], err)
         note = f"err {err:.3g}"
         if op == "gemm":
@@ -889,14 +930,14 @@ def check_layer_ops(cases, outs: dict) -> dict:
             r["library_ms"] = (r["library_ms"] or 0.0) + lms
             r["library_cases"] += 1
             r["ms_library_cases"] += ms
-        log(f"  {op} {name} {str(got.dtype)[6:]}: {note}; kernel {ms:.4f} "
+        log(f"  {key} {name} {str(got.dtype)[6:]}: {note}; kernel {ms:.4f} "
             f"ms, plain {pms:.4f} ms, library "
             f"{'none' if lms is None else f'{lms:.4f} ms'}, bound "
             f"{1e3 * max(tb, to):.4f} ms")
-    for op, r in rows.items():
+    for key, r in rows.items():
         r["bound_by"] = "bytes" if r.pop("t_bytes") >= r.pop("t_ops") \
             else "operations"
-        log(f"{op}: {r['cases']} cases, max_abs_err vs plain "
+        log(f"{key}: {r['cases']} cases, max_abs_err vs plain "
             f"{r['max_abs_err']:.3g}; kernel {r['ms']:.3f} ms, plain "
             f"{r['plain_ms']:.3f} ms, bound {r['bound_ms']:.4f} ms "
             f"({r['bound_by']}); library {r['library_ms']} ms on "
@@ -908,8 +949,8 @@ def check_layer_ops(cases, outs: dict) -> dict:
 # ---------------------------------------------------------------------------
 # phase 5: attention at full width
 # ---------------------------------------------------------------------------
-def attention_cases(dev) -> list:
-    """One dict per (case, dtype) of ``ATTENTION_CASES``, inputs drawn on the
+def attention_cases(dev, specs=ATTENTION_CASES) -> list:
+    """One dict per (case, dtype) of ``specs``, inputs drawn on the
     card from one ``torch.Generator`` seeded 0: q, k, v standard normal, q
     and k times 0.4 as in tests/test_kernels.py (not for ``edge.decode``)."""
     import torch
@@ -917,7 +958,7 @@ def attention_cases(dev) -> list:
     gen.manual_seed(0)
     out = []
     for (name, b, h, kv, d, sq, sk, causal, window, softcap, scale, dtypes,
-         lib) in ATTENTION_CASES:
+         lib) in specs:
         qk = 1.0 if name == "edge.decode" else 0.4
         for dt in dtypes:
             dtype = getattr(torch, dt)
@@ -1060,20 +1101,29 @@ def attention_error(got, want, r64) -> tuple:
                         f"{float(r64.abs().flatten()[i]):.3g}")
 
 
+ATTENTION_KEYS = ("flash_attention.mma", "flash_attention.decode",
+                  "flash_attention.simt", "flash_attention_combine")
+
+
 def check_attention(cases, outs: dict) -> dict:
     """Each case's output against the plain version on the same inputs and
     both against float64 on sampled rows (``attention_error``),
-    ``edge.empty_rows`` exactly 0 where no key is seen; then
-    the kernel (CUDA-graph replay), the plain version (eager) and the
-    library call (CUDA-graph replay) timed. Returns the row of sums."""
+    ``edge.empty_rows`` exactly 0 where no key is seen; then the kernel
+    (CUDA-graph replay), the plain version (eager) and the library call
+    (CUDA-graph replay) timed. For the decode cases, the combine kernel
+    alone as well, on the partials of the decode kernel, against
+    ``decode_combine_plain``. Returns {launch key: row of sums over the
+    cases of its route}."""
     import torch
-    from repro_torch.kernels.flash_attention import (flash_attention,
-                                                     flash_attention_plain)
-    row = {"cases": 0, "max_abs_err": 0.0, "ms": 0.0, "plain_ms": 0.0,
-           "bound_ms": 0.0, "library_ms": None, "library_cases": 0,
-           "ms_library_cases": 0.0, "max_err_vs_f64": 0.0,
-           "plain_max_err_vs_f64": 0.0, "ms_prefill": 0.0, "ms_decode": 0.0}
-    t_bytes = t_ops = 0.0
+    from repro_torch.kernels.flash_attention import (
+        attention_route, decode_combine, decode_combine_plain,
+        decode_partials, flash_attention, flash_attention_plain)
+    rows = {key: {"cases": 0, "max_abs_err": 0.0, "ms": 0.0, "plain_ms": 0.0,
+                  "bound_ms": 0.0, "t_bytes": 0.0, "t_ops": 0.0,
+                  "library_ms": None, "library_cases": 0,
+                  "ms_library_cases": 0.0} for key in ATTENTION_KEYS}
+    for key in ATTENTION_KEYS[:3]:      # the routes, held to float64
+        rows[key].update(max_err_vs_f64=0.0, plain_max_err_vs_f64=0.0)
     for c in cases:
         name, q, k, v, kw = c["name"], c["q"], c["k"], c["v"], c["kw"]
         got = outs[name]
@@ -1094,9 +1144,9 @@ def check_attention(cases, outs: dict) -> dict:
                     bool(want[:, :, :empty].any()):
                 raise AssertionError(f"{name}: rows that see no key are not "
                                      f"exactly 0")
-        rows = sample_rows(sq, sk, kw["window"])
-        r64 = attention64(q, k, v, rows, **kw)
-        idx = torch.tensor(rows, device=q.device)
+        rows_ = sample_rows(sq, sk, kw["window"])
+        r64 = attention64(q, k, v, rows_, **kw)
+        idx = torch.tensor(rows_, device=q.device)
         ek, ep, bad = attention_error(got[:, :, idx], want[:, :, idx], r64)
         if bad:
             raise AssertionError(f"{name}: error vs float64 {ek:.3g} (plain's "
@@ -1115,58 +1165,123 @@ def check_attention(cases, outs: dict) -> dict:
         rate = SCALAR_OPS_PER_S if q.dtype == torch.float32 \
             else BF16_TENSOR_OPS_PER_S
         tb, to = nbytes / HBM_BYTES_PER_S, 4 * b * h * d * pairs / rate
+        route = attention_route(q.dtype, sq)
+        row = rows[f"flash_attention.{route}"]
         row["cases"] += 1
         row["max_abs_err"] = max(row["max_abs_err"], err)
         row["max_err_vs_f64"] = max(row["max_err_vs_f64"], ek)
         row["plain_max_err_vs_f64"] = max(row["plain_max_err_vs_f64"], ep)
         row["ms"] += ms
-        row["ms_decode" if sq == 1 else "ms_prefill"] += ms
         row["plain_ms"] += pms
         row["bound_ms"] += 1e3 * max(tb, to)
-        t_bytes += tb
-        t_ops += to
+        row["t_bytes"] += tb
+        row["t_ops"] += to
         if lms is not None:
             row["library_ms"] = (row["library_ms"] or 0.0) + lms
             row["library_cases"] += 1
             row["ms_library_cases"] += ms
-        log(f"  flash_attention {name} B{b} H{h}/{k.shape[1]} D{d} {sq}x{sk}"
-            f": max|kernel - plain| {err:.3g}; vs f64 on {len(rows)} rows "
-            f"{ek:.3g} (plain {ep:.3g}); kernel {ms:.4f} ms, plain "
-            f"{pms:.4f} ms, library "
+        log(f"  flash_attention.{route} {name} B{b} H{h}/{k.shape[1]} D{d} "
+            f"{sq}x{sk}: max|kernel - plain| {err:.3g}; vs f64 on "
+            f"{len(rows_)} rows {ek:.3g} (plain {ep:.3g}); kernel {ms:.4f} "
+            f"ms, plain {pms:.4f} ms, library "
             f"{'none' if lms is None else lib_note}"
             f", bound {1e3 * max(tb, to):.4f} ms "
             f"({'bytes' if tb >= to else 'operations'})")
-    row["bound_by"] = "bytes" if t_bytes >= t_ops else "operations"
-    log(f"flash_attention: {row['cases']} cases, max_abs_err vs plain "
-        f"{row['max_abs_err']:.3g}; kernel {row['ms']:.3f} ms (prefill "
-        f"{row['ms_prefill']:.3f}, decode {row['ms_decode']:.3f}), plain "
-        f"{row['plain_ms']:.3f} ms, bound {row['bound_ms']:.4f} ms "
-        f"({row['bound_by']}); library {row['library_ms']} ms on "
-        f"{row['library_cases']} cases (kernel {row['ms_library_cases']:.3f}"
-        f" ms on those)")
-    return row
+        if route != "decode":
+            continue
+        parts = decode_partials(q, k, v, kw["causal"], kw["window"],
+                                kw["softcap"], d ** -0.5 if kw["scale"] is None
+                                else kw["scale"])
+        cg = decode_combine(*parts, q.dtype)
+        cp = decode_combine_plain(*parts, q.dtype)
+        torch.cuda.synchronize()
+        # sums over the chunks in another order: one step of the output
+        # type at the element (2^-7 in bf16, 2^-20 for f32 sums), plus 1e-6
+        diff = (cg.float() - cp.float()).abs()
+        step = 2.0 ** -7 if q.dtype == torch.bfloat16 else 2.0 ** -20
+        cerr = float(diff.max())
+        if bool((diff > step * cp.float().abs() + 1e-6).any()):
+            raise AssertionError(f"{name}: combine kernel differs from its "
+                                 f"plain version by {cerr:.3g}")
+        cr = rows["flash_attention_combine"]
+        cr["max_abs_err"] = max(cr["max_abs_err"], cerr)
+        cms = graph_ms(lambda: decode_combine(*parts, q.dtype), reps=20)
+        cpms = median_ms(lambda: decode_combine_plain(*parts, q.dtype),
+                         reps=3)
+        cb = sum(t.numel() * t.element_size() for t in (*parts, cg))
+        cr["cases"] += 1
+        cr["ms"] += cms
+        cr["plain_ms"] += cpms
+        cr["bound_ms"] += 1e3 * cb / HBM_BYTES_PER_S
+        cr["t_bytes"] += cb / HBM_BYTES_PER_S
+        log(f"  flash_attention_combine {name}: {parts[0].shape[1]} chunks, "
+            f"max|kernel - plain| {cerr:.3g}; kernel {cms:.4f} ms, plain "
+            f"{cpms:.4f} ms, bound {1e3 * cb / HBM_BYTES_PER_S:.4f} ms (bytes)")
+    for key, row in rows.items():
+        row["bound_by"] = "bytes" if row.pop("t_bytes") >= row.pop("t_ops") \
+            else "operations"
+        log(f"{key}: {row['cases']} cases, max_abs_err vs plain "
+            f"{row['max_abs_err']:.3g}; kernel {row['ms']:.3f} ms, plain "
+            f"{row['plain_ms']:.3f} ms, bound {row['bound_ms']:.4f} ms "
+            f"({row['bound_by']}); library {row['library_ms']} ms on "
+            f"{row['library_cases']} cases (kernel "
+            f"{row['ms_library_cases']:.3f} ms on those)")
+    log(f"flash_attention: {len(cases)} cases, kernels "
+        f"{sum(rows[k]['ms'] for k in ATTENTION_KEYS[:3]):.3f} ms in all")
+    return rows
 
 
 # ---------------------------------------------------------------------------
 # --plant-faults: phase 5's limits against wrong kernels
 # ---------------------------------------------------------------------------
-PLANTED_FAULTS = {   # name: (text of csrc/flash_attention.cu, its stand-in)
-    "skip_tile_4096": ("|| j0 + BK <= wbeg) continue;",
-                       "|| j0 + BK <= wbeg || j0 == 4096) continue;"),
-    "window_plus_64": ("           window, softcap, scale};",
-                       "           window + 64, softcap, scale};"),
+PLANTED_FAULTS = {  # name: (route, file under src/repro_torch, text, stand-in)
+    "mma.skip_tile_4096": (
+        "mma", "csrc/flash_attention_mma.cu", "|| j0 + BK <= wbeg) continue;",
+        "|| j0 + BK <= wbeg || j0 == 4096) continue;"),
+    "mma.window_plus_64": (
+        "mma", "csrc/flash_attention_mma.cu",
+        "           (int)window, softcap, scale};",
+        "           (int)window + 64, softcap, scale};"),
+    "decode.skip_tile_4096": (
+        "decode", "csrc/flash_decode.cu", "gr < rows && key < bend &&",
+        "gr < rows && key < bend && (key < 4096 || key >= 4096 + BK) &&"),
+    "decode.window_plus_64": (
+        "decode", "kernels/flash_attention.py",
+        "parts = decode_partials(q, k, v, causal, window, softcap, scale)",
+        "parts = decode_partials(q, k, v, causal, None if window is None "
+        "else window + 64, softcap, scale)"),
+    "simt.skip_tile_4096": (
+        "simt", "csrc/flash_attention.cu", "|| j0 + BK <= wbeg) continue;",
+        "|| j0 + BK <= wbeg || j0 == 4096) continue;"),
+    "simt.window_plus_64": (
+        "simt", "csrc/flash_attention.cu",
+        "           window, softcap, scale};",
+        "           window + 64, softcap, scale};"),
 }
+# --plant-faults runs these besides ATTENTION_CASES: the only windowed
+# decode case there, g2.local.decode, sees its whole 4096-key cache, so a
+# window 64 too wide is invisible to it. Gemma-2 27B local layers decoding
+# 4 rows (a draft of 4 tokens) against an 8192-key cache see 4096 keys.
+FAULT_CASES = [
+    ("g2.local.decode.sq4", 8, 32, 16, 128, 4, 8192, True, 4096, 50.0,
+     1 / 12, (BF, F32), None),
+]
 
 
-def attention_errors(fault: str) -> int:
-    """``--attention-errors FAULT``: phase 5's cases once through
-    ``ops.flash_attention``, each held to float64 by ``attention_error``;
-    one JSON line per case."""
+def attention_errors(fault: str, route: str) -> int:
+    """``--attention-errors FAULT ROUTE``: the cases of ``ATTENTION_CASES``
+    and ``FAULT_CASES`` that take ``route`` ("all": every case) once
+    through ``ops.flash_attention``, each held to float64 by
+    ``attention_error``; one JSON line per case."""
     import torch
     from repro_torch.kernels import ops
-    from repro_torch.kernels.flash_attention import flash_attention_plain
-    for c in attention_cases(torch.device("cuda")):
+    from repro_torch.kernels.flash_attention import (attention_route,
+                                                     flash_attention_plain)
+    for c in attention_cases(torch.device("cuda"),
+                             ATTENTION_CASES + FAULT_CASES):
         q, k, v, kw = c["q"], c["k"], c["v"], c["kw"]
+        if route != "all" and attention_route(q.dtype, q.shape[2]) != route:
+            continue
         got = ops.flash_attention(q, k, v, **kw)
         want = flash_attention_plain(q, k, v, **kw)
         rows = sample_rows(q.shape[2], k.shape[2], kw["window"])
@@ -1183,26 +1298,41 @@ def attention_errors(fault: str) -> int:
 def plant_faults() -> int:
     """``--plant-faults``: see the module's docstring."""
     tmp = tempfile.mkdtemp(prefix="chip_smoke_faults_")
-    procs = {}
+    env = dict(os.environ, REPRO_TORCH_BUILD_DIR=os.path.join(tmp, "build"))
+    procs, failed = {}, {}
     try:
-        for fault, sub in [("none", None), *PLANTED_FAULTS.items()]:
+        # the unchanged sources build once, into the directory every copy
+        # shares; a copy then builds only the source its fault changed
+        os.environ["REPRO_TORCH_BUILD_DIR"] = env["REPRO_TORCH_BUILD_DIR"]
+        from repro_torch.kernels import _build
+        t0 = time.perf_counter()
+        _build.build_all()
+        log(f"build: {time.perf_counter() - t0:.1f} s")
+        jobs = [("none", "all", None)] + [
+            (f, spec[0], spec[1:]) for f, spec in PLANTED_FAULTS.items()]
+        for fault, route, sub in jobs:
             dst = os.path.join(tmp, fault)
             shutil.copytree(ROOT, dst, ignore=shutil.ignore_patterns(
                 "build", "chiprun_out", ".git", "__pycache__"))
             if sub is not None:
-                cu = os.path.join(dst, "src", "repro_torch", "csrc",
-                                  "flash_attention.cu")
-                text = open(cu).read()
-                if text.count(sub[0]) != 1:
+                path = os.path.join(dst, "src", "repro_torch", sub[0])
+                text = open(path).read()
+                if text.count(sub[1]) != 1:
                     raise AssertionError(f"{fault}: its text is not in "
-                                         f"flash_attention.cu once")
-                with open(cu, "w") as f:
-                    f.write(text.replace(*sub))
-            procs[fault] = subprocess.Popen(
-                [sys.executable, "chip_smoke.py", "--attention-errors",
-                 fault], cwd=dst, stdout=subprocess.PIPE, text=True)
-        failed = {}
-        for fault, proc in procs.items():
+                                         f"{sub[0]} once")
+                with open(path, "w") as f:
+                    f.write(text.replace(sub[1], sub[2]))
+        # three copies at a time hold the card's memory well inside 80 GB
+        pending = list(jobs)
+        while pending or procs:
+            while pending and len(procs) < 3:
+                fault, route, _ = pending.pop(0)
+                procs[fault] = subprocess.Popen(
+                    [sys.executable, "chip_smoke.py", "--attention-errors",
+                     fault, route], cwd=os.path.join(tmp, fault), env=env,
+                    stdout=subprocess.PIPE, text=True)
+            fault = next(iter(procs))
+            proc = procs.pop(fault)
             out, _ = proc.communicate(timeout=900)
             if proc.returncode:
                 raise AssertionError(f"{fault}: exit {proc.returncode}")
@@ -1220,7 +1350,8 @@ def plant_faults() -> int:
                 proc.wait()
         shutil.rmtree(tmp, ignore_errors=True)
     if failed["none"] or not all(failed[f] for f in PLANTED_FAULTS):
-        raise AssertionError("the unchanged kernel failed, or a fault passed")
+        raise AssertionError("the unchanged kernels failed, or a fault "
+                             "passed")
     return 0
 
 
@@ -1240,7 +1371,7 @@ def main(argv: list) -> int:
     if argv[1:2] == ["--plant-faults"]:
         return plant_faults()
     if argv[1:2] == ["--attention-errors"]:
-        return attention_errors(argv[2])
+        return attention_errors(argv[2], argv[3])
 
     # -- phase 1 ----------------------------------------------------------
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
@@ -1348,11 +1479,11 @@ def main(argv: list) -> int:
     outs4, counts4 = drive_layer_ops(cases)
     log(f"layer ops: {len(cases)} cases through repro_torch.kernels.ops at "
         f"batch {LAYER_BATCH}; launches {counts4}")
-    for op, (key, *_) in LAYER_OPS.items():
-        want = sum(c[0] == op for c in cases)
+    for key in LAYER_OPS:
+        want = sum(layer_key(c) == key for c in cases)
         if not want or counts4.get(key) != want:
-            raise AssertionError(f"{op}: {counts4.get(key)} launches of "
-                                 f"{key} for {want} cases")
+            raise AssertionError(f"{counts4.get(key)} launches of {key} for "
+                                 f"{want} cases of its route")
     rows4 = check_layer_ops(cases, outs4)
     log(f"phase 4: {time.perf_counter() - t0:.1f} s")
 
@@ -1362,9 +1493,16 @@ def main(argv: list) -> int:
     outs5, counts5 = drive_attention(cases5)
     log(f"attention: {len(cases5)} cases through "
         f"repro_torch.kernels.ops.flash_attention; launches {counts5}")
-    if counts5.get("flash_attention") != len(cases5):
-        raise AssertionError(f"{counts5.get('flash_attention')} launches of "
-                             f"flash_attention for {len(cases5)} cases")
+    from repro_torch.kernels.flash_attention import attention_route
+    routes = [attention_route(c["q"].dtype, c["q"].shape[2]) for c in cases5]
+    want5 = {"flash_attention": len(cases5),
+             "flash_attention_combine": routes.count("decode"),
+             **{f"flash_attention.{r}": routes.count(r)
+                for r in ("decode", "mma", "simt")}}
+    for key, want in want5.items():
+        if not want or counts5.get(key) != want:
+            raise AssertionError(f"{counts5.get(key)} launches of {key}, "
+                                 f"want {want}")
     row5 = check_attention(cases5, outs5)
     del cases5, outs5
     log(f"phase 5: {time.perf_counter() - t0:.1f} s")
@@ -1384,20 +1522,25 @@ def main(argv: list) -> int:
              launches=counts["alu_sweep"], **sweep_row,
              per=f"resnet18-trunk forward, batch {n}"),
     ]
-    for op, (key, source, replaces, per) in LAYER_OPS.items():
+    for key, (_, source, replaces, per) in LAYER_OPS.items():
         kernels.append(dict(
             name=key, route="cuda", source=src + source, replaces=replaces,
-            launches=counts4[key], **rows4[op],
+            launches=counts4[key], **rows4[key],
             per=f"one pass over the phase-4 cases at batch {LAYER_BATCH}: "
                 f"{per}"))
-    kernels.append(dict(
-        name="flash_attention", route="cuda",
-        source=src + "flash_attention.cu",
-        replaces="src/repro/kernels/flash_attention.py:77",
-        launches=counts5["flash_attention"], **row5,
-        per="one pass over the phase-5 cases: Gemma-2 27B, Qwen3-0.6B, "
-            "Mixtral 8x22B and RecurrentGemma-9B attention at prefill 8192 "
-            "and decode 1 x 32768 / 4096, and the edge cases"))
+    for key, source in zip(ATTENTION_KEYS, (
+            "flash_attention_mma.cu", "flash_decode.cu", "flash_attention.cu",
+            "flash_decode.cu")):
+        kernels.append(dict(
+            name=key, route="cuda", source=src + source,
+            replaces="src/repro/kernels/flash_attention.py:77",
+            launches=counts5[key], **row5[key],
+            per=f"one pass over the phase-5 cases of its route "
+                f"({row5[key]['cases']}): Gemma-2 27B, Qwen3-0.6B, Mixtral "
+                f"8x22B and RecurrentGemma-9B attention at prefill 8192 and "
+                f"decode 1 x 32768 / 4096, and the edge cases"
+                + ("; the decode route's time includes its combine"
+                   if key == "flash_attention.decode" else "")))
     log(json.dumps({"serve": serve_rows}))
     log(json.dumps({"kernels": kernels}))
     log(smi)

@@ -11,13 +11,15 @@
 // acc / max(l, 1e-30), rounded once to the input type. A row that sees no key
 // ends with l = 0 and acc = 0, so it is 0, as in the reference kernel.
 //
-// Bound on this card: at long sequences the 4*D operations per visible
-// (query, key) pair, which belong on the tensor cores; decoding (Sq = 1)
-// reads the whole cache for one row and is bound by bytes. This first kernel
-// is SIMT f32 and simple: one block of 8 warps per (q tile, head, batch), the
-// heaviest causal tiles launched first. The scaled q tile sits in shared
-// memory in f32; K and V stream through shared memory one tile of BK keys at
-// a time, in the input type, and are widened on use. Each warp owns RPW
+// It serves the f32 prefill route (Sq > 8) of kernels/flash_attention.py:
+// TF32 tensor cores would round q and k to 10 mantissa bits, which the f32
+// limit of chip_smoke.py phase 5 rules out.
+//
+// Bound on this card: the 4*D operations per visible (query, key) pair, at
+// the f32 rate of the CUDA cores. The kernel is SIMT f32 and simple: one
+// block of 8 warps per (q tile, head, batch), the heaviest causal tiles
+// launched first. The scaled q tile sits in shared memory; K and V stream
+// through shared memory one tile of BK keys at a time. Each warp owns RPW
 // query rows: its lanes hold the scores of BK/32 keys each for those rows,
 // take the row max and sum with shuffles, write the probabilities to the
 // warp's own slice of shared memory, and accumulate p v into registers, lane
@@ -27,43 +29,35 @@
 // Sk count as masked; rows at or past Sq are never stored. No fast math:
 // expf and tanhf, and q * scale, s / softcap, softcap * t and the final
 // division each round on their own, as the reference's separate steps do.
-// Element offsets are 64-bit (a decode cache holds ~5.4e8 elements).
+// Element offsets are 64-bit.
 #include <cstdint>
-#include <cuda_bf16.h>
 #include <cuda_runtime.h>
-
-#include "float_ops.cuh"
 
 namespace {
 
-using namespace float_ops;
-
 constexpr int THREADS = 256;
 constexpr int WARPS = THREADS / 32;
+constexpr int RPW = 8;            // query rows a warp
+constexpr int BQ = RPW * WARPS;   // query rows a block
 constexpr float NEG_INF = -2.0e38f;
 
 struct Params {
-  const void* q;
-  const void* k;
-  const void* v;
-  void* o;
+  const float* q;
+  const float* k;
+  const float* v;
+  float* o;
   int H, KV, Sq, Sk, D;
   int causal, has_window, has_softcap;
   long long window;
   float softcap, scale;
 };
 
-// shared-memory padding of a K row, in elements: a row stride of an odd
-// number of 32-bit words keeps the lanes' reads of 32 different keys on 32
-// different banks
-template <typename T>
-__host__ __device__ constexpr int kpad() { return sizeof(T) == 4 ? 1 : 2; }
-
-template <typename T>
-size_t smem_bytes(int rpw, int bk, int D) {
-  const int bq = rpw * WARPS;
-  return (size_t)bq * D * 4 + (size_t)bq * bk * 4 +
-         (size_t)bk * (D + kpad<T>()) * sizeof(T) + (size_t)bk * D * sizeof(T);
+// the scaled q tile, the warps' probabilities, a K tile and a V tile; a K
+// row is padded by one element: a row stride of an odd number of words keeps
+// the lanes' reads of 32 different keys on 32 different banks
+size_t smem_bytes(int bk, int D) {
+  return (size_t)BQ * D * 4 + (size_t)BQ * bk * 4 + (size_t)bk * (D + 1) * 4 +
+         (size_t)bk * D * 4;
 }
 
 __device__ __forceinline__ float warp_max(float x) {
@@ -78,40 +72,18 @@ __device__ __forceinline__ float warp_sum(float x) {
   return x;
 }
 
-// one 16-byte global load of VEC elements, widened into f32 shared memory
-// or copied as they are
-__device__ __forceinline__ void put(float* dst, const float4& u) {
-  dst[0] = u.x; dst[1] = u.y; dst[2] = u.z; dst[3] = u.w;
-}
-__device__ __forceinline__ void put(__nv_bfloat16* dst, const uint4& u) {
-  const __nv_bfloat16* e = reinterpret_cast<const __nv_bfloat16*>(&u);
-#pragma unroll
-  for (int i = 0; i < 8; ++i) dst[i] = e[i];
-}
-template <typename T> struct Vec;
-template <> struct Vec<float> { using type = float4; static constexpr int n = 4; };
-template <> struct Vec<__nv_bfloat16> { using type = uint4; static constexpr int n = 8; };
-
-__device__ __forceinline__ float widen(float x) { return x; }
-__device__ __forceinline__ float widen(__nv_bfloat16 x) { return __bfloat162float(x); }
-
-// RPW query rows per warp, KPL keys per lane (BK = 32 * KPL), DC columns per
-// lane (D <= 32 * DC)
-template <typename T, int RPW, int KPL, int DC>
+// KPL keys per lane (BK = 32 * KPL), DC columns per lane (D <= 32 * DC)
+template <int KPL, int DC>
 __global__ void __launch_bounds__(THREADS)
 flash_attention_kernel(Params p) {
-  constexpr int BQ = RPW * WARPS;
   constexpr int BK = KPL * 32;
-  constexpr int KP = kpad<T>();
-  using V = typename Vec<T>::type;
-  constexpr int VEC = Vec<T>::n;
-  const int D = p.D, KS = D + KP;
+  const int D = p.D, KS = D + 1;
 
   extern __shared__ __align__(16) unsigned char smem[];
-  float* qs = reinterpret_cast<float*>(smem);           // BQ x D, scaled
-  float* ps = qs + BQ * D;                               // WARPS x RPW x BK
-  T* ks = reinterpret_cast<T*>(ps + BQ * BK);            // BK x KS
-  T* vs = ks + BK * KS;                                  // BK x D
+  float* qs = reinterpret_cast<float*>(smem);  // BQ x D, scaled
+  float* ps = qs + BQ * D;                      // WARPS x RPW x BK
+  float* ks = ps + BQ * BK;                     // BK x KS
+  float* vs = ks + BK * KS;                     // BK x D
 
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
   const int q0 = (gridDim.x - 1 - blockIdx.x) * BQ;
@@ -119,15 +91,14 @@ flash_attention_kernel(Params p) {
   const int kvh = h / (p.H / p.KV);
   const long long qbase = ((long long)b * p.H + h) * p.Sq * D;
   const long long kvbase = ((long long)b * p.KV + kvh) * p.Sk * D;
-  const T* q = static_cast<const T*>(p.q) + qbase;
-  const T* k = static_cast<const T*>(p.k) + kvbase;
-  const T* v = static_cast<const T*>(p.v) + kvbase;
+  const float* q = p.q + qbase;
+  const float* k = p.k + kvbase;
+  const float* v = p.v + kvbase;
   const long long off = (long long)p.Sk - p.Sq;
 
   for (int e = threadIdx.x; e < BQ * D; e += THREADS) {
     const int row = q0 + e / D;
-    qs[e] = row < p.Sq ? __fmul_rn(load(q, (long long)row * D + e % D), p.scale)
-                       : 0.0f;
+    qs[e] = row < p.Sq ? __fmul_rn(q[(long long)row * D + e % D], p.scale) : 0.0f;
   }
 
   // keys the block's rows can see, [kbeg, kend), and the warp's own range
@@ -155,19 +126,17 @@ flash_attention_kernel(Params p) {
   for (long long j0 = kbeg < kend ? (kbeg / BK) * BK : kend; j0 < kend;
        j0 += BK) {
     __syncthreads();  // the previous tile is consumed (and qs written)
-    for (int e = threadIdx.x * VEC; e < BK * D; e += THREADS * VEC) {
+    for (int e = threadIdx.x * 4; e < BK * D; e += THREADS * 4) {
       const int r = e / D, c = e % D;
-      V ku, vu;
+      float4 ku{}, vu{};  // keys past Sk: zeros, masked below (0 * v stays 0)
       if (j0 + r < p.Sk) {
         const long long g = (j0 + r) * D + c;
-        ku = *reinterpret_cast<const V*>(k + g);
-        vu = *reinterpret_cast<const V*>(v + g);
-      } else {
-        ku = V{};  // keys past Sk: zeros, masked below (0 * v stays 0)
-        vu = V{};
+        ku = *reinterpret_cast<const float4*>(k + g);
+        vu = *reinterpret_cast<const float4*>(v + g);
       }
-      put(ks + r * KS + c, ku);
-      *reinterpret_cast<V*>(vs + r * D + c) = vu;
+      float* kd = ks + r * KS + c;
+      kd[0] = ku.x; kd[1] = ku.y; kd[2] = ku.z; kd[3] = ku.w;
+      *reinterpret_cast<float4*>(vs + r * D + c) = vu;
     }
     __syncthreads();
     if (!has_rows || j0 >= wend || j0 + BK <= wbeg) continue;
@@ -183,7 +152,7 @@ flash_attention_kernel(Params p) {
 #pragma unroll
       for (int c = 0; c < KPL; ++c)
 #pragma unroll
-        for (int t = 0; t < 4; ++t) kv[t][c] = widen(ks[(lane + 32 * c) * KS + d + t]);
+        for (int t = 0; t < 4; ++t) kv[t][c] = ks[(lane + 32 * c) * KS + d + t];
 #pragma unroll
       for (int r = 0; r < RPW; ++r) {
         const float4 qv = *reinterpret_cast<const float4*>(qw + r * D + d);
@@ -239,7 +208,7 @@ flash_attention_kernel(Params p) {
 #pragma unroll
         for (int i = 0; i < DC; ++i) {
           const int col = lane + 32 * i;
-          vv[t][i] = col < D ? widen(vs[(jj + t) * D + col]) : 0.0f;
+          vv[t][i] = col < D ? vs[(jj + t) * D + col] : 0.0f;
         }
 #pragma unroll
       for (int r = 0; r < RPW; ++r) {
@@ -255,7 +224,7 @@ flash_attention_kernel(Params p) {
     }
   }
 
-  T* o = static_cast<T*>(p.o) + qbase;
+  float* o = p.o + qbase;
 #pragma unroll
   for (int r = 0; r < RPW; ++r) {
     const int row = w0 + r;
@@ -264,65 +233,45 @@ flash_attention_kernel(Params p) {
 #pragma unroll
     for (int i = 0; i < DC; ++i) {
       const int col = lane + 32 * i;
-      if (col < D) store(o, (long long)row * D + col, __fdiv_rn(acc[r][i], denom));
+      if (col < D) o[(long long)row * D + col] = __fdiv_rn(acc[r][i], denom);
     }
   }
 }
 
-template <typename T, int RPW, int KPL, int DC>
+template <int KPL, int DC>
 int launch(const Params& p, int B, cudaStream_t stream) {
-  const size_t smem = smem_bytes<T>(RPW, KPL * 32, p.D);
-  auto kernel = flash_attention_kernel<T, RPW, KPL, DC>;
+  const size_t smem = smem_bytes(KPL * 32, p.D);
+  auto kernel = flash_attention_kernel<KPL, DC>;
   cudaError_t e = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (e != cudaSuccess) return static_cast<int>(e);
-  const int bq = RPW * WARPS;
-  dim3 grid((unsigned)((p.Sq + bq - 1) / bq), (unsigned)p.H, (unsigned)B);
+  dim3 grid((unsigned)((p.Sq + BQ - 1) / BQ), (unsigned)p.H, (unsigned)B);
   kernel<<<grid, THREADS, smem, stream>>>(p);
   return static_cast<int>(cudaGetLastError());
 }
 
-// The tile, picked here from (type, D, Sq): BK = 32 * KPL keys, 64, or 32
-// where a 64-key tile of f32 rows of more than 128 values would pass 32 KB;
-// BQ = 8 * RPW query rows, 64, or 8 (one row a warp) for Sq <= 8, the decode
-// shape. smem_bytes is then at most 147,712 bytes (bf16, D = 256) of the
-// 232,448 an H100 block may have; at D = 128 in f32 it is 114,944, so two
-// blocks share an SM.
-template <typename T, int RPW, int DC>
-int with_keys(const Params& p, int B, cudaStream_t s) {
-  constexpr int KPL = (sizeof(T) == 4 && DC == 8) ? 1 : 2;
-  return launch<T, RPW, KPL, DC>(p, B, s);
-}
-
-template <typename T, int RPW>
-int by_width(const Params& p, int B, cudaStream_t s) {
-  const int dc = (p.D + 31) / 32;
-  if (dc <= 1) return with_keys<T, RPW, 1>(p, B, s);
-  if (dc <= 2) return with_keys<T, RPW, 2>(p, B, s);
-  if (dc <= 4) return with_keys<T, RPW, 4>(p, B, s);
-  return with_keys<T, RPW, 8>(p, B, s);
-}
-
-template <typename T>
-int by_rows(const Params& p, int B, cudaStream_t s) {
-  return p.Sq <= 8 ? by_width<T, 1>(p, B, s) : by_width<T, 8>(p, B, s);
-}
-
 }  // namespace
 
-// dtype: 0 float32, 1 bfloat16; D a multiple of 8 up to 256. Returns a
-// cudaError_t.
+// f32 only, Sq > 8; D a multiple of 8 up to 256. The tile is picked here
+// from D: BK = 32 * KPL keys, 64, or 32 where a 64-key tile of rows of more
+// than 128 values would pass 32 KB. At D = 128 smem_bytes is 114,944 bytes,
+// so two blocks share an SM. Returns a cudaError_t.
 extern "C" int flash_attention_launch(
     const void* q, const void* k, const void* v, void* o, int B, int H,
     int KV, int Sq, int Sk, int D, int causal, int has_window,
-    long long window, int has_softcap, float softcap, float scale, int dtype,
+    long long window, int has_softcap, float softcap, float scale,
     void* stream) {
-  if (D < 8 || D > 256 || D % 8 || KV < 1 || H % KV || B < 1 || Sq < 1 ||
+  if (D < 8 || D > 256 || D % 8 || KV < 1 || H % KV || B < 1 || Sq <= 8 ||
       Sk < 1)
     return static_cast<int>(cudaErrorInvalidValue);
-  Params p{q, k, v, o, H, KV, Sq, Sk, D, causal, has_window, has_softcap,
+  Params p{static_cast<const float*>(q), static_cast<const float*>(k),
+           static_cast<const float*>(v), static_cast<float*>(o), H, KV, Sq, Sk,
+           D, causal, has_window, has_softcap,
            window, softcap, scale};
   auto s = static_cast<cudaStream_t>(stream);
-  return dtype == 0 ? by_rows<float>(p, B, s)
-                    : by_rows<__nv_bfloat16>(p, B, s);
+  const int dc = (D + 31) / 32;
+  if (dc <= 1) return launch<2, 1>(p, B, s);
+  if (dc <= 2) return launch<2, 2>(p, B, s);
+  if (dc <= 4) return launch<2, 4>(p, B, s);
+  return launch<1, 8>(p, B, s);
 }

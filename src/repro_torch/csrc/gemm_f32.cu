@@ -18,7 +18,8 @@
 // (rows ty + 16i, columns tx + 16j, so shared-memory reads of w are
 // conflict-free and stores of the output are coalesced). Ragged tails are
 // guarded, never padded. No TF32: the f32 result keeps f32 rounding.
-// Tensor-core (wgmma) tiles for the bf16 case are later work.
+// bf16 operands whose K and N are multiples of 8 take the tensor-core
+// kernel csrc/gemm_bf16_sm90.cu instead (kernels/gemm.py::gemm_route).
 #include <cstdint>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -31,19 +32,6 @@ using namespace float_ops;
 
 constexpr int BM = 64, BN = 64, BK = 16;
 constexpr int THREADS = 256;  // 16 x 16 threads, 4 x 4 outputs each
-
-// act: 0 none, 1 relu, 2 silu (x * sigmoid(x)), 3 gelu, tanh approximation
-__device__ __forceinline__ float activate(float v, int act) {
-  switch (act) {
-    case 1: return max_nan(v, 0.0f);
-    case 2: return v * (1.0f / (1.0f + expf(-v)));
-    case 3: {
-      const float inner = 0.7978845608028654f * (v + 0.044715f * (v * v * v));
-      return v * (0.5f * (1.0f + tanhf(inner)));
-    }
-    default: return v;
-  }
-}
 
 template <typename T>
 __global__ void __launch_bounds__(THREADS)

@@ -131,6 +131,13 @@ def on_card(what: str, *tensors) -> bool:
     return True
 
 
+def aligned(t: torch.Tensor) -> torch.Tensor:
+    """Contiguous, and 16-byte aligned for the kernels' 16-byte loads
+    (``cp.async``, TMA)."""
+    t = t.contiguous()
+    return t if t.data_ptr() % 16 == 0 else t.clone()
+
+
 def float_code(what: str, *tensors) -> int:
     """The C entry points' code of the tensors' common dtype (f32 or bf16);
     raises on any other dtype or on mixed dtypes."""

@@ -1,5 +1,5 @@
 """Online-softmax attention (GQA, causal/sliding-window mask, logit softcap):
-CUDA kernel + plain version.
+CUDA kernels + plain versions.
 
 Replaces ``repro/kernels/flash_attention.py::flash_attention``: q (B, H, Sq,
 D), k and v (B, KV, Sk, D) with H a multiple of KV; q-head ``h`` reads
@@ -17,17 +17,32 @@ kv-head ``h // (H // KV)``. The rules, as the reference has them:
 - ``out = acc / max(l, 1e-30)`` in q's dtype. A row that sees no key gives
   0 (``kernels/ref.py::attention_ref`` gives the mean of v there instead).
 
-``flash_attention`` launches ``csrc/flash_attention.cu`` for CUDA tensors
-(f32 or bf16, D a multiple of 8 up to 256), one launch per call, counted in
-``LAUNCHES["flash_attention"]``; for CPU tensors it takes
-``flash_attention_plain``, which runs on either device.
+``flash_attention`` takes one of three routes for CUDA tensors (f32 or bf16,
+D a multiple of 8 up to 256), by a fixed rule on the query length and dtype
+(``attention_route``):
+
+- ``"decode"``, Sq <= ``DECODE_ROWS``, f32 and bf16: ``csrc/flash_decode.cu``
+  splits the keys into chunks (``decode_split``), one block per (batch, kv
+  head, chunk) for all the GQA group's rows, writes a partial (m, l, acc)
+  per row and chunk, and a second kernel combines them;
+  ``flash_decode_plain`` is the same decomposition in PyTorch;
+- ``"mma"``, Sq > ``DECODE_ROWS`` in bf16: ``csrc/flash_attention_mma.cu``
+  on the tensor cores (``mma.sync`` m16n8k16, P split as bf16 hi + lo);
+- ``"simt"``, Sq > ``DECODE_ROWS`` in f32: ``csrc/flash_attention.cu`` on
+  the CUDA cores (TF32 would round q and k to 10 mantissa bits).
+
+Each call counts one in ``LAUNCHES["flash_attention"]``, once its route's
+first kernel has launched. Each kernel counts its own launches, where it
+launches: ``LAUNCHES["flash_attention.<route>"]`` for the route's kernel, and
+``LAUNCHES["flash_attention_combine"]`` for the decode route's combine. For CPU tensors the
+wrapper takes ``flash_attention_plain``, which runs on either device.
 
 Blocks. ``block_q``/``block_k`` have the reference's meaning for the plain
-version, halved until they divide Sq and Sk; without them it takes the
-kernel's tile (``attention_tile``). The CUDA kernel picks its compiled tile
-itself and ignores them: it masks its own tails instead of halving, so on
-the card the blocks change only the order of summation, as ``tile=`` does
-for ``ops.gemm``.
+version, halved until they divide Sq and Sk; without them it takes the SIMT
+kernel's tile (``attention_tile``). The CUDA kernels pick their tiles
+themselves and ignore them: they mask their own tails instead of halving, so
+on the card the blocks change only the order of summation, as ``tile=``
+does for ``ops.gemm``.
 """
 from __future__ import annotations
 
@@ -38,17 +53,50 @@ import torch
 
 from repro_torch.kernels import _build
 
-LAUNCHES = {"flash_attention": 0}
+ROUTES = ("decode", "mma", "simt")
+LAUNCHES = {"flash_attention": 0, "flash_attention_combine": 0,
+            **{f"flash_attention.{r}": 0 for r in ROUTES}}
 NEG_INF = -2.0e38
 MAX_HEAD_DIM = 256
+DECODE_ROWS = 8            # query rows up to which the decode route runs
+DECODE_BLOCKS = 8 * 132    # decode grid size aimed at: ~8 blocks per H100 SM
+DECODE_MIN_CHUNK = 256     # keys per decode chunk, at least
+
+
+def attention_route(dtype: torch.dtype, sq: int) -> str:
+    """The route a CUDA call takes: ``"decode"`` for Sq <= ``DECODE_ROWS``,
+    else ``"mma"`` in bf16 and ``"simt"`` in f32."""
+    if sq <= DECODE_ROWS:
+        return "decode"
+    return "mma" if dtype == torch.bfloat16 else "simt"
+
+
+def decode_split(b: int, kv: int, g: int, sq: int, sk: int,
+                 window: Optional[int]) -> tuple:
+    """(rt, kbeg, chunk, chunks): how the decode route cuts its work. A block
+    takes ``rt`` (1, 2, 4 or 8) of the ``g * sq`` rows of a GQA group and the
+    keys ``[kbeg + c * chunk, ...)`` of chunk ``c``, up to Sk: the keys that
+    any row sees (a causal mask only cuts keys past the last row, which is
+    the last key, so the split does not depend on it). The chunk, a multiple
+    of 64 keys and at least ``DECODE_MIN_CHUNK``, is picked so that the grid
+    holds about ``DECODE_BLOCKS`` blocks."""
+    rows = g * sq
+    rt = next((r for r in (1, 2, 4) if rows <= r), 8)
+    slices = -(-rows // rt)
+    kbeg = 0 if window is None else max(0, sk - sq - int(window) + 1)
+    span = max(sk - kbeg, 0)
+    want = max(1, -(-DECODE_BLOCKS // (b * kv * slices)))
+    chunk = max(DECODE_MIN_CHUNK, -(-span // want))
+    chunk = -(-chunk // 64) * 64
+    return rt, kbeg, chunk, max(1, -(-span // chunk))
 
 
 def attention_tile(head_dim: int, dtype: torch.dtype, sq: int) -> tuple:
-    """(bq, bk): the plain version's default block, the tile that
-    ``csrc/flash_attention.cu`` picks for itself from the same three values
-    (``by_rows``, ``with_keys``): 64 query rows, or 8 when ``sq <= 8`` (the
-    decode shape); 64 keys, or 32 for f32 rows of more than 128 values. Only
-    the plain version's order of summation depends on it."""
+    """(bq, bk): the plain version's default block: 64 query rows, or 8 when
+    ``sq <= 8``; 64 keys, or 32 for f32 rows of more than 128 values. For
+    f32 at Sq > 8 it is the tile the SIMT kernel ``csrc/flash_attention.cu``
+    picks for itself (``with_keys``). Only the plain version's order of
+    summation depends on it."""
     bq = 8 if sq <= 8 else 64
     itemsize = torch.empty((), dtype=dtype).element_size()
     bk = 64 if head_dim * itemsize <= 512 else 32
@@ -141,21 +189,142 @@ def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return out.reshape(b, h, sq, d).to(q.dtype)
 
 
-def _lib():
-    fn = _build.library("flash_attention").flash_attention_launch
+def decode_partials_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                          split: tuple, *, causal: bool = True,
+                          window: Optional[int] = None,
+                          softcap: Optional[float] = None,
+                          scale: Optional[float] = None) -> tuple:
+    """Plain version of the decode route's first kernel: for each query row
+    and key chunk of ``split`` (``decode_split``'s tuple), the chunk's
+    (m, l, acc) in f32, shaped (B, H, Sq, chunks) and (B, H, Sq, chunks, D).
+    A chunk is one key block of the reference's loop: m = max of its visible
+    scores (``NEG_INF`` if none), p = exp(s - m) zeroed where masked, l =
+    rowsum p, acc = p @ v."""
+    b, h, sq, d, kv, sk = _check(q, k, v)
+    _, kbeg, chunk, chunks = split
+    scale = d ** -0.5 if scale is None else scale
+    dev = q.device
+    qs = q.to(torch.float32).reshape(b, kv, h // kv, sq, d) * scale
+    qpos = torch.arange(sq, device=dev).view(sq, 1) + (sk - sq)
+    ms, ls, accs = [], [], []
+    for c in range(chunks):
+        j = kbeg + c * chunk
+        e = max(j, min(j + chunk, sk))
+        kb = k[:, :, j:e].to(torch.float32).unsqueeze(2)
+        vb = v[:, :, j:e].to(torch.float32).unsqueeze(2)
+        s = torch.matmul(qs, kb.transpose(-1, -2))
+        if softcap is not None:
+            s = softcap * torch.tanh(s / softcap)
+        mask = _key_mask(qpos, torch.arange(j, e, device=dev).view(1, -1),
+                         causal, window)
+        s = torch.where(mask, s, NEG_INF)
+        m = torch.full(s.shape[:-1] + (1,), NEG_INF, dtype=torch.float32,
+                       device=dev)
+        if e > j:
+            m = torch.maximum(m, s.amax(dim=-1, keepdim=True))
+        p = torch.where(mask, torch.exp(s - m), 0.0)
+        ms.append(m)
+        ls.append(p.sum(dim=-1, keepdim=True))
+        accs.append(torch.matmul(p, vb))
+    m = torch.cat(ms, dim=-1).reshape(b, h, sq, chunks)
+    l_ = torch.cat(ls, dim=-1).reshape(b, h, sq, chunks)
+    acc = torch.stack(accs, dim=-2).reshape(b, h, sq, chunks, d)
+    return m, l_, acc
+
+
+def decode_combine_plain(m: torch.Tensor, l_: torch.Tensor,
+                         acc: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+    """Plain version of the decode route's combine kernel: ``out = sum_i
+    e^{m_i - M} acc_i / max(sum_i e^{m_i - M} l_i, 1e-30)``, M = max_i m_i,
+    in ``dtype``. A chunk that saw no key (m_i = NEG_INF, l_i = 0, acc_i =
+    0) adds exactly 0; a row that saw none is exactly 0."""
+    w = torch.exp(m - m.amax(dim=-1, keepdim=True))
+    den = torch.clamp((w * l_).sum(dim=-1, keepdim=True), min=1e-30)
+    return ((w.unsqueeze(-1) * acc).sum(dim=-2) / den).to(dtype)
+
+
+def flash_decode_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                       causal: bool = True, window: Optional[int] = None,
+                       softcap: Optional[float] = None,
+                       scale: Optional[float] = None,
+                       split: Optional[tuple] = None) -> torch.Tensor:
+    """The decode route's decomposition in PyTorch: partials per key chunk,
+    then the combine. ``split`` defaults to the kernel's own
+    (``decode_split``)."""
+    b, h, sq, d, kv, sk = _check(q, k, v)
+    if split is None:
+        split = decode_split(b, kv, h // kv, sq, sk, window)
+    m, l_, acc = decode_partials_plain(q, k, v, split, causal=causal,
+                                       window=window, softcap=softcap,
+                                       scale=scale)
+    return decode_combine_plain(m, l_, acc, q.dtype)
+
+
+def _fn(source: str, name: str, argtypes: list):
+    fn = getattr(_build.library(source), name)
     if fn.argtypes is None:
-        vp, i = ctypes.c_void_p, ctypes.c_int
-        fn.argtypes = ([vp] * 4 + [i] * 8
-                       + [ctypes.c_longlong, i, ctypes.c_float,
-                          ctypes.c_float, i, vp])
+        fn.argtypes = argtypes
         fn.restype = ctypes.c_int
     return fn
 
 
-def _aligned(t: torch.Tensor) -> torch.Tensor:
-    """Contiguous, and 16-byte aligned for the kernel's vector loads."""
-    t = t.contiguous()
-    return t if t.data_ptr() % 16 == 0 else t.clone()
+_VP, _I, _F, _LL = (ctypes.c_void_p, ctypes.c_int, ctypes.c_float,
+                    ctypes.c_longlong)
+# q, k, v, o, B, H, KV, Sq, Sk, D, causal, has_window, window, has_softcap,
+# softcap, scale
+_PREFILL_ARGS = [_VP] * 4 + [_I] * 8 + [_LL, _I, _F, _F]
+
+
+def decode_combine(part_m: torch.Tensor, part_l: torch.Tensor,
+                   part_acc: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+    """The decode route's combine: partials m, l (rows, chunks) and acc
+    (rows, chunks, D) in f32 to the (rows, D) output in ``dtype``. CUDA
+    tensors launch ``csrc/flash_decode.cu``'s combine kernel once, counted
+    in ``LAUNCHES["flash_attention_combine"]``; CPU tensors take
+    ``decode_combine_plain``."""
+    rows, chunks, d = part_acc.shape
+    if not _build.on_card("flash_attention", part_m, part_l, part_acc):
+        return decode_combine_plain(part_m, part_l, part_acc, dtype)
+    code = _build.FLOAT_CODES[dtype]
+    out = torch.empty((rows, d), dtype=dtype, device=part_acc.device)
+    status = _fn("flash_decode", "flash_decode_combine_launch",
+                 [_VP] * 4 + [_I] * 4 + [_VP])(
+        part_m.data_ptr(), part_l.data_ptr(), part_acc.data_ptr(),
+        out.data_ptr(), rows, chunks, d, code,
+        torch.cuda.current_stream(out.device).cuda_stream)
+    _build.check(status, "flash_attention (combine)")
+    LAUNCHES["flash_attention_combine"] += 1
+    return out
+
+
+def decode_partials(q, k, v, causal, window, softcap, scale) -> tuple:
+    """The decode route's first kernel on CUDA tensors: (m, l, acc) per
+    query row and key chunk of ``decode_split``, in f32 scratch of shapes
+    (B * H * Sq, chunks) and (B * H * Sq, chunks, D). Counts its launch in
+    ``LAUNCHES["flash_attention.decode"]``."""
+    b, h, sq, d = q.shape
+    kv, sk = k.shape[1], k.shape[2]
+    rt, kbeg, chunk, chunks = decode_split(b, kv, h // kv, sq, sk, window)
+    if kv * (-(-(h // kv) * sq // rt)) > 65535:
+        raise ValueError("flash_attention: KV x row slices must be at most "
+                         "65535 (grid limit)")
+    rows = b * h * sq
+    part_m = torch.empty((rows, chunks), dtype=torch.float32, device=q.device)
+    part_l = torch.empty_like(part_m)
+    part_acc = torch.empty((rows, chunks, d), dtype=torch.float32,
+                           device=q.device)
+    status = _fn("flash_decode", "flash_decode_launch",
+                 [_VP] * 6 + [_I] * 8 + [_LL, _I, _F, _F] + [_I] * 5 + [_VP])(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), part_m.data_ptr(),
+        part_l.data_ptr(), part_acc.data_ptr(), b, h, kv, sq, sk, d,
+        int(bool(causal)), int(window is not None),
+        0 if window is None else int(window), int(softcap is not None),
+        0.0 if softcap is None else float(softcap), scale, rt, kbeg, chunk,
+        chunks, _build.FLOAT_CODES[q.dtype],
+        torch.cuda.current_stream(q.device).cuda_stream)
+    _build.check(status, "flash_attention (decode)")
+    LAUNCHES["flash_attention.decode"] += 1
+    return part_m, part_l, part_acc
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
@@ -164,11 +333,11 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     scale: Optional[float] = None,
                     block_q: Optional[int] = None,
                     block_k: Optional[int] = None) -> torch.Tensor:
-    """The kernel's wrapper: CUDA tensors launch ``csrc/flash_attention.cu``
-    once; CPU tensors take ``flash_attention_plain``. Raises on anything the
-    kernel does not take, on either device."""
+    """The kernels' wrapper: CUDA tensors take the route
+    ``attention_route`` names; CPU tensors take ``flash_attention_plain``.
+    Raises on anything the kernels do not take, on either device."""
     b, h, sq, d, kv, sk = _check(q, k, v)
-    code = _build.float_code("flash_attention", q, k, v)
+    _build.float_code("flash_attention", q, k, v)
     if not _build.on_card("flash_attention", q, k, v):
         return flash_attention_plain(
             q, k, v, causal=causal, window=window, softcap=softcap,
@@ -176,15 +345,30 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     if h > 65535 or b > 65535:
         raise ValueError(f"flash_attention: B {b} and H {h} must be at most "
                          f"65535 (grid limits)")
-    q, k, v = _aligned(q), _aligned(k), _aligned(v)
+    q, k, v = _build.aligned(q), _build.aligned(k), _build.aligned(v)
+    scale = d ** -0.5 if scale is None else float(scale)
+    route = attention_route(q.dtype, sq)
+    if route == "decode":
+        parts = decode_partials(q, k, v, causal, window, softcap, scale)
+        LAUNCHES["flash_attention"] += 1
+        return decode_combine(*parts, q.dtype).view(b, h, sq, d)
     out = torch.empty_like(q)
-    status = _lib()(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-        b, h, kv, sq, sk, d, int(bool(causal)), int(window is not None),
-        0 if window is None else int(window), int(softcap is not None),
-        0.0 if softcap is None else float(softcap),
-        d ** -0.5 if scale is None else float(scale), code,
-        torch.cuda.current_stream(q.device).cuda_stream)
-    _build.check(status, "flash_attention")
+    args = [q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+            b, h, kv, sq, sk, d, int(bool(causal)),
+            int(window is not None), 0 if window is None else int(window),
+            int(softcap is not None),
+            0.0 if softcap is None else float(softcap), scale]
+    if route == "mma":
+        if scale < 0:   # the kernel folds a scale >= 0 into its exponent
+            q = torch.neg(q)
+            args[0], args[-1] = q.data_ptr(), -scale
+        fn = _fn("flash_attention_mma", "flash_attention_mma_launch",
+                 _PREFILL_ARGS + [_VP])
+    else:
+        fn = _fn("flash_attention", "flash_attention_launch",
+                 _PREFILL_ARGS + [_VP])
+    _build.check(fn(*args, torch.cuda.current_stream(q.device).cuda_stream),
+                 f"flash_attention ({route})")
     LAUNCHES["flash_attention"] += 1
+    LAUNCHES[f"flash_attention.{route}"] += 1
     return out

@@ -198,3 +198,172 @@ def test_plain_default_block_is_the_kernel_tile(dtype, d, sq, tile):
     other = flash_attention_plain(q, k, v, block_k=16, **kw)
     tol = 2e-5 if dtype == torch.float32 else 2e-2
     np.testing.assert_allclose(_np(got), _np(other), atol=tol, rtol=tol)
+
+
+# ---------------------------------------------------------------------------
+# the decode route's split over keys (csrc/flash_decode.cu), in PyTorch
+# ---------------------------------------------------------------------------
+DECODE_CASES = {
+    # name: (b, h, kv, sq, sk, d), dtype, mask kwargs, split (None: the
+    # kernel's own; else (kbeg, chunk) over all keys)
+    "gqa1": ((2, 4, 4, 1, 512, 32), "float32", dict(causal=True), (0, 64)),
+    "gqa4-softcap": ((2, 4, 1, 4, 512, 32), "float32",
+                     dict(causal=True, softcap=15.0), (0, 128)),
+    # window 100 at the last of 2 rows: chunks 0-13 of 64 keys see nothing
+    "window-empty-chunks": ((1, 4, 2, 2, 1024, 16), "float32",
+                            dict(causal=True, window=100), (0, 64)),
+    "kernel-split": ((2, 4, 2, 1, 700, 16), "float32",
+                     dict(causal=True, window=300), None),
+    "bf16-gqa4": ((1, 8, 2, 2, 384, 32), "bfloat16", dict(causal=True),
+                  (0, 64)),
+}
+
+
+def _split(shape, kw, split):
+    from repro_torch.kernels.flash_attention import decode_split
+    b, h, kv, sq, sk, _ = shape
+    rt = decode_split(b, kv, h // kv, sq, sk, kw.get("window"))[0]
+    kbeg, chunk = split
+    return rt, kbeg, chunk, -(-(sk - kbeg) // chunk)
+
+
+@pytest.mark.parametrize("name", list(DECODE_CASES))
+def test_decode_split_matches_jax(name):
+    """Partials per key chunk, then the combine, equal the JAX kernel's
+    attention; a chunk that sees no key adds exactly 0."""
+    from repro_torch.kernels.flash_attention import (decode_partials_plain,
+                                                     flash_decode_plain)
+    shape, dtype, kw, split = DECODE_CASES[name]
+    tol = DTYPES[dtype][2]
+    q, k, v = _inputs(shape, 0.4, seed=3)
+    (qj, qt), (kj, kt), (vj, vt) = (_to(a, dtype) for a in (q, k, v))
+    sp = None if split is None else _split(shape, kw, split)
+    got = flash_decode_plain(qt, kt, vt, split=sp, **kw)
+    assert got.dtype == qt.dtype and got.shape == qt.shape
+    want = _np(jops.flash_attention(qj, kj, vj, interpret=True, **kw))
+    np.testing.assert_allclose(_np(got), want, atol=tol, rtol=tol)
+    if name == "window-empty-chunks":
+        m, l_, acc = decode_partials_plain(qt, kt, vt, sp, **kw)
+        assert sp[3] == 16
+        assert bool((m[..., :14] == -2e38).all())
+        assert not l_[..., :14].any() and not acc[..., :14, :].any()
+
+
+def test_decode_split_rows_that_see_no_key():
+    """Causal with Sq > Sk at the decode shape: rows 0..3 see no key, so all
+    their chunks hold m = -2e38, l = 0, acc = 0 and the combine gives
+    exactly 0, as the JAX kernel does."""
+    from repro_torch.kernels.flash_attention import (decode_split,
+                                                     flash_decode_plain)
+    b, h, kv, sq, sk, d = shape = (1, 4, 2, 8, 4, 16)
+    q, k, v = _inputs(shape, 0.4)
+    qt, kt, vt = (torch.from_numpy(a) for a in (q, k, v))
+    got = _np(flash_decode_plain(qt, kt, vt, causal=True))
+    assert decode_split(b, kv, h // kv, sq, sk, None)[0] == 8
+    jk = _np(jops.flash_attention(jnp.asarray(q), jnp.asarray(k),
+                                  jnp.asarray(v), causal=True,
+                                  interpret=True))
+    assert np.array_equal(got[:, :, :4], np.zeros_like(got[:, :, :4]))
+    assert np.array_equal(jk[:, :, :4], np.zeros_like(jk[:, :, :4]))
+    np.testing.assert_allclose(got, jk, atol=2e-5, rtol=2e-5)
+
+
+@pytest.mark.parametrize("b,kv,g,sq,sk,window,want", [
+    # the phase-5 decode shapes of chip_smoke.py: ~8 blocks per H100 SM
+    (8, 16, 2, 1, 32768, None, (2, 0, 3648, 9)),
+    (8, 8, 2, 1, 32768, None, (2, 0, 1984, 17)),
+    (8, 16, 2, 1, 4096, 4096, (2, 0, 512, 8)),
+    (2, 4, 1, 1, 256, None, (1, 0, 256, 1)),
+    # 4 rows against a window: only keys [4093, 8192) are read
+    (8, 16, 2, 4, 8192, 4096, (8, 4093, 512, 9)),
+])
+def test_decode_split_rule(b, kv, g, sq, sk, window, want):
+    from repro_torch.kernels.flash_attention import decode_split
+    got = decode_split(b, kv, g, sq, sk, window)
+    assert got == want
+    rt, kbeg, chunk, chunks = got
+    assert chunk % 64 == 0 and kbeg + chunks * chunk >= sk
+    assert kbeg + (chunks - 1) * chunk < sk
+
+
+@pytest.mark.parametrize("dtype,sq,route", [
+    (torch.float32, 1, "decode"), (torch.bfloat16, 8, "decode"),
+    (torch.bfloat16, 9, "mma"), (torch.bfloat16, 8192, "mma"),
+    (torch.float32, 9, "simt"), (torch.float32, 8192, "simt"),
+])
+def test_attention_route(dtype, sq, route):
+    from repro_torch.kernels.flash_attention import attention_route
+    assert attention_route(dtype, sq) == route
+
+
+# ---------------------------------------------------------------------------
+# the bf16 prefill route's numerics (csrc/flash_attention_mma.cu), emulated
+# ---------------------------------------------------------------------------
+def _cut_to_bf16(x):
+    """x with the low 16 bits of each f32 cleared: a bf16 value, cut toward
+    zero."""
+    return (x.view(torch.int32) & -65536).view(torch.float32)
+
+
+def _emulated_mma(q, k, v, scale, split_p, bk=32):
+    """Causal attention as the tensor-core kernel computes it: bf16 q . k
+    summed in f32, scaled after the product; online softmax over bk-key
+    tiles in f32; P into P V as bf16, either split in two (``split_p``
+    "cut": hi = p cut to bf16 and lo = p - hi cut the same way, as the
+    kernel does, or "nearest": both rounded to nearest; two products into
+    one f32 sum) or, for ``None``, rounded once to bf16; the row sum l of
+    the same bf16 terms (the kernel takes it as P times a column of ones);
+    the output rounded to bf16. hi + lo is exact in f32, so summing it
+    before the product stands for the kernel's two products."""
+    qf, kf, vf = (t.to(torch.float32) for t in (q, k, v))
+    sq, sk = q.shape[-2], k.shape[-2]
+    qpos = torch.arange(sq).view(sq, 1) + (sk - sq)
+    m = torch.full(q.shape[:-1] + (1,), -2e38)
+    l_ = torch.zeros_like(m)
+    acc = torch.zeros_like(qf)
+    for j in range(0, sk, bk):
+        s = (qf @ kf[..., j:j + bk, :].transpose(-1, -2)) * scale
+        mask = torch.arange(j, min(j + bk, sk)).view(1, -1) <= qpos
+        s = torch.where(mask, s, -2e38)
+        m_new = torch.maximum(m, s.amax(dim=-1, keepdim=True))
+        p = torch.where(mask, torch.exp(s - m_new), 0.0)
+        corr = torch.exp(m - m_new)
+        vb = vf[..., j:j + bk, :]
+        if split_p == "cut":
+            hi = _cut_to_bf16(p)
+            lo = _cut_to_bf16(p - hi)
+        else:
+            hi = p.to(torch.bfloat16).to(torch.float32)
+            lo = (p - hi).to(torch.bfloat16).to(torch.float32)
+        pb = hi if split_p is None else hi + lo
+        l_ = l_ * corr + pb.sum(dim=-1, keepdim=True)
+        acc = acc * corr + pb @ vb
+        m = m_new
+    return (acc / torch.clamp(l_, min=1e-30)).to(torch.bfloat16)
+
+
+def test_prefill_p_split_meets_the_bf16_limit():
+    """chip_smoke.py's bf16 limit, element by element against float64: the
+    plain version's error there + 2^-7 |plain| + 2^-7 * 1e-2 of the row's
+    largest |float64| value. P split as bf16 hi + lo meets it at Sk 1024,
+    D 64, causal, whether hi and lo are cut to bf16 (as in the kernel) or
+    rounded to nearest; P rounded once to bf16 does not."""
+    b, h, s, d = 1, 2, 1024, 64
+    q, k, v = (torch.from_numpy(a).to(torch.bfloat16)
+               for a in _inputs((b, h, h, s, s, d), 0.4, seed=5))
+    scale = d ** -0.5
+    qd, kd, vd = (t.to(torch.float64) for t in (q, k, v))
+    sc = (qd * scale) @ kd.transpose(-1, -2)
+    causal = torch.ones(s, s, dtype=torch.bool).tril()
+    w = torch.softmax(sc.masked_fill(~causal, float("-inf")), dim=-1)
+    r64 = w @ vd
+    plain = flash_attention_plain(q, k, v, causal=True).to(torch.float64)
+    ep = (plain - r64).abs()
+    limit = (ep + 2.0 ** -7 * plain.abs()
+             + 2.0 ** -7 * 1e-2 * r64.abs().amax(dim=-1, keepdim=True))
+    over = {}
+    for split_p in ("cut", "nearest", None):
+        got = _emulated_mma(q, k, v, scale, split_p).to(torch.float64)
+        over[split_p] = int(((got - r64).abs() > limit).sum())
+    assert over["cut"] == 0 and over["nearest"] == 0
+    assert over[None] > 0

@@ -48,7 +48,8 @@ def _close(got, want, tol):
 # ---------------------------------------------------------------------------
 @pytest.mark.parametrize("mnk", [(32, 128, 64), (96, 192, 256),
                                  (128, 384, 128), (64, 256, 192),
-                                 (49, 37, 33)])
+                                 (49, 37, 33), (37, 48, 64), (8, 1000, 1024),
+                                 (20, 24, 36)])
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 def test_gemm_shapes_dtypes(mnk, dtype):
     m, n, k = mnk
@@ -72,6 +73,24 @@ def test_gemm_epilogue(act, clip):
     _close(got, jops.gemm(xj, wj, bj, act=act, clip=clip), 1e-4)
     _close(ref.matmul_ref(xt, wt, bias=bt, act=act, clip=clip),
            jref.matmul_ref(xj, wj, bias=bj, act=act, clip=clip), 1e-4)
+
+
+@pytest.mark.parametrize("dtype,k,n,route", [
+    (torch.bfloat16, 1024, 4096, "gemm_bf16"),   # qkv of bench_kernels.py
+    (torch.bfloat16, 1024, 1000, "gemm_bf16"),   # mbn.fc, M 8
+    (torch.bfloat16, 8, 8, "gemm_bf16"),
+    (torch.bfloat16, 1020, 1008, "gemm_float"),  # K % 8 != 0
+    (torch.bfloat16, 1024, 1004, "gemm_float"),  # N % 8 != 0
+    (torch.bfloat16, 0, 8, "gemm_float"),
+    (torch.float32, 1024, 4096, "gemm_float"),   # f32: never TF32
+    (torch.float32, 33, 37, "gemm_float"),
+])
+def test_gemm_route(dtype, k, n, route):
+    """The fixed rule that sends a product on the card to the wgmma kernel
+    (bf16, K and N multiples of 8: TMA's 16-byte row strides) or to the SIMT
+    kernel (everything else); M plays no part."""
+    from repro_torch.kernels.gemm import gemm_route
+    assert gemm_route(dtype, k, n) == route
 
 
 # ---------------------------------------------------------------------------
@@ -213,7 +232,7 @@ def test_cpu_tensors_count_no_launch():
     ops.depthwise_conv(x, x[0, :3, :3], stride=2, pad=1)
     ops.pool2d(x, k=2, stride=2, mode="avg")
     after = launch_counts()
-    for k in ("gemm_float", "alu", "depthwise", "pool2d"):
+    for k in ("gemm_float", "gemm_bf16", "alu", "depthwise", "pool2d"):
         assert k in after
     assert after == before
 
