@@ -42,11 +42,18 @@ order; any failure raises and the script exits nonzero:
    ``csrc/gemm_f32.cu`` (``gemm_float``): ``LAYER_OPS``, ``layer_key``.
    Launch counts are zeroed just before the cases are driven once and read
    just after; each of the five kernels must have launched exactly once per
-   case of its route. Then each output is held against the plain version
-   on the same inputs: alu, depthwise and pool2d exactly (max_abs_err 0);
-   the GEMM, whose sums run in another order, by its error against a
-   float64 product, which may be at most 2x the plain version's plus
-   1e-6*K.
+   case of its route, and ``gemm_float_reduce`` (the second kernel of
+   ``csrc/gemm_f32.cu``) once per ``gemm_float`` case whose plan
+   (``kernels/gemm.py::gemm_float_plan``) splits K. Then each output is
+   held against the plain version on the same inputs: alu, depthwise and
+   pool2d exactly (max_abs_err 0); the GEMM, whose sums run in another
+   order, by its error against a float64 product, which may be at most 2x
+   the plain version's plus 1e-6*K, and a second run must give the same
+   bytes (split K reduces in a fixed order, with no atomics). The reduce
+   kernel is also held alone against its plain version on the split
+   kernel's partial sums. Then ``layer_edge_cases`` (odd M, K and N; M = 3
+   with K = 1024; a depthwise with C = 36, 5x5, stride 2) run through the
+   same checks, on lines of their own and outside the rows.
 5. Attention at full width, through ``repro_torch.kernels.ops.
    flash_attention``, at the head counts, head_dim, windows, softcap and
    query scale of ``configs/archs.py`` (written out in ``ATTENTION_CASES``;
@@ -96,18 +103,22 @@ their route the same way (the decode route with its combine; the
 boolean mask carries a window). The call is a yardstick here only: the port
 never makes it.
 
-``--plant-faults`` runs none of the phases. It shows that phase 5's limits
-fail a wrong kernel on every route: the checkout is copied into a temporary
+``--plant-faults`` runs none of the phases. It shows that the limits of
+phases 4 and 5 fail a wrong kernel: the checkout is copied into a temporary
 directory once as it is and once per fault of ``PLANTED_FAULTS`` (a text
 substitution: a key tile from 4096 skipped, or the window 64 keys too wide,
-in each of the three routes), the unchanged sources are built once into a
-build directory the copies share, and each copy builds its changed source
-and runs the phase-5 cases of its route, and those of ``FAULT_CASES``,
-through ``attention_error`` (``--attention-errors``, three copies at a
-time; the unchanged copy runs every case). One JSON line per (fault, case)
-gives the kernel's and the plain version's largest error against float64,
-the largest |out| and the elements over the limit. It exits 0 only if the
-unchanged kernels pass every case and each fault fails at least one.
+in each of the three attention routes; the last K split of the f32 GEMM
+dropped; the depthwise halo read one column to the right), the unchanged
+sources are built once into a build directory the copies share, and each
+copy builds its changed source and runs the cases of its route through
+their limit checks (``--case-errors``, three copies at a time): the phase-5
+cases and those of ``FAULT_CASES`` through ``attention_error``, or the
+phase-4 and edge cases of the GEMM or depthwise kernel; the unchanged copy
+runs all of them. One JSON line per (fault, case) gives the kernel's error
+and its limit (attention: the kernel's and the plain version's largest
+error against float64, the largest |out| and the elements over the limit).
+It exits 0 only if the unchanged kernels pass every case and each fault
+fails at least one.
 """
 from __future__ import annotations
 
@@ -775,6 +786,32 @@ def layer_op_cases(dev, rng, n: int) -> list:
     return cases
 
 
+def layer_edge_cases(dev, rng) -> list:
+    """Phase 4's edge cases, held to the same limits as its main cases but
+    driven and reported apart from them: an f32 product with odd M, K and N
+    (ragged tiles, element copies of the w rows), one with M = 3 and K =
+    1024 (the thin tile, split K, N odd), and a depthwise conv with C = 36,
+    15x15 input, 5x5 kernel, stride 2, pad 2 (a ragged channel chunk, the
+    kernel's run-time tap loop; bf16 on its scalar path)."""
+    import torch
+
+    def t(shape, scale=1.0, dtype=torch.float32):
+        a = rng.standard_normal(shape, dtype=np.float32) * np.float32(scale)
+        return torch.from_numpy(a).to(dev, dtype)
+
+    cases = [("gemm", "edge.odd 1001x257x999",
+              (t((1001, 257)), t((257, 999), 1 / 16), t((999,))),
+              dict(act="relu")),
+             ("gemm", "edge.thin 3x1024x1001",
+              (t((3, 1024)), t((1024, 1001), 1 / 32), t((1001,))), {})]
+    for dt in (torch.float32, torch.bfloat16):
+        tag = "" if dt == torch.float32 else "/bf16"
+        cases.append(("depthwise_conv", "edge.dw C36 15x15 5x5 s2" + tag,
+                      (t((LAYER_BATCH, 15, 15, 36), 2 ** 13, dt),
+                       t((5, 5, 36), 1.0, dt)), dict(stride=2, pad=2)))
+    return cases
+
+
 def resolve(case, outs: dict) -> tuple:
     return tuple(outs[a] if isinstance(a, str) else a for a in case[2])
 
@@ -861,12 +898,58 @@ def library_call(op, args, kw):
                                 count_include_pad=True)
 
 
-def check_layer_ops(cases, outs: dict) -> dict:
+def check_reduce(args, kw, rows: dict) -> None:
+    """A split-K case's reduce kernel alone against its plain version, on
+    the partial sums of the split kernel (the same sums in the same order:
+    exact, but for the activations' exp and tanh, one step of the output
+    type at the element plus 1e-6), timed and added to its row."""
+    import torch
+    from repro_torch.kernels import _build
+    from repro_torch.kernels.gemm import (gemm_float_plan, gemm_float_reduce,
+                                          gemm_float_reduce_plain,
+                                          gemm_partials)
+    x, w = _build.aligned(args[0]), _build.aligned(args[1])
+    bias = args[2] if len(args) > 2 else None
+    plan = gemm_float_plan(x.shape[0], w.shape[1], x.shape[1])
+    parts = gemm_partials(x, w, plan)
+    red = (parts, bias, kw.get("act"), kw.get("clip"), x.dtype)
+    got, want = gemm_float_reduce(*red), gemm_float_reduce_plain(*red)
+    torch.cuda.synchronize()
+    diff = (got.float() - want.float()).abs()
+    err = float(diff.max())
+    step = 0.0
+    if kw.get("act") not in (None, "relu"):
+        step = 2.0 ** -7 if x.dtype == torch.bfloat16 else 2.0 ** -20
+    if bool((diff > step * want.float().abs() + (1e-6 if step else 0.0)
+             ).any()):
+        raise AssertionError(f"gemm_float_reduce differs from its plain "
+                             f"version by {err:.3g}")
+    ms = graph_ms(lambda: gemm_float_reduce(*red), reps=5)
+    pms = median_ms(lambda: gemm_float_reduce_plain(*red), reps=3)
+    nbytes = sum(a.numel() * a.element_size() for a in (parts, bias, got)
+                 if a is not None)
+    r = rows["gemm_float_reduce"]
+    r["cases"] += 1
+    r["max_abs_err"] = max(r["max_abs_err"], err)
+    r["ms"] += ms
+    r["plain_ms"] += pms
+    r["bound_ms"] += 1e3 * nbytes / HBM_BYTES_PER_S
+    r["t_bytes"] += nbytes / HBM_BYTES_PER_S
+    log(f"    gemm_float_reduce: {plan[2]} splits of {plan[0]}x{plan[1]} "
+        f"tiles, max|kernel - plain| {err:.3g}; kernel {ms:.4f} ms, plain "
+        f"{pms:.4f} ms, bound {1e3 * nbytes / HBM_BYTES_PER_S:.4f} ms "
+        f"(bytes)")
+
+
+def check_layer_ops(cases, outs: dict, tag: str = "") -> dict:
     """Each case's output against its plain version on the same inputs
     (alu, depthwise, pool: max_abs_err 0; GEMM: error against float64 at
-    most 2x the plain version's plus 1e-6*K), then the kernel (CUDA-graph
-    replay), the plain version (eager) and the library call (CUDA-graph
-    replay) timed. Returns {launch key: row of sums over its cases}."""
+    most 2x the plain version's plus 1e-6*K, and a second run's output
+    equal byte for byte), then the kernel (CUDA-graph replay), the plain
+    version (eager) and the library call (CUDA-graph replay) timed; a
+    split-K case's reduce kernel also alone (``check_reduce``). Returns
+    {launch key: row of sums over its cases}; ``tag`` prefixes the row
+    lines."""
     import torch
     from repro_torch.kernels import alu, depthwise, gemm, pool2d
     impl = {"gemm": (gemm.gemm, gemm.gemm_plain),
@@ -877,7 +960,8 @@ def check_layer_ops(cases, outs: dict) -> dict:
     rows = {key: {"cases": 0, "max_abs_err": 0.0, "ms": 0.0,
                   "plain_ms": 0.0, "bound_ms": 0.0, "t_bytes": 0.0,
                   "t_ops": 0.0, "library_ms": None, "library_cases": 0,
-                  "ms_library_cases": 0.0} for key in LAYER_OPS}
+                  "ms_library_cases": 0.0}
+            for key in (*LAYER_OPS, "gemm_float_reduce")}
     for key in ("gemm_float", "gemm_bf16"):
         rows[key].update(max_err_vs_f64=0.0, plain_max_err_vs_f64=0.0)
     for case in cases:
@@ -910,7 +994,13 @@ def check_layer_ops(cases, outs: dict) -> dict:
                                      f"2 x plain's {ep:.3g} + 1e-6 K")
             r["max_err_vs_f64"] = max(r["max_err_vs_f64"], ek)
             r["plain_max_err_vs_f64"] = max(r["plain_max_err_vs_f64"], ep)
-            note = f"err vs f64 {ek:.3g} (plain {ep:.3g})"
+            again = kernel(*args, **kw)
+            torch.cuda.synchronize()
+            if not torch.equal(again.view(torch.uint8),
+                               got.view(torch.uint8)):
+                raise AssertionError(f"{name}: a second run gives other "
+                                     f"bytes")
+            note = f"err vs f64 {ek:.3g} (plain {ep:.3g}), rerun equal"
         elif err != 0:
             raise AssertionError(f"{name}: kernel differs from its plain "
                                  f"version, max |diff| {err}")
@@ -934,10 +1024,15 @@ def check_layer_ops(cases, outs: dict) -> dict:
             f"ms, plain {pms:.4f} ms, library "
             f"{'none' if lms is None else f'{lms:.4f} ms'}, bound "
             f"{1e3 * max(tb, to):.4f} ms")
+        if key == "gemm_float" and gemm.gemm_float_plan(
+                args[0].shape[0], args[1].shape[1], args[0].shape[1])[2] > 1:
+            check_reduce(args, kw, rows)
     for key, r in rows.items():
         r["bound_by"] = "bytes" if r.pop("t_bytes") >= r.pop("t_ops") \
             else "operations"
-        log(f"{key}: {r['cases']} cases, max_abs_err vs plain "
+        if tag and not r["cases"]:
+            continue
+        log(f"{tag}{key}: {r['cases']} cases, max_abs_err vs plain "
             f"{r['max_abs_err']:.3g}; kernel {r['ms']:.3f} ms, plain "
             f"{r['plain_ms']:.3f} ms, bound {r['bound_ms']:.4f} ms "
             f"({r['bound_by']}); library {r['library_ms']} ms on "
@@ -1232,7 +1327,7 @@ def check_attention(cases, outs: dict) -> dict:
 
 
 # ---------------------------------------------------------------------------
-# --plant-faults: phase 5's limits against wrong kernels
+# --plant-faults: the limits of phases 4 and 5 against wrong kernels
 # ---------------------------------------------------------------------------
 PLANTED_FAULTS = {  # name: (route, file under src/repro_torch, text, stand-in)
     "mma.skip_tile_4096": (
@@ -1257,7 +1352,19 @@ PLANTED_FAULTS = {  # name: (route, file under src/repro_torch, text, stand-in)
         "simt", "csrc/flash_attention.cu",
         "           window, softcap, scale};",
         "           window + 64, softcap, scale};"),
+    # the last K split of every split-K product adds nothing
+    "gemm_float.drop_last_split": (
+        "gemm_float", "csrc/gemm_f32.cu",
+        "  const int tiles = (k1 - k0 + BK - 1) / BK;",
+        "  const int tiles = split > 0 && split == a.splits - 1 ? 0\n"
+        "                    : (k1 - k0 + BK - 1) / BK;"),
+    # every halo read one column to the right of where it lies
+    "depthwise.halo_one_column_right": (
+        "depthwise", "csrc/depthwise.cu",
+        "tma_halo(halo, &map, c0, ix0, iy0, b, &bar,",
+        "tma_halo(halo, &map, c0, ix0 + 1, iy0, b, &bar,"),
 }
+LAYER_FAULT_KEYS = ("gemm_float", "depthwise")
 # --plant-faults runs these besides ATTENTION_CASES: the only windowed
 # decode case there, g2.local.decode, sees its whole 4096-key cache, so a
 # window 64 too wide is invisible to it. Gemma-2 27B local layers decoding
@@ -1268,11 +1375,53 @@ FAULT_CASES = [
 ]
 
 
-def attention_errors(fault: str, route: str) -> int:
-    """``--attention-errors FAULT ROUTE``: the cases of ``ATTENTION_CASES``
-    and ``FAULT_CASES`` that take ``route`` ("all": every case) once
-    through ``ops.flash_attention``, each held to float64 by
-    ``attention_error``; one JSON line per case."""
+def case_errors(fault: str, route: str) -> int:
+    """``--case-errors FAULT ROUTE``: the cases of ``route`` ("all": every
+    route that has a planted fault) through their limit checks, one JSON
+    line per case: the attention cases of ``ATTENTION_CASES`` and
+    ``FAULT_CASES`` (``attention_errors``), and the phase-4 cases, edge
+    cases included, of the kernels of ``LAYER_FAULT_KEYS``
+    (``layer_errors``)."""
+    if route == "all" or route not in LAYER_FAULT_KEYS:
+        attention_errors(fault, route)
+    if route == "all" or route in LAYER_FAULT_KEYS:
+        layer_errors(fault, route)
+    return 0
+
+
+def layer_errors(fault: str, route: str) -> None:
+    """The phase-4 cases, and the edge cases, that run on the kernel
+    ``route`` names ("all": each of ``LAYER_FAULT_KEYS``) once through
+    ``repro_torch.kernels.ops``, each held to phase 4's limit."""
+    import torch
+    from repro_torch.kernels import depthwise, gemm, ops
+    dev = torch.device("cuda")
+    rng = np.random.default_rng(0)
+    keys = LAYER_FAULT_KEYS if route == "all" else (route,)
+    cases = [c for c in layer_op_cases(dev, rng, LAYER_BATCH)
+             + layer_edge_cases(dev, rng) if layer_key(c) in keys]
+    for op, name, args, kw in cases:
+        got = getattr(ops, op)(*args, **kw)
+        if op == "gemm":
+            want = gemm.gemm_plain(*args, **kw)
+            bias = args[2] if len(args) > 2 else None
+            err = gemm_err64(got, args[0], args[1], bias, kw.get("act"),
+                             kw.get("clip"))
+            limit = 2 * gemm_err64(want, args[0], args[1], bias,
+                                   kw.get("act"), kw.get("clip")) \
+                + 1e-6 * args[0].shape[1]
+        else:
+            want = depthwise.depthwise_plain(*args, **kw)
+            err = float((got.float() - want.float()).abs().max())
+            limit = 0.0
+        print(json.dumps({"fault": fault, "case": name, "err": err,
+                          "limit": limit, "over": err > limit}), flush=True)
+
+
+def attention_errors(fault: str, route: str) -> None:
+    """The cases of ``ATTENTION_CASES`` and ``FAULT_CASES`` that take
+    ``route`` ("all": every case) once through ``ops.flash_attention``,
+    each held to float64 by ``attention_error``."""
     import torch
     from repro_torch.kernels import ops
     from repro_torch.kernels.flash_attention import (attention_route,
@@ -1292,7 +1441,6 @@ def attention_errors(fault: str, route: str) -> int:
                           "plain_err_f64": ep, "out_max": float(
                               want.float().abs().max()), "over": bad}),
               flush=True)
-    return 0
 
 
 def plant_faults() -> int:
@@ -1328,7 +1476,7 @@ def plant_faults() -> int:
             while pending and len(procs) < 3:
                 fault, route, _ = pending.pop(0)
                 procs[fault] = subprocess.Popen(
-                    [sys.executable, "chip_smoke.py", "--attention-errors",
+                    [sys.executable, "chip_smoke.py", "--case-errors",
                      fault, route], cwd=os.path.join(tmp, fault), env=env,
                     stdout=subprocess.PIPE, text=True)
             fault = next(iter(procs))
@@ -1370,8 +1518,8 @@ def main(argv: list) -> int:
     torch.set_float32_matmul_precision("highest")
     if argv[1:2] == ["--plant-faults"]:
         return plant_faults()
-    if argv[1:2] == ["--attention-errors"]:
-        return attention_errors(argv[2], argv[3])
+    if argv[1:2] == ["--case-errors"]:
+        return case_errors(argv[2], argv[3])
 
     # -- phase 1 ----------------------------------------------------------
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
@@ -1479,12 +1627,21 @@ def main(argv: list) -> int:
     outs4, counts4 = drive_layer_ops(cases)
     log(f"layer ops: {len(cases)} cases through repro_torch.kernels.ops at "
         f"batch {LAYER_BATCH}; launches {counts4}")
-    for key in LAYER_OPS:
-        want = sum(layer_key(c) == key for c in cases)
+    from repro_torch.kernels.gemm import gemm_float_plan
+    want4 = {key: sum(layer_key(c) == key for c in cases) for key in LAYER_OPS}
+    want4["gemm_float_reduce"] = sum(
+        layer_key(c) == "gemm_float" and gemm_float_plan(
+            c[2][0].shape[0], c[2][1].shape[1], c[2][0].shape[1])[2] > 1
+        for c in cases)
+    for key, want in want4.items():
         if not want or counts4.get(key) != want:
             raise AssertionError(f"{counts4.get(key)} launches of {key} for "
                                  f"{want} cases of its route")
     rows4 = check_layer_ops(cases, outs4)
+    edge = layer_edge_cases(dev, rng)
+    outs_edge, _ = drive_layer_ops(edge)
+    check_layer_ops(edge, outs_edge, tag="edge cases, ")
+    del edge, outs_edge
     log(f"phase 4: {time.perf_counter() - t0:.1f} s")
 
     # -- phase 5 ----------------------------------------------------------
@@ -1527,7 +1684,14 @@ def main(argv: list) -> int:
             name=key, route="cuda", source=src + source, replaces=replaces,
             launches=counts4[key], **rows4[key],
             per=f"one pass over the phase-4 cases at batch {LAYER_BATCH}: "
-                f"{per}"))
+                f"{per}" + ("; the split-K cases' time includes their "
+                            "reduce kernel" if key == "gemm_float" else "")))
+    kernels.append(dict(
+        name="gemm_float_reduce", route="cuda", source=src + "gemm_f32.cu",
+        replaces=LAYER_OPS["gemm_float"][2],
+        launches=counts4["gemm_float_reduce"], **rows4["gemm_float_reduce"],
+        per=f"alone, on the split-K cases of the gemm_float row "
+            f"({rows4['gemm_float_reduce']['cases']})"))
     for key, source in zip(ATTENTION_KEYS, (
             "flash_attention_mma.cu", "flash_decode.cu", "flash_attention.cu",
             "flash_decode.cu")):

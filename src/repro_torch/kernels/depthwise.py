@@ -8,6 +8,11 @@ x's dtype. ``depthwise_conv`` launches ``csrc/depthwise.cu`` for CUDA tensors
 ``LAUNCHES["depthwise"]``; for CPU tensors it takes ``depthwise_plain``, which
 repeats the reference step by step (a separate multiply and add per tap) and
 runs on either device. The two agree bit for bit.
+
+The kernel gives each block an output tile of one image, TH rows x TW
+columns x CB channels, whose input halo it stages once in shared memory;
+``depthwise_plan`` picks the tile from the layer's shape alone, so the CPU
+tests can hold its coverage and its shared-memory budget.
 """
 from __future__ import annotations
 
@@ -55,31 +60,85 @@ def depthwise_plain(x: torch.Tensor, w: torch.Tensor, *, stride: int = 1,
     return out.to(x.dtype)
 
 
+SMEM_BUDGET = 48 * 1024  # halo and weights of one block, csrc/depthwise.cu
+RUN = 4                  # outputs along W a thread computes
+MAX_THREADS = 256
+
+
+def halo_hw(th: int, tw: int, kh: int, kw: int, stride: int) -> tuple:
+    """Rows and columns of the input halo of a th x tw output tile."""
+    return (th - 1) * stride + kh, (tw - 1) * stride + kw
+
+
+def plan_smem(th: int, tw: int, cb: int, kh: int, kw: int, stride: int,
+              esize: int) -> int:
+    """Shared-memory bytes of a block, as csrc/depthwise.cu lays them out:
+    up to 128 bytes to align the halo for TMA, the halo in x's type rounded
+    up to 16 bytes, then the weights in f32."""
+    hh, hw = halo_hw(th, tw, kh, kw, stride)
+    return 128 + -(-hh * hw * cb * esize // 16) * 16 + kh * kw * cb * 4
+
+
+# (stride 1, vec) -> the output tile (th, tw) of csrc/depthwise.cu
+_TILES = {(True, 4): (8, 16), (True, 8): (16, 16), (True, 1): (2, 16),
+          (False, 4): (4, 8), (False, 8): (16, 8), (False, 1): (4, 8)}
+
+
+def depthwise_plan(h: int, w: int, c: int, kh: int, kw: int, stride: int,
+                   pad: int, dtype: torch.dtype) -> tuple:
+    """(th, tw, cb, vec): the output tile of csrc/depthwise.cu for one layer.
+    vec channels a thread: 16 bytes (4 in f32, 8 in bf16) where C is a
+    multiple of it, else 1 (the scalar path); cb = 32 channels a block (all
+    of C below 32); th x tw outputs from ``_TILES`` by stride and vec, cut
+    to the output's size, and fewer rows while the halo and weights
+    overflow ``SMEM_BUDGET``. The f32 tiles, 8 x 16 at stride 1 and 4 x 8
+    at stride 2 (whose halo is 4x its output), did best across the
+    MobileNet-1.0 layers of their stride in a sweep of tiles on the H100;
+    bf16 (whose threads take twice the channels) and the scalar path keep
+    about as many threads a block."""
+    oh = (h + 2 * pad - kh) // stride + 1
+    ow = (w + 2 * pad - kw) // stride + 1
+    esize = 2 if dtype == torch.bfloat16 else 4
+    vec = 16 // esize if c % (16 // esize) == 0 else 1
+    cb = min(c, 32)
+    th, tw = _TILES[stride == 1, vec]
+    th, tw = min(th, oh), min(tw, -(-ow // RUN) * RUN)
+    while th > 1 and plan_smem(th, tw, cb, kh, kw, stride,
+                               esize) > SMEM_BUDGET:
+        th -= 1
+    if plan_smem(th, tw, cb, kh, kw, stride, esize) > SMEM_BUDGET:
+        raise ValueError(f"depthwise_conv: a {kh}x{kw} kernel at stride "
+                         f"{stride} overflows {SMEM_BUDGET} bytes of shared "
+                         f"memory")
+    return th, tw, cb, vec
+
+
 def _lib():
     fn = _build.library("depthwise").depthwise_launch
     if fn.argtypes is None:
         vp, i = ctypes.c_void_p, ctypes.c_int
-        fn.argtypes = [vp, vp, vp] + [i] * 11 + [vp]
+        fn.argtypes = [vp, vp, vp] + [i] * 15 + [vp]
         fn.restype = ctypes.c_int
     return fn
 
 
 def depthwise_conv(x: torch.Tensor, w: torch.Tensor, *, stride: int = 1,
                    pad: int = 0) -> torch.Tensor:
-    """The kernel's wrapper: CUDA tensors launch ``csrc/depthwise.cu``; CPU
-    tensors take ``depthwise_plain``. Raises on anything the kernel does not
-    take."""
+    """The kernel's wrapper: CUDA tensors launch ``csrc/depthwise.cu`` with
+    the tile of ``depthwise_plan``; CPU tensors take ``depthwise_plain``.
+    Raises on anything the kernel does not take."""
     oh, ow = _out_hw(x, w, stride, pad)
     if not _build.on_card("depthwise_conv", x, w):
         return depthwise_plain(x, w, stride=stride, pad=pad)
     code = _build.float_code("depthwise_conv", x, w)
-    x = x.contiguous()
+    x = _build.aligned(x)
     w = w.contiguous()
     b, h, wd, c = x.shape
     kh, kw, _ = w.shape
+    plan = depthwise_plan(h, wd, c, kh, kw, stride, pad, x.dtype)
     out = torch.empty((b, oh, ow, c), dtype=x.dtype, device=x.device)
     status = _lib()(x.data_ptr(), w.data_ptr(), out.data_ptr(), b, h, wd, c,
-                    kh, kw, stride, pad, oh, ow, code,
+                    kh, kw, stride, pad, oh, ow, code, *plan,
                     torch.cuda.current_stream(x.device).cuda_stream)
     _build.check(status, "depthwise_conv")
     LAUNCHES["depthwise"] += 1
