@@ -12,21 +12,32 @@ order; any failure raises and the script exits nonzero:
    parallel) with the build time, and per source the number of compiled
    kernels, their registers and spill stores (``ptxas -v``).
 2. Kernels against their plain versions on the card, tolerance 0
-   (``torch.equal``). Every GEMM shape and every chain and sweep program the
-   main path launches, at the batch the main path launches it (trunk at 2
-   and 8, resnet18-small at 4); besides, for the GEMM odd and prime M and K,
-   K = 4608 and the int8 extremes, and for the ALU stage-program kernel the
-   real chains and sweeps of a depthwise and two pool programs, forced
-   scatter stores, a store with duplicate and masked lanes, and integer edge
-   cases, at N = 3.
+   (``torch.equal``). The VTA GEMM (gather, product and add into acc in one
+   launch) on every GEMM entry the main path launches, at the batch it
+   launches it (trunk at 2 and 8, resnet18-small at 4), with random int8
+   scratchpads and an acc within 2^24 of +-2^31 so that the add wraps, the
+   whole acc compared; besides, at N = 3, an entry with prime g and R, one
+   with K = 4608, the int8 extremes, per-image weights (Nw = N), the
+   per-group fc form (w_d = g), duplicate acc targets (the atomic path),
+   and the entries of ResNet-18's C8 3x3 conv lowered at block 32 and 64
+   and at batch 2 (``gemm_cases``). Its row times one trunk forward's 609
+   entries as one CUDA graph, against the fused function's bound
+   (``gemm_bound_s``) and ``torch._int_mm`` on pre-gathered operands (the
+   product only). The ALU stage-program kernel on every chain and sweep the
+   main path launches, and on the real chains and sweeps of a depthwise and
+   two pool programs, forced scatter stores, a store with duplicate and
+   masked lanes, and integer edge cases at N = 3 (``sweep_cases``), each at
+   its planned tap split (``kernels/alu_sweep.py::sweep_plan``), at 1 and
+   at its largest; the time per launch of each program kind (the trunk's
+   pool1 tile and global average pool) at every split.
 3. The main path: ``VTAServeEngine(backend="torch")`` serves the full-width
    ResNet-18 trunk (``SERVE_REPS`` full dispatches each of buckets 2 and 8)
    and the resnet18-small served model (``SERVE_REPS`` full dispatches of
    bucket 4). Launch counts are zeroed just before and read just after;
-   every kernel must have launched. Every output must equal the same image
-   on ``"torch-cpu"``, and request 0's output must hash to ``TRUNK_DIGEST``,
-   the JAX package's numpy-backend result (tests/test_torch_serve.py pins the
-   same digest).
+   each kernel must have launched once per entry of each forward. Every
+   output must equal the same image on ``"torch-cpu"``, and request 0's
+   output must hash to ``TRUNK_DIGEST``, the JAX package's numpy-backend
+   result (tests/test_torch_serve.py pins the same digest).
 4. The float layer ops at full width, through ``repro_torch.kernels.ops``
    at batch ``LAYER_BATCH`` (NHWC), shapes from the port's layer tables:
    the 13 MobileNet-1.0 depthwise layers, each followed by its relu_shift
@@ -104,16 +115,19 @@ boolean mask carries a window). The call is a yardstick here only: the port
 never makes it.
 
 ``--plant-faults`` runs none of the phases. It shows that the limits of
-phases 4 and 5 fail a wrong kernel: the checkout is copied into a temporary
-directory once as it is and once per fault of ``PLANTED_FAULTS`` (a text
-substitution: a key tile from 4096 skipped, or the window 64 keys too wide,
-in each of the three attention routes; the last K split of the f32 GEMM
-dropped; the depthwise halo read one column to the right), the unchanged
-sources are built once into a build directory the copies share, and each
-copy builds its changed source and runs the cases of its route through
-their limit checks (``--case-errors``, three copies at a time): the phase-5
-cases and those of ``FAULT_CASES`` through ``attention_error``, or the
-phase-4 and edge cases of the GEMM or depthwise kernel; the unchanged copy
+phases 2, 4 and 5 fail a wrong kernel: the checkout is copied into a
+temporary directory once as it is and once per fault of ``PLANTED_FAULTS``
+(a text substitution: a key tile from 4096 skipped, or the window 64 keys
+too wide, in each of the three attention routes; the last K split of the
+f32 GEMM dropped; the depthwise halo read one column to the right, by TMA
+and on the scalar path; the last reduction row of every VTA GEMM group
+dropped; one thread's partial of a split tap reduction dropped), the
+unchanged sources are built once into a build directory the copies share,
+and each copy builds its changed source and runs the cases of its route
+through their limit checks (``--case-errors``, three copies at a time): the
+phase-5 cases and those of ``FAULT_CASES`` through ``attention_error``, the
+phase-4 and edge cases of the float GEMM or depthwise kernel, or phase 2's
+cases of the VTA GEMM or the ALU stage-program kernel; the unchanged copy
 runs all of them. One JSON line per (fault, case) gives the kernel's error
 and its limit (attention: the kernel's and the plain version's largest
 error against float64, the largest |out| and the elements over the limit).
@@ -283,6 +297,19 @@ def graph_ms(fn, reps: int = 20, trials: int = 3) -> float:
 # ---------------------------------------------------------------------------
 # what the main path launches
 # ---------------------------------------------------------------------------
+def vta_main_path(trunk, small, device) -> list:
+    """(model, batch, device entries, tensor shapes, {shared tensor: dtype})
+    for each model and batch the serve run launches: the trunk at each of
+    ``TRUNK_BUCKETS``, then resnet18-small at ``SMALL_BUCKET``."""
+    out = []
+    for name, model, batches in (("resnet18-trunk", trunk, TRUNK_BUCKETS),
+                                 ("resnet18-small", small, (SMALL_BUCKET,))):
+        ops, shapes = model_ops(model, device)
+        shared = {k: v.dtype.type for k, v in model.weights.items()}
+        out += [(name, b, ops, shapes, shared) for b in batches]
+    return out
+
+
 def model_ops(model, device):
     """(device entries, tensor shapes) of every segment of ``model``."""
     from repro_torch.vta.fsim_torch import _device_ops
@@ -301,7 +328,7 @@ def gemm_shapes(ops, hw) -> dict:
     counts: dict = {}
     for e in ops:
         if e[0] == "gemm":
-            _, R, w_d, uidx, _, _ = e
+            _, R, w_d, uidx = e[:4]
             g = len(uidx)
             key = (w_d, (g // w_d) * hw.batch, R * hw.block_in)
             counts[key] = counts.get(key, 0) + 1
@@ -311,74 +338,196 @@ def gemm_shapes(ops, hw) -> dict:
 # ---------------------------------------------------------------------------
 # phase 2: kernels against their plain versions
 # ---------------------------------------------------------------------------
-def check_gemm(dev, rng, main_path: list, trunk_shapes: dict,
-               n: int) -> dict:
-    """``main_path``: (batch, {(w_d, M, K): launches}) the serve run launches;
-    ``trunk_shapes`` at batch ``n`` are timed."""
+def gemm_entries(ops) -> list:
+    """The GEMM entries of ``_device_ops``, as the wrapper's arguments after
+    the three scratchpads: (uidx, inp_idx, wrows, R, w_d, unique)."""
+    return [(e[3], e[4], e[5], e[1], e[2], e[6]) for e in ops
+            if e[0] == "gemm"]
+
+
+def gemm_scratchpads(hw, n: int, nw: int, dev, rng, fill=None) -> tuple:
+    """(acc, inp, wgt) of one batch: int8 scratchpads drawn from the whole
+    int8 range (or all ``fill``), wgt with ``nw`` images, and an int32 acc
+    within 2^24 of +-2^31, so that adding a product wraps about half the
+    time."""
     import torch
-    from repro_torch.kernels.vta_gemm import gemm_plain, vta_gemm
+    shape_i = (n, hw.inp_depth, hw.batch, hw.block_in)
+    shape_w = (nw, hw.wgt_depth, hw.block_out, hw.block_in)
+    if fill is None:
+        inp = rng.integers(-128, 128, shape_i, dtype=np.int8)
+        wgt = rng.integers(-128, 128, shape_w, dtype=np.int8)
+    else:
+        inp, wgt = np.full(shape_i, fill[0], np.int8), \
+            np.full(shape_w, fill[1], np.int8)
+    shape_a = (n, hw.acc_depth, hw.batch, hw.block_out)
+    mag = 2**31 - rng.integers(1, 2**24, shape_a, dtype=np.int64)
+    acc = np.where(rng.random(shape_a) < 0.5, mag, -mag).astype(np.int32)
+    return tuple(torch.from_numpy(a).to(dev) for a in (acc, inp, wgt))
 
-    def case(nb, w_d, m, k, lo=-128, hi=128, fill=None):
-        if fill is None:
-            x = rng.integers(lo, hi, (nb, w_d, m, k), dtype=np.int8)
-            w = rng.integers(lo, hi, (1, w_d, k, 16), dtype=np.int8)
-        else:
-            x = np.full((nb, w_d, m, k), fill, np.int8)
-            w = np.full((1, w_d, k, 16), fill, np.int8)
-        return (torch.from_numpy(x).to(dev), torch.from_numpy(w).to(dev))
 
-    cases = [case(nb, *s) for nb, shapes in main_path for s in sorted(shapes)]
-    cases += [case(3, 2, 97, 131), case(2, 1, 1, 16), case(3, 3, 3, 5),
-              case(2, 2, 53, 4608), case(2, 1, 37, 4608, fill=-128),
-              case(2, 1, 19, 1024, fill=127)]
-    # a weight scratchpad filled from per-image tensors has a batch axis
-    xb, _ = case(3, 2, 45, 96)
-    wb = torch.from_numpy(rng.integers(-128, 128, (3, 2, 96, 16),
-                                       dtype=np.int8)).to(dev)
-    cases.append((xb, wb))
+def synthetic_gemm(hw, rng, dev, g: int, R: int, w_d: int,
+                   dup: bool = False) -> tuple:
+    """One GEMM entry with random rows inside ``hw``'s scratchpads: distinct
+    acc targets, or (``dup``) each target named about three times."""
+    import torch
+    if dup:
+        uidx = rng.integers(0, max(1, g // 3), g)
+    else:
+        uidx = rng.choice(hw.acc_depth, g, replace=False)
+    inp_idx = rng.integers(0, hw.inp_depth, g * R)
+    wrows = rng.integers(0, hw.wgt_depth, w_d * R)
+    return tuple(torch.from_numpy(a.astype(np.int32)).to(dev)
+                 for a in (uidx, inp_idx, wrows)) + (R, w_d, not dup)
+
+
+def conv_gemm_entries(hw, dev) -> list:
+    """The GEMM entries of ResNet-18's C8 3x3 conv (14x14, 256 -> 256)
+    lowered at ``hw``, at an image batch of ``hw.batch``."""
+    from repro_torch.core.tps import ConvWorkload, tps_search
+    from repro_torch.vta.fsim_torch import _device_ops
+    from repro_torch.vta.lowering import lower
+    from repro_torch.vta.scheduler import schedule_conv
+    wl = ConvWorkload("r18.C8", hw.batch, 14, 14, 3, 3, 256, 256, 1, 1, 1, 1)
+    res = tps_search(wl, hw, require_db=True)
+    if not res.feasible:
+        res = tps_search(wl, hw)
+    prog = schedule_conv(wl, res.tiling, hw).program
+    shapes = {"inp": (hw.batch, 256, 14, 14), "wgt": (256, 256, 3, 3),
+              "out": (hw.batch, 256, 14, 14)}
+    return gemm_entries(_device_ops(lower(prog, hw, shapes), dev))
+
+
+def gemm_cases(dev, rng, hw, main_path: list) -> list:
+    """Phase 2's GEMM cases: (name, hw, scratchpads (acc, inp, wgt),
+    entries). Every entry ``main_path`` ((model, batch, entries)) launches
+    at its batch, then the edge cases at N = 3."""
+    import dataclasses
+    cases = [(f"{model}.b{nb}", hw, gemm_scratchpads(hw, nb, 1, dev, rng),
+              entries) for model, nb, entries in main_path]
+
+    def one(name, entry, nw=1, fill=None, at=hw):
+        cases.append((name, at, gemm_scratchpads(at, 3, nw, dev, rng, fill),
+                      [entry]))
+    syn = (lambda *a, **k: synthetic_gemm(hw, rng, dev, *a, **k))
+    one("edge.prime g13 R7", syn(13, 7, 1))
+    one("edge.odd g15 R9 w_d3", syn(15, 9, 3))
+    one("edge.K4608 g37", syn(37, 288, 1))
+    one("edge.int8 -128 x -128 K4608", syn(21, 288, 3), fill=(-128, -128))
+    one("edge.int8 127 x -128 K4608", syn(5, 288, 1), fill=(127, -128))
+    one("edge.per-image weights Nw=N", syn(45, 6, 3), nw=3)
+    one("edge.per-group fc w_d=g", syn(21, 32, 21))
+    one("edge.duplicate uidx (atomics)", syn(48, 9, 4, dup=True))
+    for lb, lbat in ((5, 0), (6, 0), (4, 1)):
+        at = dataclasses.replace(hw, log_block_in=lb, log_block_out=lb,
+                                 log_batch=lbat)
+        cases.append((f"edge.r18.C8 log_block {lb} batch_log {lbat}", at,
+                      gemm_scratchpads(at, 3, 1, dev, rng),
+                      conv_gemm_entries(at, dev)))
+    return cases
+
+
+def gemm_case_error(case) -> int:
+    """Largest |kernel - plain| over the whole acc, across the case's
+    entries, each run on a fresh copy of the case's acc."""
+    import torch
+    from repro_torch.kernels.vta_gemm import gemm_acc_plain, vta_gemm
+    _, _, (acc, inp, wgt), entries = case
     err = 0
-    for x, w in cases:
-        a = vta_gemm(x, w)
-        b = gemm_plain(x, w)
+    for e in entries:
+        a = vta_gemm(acc.clone(), inp, wgt, *e)
+        b = gemm_acc_plain(acc.clone(), inp, wgt, *e)
         torch.cuda.synchronize()
-        err = max(err, int((a.long() - b.long()).abs().max()))
         if not torch.equal(a, b):
-            raise AssertionError(f"gemm differs from its plain version at "
-                                 f"x {tuple(x.shape)} w {tuple(w.shape)}")
+            err = max(err, int((a.long() - b.long()).abs().max()))
+    return err
 
-    # timings over one trunk forward at batch n: sum of count x per-launch
-    ms = eager = plain = lib = bound = t_bytes = t_ops = 0.0
+
+def gemm_bound_s(entry, hw, n: int, nw: int) -> tuple:
+    """(bytes time, operations time) of one fused entry in seconds: the
+    distinct inp and weight rows it reads, its acc rows read and written,
+    its int32 index vectors, over the memory rate; 2 x its products at the
+    int8 tensor rate."""
+    uidx, inp_idx, wrows, R, w_d, _ = entry
+    g = uidx.numel()
+    rows = [np.unique(t.cpu().numpy()).size for t in (uidx, inp_idx, wrows)]
+    nbytes = (n * rows[1] * hw.batch * hw.block_in
+              + nw * rows[2] * hw.block_out * hw.block_in
+              + 2 * n * rows[0] * hw.batch * hw.block_out * 4
+              + 4 * (g + g * R + w_d * R))
+    ops = 2 * n * g * hw.batch * R * hw.block_in * hw.block_out
+    return nbytes / HBM_BYTES_PER_S, ops / INT8_TENSOR_OPS_PER_S
+
+
+def check_gemm(dev, rng, hw, main_path: list, timed: tuple) -> dict:
+    """``main_path``: (model, batch, GEMM entries) the serve run launches;
+    ``timed`` (batch, entries, {(w_d, M, K): launches}): one trunk forward,
+    timed by CUDA-graph replay of all its entries."""
+    import torch
+    from repro_torch.kernels.vta_gemm import gemm_acc_plain, vta_gemm
+    cases = gemm_cases(dev, rng, hw, main_path)
+    err = 0
+    for case in cases:
+        e = gemm_case_error(case)
+        err = max(err, e)
+        log(f"  gemm {case[0]}: {len(case[3])} entries, whole acc "
+            f"{'equal' if not e else f'DIFFERS by up to {e}'}")
+        if e:
+            raise AssertionError(f"gemm differs from its plain version in "
+                                 f"{case[0]}")
+
+    n, entries, trunk_shapes = timed
+    acc, inp, wgt = gemm_scratchpads(hw, n, 1, dev, rng)
+
+    def forward(fn):
+        return lambda: [fn(acc, inp, wgt, *e) for e in entries]
+    ms = graph_ms(forward(vta_gemm), reps=1, trials=5)
+    eager = median_ms(forward(vta_gemm), reps=1, trials=5)
+    # one entry of each shape alone: is a launch's time set by its size?
+    shapes: dict = {}
+    for e in entries:
+        shapes.setdefault((e[0].numel(), e[3], e[4]), e)
+    for (g, R, w_d), e in sorted(shapes.items()):
+        one = graph_ms(lambda: vta_gemm(acc, inp, wgt, *e), reps=20)
+        tb, to = gemm_bound_s(e, hw, n, 1)
+        log(f"  gemm entry g {g} R {R} w_d {w_d} (M {g // w_d * hw.batch}, "
+            f"K {R * hw.block_in}) at batch {n}: {1e3 * one:.2f} us a "
+            f"launch, bound {1e6 * max(tb, to):.2f} us")
+    plain = median_ms(forward(gemm_acc_plain), reps=1, trials=1)
+    bound = t_bytes = t_ops = 0.0
+    for e in entries:
+        tb, to = gemm_bound_s(e, hw, n, 1)
+        bound += 1e3 * max(tb, to)
+        t_bytes += tb
+        t_ops += to
+    # the product alone on pre-gathered operands, one torch._int_mm per
+    # weight block: the library call nearest to the fused function
+    lib = 0.0
     for (w_d, m, k), cnt in sorted(trunk_shapes.items()):
-        x, w = case(n, w_d, m, k)
-        ms += cnt * graph_ms(lambda: vta_gemm(x, w))
-        eager += cnt * median_ms(lambda: vta_gemm(x, w))
-        plain += cnt * median_ms(lambda: gemm_plain(x, w), reps=5)
         rows = max(n * m, 17)        # torch._int_mm takes > 16 rows
-        xs = [torch.zeros((rows, k), dtype=torch.int8, device=dev)
+        xs = [torch.from_numpy(rng.integers(-128, 128, (rows, k),
+                                            dtype=np.int8)).to(dev)
               for _ in range(w_d)]
-        for j in range(w_d):
-            xs[j][:n * m] = x[:, j].reshape(n * m, k)
-        ws = [w[0, j].contiguous() for j in range(w_d)]
+        ws = [torch.from_numpy(rng.integers(-128, 128, (k, hw.block_out),
+                                            dtype=np.int8)).to(dev)
+              for _ in range(w_d)]
 
         def library():
             for j in range(w_d):
                 torch._int_mm(xs[j], ws[j])
         lib += cnt * graph_ms(library, reps=5)
-        nbytes = n * w_d * m * k + w_d * k * 16 + n * w_d * m * 16 * 4
-        ops = 2 * n * w_d * m * k * 16
-        tb, to = nbytes / HBM_BYTES_PER_S, ops / INT8_TENSOR_OPS_PER_S
-        bound += cnt * 1e3 * max(tb, to)
-        t_bytes += cnt * tb
-        t_ops += cnt * to
     by = "bytes" if t_bytes >= t_ops else "operations"
-    log(f"gemm: {len(cases)} cases equal; trunk forward at batch {n}: "
-        f"kernel {ms:.3f} ms (eager launches {eager:.3f} ms), plain "
-        f"{plain:.3f} ms, torch._int_mm {lib:.3f} ms, bound {bound:.4f} ms "
-        f"({by})")
+    log(f"gemm: {sum(len(c[3]) for c in cases)} entries in {len(cases)} "
+        f"cases equal; trunk forward at batch {n} ({len(entries)} entries, "
+        f"gather + product + add): kernel {ms:.3f} ms "
+        f"({1e3 * ms / len(entries):.2f} us a launch; eager launches "
+        f"{eager:.3f} ms), plain {plain:.3f} ms, bound {bound:.4f} ms ({by}); "
+        f"torch._int_mm {lib:.3f} ms (product only, on pre-gathered "
+        f"operands)")
     return {"max_abs_err": err, "ms": ms, "plain_ms": plain,
             "library_ms": lib, "bound_ms": bound, "bound_by": by,
-            "eager_ms": eager,
-            "launches_per_forward": sum(trunk_shapes.values())}
+            "eager_ms": eager, "launches_per_forward": len(entries),
+            "library": "torch._int_mm, product only, on pre-gathered "
+                       "operands"}
 
 
 def sweep_inputs(prog, shapes, shared: dict, n: int, dev, rng, hw):
@@ -404,17 +553,18 @@ def sweep_inputs(prog, shapes, shared: dict, n: int, dev, rng, hw):
     return acc, flats, out
 
 
-def run_sweep_pair(prog, acc, flats, out) -> int:
-    """Largest |kernel - plain| over acc and the output tensor."""
+def run_sweep_pair(prog, acc, flats, out, split=None) -> int:
+    """Largest |kernel - plain| over acc and the output tensor, the kernel
+    at tap split ``split`` (None: ``sweep_plan``)."""
     import torch
     from repro_torch.kernels.alu_sweep import (alu_chain, alu_sweep,
                                                chain_plain, sweep_plain)
     clone = (lambda t: None if t is None else t.clone())
     if prog.slabs or prog.store is not None:
-        a1, o1 = alu_sweep(acc.clone(), prog, flats, clone(out))
+        a1, o1 = alu_sweep(acc.clone(), prog, flats, clone(out), split=split)
         a2, o2 = sweep_plain(acc.clone(), prog, flats, clone(out))
     else:
-        a1, o1 = alu_chain(acc.clone(), prog), None
+        a1, o1 = alu_chain(acc.clone(), prog, split=split), None
         a2, o2 = chain_plain(acc.clone(), prog), None
     torch.cuda.synchronize()
     err = int((a1.long() - a2.long()).abs().max())
@@ -525,20 +675,32 @@ def kernel_of(p) -> str:
     return "alu_sweep" if (p.slabs or p.store is not None) else "alu_chain"
 
 
-def check_sweeps(dev, rng, hw, main_path: list, timed: dict) -> tuple:
-    """Coverage cases at N = 3, then every program of ``main_path``
-    ((batch, entries, tensor shapes, shared tensors), one per model and
-    bucket the serve run launches) at its batch. ``timed`` maps each kernel
-    to the ``main_path`` index whose launches its row times."""
-    from repro_torch.kernels.alu_sweep import (SweepProgram, alu_chain,
-                                               alu_sweep, chain_plain,
-                                               sweep_plain)
-    err = {"alu_chain": 0, "alu_sweep": 0}
-    cases = real_sweep_cases(hw)
+def program_kind(p, nb: int) -> str:
+    """A sweep's stage signature, rows and batch, e.g. the trunk's pool1
+    tile ``seed_copy,red max 8 g112 n8`` or its global average pool
+    ``seed_copy,red add 48,imm shr 6 g1 n8``."""
+    sig = ",".join(" ".join(str(x) for x in s) for s in p.stages)
+    return f"[{sig} g{p.g} n{nb}]"
+
+
+def splits_of(p, nb: int) -> tuple:
+    """The tap splits a program is held at: planned, 1 and its largest."""
+    from repro_torch.kernels.alu_sweep import max_split, sweep_plan
+    return tuple(sorted({sweep_plan(p, nb), 1, max_split(p)}))
+
+
+def sweep_cases(dev, rng, hw, main_path: list) -> list:
+    """Phase 2's ALU stage-program cases: (name, program, batch, inputs,
+    splits). Coverage programs at N = 3 (real depthwise and pool chains and
+    sweeps, forced scatter stores, the synthetic edge programs), then every
+    program of ``main_path`` ((model, batch, entries, tensor shapes, shared
+    tensors)) at its batch; every case at each of ``splits_of``."""
+    from repro_torch.kernels.alu_sweep import SweepProgram
+    cov = real_sweep_cases(hw)
     forced = []
-    for p, shapes, shared in cases + [(e[1], shapes, shared)
-                                      for _, ops, shapes, shared in main_path
-                                      for e in ops if e[0] == "alusweep"]:
+    for p, shapes, shared in cov + [(e[1], shapes, shared)
+                                    for _, _, ops, shapes, shared in main_path
+                                    for e in ops if e[0] == "alusweep"]:
         st = p.store
         if st is not None and st[4] is not None:
             forced.append((SweepProgram(
@@ -546,21 +708,51 @@ def check_sweeps(dev, rng, hw, main_path: list, timed: dict) -> tuple:
                 slabs=p.slabs, write_acc=p.write_acc,
                 store=(st[0], st[1], st[2], st[3], None, None)),
                 shapes, shared))
-    cases += forced[:8]
+    cov += forced[:8]
     edges = edge_cases(hw, rng)
-    cases += edges
-    seen = {"chain": 0, "sweep": 0, "affine": 0, "scatter": 0,
-            "masked": 0, "no_acc_write": 0}
-    for p, shapes, shared in cases:
+    cases = []
+    for p, shapes, shared in cov + edges:
         acc, flats, out = sweep_inputs(p, shapes, shared, 3, dev, rng, hw)
         if any(p is e[0] for e in edges):
             shift_rows(acc, rng)
-        e = run_sweep_pair(p, acc, flats, out)
-        err[kernel_of(p)] = max(err[kernel_of(p)], e)
-        if e:
-            raise AssertionError(f"alu kernel differs from its plain version "
-                                 f"on stages {p.stages}")
-        seen["sweep" if kernel_of(p) == "alu_sweep" else "chain"] += 1
+        cases.append(("coverage", p, 3, (acc, flats, out), splits_of(p, 3)))
+    for model, nb, ops, shapes, shared in main_path:
+        for e in ops:
+            if e[0] in ("aluchain", "alusweep"):
+                p = e[1]
+                cases.append((f"{model}.b{nb}", p, nb,
+                              sweep_inputs(p, shapes, shared, nb, dev, rng,
+                                           hw), splits_of(p, nb)))
+    return cases
+
+
+def check_sweeps(dev, rng, hw, main_path: list, timed: dict) -> tuple:
+    """Every case of ``sweep_cases`` bit-exact against its plain version at
+    each of its splits; then the programs of the ``main_path`` index
+    ``timed`` names for each kernel timed at their planned split, and for
+    the first program of each kind the time at every split."""
+    from repro_torch.kernels.alu_sweep import (alu_chain, alu_sweep,
+                                               chain_plain, sweep_plain,
+                                               sweep_plan)
+    err = {"alu_chain": 0, "alu_sweep": 0}
+    seen = {"chain": 0, "sweep": 0, "affine": 0, "scatter": 0,
+            "masked": 0, "no_acc_write": 0, "split": 0}
+    cases = sweep_cases(dev, rng, hw, main_path)
+    by_group: dict = {}
+    for group, p, nb, (acc, flats, out), splits in cases:
+        name = kernel_of(p)
+        for s in splits:
+            e = run_sweep_pair(p, acc, flats, out, s)
+            err[name] = max(err[name], e)
+            if e:
+                raise AssertionError(f"{name} differs from its plain version "
+                                     f"({group}, batch {nb}, split {s}) on "
+                                     f"stages {p.stages}")
+        by_group[group] = by_group.get(group, 0) + 1
+        if group != "coverage":
+            continue
+        seen["sweep" if name == "alu_sweep" else "chain"] += 1
+        seen["split"] += max(splits) > 1
         if p.store is not None:
             seen["affine" if p.store[4] is not None else "scatter"] += 1
             if p.store[2] is not None:
@@ -570,44 +762,51 @@ def check_sweeps(dev, rng, hw, main_path: list, timed: dict) -> tuple:
     for k, v in seen.items():
         if v == 0:
             raise AssertionError(f"no {k} case among the kernel checks")
-    log(f"alu_sweep kernel: {len(cases)} coverage programs equal at N=3 "
-        f"{seen}")
+    log(f"alu_sweep kernel: programs equal at their planned, minimal and "
+        f"maximal tap split: {by_group}; coverage {seen}")
 
     rows = {k: {"ms": 0.0, "eager_ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0,
                 "t_bytes": 0.0, "t_ops": 0.0, "launches_per_forward": 0}
             for k in err}
-    for at, (nb, ops, shapes, shared) in enumerate(main_path):
-        progs = [e[1] for e in ops if e[0] in ("aluchain", "alusweep")]
-        for p in progs:
-            name = kernel_of(p)
-            acc, flats, out = sweep_inputs(p, shapes, shared, nb, dev, rng,
-                                           hw)
-            e = run_sweep_pair(p, acc, flats, out)
-            err[name] = max(err[name], e)
-            if e:
-                raise AssertionError(f"{name} differs from its plain version "
-                                     f"at batch {nb} on stages {p.stages}")
-            if timed[name] != at:
-                continue
-            r = rows[name]
-            if name == "alu_sweep":
-                r["ms"] += graph_ms(lambda: alu_sweep(acc, p, flats, out),
-                                    reps=5)
-                r["eager_ms"] += median_ms(
-                    lambda: alu_sweep(acc, p, flats, out), reps=5)
-                r["plain_ms"] += median_ms(
-                    lambda: sweep_plain(acc, p, flats, out), reps=2, trials=1)
-            else:
-                r["ms"] += graph_ms(lambda: alu_chain(acc, p), reps=5)
-                r["eager_ms"] += median_ms(lambda: alu_chain(acc, p), reps=5)
-                r["plain_ms"] += median_ms(lambda: chain_plain(acc, p),
-                                           reps=2, trials=1)
-            tb, to = sweep_bound_s(p, shared, nb)
-            r["bound_ms"] += 1e3 * max(tb, to)
-            r["t_bytes"] += tb
-            r["t_ops"] += to
-            r["launches_per_forward"] += 1
-        log(f"alu kernels: {len(progs)} programs equal at batch {nb}")
+    per_prog: dict = {}          # program kind -> [ms per launch]
+    for group, p, nb, (acc, flats, out), splits in cases:
+        name = kernel_of(p)
+        model = main_path[timed[name]]
+        if group != f"{model[0]}.b{model[1]}":
+            continue
+        r = rows[name]
+        if name == "alu_sweep":
+            def run(s=None):
+                return alu_sweep(acc, p, flats, out, split=s)
+
+            def plain():
+                return sweep_plain(acc, p, flats, out)
+        else:
+            def run(s=None):
+                return alu_chain(acc, p, split=s)
+
+            def plain():
+                return chain_plain(acc, p)
+        ms = graph_ms(run, reps=5)
+        r["ms"] += ms
+        r["eager_ms"] += median_ms(run, reps=5)
+        r["plain_ms"] += median_ms(plain, reps=2, trials=1)
+        kind = program_kind(p, nb)
+        if kind not in per_prog:
+            log(f"{name} program {kind}: ms per launch by tap split "
+                + ", ".join(f"S={s} {graph_ms(lambda: run(s), reps=5):.4f}"
+                            for s in (1, 2, 4, 8, 16, 32) if s <= splits[-1])
+                + f" (planned S={sweep_plan(p, nb)})")
+        per_prog.setdefault(kind, []).append(ms)
+        tb, to = sweep_bound_s(p, model[4], nb)
+        r["bound_ms"] += 1e3 * max(tb, to)
+        r["t_bytes"] += tb
+        r["t_ops"] += to
+        r["launches_per_forward"] += 1
+    for kind, ms in sorted(per_prog.items()):
+        log(f"program {kind}: {len(ms)} launches, ms per launch "
+            f"mean {statistics.mean(ms):.4f} (min {min(ms):.4f}, max "
+            f"{max(ms):.4f}), CUDA-graph replay")
     out = []
     for name in ("alu_chain", "alu_sweep"):
         r = rows[name]
@@ -618,7 +817,7 @@ def check_sweeps(dev, rng, hw, main_path: list, timed: dict) -> tuple:
         if not r["launches_per_forward"]:
             raise AssertionError(f"the timed model launches no {name}")
         log(f"{name}: {r['launches_per_forward']} launches per forward at "
-            f"batch {main_path[timed[name]][0]}: kernel {r['ms']:.3f} ms "
+            f"batch {main_path[timed[name]][1]}: kernel {r['ms']:.3f} ms "
             f"(eager launches {r['eager_ms']:.3f} ms), plain "
             f"{r['plain_ms']:.3f} ms, bound {r['bound_ms']:.4f} ms "
             f"({r['bound_by']})")
@@ -1363,8 +1562,23 @@ PLANTED_FAULTS = {  # name: (route, file under src/repro_torch, text, stand-in)
         "depthwise", "csrc/depthwise.cu",
         "tma_halo(halo, &map, c0, ix0, iy0, b, &bar,",
         "tma_halo(halo, &map, c0, ix0 + 1, iy0, b, &bar,"),
+    # the same on the scalar path, which stages its halo itself
+    "depthwise.scalar_one_column_right": (
+        "depthwise", "csrc/depthwise.cu",
+        "const int iy = iy0 + hy, ix = ix0 + hx;",
+        "const int iy = iy0 + hy, ix = ix0 + hx + 1;"),
+    # the last reduction row of every group adds nothing
+    "gemm.skip_last_r": (
+        "gemm", "csrc/vta_gemm.cu",
+        "const bool ok = m0 + row < a.M && rr < rn;",
+        "const bool ok = m0 + row < a.M && rr < rn && r0 + rr != a.R - 1;"),
+    # the partial of the last thread of a split tap reduction is dropped
+    "alu_sweep.drop_one_split": (
+        "alu_sweep", "csrc/alu_sweep.cu", "  int mine = part;",
+        "  int mine = threadIdx.x % S == S - 1 ? identity(op) : part;"),
 }
 LAYER_FAULT_KEYS = ("gemm_float", "depthwise")
+VTA_FAULT_KEYS = ("gemm", "alu_sweep")
 # --plant-faults runs these besides ATTENTION_CASES: the only windowed
 # decode case there, g2.local.decode, sees its whole 4096-key cache, so a
 # window 64 too wide is invisible to it. Gemma-2 27B local layers decoding
@@ -1379,14 +1593,53 @@ def case_errors(fault: str, route: str) -> int:
     """``--case-errors FAULT ROUTE``: the cases of ``route`` ("all": every
     route that has a planted fault) through their limit checks, one JSON
     line per case: the attention cases of ``ATTENTION_CASES`` and
-    ``FAULT_CASES`` (``attention_errors``), and the phase-4 cases, edge
-    cases included, of the kernels of ``LAYER_FAULT_KEYS``
-    (``layer_errors``)."""
-    if route == "all" or route not in LAYER_FAULT_KEYS:
+    ``FAULT_CASES`` (``attention_errors``), the phase-4 cases, edge cases
+    included, of the kernels of ``LAYER_FAULT_KEYS`` (``layer_errors``),
+    and phase 2's cases of the kernels of ``VTA_FAULT_KEYS``
+    (``vta_errors``)."""
+    if route == "all" or route not in LAYER_FAULT_KEYS + VTA_FAULT_KEYS:
         attention_errors(fault, route)
     if route == "all" or route in LAYER_FAULT_KEYS:
         layer_errors(fault, route)
+    if route == "all" or route in VTA_FAULT_KEYS:
+        vta_errors(fault, route)
     return 0
+
+
+def vta_errors(fault: str, route: str) -> None:
+    """Phase 2's cases of the VTA kernels ``route`` names ("all": both),
+    each held to its plain version, limit 0: the GEMM's ``gemm_cases`` (one
+    line per main-path model and batch, one per edge case), and every
+    program of ``sweep_cases`` at each of its tap splits (one line per
+    group and split)."""
+    import torch
+    from repro_torch.serve.model import (ServedModel, resnet18_trunk_graph,
+                                         served_model)
+    from repro_torch.vta.isa import DEFAULT_VTA
+    dev = torch.device("cuda")
+    rng = np.random.default_rng(0)
+    hw = DEFAULT_VTA
+    main_path = vta_main_path(
+        ServedModel.compile("resnet18-trunk", resnet18_trunk_graph(), hw),
+        served_model("resnet18", "small"), dev)
+
+    def emit(case, err):
+        print(json.dumps({"fault": fault, "case": case, "err": err,
+                          "limit": 0, "over": err > 0}), flush=True)
+    if route in ("all", "gemm"):
+        for case in gemm_cases(dev, rng, hw, [
+                (m, b, gemm_entries(ops)) for m, b, ops, _, _ in main_path]):
+            emit(f"gemm {case[0]}", gemm_case_error(case))
+    if route in ("all", "alu_sweep"):
+        errs: dict = {}
+        for group, p, nb, (acc, flats, out), splits in sweep_cases(
+                dev, rng, hw, main_path):
+            for s in splits:
+                key = f"{kernel_of(p)} {group} split {s}"
+                errs[key] = max(errs.get(key, 0),
+                                run_sweep_pair(p, acc, flats, out, s))
+        for key, err in errs.items():
+            emit(key, err)
 
 
 def layer_errors(fault: str, route: str) -> None:
@@ -1553,19 +1806,14 @@ def main(argv: list) -> int:
     small = served_model("resnet18", "small")
     log(f"compile: trunk {len(trunk.segments)} segments in "
         f"{time.perf_counter() - t0:.2f} s")
-    trunk_ops, trunk_shapes_all = model_ops(trunk, dev)
-    small_ops, small_shapes = model_ops(small, dev)
+    main_path = vta_main_path(trunk, small, dev)
+    trunk_ops, small_ops = main_path[0][2], main_path[-1][2]
     n = max(TRUNK_BUCKETS)
-    trunk_gemm = gemm_shapes(trunk_ops, hw)
-    small_gemm = gemm_shapes(small_ops, hw)
+    trunk_entries = gemm_entries(trunk_ops)
     gemm_row = check_gemm(
-        dev, rng, [(b, trunk_gemm) for b in TRUNK_BUCKETS]
-        + [(SMALL_BUCKET, small_gemm)], trunk_gemm, n)
-    shared_trunk = {k: v.dtype.type for k, v in trunk.weights.items()}
-    shared_small = {k: v.dtype.type for k, v in small.weights.items()}
-    main_path = [(b, trunk_ops, trunk_shapes_all, shared_trunk)
-                 for b in TRUNK_BUCKETS]
-    main_path.append((SMALL_BUCKET, small_ops, small_shapes, shared_small))
+        dev, rng, hw, [(m, b, gemm_entries(ops))
+                       for m, b, ops, _, _ in main_path],
+        (n, trunk_entries, gemm_shapes(trunk_ops, hw)))
     chain_row, sweep_row = check_sweeps(
         dev, rng, hw, main_path,
         {"alu_sweep": TRUNK_BUCKETS.index(n), "alu_chain": len(main_path) - 1})
@@ -1593,10 +1841,19 @@ def main(argv: list) -> int:
             f"batch median {med:.1f} (min {min(ms):.1f}, max {max(ms):.1f}), "
             f"{bucket * 1e3 / med:.2f} images/s")
     log(f"launches on the main path: {counts}")
+    # each entry of a forward launches its kernel once: SERVE_REPS forwards
+    # of each trunk bucket and of the small model's
+    per_fwd = {k: {"gemm": sum(e[0] == "gemm" for e in ops),
+                   "alu_chain": sum(e[0] == "aluchain" for e in ops),
+                   "alu_sweep": sum(e[0] == "alusweep" for e in ops)}
+               for k, ops in (("trunk", trunk_ops), ("small", small_ops))}
+    log(f"launches per forward: {per_fwd}")
     for k in ("gemm", "alu_chain", "alu_sweep"):
-        if counts.get(k, 0) <= 0:
-            raise AssertionError(f"kernel {k} was not launched on the main "
-                                 f"path")
+        want = SERVE_REPS * (len(TRUNK_BUCKETS) * per_fwd["trunk"][k]
+                             + per_fwd["small"][k])
+        if not want or counts.get(k, 0) != want:
+            raise AssertionError(f"kernel {k} launched {counts.get(k, 0)} "
+                                 f"times on the main path, want {want}")
     want = {("resnet18-trunk", b) for b in TRUNK_BUCKETS}
     want.add(("resnet18-small", SMALL_BUCKET))
     got = {(r["model"], r["bucket"]) for r in serve_rows}

@@ -20,6 +20,11 @@ and the index tensors the plain versions use. ``alu_chain`` / ``alu_sweep``
 are the kernel's wrappers: CUDA tensors launch the kernel and count it in
 ``LAUNCHES``; CPU tensors take ``eval_chain_plain`` / ``eval_sweep_plain``,
 line-for-line ports of the JAX versions.
+
+``sweep_plan`` picks how many threads of a warp share one item of a launch
+(the kernel's tap split S): more where a sweep has few items, so that the
+grid fills the card, and 1 wherever a split stage's op depends on the order
+of its taps. ``max_split`` is the largest S a program takes.
 """
 from __future__ import annotations
 
@@ -444,19 +449,61 @@ def sweep_plain(acc, prog: SweepProgram, flats=(), out_flat=None):
 
 
 # ---------------------------------------------------------------------------
+# The tap split
+# ---------------------------------------------------------------------------
+SPLIT_OPS = ("add", "max", "min")   # red ops whose taps may meet in any order
+MAX_SPLIT = 32                      # threads of one warp
+MAX_HEAD = 64                       # header words a launch passes
+FILL_THREADS = 132 * 256            # one 256-thread block for each H100 SM
+
+
+def max_split(prog: SweepProgram) -> int:
+    """The largest tap split ``prog`` takes: the largest power of two up to
+    its longest ``red``/``mac`` stage (at most 32), or 1 when it has none or
+    a ``red`` stage whose op is not order-free in int32 (wrapping add, mac,
+    max and min are)."""
+    taps = []
+    for st in prog.stages:
+        if st[0] == "mac":
+            taps.append(int(st[1]))
+        elif st[0] == "red":
+            if st[1] not in SPLIT_OPS:
+                return 1
+            taps.append(int(st[2]))
+    s = 1
+    while taps and 2 * s <= min(max(taps), MAX_SPLIT):
+        s *= 2
+    return s
+
+
+def sweep_plan(prog: SweepProgram, n: int) -> int:
+    """The tap split of ``prog`` at batch ``n``: doubled from 1 while the
+    launch's threads (items x split) stay below ``FILL_THREADS``, up to
+    ``max_split``. The trunk's global average pool (one row of 16 lanes) at
+    batch 8 takes 32, 16 blocks instead of one; its pool1 tiles take 4."""
+    cap = max_split(prog)
+    items = n * prog.g * prog.lanes
+    s = 1
+    while s < cap and items * s < FILL_THREADS:
+        s *= 2
+    return s
+
+
+# ---------------------------------------------------------------------------
 # The kernel's wrappers
 # ---------------------------------------------------------------------------
 def _fn():
     fn = _build.library("alu_sweep").alu_sweep_launch
     if fn.argtypes is None:
         vp, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-        fn.argtypes = [vp, ll, vp, i, i, i, i, i, i, i, i, vp, vp, vp, vp, ll,
-                       i, vp]
+        fn.argtypes = [vp, ll, vp, i, i, i, i, i, i, i, i, i, vp, vp, vp, vp,
+                       vp, ll, i, vp]
         fn.restype = ctypes.c_int
     return fn
 
 
-def _launch(acc, prog: SweepProgram, flats, out_flat) -> None:
+def _launch(acc, prog: SweepProgram, flats, out_flat,
+            split: Optional[int] = None) -> None:
     dev = acc.device
     if acc.dtype != torch.int32 or acc.dim() != 4 or not acc.is_contiguous():
         raise ValueError("acc must be a contiguous (N, depth, BV, BO) int32 "
@@ -496,37 +543,52 @@ def _launch(acc, prog: SweepProgram, flats, out_flat) -> None:
                     out_flat.untyped_storage().data_ptr():
                 raise ValueError("the store tensor aliases a slab tensor")
         out_ptr, out_stride = out_flat.data_ptr(), out_flat.shape[1]
+    if split is None:
+        split = sweep_plan(prog, n)
+    elif split not in (1, 2, 4, 8, 16, 32) or split > max_split(prog):
+        raise ValueError(f"tap split {split} is not a power of two up to "
+                         f"this program's {max_split(prog)}")
     k = len(flats)
     o = prog.offsets
+    if o["off_dst"] > MAX_HEAD:
+        raise ValueError(f"stage program header of {o['off_dst']} words > "
+                         f"{MAX_HEAD}")
     meta = prog.device_meta(dev)
+    header = prog._dev.get("header")
+    if header is None:           # the stages, slots and slab descriptors
+        header = prog._dev["header"] = (ctypes.c_int * max(o["off_dst"], 1))(
+            *prog.meta[:o["off_dst"]].tolist())
     status = _fn()(
         acc.data_ptr(), depth * bv * bo, meta.data_ptr(), o["n_stages"],
         o["off_slabs"], k, o["off_dst"], o["off_store"], prog.g, prog.lanes,
-        n, (ctypes.c_void_p * max(k, 1))(*ptrs),
+        n, split, header, (ctypes.c_void_p * max(k, 1))(*ptrs),
         (ctypes.c_longlong * max(k, 1))(*strides),
         (ctypes.c_int * max(k, 1))(*esz), out_ptr, out_stride,
         int(prog.write_acc), torch.cuda.current_stream(dev).cuda_stream)
     _build.check(status, "alu_sweep")
 
 
-def alu_chain(acc, prog: SweepProgram):
+def alu_chain(acc, prog: SweepProgram, *, split: Optional[int] = None):
     """Chain wrapper: CUDA acc launches ``csrc/alu_sweep.cu`` (all operands
-    from acc, no store); CPU acc takes ``eval_chain_plain``."""
+    from acc, no store) with tap split ``split`` (default ``sweep_plan``);
+    CPU acc takes ``eval_chain_plain``."""
     if not acc.is_cuda:
         return chain_plain(acc, prog)
     if prog.slabs or prog.store is not None:
         raise ValueError("alu_chain takes scratchpad-only programs")
-    _launch(acc, prog, (), None)
+    _launch(acc, prog, (), None, split)
     LAUNCHES["alu_chain"] += 1
     return acc
 
 
-def alu_sweep(acc, prog: SweepProgram, flats=(), out_flat=None):
-    """Sweep wrapper: CUDA acc launches ``csrc/alu_sweep.cu``; CPU acc takes
-    ``eval_sweep_plain``. Returns ``(acc, out_flat)``, both updated in place."""
+def alu_sweep(acc, prog: SweepProgram, flats=(), out_flat=None, *,
+              split: Optional[int] = None):
+    """Sweep wrapper: CUDA acc launches ``csrc/alu_sweep.cu`` with tap split
+    ``split`` (default ``sweep_plan``); CPU acc takes ``eval_sweep_plain``.
+    Returns ``(acc, out_flat)``, both updated in place."""
     if not acc.is_cuda:
         return sweep_plain(acc, prog, flats, out_flat)
-    _launch(acc, prog, tuple(flats), out_flat)
+    _launch(acc, prog, tuple(flats), out_flat, split)
     LAUNCHES["alu_sweep"] += 1
     return acc, out_flat
 

@@ -3,16 +3,27 @@
 The conv-as-GEMM with its fused epilogue, the element-wise ALU op, depthwise
 convolution, pooling and online-softmax attention, with the reference's
 signatures less ``interpret``. Each runs where its tensors are: CUDA tensors
-launch the op's hand-written kernel (``csrc/gemm_f32.cu``, ``alu.cu``,
-``depthwise.cu``, ``pool2d.cu``, ``flash_attention.cu``) or raise; CPU
-tensors take the op's plain PyTorch version.
+launch the op's hand-written kernels or raise; CPU tensors take the op's
+plain PyTorch version. ``alu``, ``depthwise_conv`` and ``pool2d`` have one
+kernel each (``csrc/alu.cu``, ``depthwise.cu``, ``pool2d.cu``). The other
+two take a route by a fixed rule:
+
+- ``gemm`` (``gemm.gemm_route``): bf16 with K and N multiples of 8 on
+  ``csrc/gemm_bf16_sm90.cu`` (``wgmma``, TMA); every other case on
+  ``csrc/gemm_f32.cu`` (CUDA cores), whose tile and split of K come from
+  ``gemm.gemm_float_plan``, split cases summed in order by its second
+  kernel ``gemm_float_reduce``.
+- ``flash_attention`` (``flash_attention.attention_route``): Sq <= 8 on the
+  split-K decode kernel and its combine (``csrc/flash_decode.cu``), bf16
+  prefill on ``mma.sync`` (``csrc/flash_attention_mma.cu``), f32 prefill on
+  the SIMT kernel (``csrc/flash_attention.cu``).
 
 ``gemm`` takes no ``tile=``: the reference sizes its tiles with
-``core/tile_search.py`` for the TPU's 64 MiB of VMEM, while the CUDA kernel
-has one fixed 64x64 shared-memory tiling. For the same reason
+``core/tile_search.py`` for the TPU's 64 MiB of VMEM, while the CUDA routes
+plan their own tiles for the card. For the same reason
 ``flash_attention``'s ``block_q``/``block_k`` steer only its plain version;
-the CUDA kernel picks its own tile (``flash_attention.attention_tile`` gives
-the same one to the plain version as its default block).
+the CUDA kernels pick their own tiles (``flash_attention.attention_tile``
+gives the same one to the plain version as its default block).
 """
 from repro_torch.kernels.alu import alu
 from repro_torch.kernels.depthwise import depthwise_conv

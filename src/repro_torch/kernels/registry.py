@@ -3,9 +3,10 @@
 The port's own registry, with the API of the JAX package's. A *kernel* is a
 named contract; an *implementation* is one way to execute it:
 
-  ``"gemm"``       one VTA GEMM instruction's exact int8 products:
-                   x (N, w_d, M, K) int8, w (Nw, w_d, K, 16) int8 with
-                   Nw in {1, N} -> (N, w_d, M, 16) int32 (kernels/vta_gemm.py).
+  ``"gemm"``       one VTA GEMM instruction whole: the inp/wgt rows its
+                   index vectors name, their exact int8 products, added
+                   into the int32 acc scratchpad in place
+                   (kernels/vta_gemm.py).
   ``"alu_chain"``  a scratchpad-only ALU stage program (kernels/alu_sweep.py).
   ``"alu_sweep"``  the DRAM-direct form: slabs gathered from DRAM tensors, the
                    stage program, optional acc write and int8 store.

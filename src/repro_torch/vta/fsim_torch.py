@@ -10,11 +10,12 @@ A trace is split once into entries whose index maps live on the device
 memoized on the Trace per device), so a dispatch copies no index map. Each
 entry runs eagerly (``_exec``):
 
-  * ``gemm`` — the instruction's products through the ``"gemm"`` kernel
-    (``csrc/vta_gemm.cu`` on the card), one launch for all weight blocks and
-    all images, then an exact int32 ``index_add_`` into acc. The per-group
-    weight form (``w_d = 0`` in the JAX backend: the ResNet ``fc``) is the
-    same product with one weight block per group.
+  * ``gemm`` — the whole instruction through the ``"gemm"`` kernel
+    (``csrc/vta_gemm.cu`` on the card): row gathers, products and the exact
+    int32 add into acc, one launch for all weight blocks and all images. Its
+    index vectors are int32. The per-group weight form (``w_d = 0`` in the
+    JAX backend: the ResNet ``fc``) is the same entry with one weight block
+    per group.
   * ``aluchain`` / ``alusweep`` — the fused stage programs through the
     ``"alu_chain"`` / ``"alu_sweep"`` kernels (``csrc/alu_sweep.cu``).
   * ``gather`` / ``alu`` / ``alufused`` / ``store`` / ``spill`` — PyTorch
@@ -172,6 +173,9 @@ def _device_ops(trace: Trace, device: torch.device) -> list:
             return None
         return torch.from_numpy(np.asarray(a, np.int64).copy()).to(device)
 
+    def ix32(a):
+        return torch.from_numpy(np.asarray(a, np.int32).copy()).to(device)
+
     def put_args(idx, mask=None):
         tgt, lanes = _winners(idx, mask)
         return ix(tgt), ix(lanes)
@@ -201,19 +205,27 @@ def _device_ops(trace: Trace, device: torch.device) -> list:
             if op.reset:
                 ops.append(("gemm_reset", ix(np.unique(op.acc_idx))))
                 continue
+            hw = trace.hw
+            for idx, depth in ((op.acc_idx, hw.acc_depth),
+                               (op.inp_idx, hw.inp_depth),
+                               (op.wgt_idx, hw.wgt_depth)):
+                if idx.size and (idx.min() < 0 or idx.max() >= depth):
+                    # the CUDA kernel reads and writes where they point
+                    raise ValueError("gemm row index outside its scratchpad")
             R = _reduction_run(op.acc_idx)
             uidx = op.acc_idx[::R]
             g = len(uidx)
+            unique = len(np.unique(uidx)) == g
             grouped = _weight_blocks(op.wgt_idx.reshape(g, R))
             if grouped is not None:
                 wrows, perm = grouped
-                ops.append(("gemm", R, len(wrows), ix(uidx[perm]),
-                            ix(op.inp_idx.reshape(g, R)[perm].reshape(-1)),
-                            ix(wrows.reshape(-1))))
+                ops.append(("gemm", R, len(wrows), ix32(uidx[perm]),
+                            ix32(op.inp_idx.reshape(g, R)[perm].reshape(-1)),
+                            ix32(wrows.reshape(-1)), unique))
             else:
                 # per-group weights (the fc): one weight block per group
-                ops.append(("gemm", R, g, ix(uidx), ix(op.inp_idx),
-                            ix(op.wgt_idx)))
+                ops.append(("gemm", R, g, ix32(uidx), ix32(op.inp_idx),
+                            ix32(op.wgt_idx), unique))
         elif isinstance(op, AluSweep):
             fused = _fuse_sweep(op)
             if fused is not None:
@@ -279,18 +291,9 @@ def _exec(ops: list, st: dict, gemm_impl: str, alu_impl: str) -> None:
         elif kind == "gemm_reset":
             acc[:, e[1]] = _scalar(0, torch.int32, acc.device)
         elif kind == "gemm":
-            _, R, w_d, uidx, inp_idx, wrows = e
-            x = st["inp"][:, inp_idx]                    # (N, g*R, BV, BI)
-            w = st["wgt"][:, wrows]                      # (Nw, w_d*R, BO, BI)
-            g = x.shape[1] // R
-            gb = g // w_d
-            BV, BI, BO = x.shape[2], x.shape[3], w.shape[2]
-            x = x.reshape(n, w_d, gb, R, BV, BI).permute(0, 1, 2, 4, 3, 5) \
-                .reshape(n, w_d, gb * BV, R * BI)
-            w = w.reshape(w.shape[0], w_d, R, BO, BI).permute(0, 1, 2, 4, 3) \
-                .reshape(w.shape[0], w_d, R * BI, BO)
-            prod = gemm(x.contiguous(), w.contiguous())  # (N, w_d, gb*BV, BO)
-            acc.index_add_(1, uidx, prod.reshape(n, g, BV, BO))
+            _, R, w_d, uidx, inp_idx, wrows, unique = e
+            gemm(acc, st["inp"], st["wgt"], uidx, inp_idx, wrows, R, w_d,
+                 unique)
         elif kind == "alu":
             _, alu_op, use_imm, imm, overwrite, steps = e
             imm_t = _scalar(imm, torch.int32, acc.device)

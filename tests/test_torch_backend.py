@@ -7,6 +7,8 @@ port lowers and runs the same program built by its own copy of the
 scheduler (the drift tests prove the two builds identical) on copies of the
 same arrays.
 """
+import dataclasses
+
 import numpy as np
 import pytest
 import torch
@@ -87,6 +89,36 @@ def test_conv_matches_numpy_and_jax(wl, kw):
         dram["bias"] = RNG.integers(-100, 100, (w.fo,), dtype=np.int32)
     out = _run_all(progs, "PIPELINED_VTA", dram, jax_too=wl[0] != "r18.C8")
     assert np.any(out["out"])
+
+
+@pytest.mark.parametrize("log_block,log_batch", [(5, 0), (5, 1), (6, 0)])
+def test_wide_block_conv_matches_numpy(log_block, log_batch):
+    """A whole 3x3 conv trace at block 32 or 64 (and batch 2): torch-cpu,
+    whose GEMM entries take the fused gather-product-add contract at these
+    widths, equals the JAX package's numpy backend."""
+    wl = ("c", 1 << log_batch, 8, 8, 3, 3, 64, 128, 1, 1, 1, 1)
+
+    def build(CW, tps, isa_, sched, *_):
+        hw = dataclasses.replace(isa_.DEFAULT_VTA, log_block_in=log_block,
+                                 log_block_out=log_block, log_batch=log_batch)
+        w = CW(*wl)
+        res = tps(w, hw, require_db=True)
+        if not res.feasible:
+            res = tps(w, hw)
+        return sched.schedule_conv(w, res.tiling, hw).program, hw
+    (jprog, jhw), (tprog, thw) = _both(build)
+    assert repr(jhw) == repr(thw)
+    w = JConvWorkload(*wl)
+    dram = {"inp": RNG.integers(-32, 32, (w.b, w.fi, w.h, w.w), dtype=np.int8),
+            "wgt": RNG.integers(-8, 8, (w.fo, w.fi, w.kh, w.kw),
+                                dtype=np.int8),
+            "out": np.zeros((w.b, w.fo, w.oh, w.ow), np.int8)}
+    d_np = {k: v.copy() for k, v in dram.items()}
+    jbackend.get_backend("numpy").run(jprog, jhw, d_np)
+    d_t = {k: v.copy() for k, v in dram.items()}
+    get_backend("torch-cpu").run(tprog, thw, d_t)
+    np.testing.assert_array_equal(d_t["out"], d_np["out"])
+    assert np.any(d_np["out"])
 
 
 @pytest.mark.parametrize("wl,mode", [
