@@ -64,7 +64,11 @@ order; any failure raises and the script exits nonzero:
    kernel is also held alone against its plain version on the split
    kernel's partial sums. Then ``layer_edge_cases`` (odd M, K and N; M = 3
    with K = 1024; a depthwise with C = 36, 5x5, stride 2) run through the
-   same checks, on lines of their own and outside the rows.
+   same checks, on lines of their own and outside the rows, and
+   ``alu_edge_cases`` (an odd element count in f32 and bf16, views 4 bytes
+   past a 16-byte boundary, NaN in x for max and min; each with y and with
+   an immediate) exactly against the ALU's plain version (NaN where it is
+   NaN), with the kernel's plan (``kernels/alu.py::alu_plan``) beside each.
 5. Attention at full width, through ``repro_torch.kernels.ops.
    flash_attention``, at the head counts, head_dim, windows, softcap and
    query scale of ``configs/archs.py`` (written out in ``ATTENTION_CASES``;
@@ -73,12 +77,15 @@ order; any failure raises and the script exits nonzero:
    cache, or the 4096-key window), Qwen3-0.6B prefill and decode, Mixtral
    8x22B's windowed prefill and RecurrentGemma-9B's MQA at head_dim 256, in
    bf16 and some in f32; besides, the shapes of tests/test_kernels.py's
-   attention tests, a case with tails in both tiles, and causal rows that see
-   no key (``edge.empty_rows``). A case takes one of three routes
-   (``kernels/flash_attention.py::attention_route``): Sq <= 8 the split-K
-   decode kernel and its combine (``csrc/flash_decode.cu``), bf16 prefill
-   the tensor-core kernel (``csrc/flash_attention_mma.cu``), f32 prefill
-   the SIMT kernel (``csrc/flash_attention.cu``). Launch counts are zeroed
+   attention tests, a case with tails in both tiles, causal rows that see
+   no key (``edge.empty_rows``), and the f32 prefill at head_dim 8 (Sq 9)
+   and 256 (ragged tiles, window, softcap). A case takes one of three
+   routes (``kernels/flash_attention.py::attention_route``): Sq <= 8 the
+   split-K decode kernel and its combine (``csrc/flash_decode.cu``), bf16
+   prefill the tensor-core kernel (``csrc/flash_attention_mma.cu``), f32
+   prefill the 3xTF32 tensor-core kernel (``csrc/flash_attention.cu``,
+   bound at three products on the TF32 rate; its line also gives the
+   CUDA-core f32 bound). Launch counts are zeroed
    just before the cases are driven once and read just after:
    ``flash_attention`` once per case, ``flash_attention.<route>`` once per
    case of the route, ``flash_attention_combine`` once per decode case. Each
@@ -86,7 +93,7 @@ order; any failure raises and the script exits nonzero:
    ``ATTENTION_ROWS`` sampled query rows (first, last, the window's edge and
    the rest spread evenly) over all heads, the kernel's error against a
    float64 attention of the same operands may be at most 2x the plain
-   version's plus 1e-6 in f32; in bf16, element by element, the plain
+   version's plus 1e-6 in f32 (logged beside the error); in bf16, element by element, the plain
    version's error there plus one bf16 step at that element (2^-7 |out|)
    plus 2^-7 * 1e-2 of the row's largest value; ``edge.empty_rows`` must be
    exactly 0 in rows 0-31 from both. The combine kernel is also held alone
@@ -118,7 +125,9 @@ never makes it.
 phases 2, 4 and 5 fail a wrong kernel: the checkout is copied into a
 temporary directory once as it is and once per fault of ``PLANTED_FAULTS``
 (a text substitution: a key tile from 4096 skipped, or the window 64 keys
-too wide, in each of the three attention routes; the last K split of the
+too wide, in each of the three attention routes; the f32 prefill's score
+from the hi . hi product alone (one-term TF32); the ALU kernel's scalar tail
+not written; the last K split of the
 f32 GEMM dropped; the depthwise halo read one column to the right, by TMA
 and on the scalar path; the last reduction row of every VTA GEMM group
 dropped; one thread's partial of a split tap reduction dropped), the
@@ -126,7 +135,7 @@ unchanged sources are built once into a build directory the copies share,
 and each copy builds its changed source and runs the cases of its route
 through their limit checks (``--case-errors``, three copies at a time): the
 phase-5 cases and those of ``FAULT_CASES`` through ``attention_error``, the
-phase-4 and edge cases of the float GEMM or depthwise kernel, or phase 2's
+phase-4 and edge cases of the float GEMM, depthwise or ALU kernel, or phase 2's
 cases of the VTA GEMM or the ALU stage-program kernel; the unchanged copy
 runs all of them. One JSON line per (fault, case) gives the kernel's error
 and its limit (attention: the kernel's and the plain version's largest
@@ -161,6 +170,7 @@ HBM_BYTES_PER_S = 3.35e12        # H100 SXM, NVIDIA data sheet
 INT8_TENSOR_OPS_PER_S = 1979e12  # dense int8 tensor-core rate
 SCALAR_OPS_PER_S = 67e12         # float32 rate outside the tensor cores
 BF16_TENSOR_OPS_PER_S = 989e12   # dense bf16 tensor-core rate
+TF32_TENSOR_OPS_PER_S = 495e12   # dense TF32 tensor-core rate
 TRUNK_BUCKETS = (2, 8)
 SMALL_BUCKET = 4
 SERVE_REPS = 5           # full dispatches timed per bucket
@@ -215,7 +225,7 @@ ATTENTION_CASES = [
     ("g2.local.decode", 8, 32, 16, 128, 1, 4096, True, 4096, 50.0, 1 / 12,
      (BF,), None),
     ("qwen3.prefill", 1, 16, 8, 128, 8192, 8192, True, None, None, None,
-     (BF,), "causal"),
+     (BF, F32), "causal"),
     ("qwen3.decode", 8, 16, 8, 128, 1, 32768, True, None, None, None, (BF,),
      "none"),
     ("mixtral.local.prefill", 1, 48, 8, 128, 8192, 8192, True, 4096, None,
@@ -241,6 +251,11 @@ ATTENTION_CASES += [
      None),
     # causal with Sq > Sk: rows 0-31 see no key
     ("edge.empty_rows", 1, 2, 1, 16, 64, 32, True, None, None, None, (F32,),
+     None),
+    # the f32 prefill kernel at its smallest head and shortest prefill, and
+    # ragged q and key tiles at its widest head
+    ("edge.f32.d8", 2, 4, 4, 8, 9, 300, True, None, None, None, (F32,), None),
+    ("edge.f32.d256", 1, 8, 2, 256, 200, 333, True, 100, 30.0, None, (F32,),
      None),
 ]
 ATTENTION_ROWS = 256     # query rows per case held against float64
@@ -1011,6 +1026,75 @@ def layer_edge_cases(dev, rng) -> list:
     return cases
 
 
+def alu_edge_cases(dev, rng) -> list:
+    """The ALU kernel's edge cases, held exactly to ``alu_plain`` and
+    reported apart from phase 4's rows: an odd element count (a scalar
+    tail after the 16-byte vectors) in f32 and bf16, views whose data
+    pointer lies 4 bytes past a 16-byte boundary (a scalar head), and NaN in
+    every 7th element of x for max and min; each with y and with an
+    immediate."""
+    import torch
+    n = 100003
+
+    def t(count, dtype, off=0, nan=False):
+        a = rng.standard_normal(count + off, dtype=np.float32) * np.float32(8)
+        if nan:
+            a[off::7] = np.nan
+        return torch.from_numpy(a).to(dev, dtype)[off:]
+
+    cases = []
+    for dt in (torch.float32, torch.bfloat16):
+        tag = "f32" if dt == torch.float32 else "bf16"
+        cases += [
+            ("alu", f"edge.alu odd {n} y/{tag}", (t(n, dt), t(n, dt)),
+             dict(op="add", shift=1, clip=20.0)),
+            ("alu", f"edge.alu odd {n} imm/{tag}", (t(n, dt),),
+             dict(op="mul", imm=-1.5, clip=20.0))]
+        for op in ("max", "min"):
+            cases += [
+                ("alu", f"edge.alu NaN {op} y/{tag}",
+                 (t(n, dt, nan=True), t(n, dt)), dict(op=op, clip=10.0)),
+                ("alu", f"edge.alu NaN {op} imm/{tag}", (t(n, dt, nan=True),),
+                 dict(op=op, imm=0.5, shift=2))]
+    off = 1                             # one f32 element: 4 bytes
+    cases += [
+        ("alu", "edge.alu offset 4 B y/f32",
+         (t(n - 1, torch.float32, off), t(n - 1, torch.float32, off)),
+         dict(op="add")),
+        ("alu", "edge.alu offset 4 B imm/f32", (t(n - 1, torch.float32, off),),
+         dict(op="max", imm=0.0, shift=8, clip=127.0))]
+    return cases
+
+
+def alu_error(got, want) -> float:
+    """Largest |got - want| where want is a number, inf where the two
+    differ in which elements are NaN (a NaN's bits are not compared: a
+    bf16 NaN rounds to another payload in each)."""
+    import torch
+    nan = torch.isnan(want)
+    if not torch.equal(nan, torch.isnan(got)):
+        return float("inf")
+    if bool(nan.all()):
+        return 0.0
+    return float((got.float()[~nan] - want.float()[~nan]).abs().max())
+
+
+def check_alu_edges(cases, outs: dict) -> None:
+    """Each ALU edge case exact against ``alu_plain`` (``alu_error`` 0),
+    with the kernel's plan beside it."""
+    from repro_torch.kernels.alu import alu_plain, alu_plan
+    for op, name, args, kw in cases:
+        x = args[0]
+        err = alu_error(outs[name], alu_plain(*args, **kw))
+        head, _, _, blocks, tail = alu_plan(x.numel(), x.element_size(),
+                                            x.data_ptr() % 16)
+        log(f"  alu {name}: max|kernel - plain| {err:.3g} (NaN where plain "
+            f"is NaN), head {head}, tail {tail}, {blocks} blocks")
+        if err != 0:
+            raise AssertionError(f"{name}: alu differs from its plain "
+                                 f"version by {err}")
+
+
 def resolve(case, outs: dict) -> tuple:
     return tuple(outs[a] if isinstance(a, str) else a for a in case[2])
 
@@ -1396,7 +1480,7 @@ def attention_error(got, want, r64) -> tuple:
 
 
 ATTENTION_KEYS = ("flash_attention.mma", "flash_attention.decode",
-                  "flash_attention.simt", "flash_attention_combine")
+                  "flash_attention.tf32x3", "flash_attention_combine")
 
 
 def check_attention(cases, outs: dict) -> dict:
@@ -1418,6 +1502,7 @@ def check_attention(cases, outs: dict) -> dict:
                   "ms_library_cases": 0.0} for key in ATTENTION_KEYS}
     for key in ATTENTION_KEYS[:3]:      # the routes, held to float64
         rows[key].update(max_err_vs_f64=0.0, plain_max_err_vs_f64=0.0)
+    rows["flash_attention.tf32x3"]["bound_cuda_cores_ms"] = 0.0
     for c in cases:
         name, q, k, v, kw = c["name"], c["q"], c["k"], c["v"], c["kw"]
         got = outs[name]
@@ -1456,10 +1541,19 @@ def check_attention(cases, outs: dict) -> dict:
             lms = graph_ms(lib, reps=reps)
             lib_note = f"{lms:.4f} ms (max|lib - plain| {lib_err:.3g})"
         nbytes = sum(t.numel() * t.element_size() for t in (q, k, v, got))
-        rate = SCALAR_OPS_PER_S if q.dtype == torch.float32 \
-            else BF16_TENSOR_OPS_PER_S
-        tb, to = nbytes / HBM_BYTES_PER_S, 4 * b * h * d * pairs / rate
         route = attention_route(q.dtype, sq)
+        # 4 D operations a visible pair: the f32 prefill issues them three
+        # times over (3xTF32) on the TF32 tensor cores; f32 decode runs on
+        # the CUDA cores; bf16 on the bf16 tensor cores
+        nops = 4 * b * h * d * pairs
+        cuda_core_ms = 1e3 * nops / SCALAR_OPS_PER_S
+        if route == "tf32x3":
+            to = 3 * nops / TF32_TENSOR_OPS_PER_S
+        elif q.dtype == torch.float32:
+            to = nops / SCALAR_OPS_PER_S
+        else:
+            to = nops / BF16_TENSOR_OPS_PER_S
+        tb = nbytes / HBM_BYTES_PER_S
         row = rows[f"flash_attention.{route}"]
         row["cases"] += 1
         row["max_abs_err"] = max(row["max_abs_err"], err)
@@ -1470,17 +1564,23 @@ def check_attention(cases, outs: dict) -> dict:
         row["bound_ms"] += 1e3 * max(tb, to)
         row["t_bytes"] += tb
         row["t_ops"] += to
+        if route == "tf32x3":
+            row["bound_cuda_cores_ms"] += max(1e3 * tb, cuda_core_ms)
         if lms is not None:
             row["library_ms"] = (row["library_ms"] or 0.0) + lms
             row["library_cases"] += 1
             row["ms_library_cases"] += ms
         log(f"  flash_attention.{route} {name} B{b} H{h}/{k.shape[1]} D{d} "
             f"{sq}x{sk}: max|kernel - plain| {err:.3g}; vs f64 on "
-            f"{len(rows_)} rows {ek:.3g} (plain {ep:.3g}); kernel {ms:.4f} "
+            f"{len(rows_)} rows {ek:.3g} (plain {ep:.3g}"
+            + (f", limit {2 * ep + 1e-6:.3g}" if q.dtype == torch.float32
+               else "") + f"); kernel {ms:.4f} "
             f"ms, plain {pms:.4f} ms, library "
             f"{'none' if lms is None else lib_note}"
             f", bound {1e3 * max(tb, to):.4f} ms "
-            f"({'bytes' if tb >= to else 'operations'})")
+            f"({'bytes' if tb >= to else 'operations'})"
+            + (f"; f32 CUDA-core bound {max(1e3 * tb, cuda_core_ms):.4f} ms"
+               if route == "tf32x3" else ""))
         if route != "decode":
             continue
         parts = decode_partials(q, k, v, kw["causal"], kw["window"],
@@ -1544,13 +1644,26 @@ PLANTED_FAULTS = {  # name: (route, file under src/repro_torch, text, stand-in)
         "parts = decode_partials(q, k, v, causal, window, softcap, scale)",
         "parts = decode_partials(q, k, v, causal, None if window is None "
         "else window + 64, softcap, scale)"),
-    "simt.skip_tile_4096": (
-        "simt", "csrc/flash_attention.cu", "|| j0 + BK <= wbeg) continue;",
+    "tf32x3.skip_tile_4096": (
+        "tf32x3", "csrc/flash_attention.cu", "|| j0 + BK <= wbeg) continue;",
         "|| j0 + BK <= wbeg || j0 == 4096) continue;"),
-    "simt.window_plus_64": (
-        "simt", "csrc/flash_attention.cu",
-        "           window, softcap, scale};",
-        "           window + 64, softcap, scale};"),
+    "tf32x3.window_plus_64": (
+        "tf32x3", "csrc/flash_attention.cu",
+        "           (int)window, softcap, scale};",
+        "           (int)window + 64, softcap, scale};"),
+    # the score takes only the hi . hi product: one-term TF32
+    "tf32x3.hi_only": (
+        "tf32x3", "csrc/flash_attention.cu",
+        "n < NT; ++n) mma(part[mi][n], al[mi], bh[n][0], bh[n][1]);\n"
+        "#pragma unroll\n"
+        "        for (int mi = 0; mi < MT; ++mi)\n"
+        "#pragma unroll\n"
+        "          for (int n = 0; n < NT; ++n) mma(part[mi][n], ah[mi], bl[n][0], "
+        "bl[n][1]);", "n < NT; ++n) {}"),
+    # the scalar tail after the last whole vector is not written
+    "alu.skip_tail": (
+        "alu", "csrc/alu.cu",
+        "else if (t >= 32 && t - 32 < tail)", "else if (false)"),
     # the last K split of every split-K product adds nothing
     "gemm_float.drop_last_split": (
         "gemm_float", "csrc/gemm_f32.cu",
@@ -1577,7 +1690,7 @@ PLANTED_FAULTS = {  # name: (route, file under src/repro_torch, text, stand-in)
         "alu_sweep", "csrc/alu_sweep.cu", "  int mine = part;",
         "  int mine = threadIdx.x % S == S - 1 ? identity(op) : part;"),
 }
-LAYER_FAULT_KEYS = ("gemm_float", "depthwise")
+LAYER_FAULT_KEYS = ("gemm_float", "depthwise", "alu")
 VTA_FAULT_KEYS = ("gemm", "alu_sweep")
 # --plant-faults runs these besides ATTENTION_CASES: the only windowed
 # decode case there, g2.local.decode, sees its whole 4096-key cache, so a
@@ -1645,16 +1758,27 @@ def vta_errors(fault: str, route: str) -> None:
 def layer_errors(fault: str, route: str) -> None:
     """The phase-4 cases, and the edge cases, that run on the kernel
     ``route`` names ("all": each of ``LAYER_FAULT_KEYS``) once through
-    ``repro_torch.kernels.ops``, each held to phase 4's limit."""
+    ``repro_torch.kernels.ops``, each held to phase 4's limit (a case whose
+    input is another case's output runs after it)."""
     import torch
-    from repro_torch.kernels import depthwise, gemm, ops
+    from repro_torch.kernels import alu, depthwise, gemm, ops
     dev = torch.device("cuda")
     rng = np.random.default_rng(0)
     keys = LAYER_FAULT_KEYS if route == "all" else (route,)
-    cases = [c for c in layer_op_cases(dev, rng, LAYER_BATCH)
-             + layer_edge_cases(dev, rng) if layer_key(c) in keys]
-    for op, name, args, kw in cases:
-        got = getattr(ops, op)(*args, **kw)
+    cases = layer_op_cases(dev, rng, LAYER_BATCH) + \
+        layer_edge_cases(dev, rng) + alu_edge_cases(dev, rng)
+    kept = {c[1] for c in cases if layer_key(c) in keys}
+    needed = {a for c in cases if c[1] in kept for a in c[2]
+              if isinstance(a, str)}
+    outs = {}
+    for case in cases:
+        op, name, _, kw = case
+        if name not in kept and name not in needed:
+            continue
+        args = resolve(case, outs)
+        got = outs[name] = getattr(ops, op)(*args, **kw)
+        if name not in kept:
+            continue
         if op == "gemm":
             want = gemm.gemm_plain(*args, **kw)
             bias = args[2] if len(args) > 2 else None
@@ -1663,6 +1787,8 @@ def layer_errors(fault: str, route: str) -> None:
             limit = 2 * gemm_err64(want, args[0], args[1], bias,
                                    kw.get("act"), kw.get("clip")) \
                 + 1e-6 * args[0].shape[1]
+        elif op == "alu":
+            err, limit = alu_error(got, alu.alu_plain(*args, **kw)), 0.0
         else:
             want = depthwise.depthwise_plain(*args, **kw)
             err = float((got.float() - want.float()).abs().max())
@@ -1898,6 +2024,9 @@ def main(argv: list) -> int:
     edge = layer_edge_cases(dev, rng)
     outs_edge, _ = drive_layer_ops(edge)
     check_layer_ops(edge, outs_edge, tag="edge cases, ")
+    edge = alu_edge_cases(dev, rng)
+    outs_edge, _ = drive_layer_ops(edge)
+    check_alu_edges(edge, outs_edge)
     del edge, outs_edge
     log(f"phase 4: {time.perf_counter() - t0:.1f} s")
 
@@ -1912,7 +2041,7 @@ def main(argv: list) -> int:
     want5 = {"flash_attention": len(cases5),
              "flash_attention_combine": routes.count("decode"),
              **{f"flash_attention.{r}": routes.count(r)
-                for r in ("decode", "mma", "simt")}}
+                for r in ("decode", "mma", "tf32x3")}}
     for key, want in want5.items():
         if not want or counts5.get(key) != want:
             raise AssertionError(f"{counts5.get(key)} launches of {key}, "

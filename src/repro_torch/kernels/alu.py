@@ -9,6 +9,11 @@ paper's new element-wise multiply. ``alu`` launches ``csrc/alu.cu`` for CUDA
 tensors (f32 or bf16, y of x's shape and dtype) and counts the launch in
 ``LAUNCHES["alu"]``; for CPU tensors it takes ``alu_plain``, which repeats the
 reference step by step and runs on either device.
+
+The kernel moves 16-byte vectors; ``alu_plan`` cuts the element count into a
+scalar head (up to x's first 16-byte boundary), whole vectors and a scalar
+tail, and sizes the grid. A view whose data pointer is not 16-byte aligned
+is taken as it is (no copy): y and the output are given x's misalignment.
 """
 from __future__ import annotations
 
@@ -21,6 +26,28 @@ from repro_torch.kernels import _build
 
 LAUNCHES = {"alu": 0}
 OPS = ("add", "mul", "max", "min")
+THREADS = 256              # threads a block of csrc/alu.cu
+UNROLL = 4                 # 16-byte vectors a thread a step
+WAVE = 132 * (2048 // THREADS)   # resident blocks on the H100's 132 SMs
+
+
+def alu_plan(n: int, itemsize: int, misalign_bytes: int) -> tuple:
+    """(head, vec, unroll, blocks, tail) of ``csrc/alu.cu`` for ``n``
+    elements of ``itemsize`` bytes whose first lies ``misalign_bytes`` past
+    a 16-byte boundary: ``head`` elements one by one up to the boundary,
+    then whole vectors of ``vec`` elements (16 bytes), ``unroll`` of them a
+    thread a step, then ``tail`` (< vec) elements one by one; ``blocks`` is
+    one wave of resident blocks at most, fewer where the vectors take fewer.
+    head + vectors * vec + tail = n."""
+    if misalign_bytes % itemsize or not 0 <= misalign_bytes < 16:
+        raise ValueError(f"alu: misalignment {misalign_bytes} is not a "
+                         f"multiple of the item size {itemsize} below 16")
+    vec = 16 // itemsize
+    head = min(n, (16 - misalign_bytes) % 16 // itemsize)
+    tail = (n - head) % vec
+    nvec = (n - head) // vec
+    blocks = max(1, min(WAVE, -(-nvec // (THREADS * UNROLL))))
+    return head, vec, UNROLL, blocks, tail
 
 
 def _check(x: torch.Tensor, y: Optional[torch.Tensor], op: str) -> None:
@@ -58,9 +85,21 @@ def _lib():
     fn = _build.library("alu").alu_launch
     if fn.argtypes is None:
         vp, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-        fn.argtypes = [vp, vp, vp, ctypes.c_longlong, i, i, f, f, i, f, f, vp]
+        fn.argtypes = [vp, vp, vp, ctypes.c_longlong, i, i, f, f, i, f, f,
+                       i, i, i, i, i, vp]
         fn.restype = ctypes.c_int
     return fn
+
+
+def _empty_at(x: torch.Tensor, misalign: int) -> torch.Tensor:
+    """An empty tensor of x's shape, dtype and device whose data pointer
+    lies ``misalign`` bytes past a 16-byte boundary, as x's does."""
+    if not misalign:
+        return torch.empty(x.shape, dtype=x.dtype, device=x.device)
+    n, size = x.numel(), x.element_size()
+    buf = torch.empty(n + 16 // size, dtype=x.dtype, device=x.device)
+    off = (misalign - buf.data_ptr()) % 16 // size
+    return buf[off:off + n].view(x.shape)
 
 
 def alu(x: torch.Tensor, y: Optional[torch.Tensor] = None, *,
@@ -73,12 +112,17 @@ def alu(x: torch.Tensor, y: Optional[torch.Tensor] = None, *,
         return alu_plain(x, y, op=op, imm=imm, shift=shift, clip=clip)
     code = _build.float_code("alu", x, y)
     x = x.contiguous()
-    y = None if y is None else y.contiguous()
-    out = torch.empty(x.shape, dtype=x.dtype, device=x.device)
+    mis = x.data_ptr() % 16
+    if y is not None:
+        y = y.contiguous()
+        if y.data_ptr() % 16 != mis:
+            y = _empty_at(x, mis).copy_(y)
+    out = _empty_at(x, mis)
     lo, hi = (0.0, 0.0) if clip is None else (-clip, clip)
     status = _lib()(x.data_ptr(), None if y is None else y.data_ptr(),
                     out.data_ptr(), x.numel(), code, OPS.index(op), imm,
                     2.0 ** -shift, clip is not None, lo, hi,
+                    *alu_plan(x.numel(), x.element_size(), mis),
                     torch.cuda.current_stream(x.device).cuda_stream)
     _build.check(status, "alu")
     LAUNCHES["alu"] += 1

@@ -28,8 +28,12 @@ D a multiple of 8 up to 256), by a fixed rule on the query length and dtype
   ``flash_decode_plain`` is the same decomposition in PyTorch;
 - ``"mma"``, Sq > ``DECODE_ROWS`` in bf16: ``csrc/flash_attention_mma.cu``
   on the tensor cores (``mma.sync`` m16n8k16, P split as bf16 hi + lo);
-- ``"simt"``, Sq > ``DECODE_ROWS`` in f32: ``csrc/flash_attention.cu`` on
-  the CUDA cores (TF32 would round q and k to 10 mantissa bits).
+- ``"tf32x3"``, Sq > ``DECODE_ROWS`` in f32: ``csrc/flash_attention.cu`` on
+  the tensor cores (``mma.sync`` m16n8k8 TF32), every operand split as TF32
+  hi + lo and each product taken as lo.hi + hi.lo + hi.hi (one TF32 term
+  would round q and k to 10 mantissa bits, far over the f32 limit); its tile
+  is ``attention_tf32_plan``'s, and ``tf32_split_plain`` is the split in
+  PyTorch, for the CPU tests.
 
 Each call counts one in ``LAUNCHES["flash_attention"]``, once its route's
 first kernel has launched. Each kernel counts its own launches, where it
@@ -38,7 +42,7 @@ launches: ``LAUNCHES["flash_attention.<route>"]`` for the route's kernel, and
 wrapper takes ``flash_attention_plain``, which runs on either device.
 
 Blocks. ``block_q``/``block_k`` have the reference's meaning for the plain
-version, halved until they divide Sq and Sk; without them it takes the SIMT
+version, halved until they divide Sq and Sk; without them it takes the
 kernel's tile (``attention_tile``). The CUDA kernels pick their tiles
 themselves and ignore them: they mask their own tails instead of halving, so
 on the card the blocks change only the order of summation, as ``tile=``
@@ -53,7 +57,7 @@ import torch
 
 from repro_torch.kernels import _build
 
-ROUTES = ("decode", "mma", "simt")
+ROUTES = ("decode", "mma", "tf32x3")
 LAUNCHES = {"flash_attention": 0, "flash_attention_combine": 0,
             **{f"flash_attention.{r}": 0 for r in ROUTES}}
 NEG_INF = -2.0e38
@@ -65,10 +69,51 @@ DECODE_MIN_CHUNK = 256     # keys per decode chunk, at least
 
 def attention_route(dtype: torch.dtype, sq: int) -> str:
     """The route a CUDA call takes: ``"decode"`` for Sq <= ``DECODE_ROWS``,
-    else ``"mma"`` in bf16 and ``"simt"`` in f32."""
+    else ``"mma"`` in bf16 and ``"tf32x3"`` in f32."""
     if sq <= DECODE_ROWS:
         return "decode"
-    return "mma" if dtype == torch.bfloat16 else "simt"
+    return "mma" if dtype == torch.bfloat16 else "tf32x3"
+
+
+def tf32_head_class(head_dim: int) -> int:
+    """The f32 prefill kernel's head-dim class: head_dim rounded up to 16,
+    32, 64, 128 or 256. Each class is one template instance, whose loops
+    over the head dimension have fixed trip counts."""
+    return next(x for x in (16, 32, 64, 128, 256) if head_dim <= x)
+
+
+def attention_tf32_plan(head_dim: int) -> tuple:
+    """(warps, rows_per_warp, bk, stages, smem_bytes): the tile of the f32
+    prefill kernel ``csrc/flash_attention.cu`` at ``head_dim``, which picks
+    its template instance (``tf32_head_class``) and checks the plan against
+    it. A warp owns ``rows_per_warp`` query rows (16-row MMA tiles), a block
+    ``warps`` of them; K and V stream in tiles of ``bk`` keys through a ring
+    of ``stages``. Rows are zero-padded to the class and then by 4 floats in
+    shared memory; Q is staged there as TF32 hi and lo tiles up to class 64,
+    scaled f32 above it. From class 64 a warp takes one 16-row tile (its O
+    accumulator and scores fill the registers); at class 256 Q takes 133 KB
+    of shared memory, so BK is 16."""
+    dp = tf32_head_class(head_dim)
+    warps, rows, bk = {16: (4, 32, 64), 32: (4, 32, 64),
+                       256: (8, 16, 16)}.get(dp, (8, 16, 64))
+    stages = 2
+    q_tiles = 2 if dp <= 64 else 1
+    smem = (q_tiles * warps * rows + 2 * stages * bk) * (dp + 4) * 4
+    return warps, rows, bk, stages, smem
+
+
+def tf32_split_plain(x: torch.Tensor) -> tuple:
+    """(hi, lo) of f32 ``x`` as the f32 prefill kernel splits it: hi = x
+    rounded to TF32 (10 mantissa bits; to nearest, ties away from zero, as
+    ``cvt.rna.tf32.f32``), lo = x - hi (exact in f32) rounded the same way.
+    x - hi - lo is at most 2^-22 |x|. Bit operations on the low 13 bits."""
+    def rna(t):
+        bits = t.contiguous().view(torch.int32)
+        finite = (bits & 0x7F800000) != 0x7F800000
+        up = (bits + 0x1000) & -8192       # add half of the dropped ulp
+        return torch.where(finite, up, bits).view(torch.float32)
+    hi = rna(x.to(torch.float32))
+    return hi, rna(x.to(torch.float32) - hi)
 
 
 def decode_split(b: int, kv: int, g: int, sq: int, sk: int,
@@ -92,11 +137,14 @@ def decode_split(b: int, kv: int, g: int, sq: int, sk: int,
 
 
 def attention_tile(head_dim: int, dtype: torch.dtype, sq: int) -> tuple:
-    """(bq, bk): the plain version's default block: 64 query rows, or 8 when
-    ``sq <= 8``; 64 keys, or 32 for f32 rows of more than 128 values. For
-    f32 at Sq > 8 it is the tile the SIMT kernel ``csrc/flash_attention.cu``
-    picks for itself (``with_keys``). Only the plain version's order of
-    summation depends on it."""
+    """(bq, bk): the plain version's default block. For f32 at Sq > 8 it is
+    the tile of the kernel ``csrc/flash_attention.cu`` (``attention_tf32_plan``:
+    its query rows a block and its key tile); else 64 query rows, or 8 when
+    ``sq <= 8``, and 64 keys, or 32 for rows of more than 512 bytes. Only
+    the plain version's order of summation depends on it."""
+    if dtype == torch.float32 and sq > DECODE_ROWS:
+        warps, rows, bk, _, _ = attention_tf32_plan(head_dim)
+        return warps * rows, bk
     bq = 8 if sq <= 8 else 64
     itemsize = torch.empty((), dtype=dtype).element_size()
     bk = 64 if head_dim * itemsize <= 512 else 32
@@ -365,8 +413,9 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         fn = _fn("flash_attention_mma", "flash_attention_mma_launch",
                  _PREFILL_ARGS + [_VP])
     else:
+        args += list(attention_tf32_plan(d))
         fn = _fn("flash_attention", "flash_attention_launch",
-                 _PREFILL_ARGS + [_VP])
+                 _PREFILL_ARGS + [_I] * 5 + [_VP])
     _build.check(fn(*args, torch.cuda.current_stream(q.device).cuda_stream),
                  f"flash_attention ({route})")
     LAUNCHES["flash_attention"] += 1

@@ -16,7 +16,8 @@ two take a route by a fixed rule:
 - ``flash_attention`` (``flash_attention.attention_route``): Sq <= 8 on the
   split-K decode kernel and its combine (``csrc/flash_decode.cu``), bf16
   prefill on ``mma.sync`` (``csrc/flash_attention_mma.cu``), f32 prefill on
-  the SIMT kernel (``csrc/flash_attention.cu``).
+  ``mma.sync`` in 3xTF32 (``csrc/flash_attention.cu``, tile from
+  ``flash_attention.attention_tf32_plan``).
 
 ``gemm`` takes no ``tile=``: the reference sizes its tiles with
 ``core/tile_search.py`` for the TPU's 64 MiB of VMEM, while the CUDA routes

@@ -17,9 +17,14 @@ import torch
 from repro.kernels import ops as jops
 from repro.kernels import ref as jref
 from repro_torch.kernels import launch_counts, ops, ref
-from repro_torch.kernels.flash_attention import (_blocks, attention_tile,
-                                                 flash_attention_plain)
+from repro_torch.kernels.flash_attention import (_blocks,
+                                                 attention_tf32_plan,
+                                                 attention_tile,
+                                                 flash_attention_plain,
+                                                 tf32_head_class,
+                                                 tf32_split_plain)
 
+SMEM_LIMIT = 232448     # shared memory one block may take on the H100
 DTYPES = {"float32": (jnp.float32, torch.float32, 2e-5),
           "bfloat16": (jnp.bfloat16, torch.bfloat16, 2e-2)}
 
@@ -182,7 +187,7 @@ def test_wrapper_rejects_a_device_that_is_neither_cpu_nor_cuda():
 
 
 @pytest.mark.parametrize("dtype,d,sq,tile", [
-    (torch.float32, 128, 100, (64, 64)), (torch.float32, 256, 1, (8, 32)),
+    (torch.float32, 128, 100, (128, 64)), (torch.float32, 256, 1, (8, 32)),
     (torch.bfloat16, 256, 100, (64, 64)), (torch.bfloat16, 40, 8, (8, 64)),
 ])
 def test_plain_default_block_is_the_kernel_tile(dtype, d, sq, tile):
@@ -289,7 +294,7 @@ def test_decode_split_rule(b, kv, g, sq, sk, window, want):
 @pytest.mark.parametrize("dtype,sq,route", [
     (torch.float32, 1, "decode"), (torch.bfloat16, 8, "decode"),
     (torch.bfloat16, 9, "mma"), (torch.bfloat16, 8192, "mma"),
-    (torch.float32, 9, "simt"), (torch.float32, 8192, "simt"),
+    (torch.float32, 9, "tf32x3"), (torch.float32, 8192, "tf32x3"),
 ])
 def test_attention_route(dtype, sq, route):
     from repro_torch.kernels.flash_attention import attention_route
@@ -367,3 +372,123 @@ def test_prefill_p_split_meets_the_bf16_limit():
         over[split_p] = int(((got - r64).abs() > limit).sum())
     assert over["cut"] == 0 and over["nearest"] == 0
     assert over[None] > 0
+
+
+# ---------------------------------------------------------------------------
+# the f32 prefill route's numerics (csrc/flash_attention.cu, 3xTF32), emulated
+# ---------------------------------------------------------------------------
+@pytest.mark.parametrize("kind", ["random", "tiny", "huge"])
+def test_tf32_split_plain(kind):
+    """hi and lo are TF32 values (low 13 bits zero), hi is x rounded to
+    nearest TF32 (within half its ulp, 2^-11 |x|), and hi + lo stands for
+    x within 2^-22 |x|."""
+    rng = np.random.default_rng(11)
+    if kind == "random":
+        x = rng.standard_normal(100_000).astype(np.float32)
+    else:   # tiny: lo stays a normal f32 down to |x| ~ 2^-115
+        lo, hi = (-34, -30) if kind == "tiny" else (30, 37)
+        x = (rng.choice([-1.0, 1.0], 100_000)
+             * 10.0 ** rng.uniform(lo, hi, 100_000)).astype(np.float32)
+    xt = torch.from_numpy(x)
+    hi, lo = tf32_split_plain(xt)
+    for t in (hi, lo):
+        assert not bool((t.view(torch.int32) & 0x1FFF).any())
+    x64 = xt.double()
+    assert bool(((x64 - hi.double()).abs() <= 2.0 ** -11 * x64.abs()).all())
+    rest = (x64 - hi.double() - lo.double()).abs()
+    assert bool((rest <= 2.0 ** -22 * x64.abs()).all())
+
+
+def test_tf32_split_rounds_ties_away_from_zero():
+    """cvt.rna: a value halfway between two TF32 values goes to the one of
+    larger magnitude."""
+    x = torch.tensor([1 + 2.0 ** -11, -(1 + 2.0 ** -11), 1 + 2.0 ** -12],
+                     dtype=torch.float32)
+    hi, lo = tf32_split_plain(x)
+    assert hi.tolist() == [1 + 2.0 ** -10, -(1 + 2.0 ** -10), 1.0]
+    assert lo.tolist() == [-(2.0 ** -11), 2.0 ** -11, 2.0 ** -12]
+
+
+def _products(a, b, terms):
+    """a @ b as the kernel's tensor cores take it: both split in TF32 hi +
+    lo, lo.hi + hi.lo + hi.hi (or hi.hi alone for one term), each product
+    of TF32 values exact in f32 and summed in f32."""
+    ah, al = tf32_split_plain(a)
+    bh, bl = tf32_split_plain(b)
+    if terms == 1:
+        return ah @ bh
+    return (al @ bh + ah @ bl) + ah @ bh
+
+
+def _emulated_tf32(q, k, v, scale, softcap, terms, bk):
+    """Causal attention (bottom-right aligned, GQA) as the f32 prefill
+    kernel computes it: q scaled and rounded in f32, the score and P V each
+    from ``_products``, the online softmax over ``bk``-key tiles in f32."""
+    b, h, sq, d = q.shape
+    kv, sk = k.shape[1], k.shape[2]
+    qs = (q * scale).reshape(b, kv, h // kv, sq, d)
+    qpos = torch.arange(sq).view(sq, 1) + (sk - sq)
+    m = torch.full(qs.shape[:-1] + (1,), -2e38)
+    l_ = torch.zeros_like(m)
+    acc = torch.zeros_like(qs)
+    for j in range(0, sk, bk):
+        kb = k[:, :, j:j + bk].unsqueeze(2)
+        vb = v[:, :, j:j + bk].unsqueeze(2)
+        s = _products(qs, kb.transpose(-1, -2), terms)
+        if softcap is not None:
+            s = softcap * torch.tanh(s / softcap)
+        mask = torch.arange(j, min(j + bk, sk)).view(1, -1) <= qpos
+        s = torch.where(mask, s, -2e38)
+        m_new = torch.maximum(m, s.amax(dim=-1, keepdim=True))
+        p = torch.where(mask, torch.exp(s - m_new), 0.0)
+        corr = torch.exp(torch.clamp(m - m_new, max=0.0))
+        l_ = l_ * corr + p.sum(dim=-1, keepdim=True)
+        acc = acc * corr + _products(p, vb, terms)
+        m = m_new
+    return (acc / torch.clamp(l_, min=1e-30)).reshape(b, h, sq, d)
+
+
+@pytest.mark.parametrize("h,kv,sq,sk,d,softcap", [
+    (2, 1, 128, 128, 32, None), (2, 1, 128, 128, 32, 15.0),
+    (4, 2, 512, 1024, 128, 50.0), (1, 1, 256, 2048, 256, None)])
+def test_prefill_3xtf32_meets_the_f32_limit(h, kv, sq, sk, d, softcap):
+    """chip_smoke.py's f32 limit against float64 (2x the plain version's
+    largest error + 1e-6): three TF32 terms a product meet it, one term
+    (q, k, p and v each rounded to TF32) does not."""
+    q, k, v = (torch.from_numpy(a)
+               for a in _inputs((1, h, kv, sq, sk, d), 0.4, seed=7))
+    scale = d ** -0.5
+    qd = (q.double() * scale).reshape(1, kv, h // kv, sq, d)
+    sc = qd @ k.double().unsqueeze(2).transpose(-1, -2)
+    if softcap is not None:
+        sc = softcap * torch.tanh(sc / softcap)
+    qpos = torch.arange(sq).view(sq, 1) + (sk - sq)
+    sc = sc.masked_fill(torch.arange(sk).view(1, sk) > qpos, float("-inf"))
+    r64 = (torch.softmax(sc, dim=-1) @ v.double().unsqueeze(2)).reshape(
+        1, h, sq, d)
+    plain = flash_attention_plain(q, k, v, causal=True, softcap=softcap)
+    limit = 2 * float((plain.double() - r64).abs().max()) + 1e-6
+    bk = attention_tf32_plan(d)[2]
+    err = {t: float((_emulated_tf32(q, k, v, scale, softcap, t, bk).double()
+                     - r64).abs().max()) for t in (3, 1)}
+    assert err[3] <= limit
+    assert err[1] > limit
+
+
+@pytest.mark.parametrize("d", range(8, 257, 8))
+def test_attention_tf32_plan(d):
+    """The f32 prefill kernel's tile at every head_dim it takes: within
+    the H100's shared memory a block, whole 16-row MMA tiles a warp, a key
+    tile of whole 8-key MMA steps, and the bytes its staging takes (Q, as
+    TF32 hi and lo up to head-dim class 64, and the K + V ring, rows padded
+    to the class + 4 floats)."""
+    warps, rows, bk, stages, smem = attention_tf32_plan(d)
+    assert smem <= SMEM_LIMIT
+    assert bk % 8 == 0 and rows % 16 == 0 and stages >= 2
+    assert 1 <= warps <= 32
+    dp = tf32_head_class(d)
+    assert d <= dp < 2 * d or dp == 16
+    q_tiles = 2 if dp <= 64 else 1
+    assert smem == (q_tiles * warps * rows + 2 * stages * bk) * (dp + 4) * 4
+    # the plain version's default block is the kernel's tile
+    assert attention_tile(d, torch.float32, 9) == (warps * rows, bk)

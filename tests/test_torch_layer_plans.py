@@ -270,3 +270,49 @@ def test_ragged_depthwise_matches_jax(dtype):
     np.testing.assert_allclose(got.to(torch.float32).numpy(),
                                np.asarray(want, np.float32), atol=tol,
                                rtol=tol)
+
+
+# ---------------------------------------------------------------------------
+# alu_plan: the ALU kernel's scalar head, 16-byte vectors and scalar tail
+# ---------------------------------------------------------------------------
+ALU_NS = sorted(set(range(1, 257)) | set(range(257, 10 ** 6, 9973))
+                | {1001, 100003, 401408, 10 ** 6 - 1, 10 ** 6})
+
+
+@pytest.mark.parametrize("itemsize,misalign", [(4, m) for m in range(0, 16, 4)]
+                         + [(2, m) for m in range(0, 16, 2)])
+def test_alu_plan_covers_every_element_once(itemsize, misalign):
+    """head + vectors * vec + tail = n; the vectors start on a 16-byte
+    boundary, head and tail are fewer than a vector, and the grid is at
+    most one wave of resident blocks yet covers the vectors in one step
+    where it can."""
+    from repro_torch.kernels import alu
+    for n in ALU_NS:
+        head, vec, unroll, blocks, tail = alu.alu_plan(n, itemsize, misalign)
+        assert vec * itemsize == 16 and unroll == alu.UNROLL
+        body = n - head - tail
+        assert body >= 0 and body % vec == 0
+        assert 0 <= head < vec and 0 <= tail < vec
+        if body:
+            assert (misalign + head * itemsize) % 16 == 0
+        assert 1 <= blocks <= alu.WAVE
+        assert blocks * alu.THREADS * unroll >= body // vec or \
+            blocks == alu.WAVE
+
+
+def test_alu_plan_rejects_a_misalignment_inside_an_element():
+    from repro_torch.kernels import alu
+    with pytest.raises(ValueError):
+        alu.alu_plan(10, 4, 2)
+
+
+@pytest.mark.parametrize("misalign", [0, 4, 8, 12])
+def test_alu_output_takes_the_input_misalignment(misalign):
+    """The wrapper's output (and a y it must copy) lie as far past a
+    16-byte boundary as x, so one plan fits all three."""
+    from repro_torch.kernels import alu
+    base = torch.zeros(64)
+    x = base[(misalign - base.data_ptr()) % 16 // 4:][:40]
+    assert x.data_ptr() % 16 == misalign
+    out = alu._empty_at(x, misalign)
+    assert out.shape == x.shape and out.data_ptr() % 16 == misalign
