@@ -66,9 +66,10 @@ order; any failure raises and the script exits nonzero:
    with K = 1024; a depthwise with C = 36, 5x5, stride 2) run through the
    same checks, on lines of their own and outside the rows, and
    ``alu_edge_cases`` (an odd element count in f32 and bf16, views 4 bytes
-   past a 16-byte boundary, NaN in x for max and min; each with y and with
-   an immediate) exactly against the ALU's plain version (NaN where it is
-   NaN), with the kernel's plan (``kernels/alu.py::alu_plan``) beside each.
+   past a 16-byte boundary in f32 and 2, 6 and 10 in bf16, NaN in x for max
+   and min; each with y and with an immediate; y at another offset than x)
+   exactly against the ALU's plain version (NaN where it is NaN), with the
+   kernel's plan (``kernels/alu.py::alu_plan``) beside each.
 5. Attention at full width, through ``repro_torch.kernels.ops.
    flash_attention``, at the head counts, head_dim, windows, softcap and
    query scale of ``configs/archs.py`` (written out in ``ATTENTION_CASES``;
@@ -84,8 +85,9 @@ order; any failure raises and the script exits nonzero:
    split-K decode kernel and its combine (``csrc/flash_decode.cu``), bf16
    prefill the tensor-core kernel (``csrc/flash_attention_mma.cu``), f32
    prefill the 3xTF32 tensor-core kernel (``csrc/flash_attention.cu``,
-   bound at three products on the TF32 rate; its line also gives the
-   CUDA-core f32 bound). Launch counts are zeroed
+   bound at three products on the TF32 rate; its per-case lines and one
+   total line also give the CUDA-core f32 bound, which the kernels JSON
+   line leaves out). Launch counts are zeroed
    just before the cases are driven once and read just after:
    ``flash_attention`` once per case, ``flash_attention.<route>`` once per
    case of the route, ``flash_attention_combine`` once per decode case. Each
@@ -1029,10 +1031,11 @@ def layer_edge_cases(dev, rng) -> list:
 def alu_edge_cases(dev, rng) -> list:
     """The ALU kernel's edge cases, held exactly to ``alu_plain`` and
     reported apart from phase 4's rows: an odd element count (a scalar
-    tail after the 16-byte vectors) in f32 and bf16, views whose data
-    pointer lies 4 bytes past a 16-byte boundary (a scalar head), and NaN in
-    every 7th element of x for max and min; each with y and with an
-    immediate."""
+    tail after the 16-byte vectors) in f32 and bf16; NaN in every 7th
+    element of x for max and min; views whose data pointer lies off a
+    16-byte boundary (a scalar head), 4 bytes in f32 and 2, 6 and 10 in
+    bf16; each with y and with an immediate; and y at another offset than
+    x, which the wrapper copies to x's."""
     import torch
     n = 100003
 
@@ -1056,13 +1059,23 @@ def alu_edge_cases(dev, rng) -> list:
                  (t(n, dt, nan=True), t(n, dt)), dict(op=op, clip=10.0)),
                 ("alu", f"edge.alu NaN {op} imm/{tag}", (t(n, dt, nan=True),),
                  dict(op=op, imm=0.5, shift=2))]
-    off = 1                             # one f32 element: 4 bytes
-    cases += [
-        ("alu", "edge.alu offset 4 B y/f32",
-         (t(n - 1, torch.float32, off), t(n - 1, torch.float32, off)),
-         dict(op="add")),
-        ("alu", "edge.alu offset 4 B imm/f32", (t(n - 1, torch.float32, off),),
-         dict(op="max", imm=0.0, shift=8, clip=127.0))]
+    # offsets in elements: x's alone, then (x's, y's)
+    for dt, offs, pairs in ((torch.float32, (1,), ((1, 2), (0, 3))),
+                            (torch.bfloat16, (1, 3, 5), ((1, 5), (7, 0)))):
+        tag = "f32" if dt == torch.float32 else "bf16"
+        size = torch.empty((), dtype=dt).element_size()
+        for off in offs:
+            cases += [
+                ("alu", f"edge.alu offset {off * size} B y/{tag}",
+                 (t(n - off, dt, off), t(n - off, dt, off)), dict(op="add")),
+                ("alu", f"edge.alu offset {off * size} B imm/{tag}",
+                 (t(n - off, dt, off),),
+                 dict(op="max", imm=0.0, shift=8, clip=127.0))]
+        for xo, yo in pairs:
+            cases.append(
+                ("alu", f"edge.alu x at {xo * size} B, y at {yo * size} B/"
+                 f"{tag}", (t(n, dt, xo), t(n, dt, yo)),
+                 dict(op="mul", shift=1, clip=30.0)))
     return cases
 
 
@@ -1088,8 +1101,10 @@ def check_alu_edges(cases, outs: dict) -> None:
         err = alu_error(outs[name], alu_plain(*args, **kw))
         head, _, _, blocks, tail = alu_plan(x.numel(), x.element_size(),
                                             x.data_ptr() % 16)
+        at = "".join(f", {w} at {t.data_ptr() % 16} B"
+                     for w, t in zip("xy", args))
         log(f"  alu {name}: max|kernel - plain| {err:.3g} (NaN where plain "
-            f"is NaN), head {head}, tail {tail}, {blocks} blocks")
+            f"is NaN){at}; head {head}, tail {tail}, {blocks} blocks")
         if err != 0:
             raise AssertionError(f"{name}: alu differs from its plain "
                                  f"version by {err}")
@@ -1502,7 +1517,7 @@ def check_attention(cases, outs: dict) -> dict:
                   "ms_library_cases": 0.0} for key in ATTENTION_KEYS}
     for key in ATTENTION_KEYS[:3]:      # the routes, held to float64
         rows[key].update(max_err_vs_f64=0.0, plain_max_err_vs_f64=0.0)
-    rows["flash_attention.tf32x3"]["bound_cuda_cores_ms"] = 0.0
+    cuda_cores_ms = 0.0   # the f32 prefill's bound at the CUDA cores' rate
     for c in cases:
         name, q, k, v, kw = c["name"], c["q"], c["k"], c["v"], c["kw"]
         got = outs[name]
@@ -1565,7 +1580,7 @@ def check_attention(cases, outs: dict) -> dict:
         row["t_bytes"] += tb
         row["t_ops"] += to
         if route == "tf32x3":
-            row["bound_cuda_cores_ms"] += max(1e3 * tb, cuda_core_ms)
+            cuda_cores_ms += max(1e3 * tb, cuda_core_ms)
         if lms is not None:
             row["library_ms"] = (row["library_ms"] or 0.0) + lms
             row["library_cases"] += 1
@@ -1620,6 +1635,9 @@ def check_attention(cases, outs: dict) -> dict:
             f"({row['bound_by']}); library {row['library_ms']} ms on "
             f"{row['library_cases']} cases (kernel "
             f"{row['ms_library_cases']:.3f} ms on those)")
+    log(f"flash_attention.tf32x3: bound at the CUDA cores' f32 rate "
+        f"{cuda_cores_ms:.4f} ms over its {rows['flash_attention.tf32x3']['cases']} "
+        f"cases (its row's bound_ms takes the TF32 tensor cores' rate)")
     log(f"flash_attention: {len(cases)} cases, kernels "
         f"{sum(rows[k]['ms'] for k in ATTENTION_KEYS[:3]):.3f} ms in all")
     return rows

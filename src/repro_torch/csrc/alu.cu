@@ -31,8 +31,14 @@ namespace {
 
 using namespace float_ops;
 
-constexpr int THREADS = 256;
-constexpr int UNROLL = 4;   // 16-byte vectors a thread a step
+// threads a block and 16-byte vectors a thread a step, from the build:
+// kernels/alu.py::THREADS and UNROLL, which alu_plan sizes the grid with
+#if !defined(ALU_THREADS) || !defined(ALU_UNROLL)
+#error "ALU_THREADS and ALU_UNROLL come from kernels/alu.py; build through kernels/_build.py"
+#endif
+constexpr int THREADS = ALU_THREADS;
+constexpr int UNROLL = ALU_UNROLL;
+static_assert(THREADS >= 32 + 8, "block 0 takes the head and the tail");
 
 // a 16-byte vector as f32 values and back
 template <typename T> struct Vec;
@@ -167,17 +173,17 @@ bool aligned16(const void* p, long long elems, int itemsize) {
 }  // namespace
 
 // dtype: 0 float32, 1 bfloat16; op 0 add, 1 mul, 2 max, 3 min. y may be null
-// (immediate operand). (head, vec, unroll, blocks, tail) is alu_plan's: vec
-// the elements of a 16-byte vector, unroll UNROLL, head < vec elements before
-// x + head is 16-byte aligned (y + head and out + head must be too), tail <
-// vec elements after the vectors. Returns a cudaError_t.
+// (immediate operand). (head, blocks, tail) is alu_plan's: head elements
+// before x + head is 16-byte aligned (y + head and out + head must be too),
+// tail elements after the vectors, each fewer than a 16-byte vector holds.
+// Returns a cudaError_t.
 extern "C" int alu_launch(const void* x, const void* y, void* out, long long n,
                           int dtype, int op, float imm, float scale,
-                          int has_clip, float lo, float hi, int head, int vec,
-                          int unroll, int blocks, int tail, void* stream) {
+                          int has_clip, float lo, float hi, int head,
+                          int blocks, int tail, void* stream) {
   if (n <= 0) return 0;
-  const int itemsize = dtype == 0 ? 4 : 2;
-  if (vec != 16 / itemsize || unroll != UNROLL || head < 0 || head >= vec ||
+  const int itemsize = dtype == 0 ? 4 : 2, vec = 16 / itemsize;
+  if (head < 0 || head >= vec ||
       tail < 0 || tail >= vec || head + tail > n || (n - head - tail) % vec ||
       blocks < 1 || op < 0 || op > 3)
     return static_cast<int>(cudaErrorInvalidValue);

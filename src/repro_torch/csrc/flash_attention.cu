@@ -30,9 +30,10 @@
 // mma.sync reaches is lower, chip_smoke.py's kernel rows and PERF.md). Design:
 // - a block of WARPS warps owns BQ = 16 * MT * WARPS query rows, MT 16-row
 //   MMA tiles a warp, and runs over key tiles of BK keys of one kv head; the
-//   tile (warps, rows a warp, BK, stages, shared bytes) is
-//   kernels/flash_attention.py::attention_tf32_plan, which the launch checks
-//   against the instance of D's class DP (16, 32, 64, 128, 256). Columns
+//   tile (warps, rows a warp, BK, stages, Q tiles, shared bytes) of each
+//   instance, one per head-dim class DP (16, 32, 64, 128, 256), is
+//   kernels/flash_attention.py::TF32_TILES, which the build passes in as
+//   macros (nvcc_defines). Columns
 //   [D, DP) are zeros in shared memory, so every loop over the head
 //   dimension has a fixed trip count. At DP 256 a 16-row tile's O
 //   accumulator is 128 registers a thread; with 8 warps a block and Q
@@ -71,15 +72,25 @@ namespace {
 
 constexpr float NEG_INF = -2.0e38f;
 
-// the instances, one per head-dim class DP; kernels/flash_attention.py::
-// attention_tf32_plan gives the same tile and the launch checks that it does
+// the instances, one per head-dim class DP, from the build: TF32_STAGES and
+// TF32_<WARPS|ROWS|BK|QTILES|SMEM>_<DP> (warps, rows a warp, BK, Q tiles,
+// shared bytes), kernels/flash_attention.py::nvcc_defines
+#ifndef TF32_STAGES
+#error "the tiles come from kernels/flash_attention.py; build through kernels/_build.py"
+#endif
+static_assert(TF32_STAGES == 2, "the K/V ring has two stages");
 template <int DP> struct Tile;
-template <> struct Tile<16> { static constexpr int WARPS = 4, MT = 2, BK = 64; };
-template <> struct Tile<32> { static constexpr int WARPS = 4, MT = 2, BK = 64; };
-template <> struct Tile<64> { static constexpr int WARPS = 8, MT = 1, BK = 64; };
-template <> struct Tile<128> { static constexpr int WARPS = 8, MT = 1, BK = 64; };
-template <> struct Tile<256> { static constexpr int WARPS = 8, MT = 1, BK = 16; };
-constexpr int STAGES = 2;
+#define TILE(DP)                                                                  \
+  template <> struct Tile<DP> {                                                   \
+    static constexpr int WARPS = TF32_WARPS_##DP, MT = TF32_ROWS_##DP / 16,      \
+                         BK = TF32_BK_##DP, STAGES = TF32_STAGES,                \
+                         QTILES = TF32_QTILES_##DP;                              \
+    static constexpr size_t SMEM = TF32_SMEM_##DP;                               \
+    static_assert(TF32_ROWS_##DP % 16 == 0 && BK % 8 == 0 && (QTILES == 1 || QTILES == 2), \
+                  "a tile this kernel does not take");                            \
+  };
+TILE(16) TILE(32) TILE(64) TILE(128) TILE(256)
+#undef TILE
 
 struct Params {
   const float* q;
@@ -118,19 +129,21 @@ __device__ __forceinline__ void mma(float* c, const uint32_t* a, uint32_t b0, ui
 }
 
 template <int DP>
-__host__ __device__ constexpr bool q_split() { return DP <= 64; }
+__host__ __device__ constexpr bool q_split() { return Tile<DP>::QTILES == 2; }
 
+// the layout the kernel carves, which the plan's byte count must equal
 template <int DP>
-size_t smem_bytes() {
+constexpr size_t smem_bytes() {
   using T = Tile<DP>;
-  const size_t bq = 16 * T::MT * T::WARPS;
-  return ((q_split<DP>() ? 2 : 1) * bq + 2 * STAGES * T::BK) * (size_t)(DP + 4) * 4;
+  return ((q_split<DP>() ? 2 : 1) * (size_t)(16 * T::MT * T::WARPS) + 2 * T::STAGES * T::BK) *
+         (size_t)(DP + 4) * 4;
 }
 
 template <int DP>
 __global__ void __launch_bounds__(32 * Tile<DP>::WARPS)
 flash_attention_tf32_kernel(Params p) {
   constexpr int WARPS = Tile<DP>::WARPS, MT = Tile<DP>::MT, BK = Tile<DP>::BK;
+  constexpr int STAGES = Tile<DP>::STAGES;
   constexpr int THREADS = 32 * WARPS;
   constexpr int BQ = 16 * MT * WARPS;  // query rows a block
   constexpr int LD = DP + 4;           // shared row, floats
@@ -463,14 +476,12 @@ flash_attention_tf32_kernel(Params p) {
 }
 
 template <int DP>
-int launch(const Params& p, int B, int warps, int rows_per_warp, int bk, int stages,
-           int smem_req, cudaStream_t stream) {
+int launch(const Params& p, int B, cudaStream_t stream) {
   using T = Tile<DP>;
+  static_assert(smem_bytes<DP>() == T::SMEM,
+                "the plan's shared bytes are not the kernel's layout");
   constexpr int BQ = 16 * T::MT * T::WARPS;
-  const size_t smem = smem_bytes<DP>();
-  if (warps != T::WARPS || rows_per_warp != 16 * T::MT || bk != T::BK ||
-      stages != STAGES || (size_t)smem_req != smem)
-    return static_cast<int>(cudaErrorInvalidValue);
+  constexpr size_t smem = T::SMEM;
   const long long qtiles = (p.Sq + BQ - 1) / BQ;
   if (qtiles > 65535) return static_cast<int>(cudaErrorInvalidValue);
   auto kernel = flash_attention_tf32_kernel<DP>;
@@ -485,14 +496,11 @@ int launch(const Params& p, int B, int warps, int rows_per_warp, int bk, int sta
 }  // namespace
 
 // f32 only, Sq > 8; D a multiple of 8 up to 256; B at most 65535, Sq + Sk
-// below 2^30. The tile (warps, rows a warp, BK, stages, shared bytes) is
-// attention_tf32_plan(D)'s and must be that of D's instance. Returns a
-// cudaError_t.
+// below 2^30. The tile is the instance of D's class. Returns a cudaError_t.
 extern "C" int flash_attention_launch(
     const void* q, const void* k, const void* v, void* o, int B, int H,
     int KV, int Sq, int Sk, int D, int causal, int has_window,
     long long window, int has_softcap, float softcap, float scale,
-    int warps, int rows_per_warp, int bk, int stages, int smem_bytes,
     void* stream) {
   if (D < 8 || D > 256 || D % 8 || KV < 1 || H % KV || B < 1 || B > 65535 ||
       Sq <= 8 || Sk < 1 || (long long)Sq + Sk >= (1LL << 30))
@@ -504,10 +512,9 @@ extern "C" int flash_attention_launch(
            D, causal, has_window, has_softcap,
            (int)window, softcap, scale};
   auto s = static_cast<cudaStream_t>(stream);
-  const int w = warps, r = rows_per_warp, st = stages, sm = smem_bytes;
-  if (D <= 16) return launch<16>(p, B, w, r, bk, st, sm, s);
-  if (D <= 32) return launch<32>(p, B, w, r, bk, st, sm, s);
-  if (D <= 64) return launch<64>(p, B, w, r, bk, st, sm, s);
-  if (D <= 128) return launch<128>(p, B, w, r, bk, st, sm, s);
-  return launch<256>(p, B, w, r, bk, st, sm, s);
+  if (D <= 16) return launch<16>(p, B, s);
+  if (D <= 32) return launch<32>(p, B, s);
+  if (D <= 64) return launch<64>(p, B, s);
+  if (D <= 128) return launch<128>(p, B, s);
+  return launch<256>(p, B, s);
 }

@@ -4,11 +4,16 @@ Each ``csrc/*.cu`` file is compiled by ``nvcc`` into its own shared library
 with a plain C interface (no PyTorch headers, so a build takes seconds):
 
     nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared
-         -Xcompiler -fPIC -Xptxas -v -o <build>/<name>-<hash>.so csrc/<name>.cu
+         -Xcompiler -fPIC -Xptxas -v [-D...] -o <build>/<name>-<hash>.so
+         csrc/<name>.cu
+
+A source named in ``DEFINES`` takes macros from ``nvcc_defines()`` of the
+wrapper module of its name: the module's tile table becomes the kernel's
+template instances, so the table is written once (``nvcc_flags``).
 
 All sources build in parallel, one ``nvcc`` each, at the first call that
 needs a kernel (never at import). The library name carries a hash of the
-source, the shared headers (``csrc/*.cuh``) and the flags, so an edited
+source, the shared headers (``csrc/*.cuh``) and its flags, so an edited
 source or header is rebuilt and a stale library is never loaded. The build
 directory is ``build/torch_ext`` at the root of the checkout, or
 ``$REPRO_TORCH_BUILD_DIR``. Any failure raises: there is no fallback to the
@@ -21,6 +26,7 @@ from __future__ import annotations
 
 import ctypes
 import hashlib
+import importlib
 import os
 import pathlib
 import shutil
@@ -33,6 +39,9 @@ import torch
 CSRC = pathlib.Path(__file__).resolve().parent.parent / "csrc"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+
+# csrc/<name>.cu whose macros come from kernels/<name>.py::nvcc_defines()
+DEFINES = ("alu", "flash_attention")
 
 _LOCK = threading.Lock()
 _LIBS: dict = {}
@@ -59,10 +68,22 @@ def _nvcc() -> str:
     raise RuntimeError("nvcc not found: set CUDA_HOME or put nvcc on PATH")
 
 
+def nvcc_flags(name: str) -> tuple:
+    """nvcc's flags for ``csrc/<name>.cu``: ``NVCC_FLAGS`` and, for a
+    source in ``DEFINES``, its wrapper module's macros."""
+    if name not in DEFINES:
+        return NVCC_FLAGS
+    defines = tuple(importlib.import_module(
+        f"{__package__}.{name}").nvcc_defines())
+    if any("," in d for d in defines):   # nvcc would split them into two
+        raise ValueError(f"{name}: a macro holds a comma: {defines}")
+    return NVCC_FLAGS + defines
+
+
 def _target(src: pathlib.Path) -> pathlib.Path:
     headers = b"".join(p.read_bytes() for p in sorted(CSRC.glob("*.cuh")))
     h = hashlib.sha256(src.read_bytes() + headers
-                       + " ".join(NVCC_FLAGS).encode())
+                       + " ".join(nvcc_flags(src.stem)).encode())
     return build_dir() / f"{src.stem}-{h.hexdigest()[:12]}.so"
 
 
@@ -81,7 +102,7 @@ def build_all() -> dict:
             if src.stem in _LIBS or so.exists():
                 continue
             tmp = so.with_suffix(f".{os.getpid()}.tmp")
-            cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(src)]
+            cmd = [_nvcc(), *nvcc_flags(src.stem), "-o", str(tmp), str(src)]
             procs.append((src, so, tmp, time.perf_counter(),
                           subprocess.Popen(cmd, stdout=subprocess.PIPE,
                                            stderr=subprocess.STDOUT,

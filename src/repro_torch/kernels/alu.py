@@ -31,6 +31,13 @@ UNROLL = 4                 # 16-byte vectors a thread a step
 WAVE = 132 * (2048 // THREADS)   # resident blocks on the H100's 132 SMs
 
 
+def nvcc_defines() -> tuple:
+    """``csrc/alu.cu``'s macros: its block size and unroll are this
+    module's ``THREADS`` and ``UNROLL``, with which ``alu_plan`` sizes the
+    grid."""
+    return (f"-DALU_THREADS={THREADS}", f"-DALU_UNROLL={UNROLL}")
+
+
 def alu_plan(n: int, itemsize: int, misalign_bytes: int) -> tuple:
     """(head, vec, unroll, blocks, tail) of ``csrc/alu.cu`` for ``n``
     elements of ``itemsize`` bytes whose first lies ``misalign_bytes`` past
@@ -86,7 +93,7 @@ def _lib():
     if fn.argtypes is None:
         vp, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
         fn.argtypes = [vp, vp, vp, ctypes.c_longlong, i, i, f, f, i, f, f,
-                       i, i, i, i, i, vp]
+                       i, i, i, vp]
         fn.restype = ctypes.c_int
     return fn
 
@@ -119,11 +126,11 @@ def alu(x: torch.Tensor, y: Optional[torch.Tensor] = None, *,
             y = _empty_at(x, mis).copy_(y)
     out = _empty_at(x, mis)
     lo, hi = (0.0, 0.0) if clip is None else (-clip, clip)
+    head, _, _, blocks, tail = alu_plan(x.numel(), x.element_size(), mis)
     status = _lib()(x.data_ptr(), None if y is None else y.data_ptr(),
                     out.data_ptr(), x.numel(), code, OPS.index(op), imm,
-                    2.0 ** -shift, clip is not None, lo, hi,
-                    *alu_plan(x.numel(), x.element_size(), mis),
-                    torch.cuda.current_stream(x.device).cuda_stream)
+                    2.0 ** -shift, clip is not None, lo, hi, head, blocks,
+                    tail, torch.cuda.current_stream(x.device).cuda_stream)
     _build.check(status, "alu")
     LAUNCHES["alu"] += 1
     return out

@@ -82,24 +82,46 @@ def tf32_head_class(head_dim: int) -> int:
     return next(x for x in (16, 32, 64, 128, 256) if head_dim <= x)
 
 
+# The f32 prefill kernel's tile per head-dim class: (warps, rows_per_warp,
+# bk, q_tiles), q_tiles 2 where Q is staged as TF32 hi and lo tiles, 1
+# where it is staged scaled f32 and split at fragment load. The build hands
+# this table to csrc/flash_attention.cu as its template instances
+# (``nvcc_defines``), so it is written here only.
+TF32_TILES = {16: (4, 32, 64, 2), 32: (4, 32, 64, 2), 64: (8, 16, 64, 2),
+              128: (8, 16, 64, 1), 256: (8, 16, 16, 1)}
+TF32_STAGES = 2
+
+
 def attention_tf32_plan(head_dim: int) -> tuple:
     """(warps, rows_per_warp, bk, stages, smem_bytes): the tile of the f32
-    prefill kernel ``csrc/flash_attention.cu`` at ``head_dim``, which picks
-    its template instance (``tf32_head_class``) and checks the plan against
-    it. A warp owns ``rows_per_warp`` query rows (16-row MMA tiles), a block
-    ``warps`` of them; K and V stream in tiles of ``bk`` keys through a ring
-    of ``stages``. Rows are zero-padded to the class and then by 4 floats in
+    prefill kernel ``csrc/flash_attention.cu`` at ``head_dim``, its
+    ``TF32_TILES`` entry for ``tf32_head_class(head_dim)``. A warp owns
+    ``rows_per_warp`` query rows (16-row MMA tiles), a block ``warps`` of
+    them; K and V stream in tiles of ``bk`` keys through a ring of
+    ``stages``. Rows are zero-padded to the class and then by 4 floats in
     shared memory; Q is staged there as TF32 hi and lo tiles up to class 64,
     scaled f32 above it. From class 64 a warp takes one 16-row tile (its O
     accumulator and scores fill the registers); at class 256 Q takes 133 KB
     of shared memory, so BK is 16."""
     dp = tf32_head_class(head_dim)
-    warps, rows, bk = {16: (4, 32, 64), 32: (4, 32, 64),
-                       256: (8, 16, 16)}.get(dp, (8, 16, 64))
-    stages = 2
-    q_tiles = 2 if dp <= 64 else 1
-    smem = (q_tiles * warps * rows + 2 * stages * bk) * (dp + 4) * 4
-    return warps, rows, bk, stages, smem
+    warps, rows, bk, q_tiles = TF32_TILES[dp]
+    smem = (q_tiles * warps * rows + 2 * TF32_STAGES * bk) * (dp + 4) * 4
+    return warps, rows, bk, TF32_STAGES, smem
+
+
+def nvcc_defines() -> tuple:
+    """``csrc/flash_attention.cu``'s macros, one a number (nvcc splits a
+    macro's value at commas): ``TF32_STAGES`` and, for each class ``dp``,
+    ``TF32_<WARPS|ROWS|BK|QTILES|SMEM>_<dp>``, the ``TF32_TILES`` entry and
+    ``attention_tf32_plan``'s shared bytes; each class is an instance of
+    the kernel."""
+    flags = [f"-DTF32_STAGES={TF32_STAGES}"]
+    for dp, (warps, rows, bk, q_tiles) in TF32_TILES.items():
+        smem = attention_tf32_plan(dp)[4]
+        flags += [f"-DTF32_{key}_{dp}={value}" for key, value in (
+            ("WARPS", warps), ("ROWS", rows), ("BK", bk),
+            ("QTILES", q_tiles), ("SMEM", smem))]
+    return tuple(flags)
 
 
 def tf32_split_plain(x: torch.Tensor) -> tuple:
@@ -413,9 +435,8 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         fn = _fn("flash_attention_mma", "flash_attention_mma_launch",
                  _PREFILL_ARGS + [_VP])
     else:
-        args += list(attention_tf32_plan(d))
         fn = _fn("flash_attention", "flash_attention_launch",
-                 _PREFILL_ARGS + [_I] * 5 + [_VP])
+                 _PREFILL_ARGS + [_VP])
     _build.check(fn(*args, torch.cuda.current_stream(q.device).cuda_stream),
                  f"flash_attention ({route})")
     LAUNCHES["flash_attention"] += 1

@@ -41,3 +41,36 @@ def test_every_fault_route_has_cases():
     for route, *_ in CS.PLANTED_FAULTS.values():
         assert route in attention | set(CS.LAYER_FAULT_KEYS) | set(
             CS.VTA_FAULT_KEYS)
+
+
+def test_alu_edge_cases_reach_every_scalar_path():
+    """The ALU edge cases lie where their names say, and among them are a
+    scalar tail (the target of ``alu.skip_tail``), a scalar head at every
+    misalignment of 2, 4, 6 and 10 bytes, and a y whose misalignment is
+    not x's (the wrapper copies it); each with y and with an immediate."""
+    import re
+
+    import numpy as np
+    import torch
+
+    from repro_torch.kernels.alu import alu_plan
+    cases = CS.alu_edge_cases(torch.device("cpu"), np.random.default_rng(0))
+    heads, tails, moved = set(), 0, 0
+    for op, name, args, kw in cases:
+        assert op == "alu"
+        at = [t.data_ptr() % 16 for t in args]
+        m = re.search(r"offset (\d+) B", name)
+        if m:
+            assert at == [int(m.group(1))] * len(args)
+            heads.add((args[0].dtype, at[0], len(args)))
+        m = re.search(r"x at (\d+) B, y at (\d+) B", name)
+        if m:
+            assert at == [int(m.group(1)), int(m.group(2))] and at[0] != at[1]
+            moved += 1
+        head, _, _, _, tail = alu_plan(args[0].numel(),
+                                       args[0].element_size(), at[0])
+        tails += tail > 0
+    assert {(torch.float32, 4, 1), (torch.float32, 4, 2)} <= heads
+    assert {(torch.bfloat16, b, n) for b in (2, 6, 10) for n in (1, 2)} \
+        <= heads
+    assert moved >= 2 and tails >= 4

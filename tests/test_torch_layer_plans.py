@@ -316,3 +316,51 @@ def test_alu_output_takes_the_input_misalignment(misalign):
     assert x.data_ptr() % 16 == misalign
     out = alu._empty_at(x, misalign)
     assert out.shape == x.shape and out.data_ptr() % 16 == misalign
+
+
+# ---------------------------------------------------------------------------
+# the build: the plans' tables reach the kernels' templates as macros
+# ---------------------------------------------------------------------------
+@pytest.mark.parametrize("name", ["alu", "flash_attention", "gemm_f32"])
+def test_kernel_macros_are_the_wrapper_tables(name):
+    """nvcc gets ``kernels/<name>.py::nvcc_defines()`` for a source in
+    ``_build.DEFINES`` and ``NVCC_FLAGS`` alone for any other; the macros
+    spell the wrapper's own table (no commas, at which nvcc splits a
+    macro), and the source has none of its own."""
+    from repro_torch.kernels import _build
+    from repro_torch.kernels import alu
+    from repro_torch.kernels import flash_attention as fa
+    flags = _build.nvcc_flags(name)
+    assert flags[:len(_build.NVCC_FLAGS)] == _build.NVCC_FLAGS
+    macros = flags[len(_build.NVCC_FLAGS):]
+    assert not any("," in m for m in macros)
+    source = (_build.CSRC / f"{name}.cu").read_text()
+    if name == "alu":
+        assert macros == (f"-DALU_THREADS={alu.THREADS}",
+                          f"-DALU_UNROLL={alu.UNROLL}")
+        assert "#error" in source and "THREADS = 256" not in source
+    elif name == "flash_attention":
+        values = dict(m[2:].split("=") for m in macros)
+        assert values.pop("TF32_STAGES") == str(fa.TF32_STAGES)
+        assert len(values) == 5 * len(fa.TF32_TILES)
+        for dp, (warps, rows, bk, q_tiles) in fa.TF32_TILES.items():
+            tile = [int(values[f"TF32_{k}_{dp}"])
+                    for k in ("WARPS", "ROWS", "BK", "QTILES", "SMEM")]
+            assert tile[:4] == [warps, rows, bk, q_tiles]
+            assert fa.attention_tf32_plan(dp) == (warps, rows, bk,
+                                                  fa.TF32_STAGES, tile[4])
+        assert "struct Tile<16>" not in source and "#error" in source
+    else:
+        assert macros == ()
+
+
+def test_build_target_follows_the_table(monkeypatch):
+    """A changed table is a changed library: the build's file name hashes
+    the macros with the source, so a library built for another tile is
+    never loaded."""
+    from repro_torch.kernels import _build
+    from repro_torch.kernels import flash_attention as fa
+    src = _build.CSRC / "flash_attention.cu"
+    before = _build._target(src)
+    monkeypatch.setitem(fa.TF32_TILES, 256, (8, 16, 8, 1))
+    assert _build._target(src) != before
