@@ -57,19 +57,25 @@ order; any failure raises and the script exits nonzero:
    ``csrc/gemm_f32.cu``) once per ``gemm_float`` case whose plan
    (``kernels/gemm.py::gemm_float_plan``) splits K. Then each output is
    held against the plain version on the same inputs: alu, depthwise and
-   pool2d exactly (max_abs_err 0); the GEMM, whose sums run in another
+   pool2d exactly (the same bits, signed zeros included, and max_abs_err
+   0); the GEMM, whose sums run in another
    order, by its error against a float64 product, which may be at most 2x
    the plain version's plus 1e-6*K, and a second run must give the same
    bytes (split K reduces in a fixed order, with no atomics). The reduce
    kernel is also held alone against its plain version on the split
    kernel's partial sums. Then ``layer_edge_cases`` (odd M, K and N; M = 3
-   with K = 1024; a depthwise with C = 36, 5x5, stride 2) run through the
-   same checks, on lines of their own and outside the rows, and
-   ``alu_edge_cases`` (an odd element count in f32 and bf16, views 4 bytes
-   past a 16-byte boundary in f32 and 2, 6 and 10 in bf16, NaN in x for max
-   and min; each with y and with an immediate; y at another offset than x)
-   exactly against the ALU's plain version (NaN where it is NaN), with the
-   kernel's plan (``kernels/alu.py::alu_plan``) beside each.
+   with K = 1024; a depthwise with C = 36, 5x5, stride 2, and one on signed
+   zeros; pooling on signed zeros at 15x15 k3 s2 p1, k2 s2 p0 and k3 s1 p1,
+   max also with NaN, C = 36 and C = 3, windows that see only padding, and
+   views off a 16-byte boundary, with ``kernels/pool2d.py::pool_plan``
+   beside each) run through the same checks, on lines of their own and
+   outside the rows (-inf and NaN allowed where the plain version has
+   them), and ``alu_edge_cases`` (an odd element count in f32 and bf16,
+   views 4 bytes past a 16-byte boundary in f32 and 2, 6 and 10 in bf16,
+   NaN in x for max and min, signed zeros for max and min; each with y and
+   with an immediate; y at another offset than x) exactly against the
+   ALU's plain version (the same bits, NaN by position), with the kernel's
+   plan (``kernels/alu.py::alu_plan``) beside each.
 5. Attention at full width, through ``repro_torch.kernels.ops.
    flash_attention``, at the head counts, head_dim, windows, softcap and
    query scale of ``configs/archs.py`` (written out in ``ATTENTION_CASES``;
@@ -131,13 +137,16 @@ too wide, in each of the three attention routes; the f32 prefill's score
 from the hi . hi product alone (one-term TF32); the ALU kernel's scalar tail
 not written; the last K split of the
 f32 GEMM dropped; the depthwise halo read one column to the right, by TMA
-and on the scalar path; the last reduction row of every VTA GEMM group
+and on the scalar path; the pooling halo read one column to the right, and
+the last tap of every compiled pooling window not taken; the last
+reduction row of every VTA GEMM group
 dropped; one thread's partial of a split tap reduction dropped), the
 unchanged sources are built once into a build directory the copies share,
 and each copy builds its changed source and runs the cases of its route
 through their limit checks (``--case-errors``, three copies at a time): the
 phase-5 cases and those of ``FAULT_CASES`` through ``attention_error``, the
-phase-4 and edge cases of the float GEMM, depthwise or ALU kernel, or phase 2's
+phase-4 and edge cases of the float GEMM, depthwise, ALU or pooling kernel
+(the exact ones by value and by bits), or phase 2's
 cases of the VTA GEMM or the ALU stage-program kernel; the unchanged copy
 runs all of them. One JSON line per (fault, case) gives the kernel's error
 and its limit (attention: the kernel's and the plain version's largest
@@ -1006,14 +1015,27 @@ def layer_edge_cases(dev, rng) -> list:
     """Phase 4's edge cases, held to the same limits as its main cases but
     driven and reported apart from them: an f32 product with odd M, K and N
     (ragged tiles, element copies of the w rows), one with M = 3 and K =
-    1024 (the thin tile, split K, N odd), and a depthwise conv with C = 36,
+    1024 (the thin tile, split K, N odd), a depthwise conv with C = 36,
     15x15 input, 5x5 kernel, stride 2, pad 2 (a ragged channel chunk, the
-    kernel's run-time tap loop; bf16 on its scalar path)."""
+    kernel's run-time tap loop; bf16 on its scalar path) and one on signed
+    zeros; and pooling, in f32 and bf16: 15x15 k3 s2 p1, k2 s2 p0 and k3 s1
+    p1 on signed zeros (max also with NaN), C = 36 and C = 3, windows that
+    see only padding (k2 s2 p2: -inf), a window of no compiled kind (k5
+    s1 p2), one whose halo passes 48 KB (60x60), and views 4 (f32) or 6
+    (bf16) bytes past a 16-byte boundary. Outputs may be -inf or NaN only
+    where the plain version's are."""
     import torch
 
     def t(shape, scale=1.0, dtype=torch.float32):
         a = rng.standard_normal(shape, dtype=np.float32) * np.float32(scale)
         return torch.from_numpy(a).to(dev, dtype)
+
+    def zeros(shape, dtype, nan=False, off=0):
+        a = signed_zeros(rng, rng.standard_normal(
+            int(np.prod(shape)) + off, dtype=np.float32))
+        if nan:
+            a[rng.random(a.shape) < 0.03] = np.nan
+        return torch.from_numpy(a).to(dev, dtype)[off:].view(shape)
 
     cases = [("gemm", "edge.odd 1001x257x999",
               (t((1001, 257)), t((257, 999), 1 / 16), t((999,))),
@@ -1025,22 +1047,74 @@ def layer_edge_cases(dev, rng) -> list:
         cases.append(("depthwise_conv", "edge.dw C36 15x15 5x5 s2" + tag,
                       (t((LAYER_BATCH, 15, 15, 36), 2 ** 13, dt),
                        t((5, 5, 36), 1.0, dt)), dict(stride=2, pad=2)))
+        # sums of -0s stay -0, as the reference's (weights of both signs)
+        w = torch.from_numpy(rng.integers(1, 4, (3, 3, 32)).astype(
+            np.float32) * np.where(np.arange(32) < 8, -1, 1)).to(dev, dt)
+        cases.append(("depthwise_conv", "edge.dw signed zeros 15x15 3x3 s1"
+                      + tag, (zeros((2, 15, 15, 32), dt), w),
+                      dict(stride=1, pad=1)))
+        # pooling: the three compiled windows on signed zeros (max with
+        # NaN), the scalar path (C 3, C 36 in bf16, views off a 16-byte
+        # boundary), ragged channel chunks (C 36 in f32), and windows that
+        # see only padding (max gives -inf)
+        for k, s, p in ((3, 2, 1), (2, 2, 0), (3, 1, 1)):
+            for mode in ("max", "avg"):
+                cases.append((
+                    "pool2d", f"edge.pool {mode} 15x15 k{k} s{s} p{p} signed "
+                    f"zeros{' NaN' if mode == 'max' else ''}" + tag,
+                    (zeros((2, 15, 15, 32), dt, nan=mode == "max"),),
+                    dict(k=k, stride=s, pad=p, mode=mode)))
+        for c, mode in ((36, "max"), (3, "avg")):
+            cases.append(("pool2d", f"edge.pool {mode} C{c} 15x15 k3 s2 p1"
+                          + tag, (t((2, 15, 15, c), 1.0, dt),),
+                          dict(k=3, stride=2, pad=1, mode=mode)))
+        cases.append(("pool2d", "edge.pool max pad-only windows k2 s2 p2"
+                      + tag, (t((2, 15, 15, 32), 1.0, dt),),
+                      dict(k=2, stride=2, pad=2, mode="max")))
+        # the run-time window ("any": k and stride not compiled), and one
+        # whose halo passes 48 KB of shared memory
+        cases += [("pool2d", "edge.pool avg 15x15 k5 s1 p2 signed zeros" + tag,
+                   (zeros((2, 15, 15, 32), dt),),
+                   dict(k=5, stride=1, pad=2, mode="avg")),
+                  ("pool2d", "edge.pool max 60x60 k60" + tag,
+                   (t((2, 60, 60, 16), 1.0, dt),),
+                   dict(k=60, stride=1, pad=0, mode="max"))]
+        off = 1 if dt == torch.float32 else 3
+        size = 4 if dt == torch.float32 else 2
+        for mode in ("max", "avg"):
+            cases.append(("pool2d", f"edge.pool {mode} view {off * size} B "
+                          f"off 16 B, 15x15 k3 s2 p1" + tag,
+                          (zeros((2, 15, 15, 32), dt, off=off),),
+                          dict(k=3, stride=2, pad=1, mode=mode)))
     return cases
+
+
+def signed_zeros(rng, a):
+    """a with most elements set to zeros of either sign (two thirds of
+    those -0), the rest kept."""
+    u = rng.random(a.shape)
+    a = np.where(u < 0.6, np.float32(-0.0), a)
+    return np.where((u >= 0.6) & (u < 0.9), np.float32(0.0), a).astype(
+        np.float32)
 
 
 def alu_edge_cases(dev, rng) -> list:
     """The ALU kernel's edge cases, held exactly to ``alu_plain`` and
     reported apart from phase 4's rows: an odd element count (a scalar
     tail after the 16-byte vectors) in f32 and bf16; NaN in every 7th
-    element of x for max and min; views whose data pointer lies off a
+    element of x for max and min; signed zeros for max and min (clipped
+    against y; against the immediate zero whose sign loses the tie);
+    views whose data pointer lies off a
     16-byte boundary (a scalar head), 4 bytes in f32 and 2, 6 and 10 in
     bf16; each with y and with an immediate; and y at another offset than
     x, which the wrapper copies to x's."""
     import torch
     n = 100003
 
-    def t(count, dtype, off=0, nan=False):
+    def t(count, dtype, off=0, nan=False, zeros=False):
         a = rng.standard_normal(count + off, dtype=np.float32) * np.float32(8)
+        if zeros:
+            a = signed_zeros(rng, a)
         if nan:
             a[off::7] = np.nan
         return torch.from_numpy(a).to(dev, dtype)[off:]
@@ -1058,7 +1132,14 @@ def alu_edge_cases(dev, rng) -> list:
                 ("alu", f"edge.alu NaN {op} y/{tag}",
                  (t(n, dt, nan=True), t(n, dt)), dict(op=op, clip=10.0)),
                 ("alu", f"edge.alu NaN {op} imm/{tag}", (t(n, dt, nan=True),),
-                 dict(op=op, imm=0.5, shift=2))]
+                 dict(op=op, imm=0.5, shift=2)),
+                # ties of -0 and +0: jnp.maximum and jnp.minimum order them
+                ("alu", f"edge.alu signed zeros {op} y/{tag}",
+                 (t(n, dt, nan=True, zeros=True), t(n, dt, zeros=True)),
+                 dict(op=op, clip=0.5)),
+                ("alu", f"edge.alu signed zeros {op} imm/{tag}",
+                 (t(n, dt, zeros=True),),
+                 dict(op=op, imm=-0.0 if op == "max" else 0.0))]
     # offsets in elements: x's alone, then (x's, y's)
     for dt, offs, pairs in ((torch.float32, (1,), ((1, 2), (0, 3))),
                             (torch.bfloat16, (1, 3, 5), ((1, 5), (7, 0)))):
@@ -1079,35 +1160,52 @@ def alu_edge_cases(dev, rng) -> list:
     return cases
 
 
-def alu_error(got, want) -> float:
-    """Largest |got - want| where want is a number, inf where the two
-    differ in which elements are NaN (a NaN's bits are not compared: a
-    bf16 NaN rounds to another payload in each)."""
+def bits_differ(got, want) -> int:
+    """Elements whose bits differ, NaN compared by position (a NaN's bits
+    are not compared: a bf16 NaN rounds to another payload in each). An
+    equal bit pattern is what "exact" means: a -0 where the plain version
+    has +0 differs, though |got - want| is 0 there."""
     import torch
     nan = torch.isnan(want)
-    if not torch.equal(nan, torch.isnan(got)):
+    ints = {torch.float32: torch.int32, torch.bfloat16: torch.int16}
+    same = (got.view(ints[got.dtype]) == want.view(ints[want.dtype])) \
+        | (nan & torch.isnan(got))
+    return int((~same).sum())
+
+
+def exact_error(got, want) -> float:
+    """Largest |got - want| where want is finite, inf where the two differ
+    in which elements are not finite (which are NaN and which +-inf is left
+    to ``bits_differ``)."""
+    import torch
+    finite = torch.isfinite(want)
+    if not torch.equal(finite, torch.isfinite(got)):
         return float("inf")
-    if bool(nan.all()):
+    if not bool(finite.any()):
         return 0.0
-    return float((got.float()[~nan] - want.float()[~nan]).abs().max())
+    return float((got.float()[finite] - want.float()[finite]).abs().max())
 
 
 def check_alu_edges(cases, outs: dict) -> None:
-    """Each ALU edge case exact against ``alu_plain`` (``alu_error`` 0),
-    with the kernel's plan beside it."""
+    """Each ALU edge case exact against ``alu_plain`` (``exact_error`` 0
+    and no element's bits differ, NaN by position), with the kernel's plan
+    beside it."""
     from repro_torch.kernels.alu import alu_plain, alu_plan
     for op, name, args, kw in cases:
         x = args[0]
-        err = alu_error(outs[name], alu_plain(*args, **kw))
+        want = alu_plain(*args, **kw)
+        got = outs[name]
+        err, nbits = exact_error(got, want), bits_differ(got, want)
         head, _, _, blocks, tail = alu_plan(x.numel(), x.element_size(),
                                             x.data_ptr() % 16)
         at = "".join(f", {w} at {t.data_ptr() % 16} B"
                      for w, t in zip("xy", args))
         log(f"  alu {name}: max|kernel - plain| {err:.3g} (NaN where plain "
-            f"is NaN){at}; head {head}, tail {tail}, {blocks} blocks")
-        if err != 0:
+            f"is NaN), {nbits} elements differ in bits{at}; head {head}, "
+            f"tail {tail}, {blocks} blocks")
+        if err != 0 or nbits:
             raise AssertionError(f"{name}: alu differs from its plain "
-                                 f"version by {err}")
+                                 f"version by {err}, in {nbits} elements")
 
 
 def resolve(case, outs: dict) -> tuple:
@@ -1190,6 +1288,8 @@ def library_call(op, args, kw):
             memory_format=torch.channels_last)
         return lambda: F.conv2d(x, w, stride=kw["stride"], padding=kw["pad"],
                                 groups=x.shape[1])
+    if kw["pad"] > kw["k"] // 2:               # F.*_pool2d refuse it
+        return None
     if kw["mode"] == "max":
         return lambda: F.max_pool2d(x, kw["k"], kw["stride"], kw["pad"])
     return lambda: F.avg_pool2d(x, kw["k"], kw["stride"], kw["pad"],
@@ -1241,7 +1341,9 @@ def check_reduce(args, kw, rows: dict) -> None:
 
 def check_layer_ops(cases, outs: dict, tag: str = "") -> dict:
     """Each case's output against its plain version on the same inputs
-    (alu, depthwise, pool: max_abs_err 0; GEMM: error against float64 at
+    (alu, depthwise, pool: max_abs_err 0 and the same bits, NaN by
+    position; outputs finite, but for -inf and NaN where the plain
+    version's are in the edge cases; GEMM: error against float64 at
     most 2x the plain version's plus 1e-6*K, and a second run's output
     equal byte for byte), then the kernel (CUDA-graph replay), the plain
     version (eager) and the library call (CUDA-graph replay) timed; a
@@ -1274,12 +1376,24 @@ def check_layer_ops(cases, outs: dict, tag: str = "") -> dict:
             raise AssertionError(f"{name}: kernel gives {tuple(got.shape)} "
                                  f"{got.dtype}, plain {tuple(want.shape)} "
                                  f"{want.dtype}")
-        if not bool(torch.isfinite(got).all()):
+        finite = torch.isfinite(got)
+        if (op == "gemm" or not tag) and not bool(finite.all()):
             raise AssertionError(f"{name}: non-finite output")
-        err = float((got.float() - want.float()).abs().max())
+        both = finite & torch.isfinite(want)
+        err = float((got.float() - want.float())[both].abs().max()) \
+            if bool(both.any()) else 0.0
         r = rows[key]
         r["max_abs_err"] = max(r["max_abs_err"], err)
-        note = f"err {err:.3g}"
+        nbits = 0 if op == "gemm" else bits_differ(got, want)
+        note = f"err {err:.3g}, {nbits} elements differ in bits"
+        if op == "pool2d":
+            x = args[0]
+            plan = pool2d.pool_plan(
+                *x.shape, kw["k"], kw["stride"], kw["pad"], *got.shape[1:3],
+                x.element_size(), x.data_ptr() % 16)
+            note += (f" (plan {pool2d.KINDS[plan.kind]}, tile {plan.th}x"
+                     f"{plan.tw}x{plan.groups} groups of {plan.vec}, "
+                     f"{plan.threads} threads, {plan.smem} B)")
         if op == "gemm":
             bias = args[2] if len(args) > 2 else None
             ek = gemm_err64(got, args[0], args[1], bias, kw.get("act"),
@@ -1299,9 +1413,10 @@ def check_layer_ops(cases, outs: dict, tag: str = "") -> dict:
                 raise AssertionError(f"{name}: a second run gives other "
                                      f"bytes")
             note = f"err vs f64 {ek:.3g} (plain {ep:.3g}), rerun equal"
-        elif err != 0:
+        elif err != 0 or nbits:
             raise AssertionError(f"{name}: kernel differs from its plain "
-                                 f"version, max |diff| {err}")
+                                 f"version, max |diff| {err}, in {nbits} "
+                                 f"elements' bits")
         ms = graph_ms(lambda: kernel(*args, **kw), reps=5)
         pms = median_ms(lambda: plain(*args, **kw), reps=3)
         lib = library_call(op, args, kw)
@@ -1693,6 +1808,17 @@ PLANTED_FAULTS = {  # name: (route, file under src/repro_torch, text, stand-in)
         "depthwise", "csrc/depthwise.cu",
         "tma_halo(halo, &map, c0, ix0, iy0, b, &bar,",
         "tma_halo(halo, &map, c0, ix0 + 1, iy0, b, &bar,"),
+    # every pooling halo read one column to the right of where it lies
+    "pool2d.halo_one_column_right": (
+        "pool2d", "csrc/pool2d.cu",
+        "const int iy = iy0 + hy, ix = ix0 + hx, c = c0 + g * V;",
+        "const int iy = iy0 + hy, ix = ix0 + hx + 1, c = c0 + g * V;"),
+    # the last tap of every compiled pooling window is not taken
+    "pool2d.skip_last_tap": (
+        "pool2d", "csrc/pool2d.cu",
+        "for (int dx = 0; dx < KF; ++dx) tap(dy, dx);",
+        "for (int dx = 0; dx < KF; ++dx)\n"
+        "        if (dy < KF - 1 || dx < KF - 1) tap(dy, dx);"),
     # the same on the scalar path, which stages its halo itself
     "depthwise.scalar_one_column_right": (
         "depthwise", "csrc/depthwise.cu",
@@ -1708,7 +1834,7 @@ PLANTED_FAULTS = {  # name: (route, file under src/repro_torch, text, stand-in)
         "alu_sweep", "csrc/alu_sweep.cu", "  int mine = part;",
         "  int mine = threadIdx.x % S == S - 1 ? identity(op) : part;"),
 }
-LAYER_FAULT_KEYS = ("gemm_float", "depthwise", "alu")
+LAYER_FAULT_KEYS = ("gemm_float", "depthwise", "alu", "pool2d")
 VTA_FAULT_KEYS = ("gemm", "alu_sweep")
 # --plant-faults runs these besides ATTENTION_CASES: the only windowed
 # decode case there, g2.local.decode, sees its whole 4096-key cache, so a
@@ -1777,11 +1903,15 @@ def layer_errors(fault: str, route: str) -> None:
     """The phase-4 cases, and the edge cases, that run on the kernel
     ``route`` names ("all": each of ``LAYER_FAULT_KEYS``) once through
     ``repro_torch.kernels.ops``, each held to phase 4's limit (a case whose
-    input is another case's output runs after it)."""
+    input is another case's output runs after it): the GEMM against float64,
+    the exact kernels by ``exact_error`` (NaN and inf by position) and
+    ``bits_differ``, both 0."""
     import torch
-    from repro_torch.kernels import alu, depthwise, gemm, ops
+    from repro_torch.kernels import alu, depthwise, gemm, ops, pool2d
     dev = torch.device("cuda")
     rng = np.random.default_rng(0)
+    plain = {"alu": alu.alu_plain, "depthwise_conv": depthwise.depthwise_plain,
+             "pool2d": pool2d.pool2d_plain}
     keys = LAYER_FAULT_KEYS if route == "all" else (route,)
     cases = layer_op_cases(dev, rng, LAYER_BATCH) + \
         layer_edge_cases(dev, rng) + alu_edge_cases(dev, rng)
@@ -1805,14 +1935,14 @@ def layer_errors(fault: str, route: str) -> None:
             limit = 2 * gemm_err64(want, args[0], args[1], bias,
                                    kw.get("act"), kw.get("clip")) \
                 + 1e-6 * args[0].shape[1]
-        elif op == "alu":
-            err, limit = alu_error(got, alu.alu_plain(*args, **kw)), 0.0
+            nbits = 0
         else:
-            want = depthwise.depthwise_plain(*args, **kw)
-            err = float((got.float() - want.float()).abs().max())
-            limit = 0.0
+            want = plain[op](*args, **kw)
+            err, limit = exact_error(got, want), 0.0
+            nbits = bits_differ(got, want)
         print(json.dumps({"fault": fault, "case": name, "err": err,
-                          "limit": limit, "over": err > limit}), flush=True)
+                          "limit": limit, "bits_differ": nbits,
+                          "over": err > limit or nbits > 0}), flush=True)
 
 
 def attention_errors(fault: str, route: str) -> None:

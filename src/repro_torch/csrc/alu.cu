@@ -5,7 +5,8 @@
 // Arithmetic is in f32 in the reference's order: the op, then the multiply by
 // the power-of-two scale, then the clamp; inputs are f32 or bf16 and the
 // result is rounded once to the input's type (bf16 round-to-nearest-even).
-// max and min propagate NaN as jnp.maximum / torch.maximum do.
+// max, min and the clamp propagate NaN and order -0 < +0, as jnp.maximum and
+// jnp.minimum do.
 //
 // Bound on this card: bytes. One or two operands read and one result written
 // per element against at most four f32 operations, far below the ~20
@@ -40,49 +41,15 @@ constexpr int THREADS = ALU_THREADS;
 constexpr int UNROLL = ALU_UNROLL;
 static_assert(THREADS >= 32 + 8, "block 0 takes the head and the tail");
 
-// a 16-byte vector as f32 values and back
-template <typename T> struct Vec;
-template <> struct Vec<float> {
-  static constexpr int N = 4;
-  static __device__ __forceinline__ void unpack(uint4 u, float* f) {
-    f[0] = __uint_as_float(u.x); f[1] = __uint_as_float(u.y);
-    f[2] = __uint_as_float(u.z); f[3] = __uint_as_float(u.w);
-  }
-  static __device__ __forceinline__ uint4 pack(const float* f) {
-    return make_uint4(__float_as_uint(f[0]), __float_as_uint(f[1]),
-                      __float_as_uint(f[2]), __float_as_uint(f[3]));
-  }
-};
-template <> struct Vec<__nv_bfloat16> {
-  static constexpr int N = 8;
-  // element 2i is the low half of word i; widening bf16 is exact
-  static __device__ __forceinline__ void unpack(uint4 u, float* f) {
-    const uint32_t w[4] = {u.x, u.y, u.z, u.w};
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      f[2 * i] = __uint_as_float(w[i] << 16);
-      f[2 * i + 1] = __uint_as_float(w[i] & 0xffff0000u);
-    }
-  }
-  static __device__ __forceinline__ uint4 pack(const float* f) {
-    uint32_t w[4];
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-      w[i] = (uint32_t)__bfloat16_as_ushort(__float2bfloat16_rn(f[2 * i])) |
-             ((uint32_t)__bfloat16_as_ushort(__float2bfloat16_rn(f[2 * i + 1])) << 16);
-    return make_uint4(w[0], w[1], w[2], w[3]);
-  }
-};
-
 template <int OP, bool CLIP>
 __device__ __forceinline__ float apply(float a, float b, float scale, float lo, float hi) {
   float r;
   if (OP == 0) r = __fadd_rn(a, b);
   else if (OP == 1) r = __fmul_rn(a, b);
-  else if (OP == 2) r = max_nan(a, b);
-  else r = min_nan(a, b);
+  else if (OP == 2) r = max_ordered(a, b);
+  else r = min_ordered(a, b);
   r = __fmul_rn(r, scale);
-  if (CLIP) r = min_nan(max_nan(r, lo), hi);
+  if (CLIP) r = min_ordered(max_ordered(r, lo), hi);
   return r;
 }
 
@@ -91,7 +58,7 @@ __global__ void __launch_bounds__(THREADS)
 alu_kernel(const T* __restrict__ x, const T* __restrict__ y, T* __restrict__ out,
            long long n, int head, int tail, float imm, float scale, float lo,
            float hi) {
-  using V = Vec<T>;
+  using V = Vec16<T>;
   const long long nvec = (n - head - tail) / V::N;
   const uint4* xv = reinterpret_cast<const uint4*>(x + head);
   const uint4* yv = reinterpret_cast<const uint4*>(HAS_Y ? y + head : x + head);

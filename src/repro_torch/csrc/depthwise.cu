@@ -3,8 +3,9 @@
 //
 // Replaces the TPU kernel src/repro/kernels/depthwise.py::depthwise_conv
 // (body _dw_kernel): zero padding, KH*KW strided taps, f32 accumulation
-// starting from 0 in dy-major, dx-minor order, no bias, result rounded to the
-// input's type (f32 or bf16, round-to-nearest-even).
+// starting from -0.0 (so the sign of a zero sum is the reference's, whose
+// zero seed XLA folds away) in dy-major, dx-minor order, no bias, result
+// rounded to the input's type (f32 or bf16, round-to-nearest-even).
 //
 // Bound on this card: bytes. 2*KH*KW operations per output against one
 // input read and one output write. The earlier design, one thread per output
@@ -219,7 +220,7 @@ depthwise_kernel(const __grid_constant__ CUtensorMap map, Params p) {
 #pragma unroll
   for (int r = 0; r < R; ++r)
 #pragma unroll
-    for (int v = 0; v < V; ++v) acc[r][v] = 0.0f;
+    for (int v = 0; v < V; ++v) acc[r][v] = -0.0f;  // IEEE addition's identity
   for (int dy = 0; dy < p.KH; ++dy) {
     const T* hrow = halo + ((py * S + dy) * HW + px * R * S) * CB + g * V;
     const float* wrow = wsm + dy * KW * CB + g * V;

@@ -41,7 +41,7 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 # csrc/<name>.cu whose macros come from kernels/<name>.py::nvcc_defines()
-DEFINES = ("alu", "flash_attention")
+DEFINES = ("alu", "flash_attention", "pool2d")
 
 _LOCK = threading.Lock()
 _LIBS: dict = {}

@@ -4,7 +4,8 @@ Replaces ``repro/kernels/alu.py::alu``, the VTA ALU analogue on the TPU plane:
 
     out = clip(op(x, y or imm) * 2^-shift, -clip, clip)     op: add|mul|max|min
 
-computed in f32 and rounded to x's dtype. ``mul`` with a second operand is the
+computed in f32 and rounded to x's dtype; max, min and the clip propagate NaN
+and order -0 < +0, as ``jnp.maximum`` and ``jnp.minimum`` do. ``mul`` with a second operand is the
 paper's new element-wise multiply. ``alu`` launches ``csrc/alu.cu`` for CUDA
 tensors (f32 or bf16, y of x's shape and dtype) and counts the launch in
 ``LAUNCHES["alu"]``; for CPU tensors it takes ``alu_plain``, which repeats the
@@ -65,10 +66,27 @@ def _check(x: torch.Tensor, y: Optional[torch.Tensor], op: str) -> None:
                          f"{tuple(y.shape)}")
 
 
+def max_ordered(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """``jnp.maximum`` on f32 tensors: NaN propagates as in
+    ``torch.maximum``, and -0 < +0 (``torch.maximum`` keeps its first
+    operand on a tie). Equal operands have equal bits but for the sign of
+    zero, so a tie takes the AND of their bits: -0 only if both are -0."""
+    tie = (a.view(torch.int32) & b.view(torch.int32)).view(torch.float32)
+    return torch.where(a == b, tie, torch.maximum(a, b))
+
+
+def min_ordered(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """``jnp.minimum`` on f32 tensors: as ``max_ordered``, a tie takes the
+    OR of the bits, -0 if either is -0."""
+    tie = (a.view(torch.int32) | b.view(torch.int32)).view(torch.float32)
+    return torch.where(a == b, tie, torch.minimum(a, b))
+
+
 def alu_plain(x: torch.Tensor, y: Optional[torch.Tensor] = None, *,
               op: str = "add", imm: float = 0.0, shift: int = 0,
               clip: Optional[float] = None) -> torch.Tensor:
-    """Plain version: the reference's f32 steps, one tensor op each."""
+    """Plain version: the reference's f32 steps, one tensor op each; max,
+    min and the clip order -0 < +0 as ``jnp.maximum``/``jnp.minimum`` do."""
     _check(x, y, op)
     a = x.to(torch.float32)
     b = (y.to(torch.float32) if y is not None
@@ -78,13 +96,15 @@ def alu_plain(x: torch.Tensor, y: Optional[torch.Tensor] = None, *,
     elif op == "mul":
         r = a * b
     elif op == "max":
-        r = torch.maximum(a, b)
+        r = max_ordered(a, b)
     else:
-        r = torch.minimum(a, b)
+        r = min_ordered(a, b)
     if shift:
         r = r * (2.0 ** -shift)
     if clip is not None:
-        r = torch.clamp(r, -clip, clip)
+        lo, hi = (torch.tensor(v, dtype=torch.float32, device=x.device)
+                  for v in (-clip, clip))
+        r = min_ordered(max_ordered(r, lo), hi)
     return r.to(x.dtype)
 
 

@@ -2,9 +2,9 @@
 
 Replaces ``repro/kernels/depthwise.py::depthwise_conv``: x (B, H, W, C), w
 (KH, KW, C), zero padding ``pad`` on both spatial sides, stride ``stride``;
-f32 accumulation of the KH*KW taps in dy-major order, no bias, the result in
-x's dtype. ``depthwise_conv`` launches ``csrc/depthwise.cu`` for CUDA tensors
-(f32 or bf16, w of x's dtype) and counts the launch in
+f32 accumulation of the KH*KW taps in dy-major order from -0.0, no bias,
+the result in x's dtype. ``depthwise_conv`` launches ``csrc/depthwise.cu``
+for CUDA tensors (f32 or bf16, w of x's dtype) and counts the launch in
 ``LAUNCHES["depthwise"]``; for CPU tensors it takes ``depthwise_plain``, which
 repeats the reference step by step (a separate multiply and add per tap) and
 runs on either device. The two agree bit for bit.
@@ -44,7 +44,9 @@ def _out_hw(x: torch.Tensor, w: torch.Tensor, stride: int, pad: int) -> tuple:
 def depthwise_plain(x: torch.Tensor, w: torch.Tensor, *, stride: int = 1,
                     pad: int = 0) -> torch.Tensor:
     """Plain version: pad in f32, then ``out = out + sub * w[dy, dx]`` per
-    tap, as the reference does."""
+    tap, as the reference does, from a seed of -0.0: IEEE addition's
+    identity, so the sum is the reference's (whose ``jnp.zeros`` seed XLA
+    folds away) in the sign of zero too."""
     oh, ow = _out_hw(x, w, stride, pad)
     b, h, wd, c = x.shape
     kh, kw, _ = w.shape
@@ -52,7 +54,8 @@ def depthwise_plain(x: torch.Tensor, w: torch.Tensor, *, stride: int = 1,
                      device=x.device)
     xp[:, pad:pad + h, pad:pad + wd] = x.to(torch.float32)
     wf = w.to(torch.float32)
-    out = torch.zeros((b, oh, ow, c), dtype=torch.float32, device=x.device)
+    out = torch.full((b, oh, ow, c), -0.0, dtype=torch.float32,
+                     device=x.device)
     for dy in range(kh):
         for dx in range(kw):
             sub = xp[:, dy:dy + stride * oh:stride, dx:dx + stride * ow:stride]

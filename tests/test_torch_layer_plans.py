@@ -1,13 +1,17 @@
-"""The tile plans of the port's f32 GEMM and depthwise kernels, on the CPU.
+"""The tile plans of the port's f32 GEMM, depthwise, ALU and pooling kernels,
+on the CPU.
 
-``kernels/gemm.py::gemm_float_plan`` and ``kernels/depthwise.py::
-depthwise_plan`` give ``csrc/gemm_f32.cu`` and ``csrc/depthwise.cu`` their
-tiles; the kernels run only on the card, so these tests hold the plans'
-arithmetic here: the K splits cover K once and in order, the split-K order
-of summation stays inside phase 4's GEMM limit (2x the plain version's error
-against float64, plus 1e-6 K), every depthwise output is stored by one
-thread and reads all its taps from its tile's halo, and the halo fits the
-kernel's shared memory. Shapes are the port's MobileNet-1.0 and ResNet-18
+``kernels/gemm.py::gemm_float_plan``, ``kernels/depthwise.py::
+depthwise_plan``, ``kernels/alu.py::alu_plan`` and ``kernels/pool2d.py::
+pool_plan`` give ``csrc/gemm_f32.cu``, ``csrc/depthwise.cu``, ``csrc/alu.cu``
+and ``csrc/pool2d.cu`` their tiles; the kernels run only on the card, so
+these tests hold the plans' arithmetic here: the K splits cover K once and
+in order, the split-K order of summation stays inside phase 4's GEMM limit
+(2x the plain version's error against float64, plus 1e-6 K), every
+depthwise and pooling output is stored by one thread and reads all its taps
+from its tile's halo, the halo fits the kernel's shared memory, and a
+pooling run tiled by its plan equals the plain version by bits. Shapes are
+the port's MobileNet-1.0 and ResNet-18
 layer tables at batch 8. The split-K decomposition is also held to the JAX
 package's ``gemm`` (Pallas, interpret mode) at tests/test_kernels.py's
 epilogue tolerance, 1e-4.
@@ -20,6 +24,7 @@ import torch
 from repro.kernels import ops as jops
 from repro_torch.kernels import depthwise as dwk
 from repro_torch.kernels import gemm as gk
+from repro_torch.kernels import pool2d as pk
 from repro_torch.vta.workloads import mobilenet_graph, resnet_graph
 
 BATCH = 8
@@ -321,7 +326,8 @@ def test_alu_output_takes_the_input_misalignment(misalign):
 # ---------------------------------------------------------------------------
 # the build: the plans' tables reach the kernels' templates as macros
 # ---------------------------------------------------------------------------
-@pytest.mark.parametrize("name", ["alu", "flash_attention", "gemm_f32"])
+@pytest.mark.parametrize("name", ["alu", "flash_attention", "gemm_f32",
+                                  "pool2d"])
 def test_kernel_macros_are_the_wrapper_tables(name):
     """nvcc gets ``kernels/<name>.py::nvcc_defines()`` for a source in
     ``_build.DEFINES`` and ``NVCC_FLAGS`` alone for any other; the macros
@@ -350,6 +356,18 @@ def test_kernel_macros_are_the_wrapper_tables(name):
             assert fa.attention_tf32_plan(dp) == (warps, rows, bk,
                                                   fa.TF32_STAGES, tile[4])
         assert "struct Tile<16>" not in source and "#error" in source
+    elif name == "pool2d":
+        values = dict(m[2:].split("=") for m in macros)
+        assert values.pop("POOL_THREADS") == str(pk.THREADS)
+        assert len(values) == 6 * len(pk.POOL_TILES)
+        for kind, (k, st, th, tw) in pk.POOL_TILES.items():
+            tile = [int(values[f"POOL_{kind.upper()}_{key}"])
+                    for key in ("K", "S", "TH", "TW", "GMAX", "SMEM")]
+            g = pk.kind_groups(kind)
+            assert tile == [k, st, th, tw, g,
+                            pk.plan_smem(th, tw, k, st, g, 16)]
+            assert tile[5] <= pk.SMEM_BUDGET and tw * g <= pk.THREADS
+        assert "#error" in source and "THREADS = 256" not in source
     else:
         assert macros == ()
 
@@ -364,3 +382,202 @@ def test_build_target_follows_the_table(monkeypatch):
     before = _build._target(src)
     monkeypatch.setitem(fa.TF32_TILES, 256, (8, 16, 8, 1))
     assert _build._target(src) != before
+
+
+# ---------------------------------------------------------------------------
+# pool_plan: the pooling kernel's tile, halo and grid
+# ---------------------------------------------------------------------------
+def _pool_cases():
+    """(name, batch, h, w, c, k, stride, pad, itemsize, misalignment): the
+    phase-4 pools at batch 8 in both dtypes, then the edge shapes."""
+    out = []
+    for ly in _layers().values():
+        if ly.kind in ("maxpool", "avgpool"):
+            wl = ly.wl
+            for size in (4, 2):
+                out.append((wl.name, BATCH, wl.h, wl.w, wl.fi, wl.kh, wl.sh,
+                            wl.ph, size, 0))
+    for size in (4, 2):
+        out += [("C36", 2, 15, 15, 36, 3, 2, 1, size, 0),
+                ("C3", 2, 15, 15, 3, 3, 2, 1, size, 0),
+                ("k3s2p1", 2, 15, 15, 32, 3, 2, 1, size, 0),
+                ("k2s2p0", 2, 15, 15, 32, 2, 2, 0, size, 0),
+                ("k3s1p1", 2, 15, 15, 32, 3, 1, 1, size, 0),
+                ("pad-only", 2, 15, 15, 32, 2, 2, 2, size, 0),
+                ("off", 2, 15, 15, 32, 3, 2, 1, size, 4 if size == 4 else 6),
+                ("any 5x5", 3, 15, 15, 16, 5, 1, 2, size, 0),
+                ("gap b1", 1, 7, 7, 512, 7, 7, 0, size, 0),
+                ("gap 14x14 k14", 2, 14, 14, 64, 14, 1, 0, size, 0),
+                ("window 70", 1, 70, 70, 8, 70, 1, 0, size, 0)]
+    return out
+
+
+POOL_CASES = _pool_cases()
+GLOBAL_POOLS = [c for c in POOL_CASES if c[0].endswith(".gap")]
+
+
+def _pool_out_hw(h, w, k, s, pad):
+    return (h + 2 * pad - k) // s + 1, (w + 2 * pad - k) // s + 1
+
+
+def _pool_plan(case):
+    _, b, h, w, c, k, s, pad, size, mis = case
+    return pk.pool_plan(b, h, w, c, k, s, pad, *_pool_out_hw(h, w, k, s, pad),
+                        size, mis)
+
+
+def test_pool_cases_hold_the_phase4_pools():
+    names = {c[0] for c in POOL_CASES if c[1] == BATCH}
+    assert names == {"resnet18.pool1", "resnet18.gap", "mbn.gap"}
+    assert len(GLOBAL_POOLS) == 4
+
+
+@pytest.mark.parametrize("case", POOL_CASES,
+                         ids=[f"{c[0]}-{c[8]}B" for c in POOL_CASES])
+def test_pool_plan(case):
+    """Every output element is computed by one lane of one thread, from
+    taps inside its tile's halo at the input pixel the plain version
+    reads; the halo fits its budget; the vector path only where C and the
+    alignment allow it; whole warps, within the block."""
+    name, b, h, w, c, k, s, pad, size, mis = case
+    plan = _pool_plan(case)
+    oh, ow = _pool_out_hw(h, w, k, s, pad)
+    kind = pk.KINDS[plan.kind]
+    assert kind == pk.pool_kind(k, s, oh, ow)
+    if kind != "any":
+        kk, ks, th, tw = pk.POOL_TILES[kind]
+        assert (plan.th, plan.tw, k) == (th, tw, kk)
+        assert kind == "k7g" or s == ks
+    vec = 16 // size
+    assert plan.vec == (vec if c % vec == 0 and mis == 0 else 1)
+    g = plan.groups
+    assert g & (g - 1) == 0
+    assert plan.threads % 32 == 0
+    assert plan.tw * g <= plan.threads <= pk.THREADS
+    gbytes = plan.vec * size
+    assert plan.smem == pk.plan_smem(plan.th, plan.tw, k, s, g, gbytes)
+    if kind != "any":
+        assert plan.smem <= pk.plan_smem(plan.th, plan.tw, k, s,
+                                         pk.kind_groups(kind), 16)
+    if plan.smem > pk.SMEM_BUDGET:      # only a window one group overflows
+        assert g == 1 and plan.th * plan.tw == 1
+        assert plan.smem <= pk.MAX_SMEM
+    cg = -(-c // plan.vec)
+    assert (plan.tiles_h, plan.tiles_w, plan.chunks) == (
+        -(-oh // plan.th), -(-ow // plan.tw), -(-cg // g))
+    # one image's blocks, threads (a column group each, down the tile's
+    # rows) and lanes, as csrc/pool2d.cu maps them
+    tr, tc, ch, o, py, v = np.ix_(np.arange(plan.tiles_h),
+                                  np.arange(plan.tiles_w),
+                                  np.arange(plan.chunks),
+                                  np.arange(plan.threads),
+                                  np.arange(plan.th), np.arange(plan.vec))
+    gi, px = o % g, o // g
+    oy, ox = tr * plan.th + py, tc * plan.tw + px
+    chan = (ch * g + gi) * plan.vec + v
+    live = (o < plan.tw * g) & (oy < oh) & (ox < ow) & \
+        ((ch * g + gi) * plan.vec < c)
+    shape = np.broadcast_shapes(oy.shape, ox.shape, chan.shape, live.shape)
+    oy, ox, chan, live = (np.broadcast_to(a, shape) for a in
+                          (oy, ox, chan, live))
+    assert (chan[live] < c).all()       # a live group lies inside C
+    counts = np.zeros((oh, ow, c), np.int64)
+    np.add.at(counts, (oy[live], ox[live], chan[live]), 1)
+    assert counts.min() == 1 and counts.max() == 1
+    # the taps (0, 0) and (k-1, k-1) of every live output in the halo, at
+    # the pixel the plain version reads
+    hh, hw = pk.halo_hw(plan.th, plan.tw, k, s)
+    hy = np.broadcast_to(py * s, shape)[live]
+    hx = np.broadcast_to(px * s, shape)[live]
+    assert hy.min() >= 0 and hy.max() + k - 1 < hh
+    assert hx.min() >= 0 and hx.max() + k - 1 < hw
+    tile_y0 = np.broadcast_to(tr * plan.th * s - pad, shape)[live]
+    tile_x0 = np.broadcast_to(tc * plan.tw * s - pad, shape)[live]
+    assert np.array_equal(tile_y0 + hy, oy[live] * s - pad)
+    assert np.array_equal(tile_x0 + hx, ox[live] * s - pad)
+
+
+@pytest.mark.parametrize("case", GLOBAL_POOLS,
+                         ids=[f"{c[0]}-{c[8]}B" for c in GLOBAL_POOLS])
+def test_global_pool_plan_fills_the_card(case):
+    """A global pool's grid gives every SM a block, where one tile per
+    image and 256 channels would give 16 or 32 blocks."""
+    plan = _pool_plan(case)
+    assert pk.KINDS[plan.kind] == "k7g"
+    blocks = case[1] * plan.tiles_h * plan.tiles_w * plan.chunks
+    assert pk.WAVE <= blocks <= 4 * pk.WAVE
+
+
+def _tiled_pool(x, k, s, pad, mode, plan):
+    """The kernel's tile loop in PyTorch: for each tile and channel chunk,
+    the halo filled with the mode's pad value outside the image (and past
+    C), then the taps in order from the seed, cropped to the output."""
+    b, h, w, c = x.shape
+    oh, ow = _pool_out_hw(h, w, k, s, pad)
+    fill = float("-inf") if mode == "max" else 0.0
+    hh, hw = pk.halo_hw(plan.th, plan.tw, k, s)
+    cb = plan.groups * plan.vec
+    out = torch.full((b, oh, ow, c), float("nan"))
+    xf = x.to(torch.float32)
+    for tr in range(plan.tiles_h):
+        for tc in range(plan.tiles_w):
+            for ch in range(plan.chunks):
+                y0, x0, c0 = (tr * plan.th * s - pad, tc * plan.tw * s - pad,
+                              ch * cb)
+                halo = torch.full((b, hh, hw, cb), fill)
+                ys, xs = slice(max(y0, 0), min(y0 + hh, h)), \
+                    slice(max(x0, 0), min(x0 + hw, w))
+                src = xf[:, ys, xs, c0:c0 + cb]
+                halo[:, ys.start - y0:ys.stop - y0,
+                     xs.start - x0:xs.stop - x0, :src.shape[3]] = src
+                acc = torch.full((b, plan.th, plan.tw, cb),
+                                 float("-inf") if mode == "max" else -0.0)
+                for dy in range(k):
+                    for dx in range(k):
+                        sub = halo[:, dy:dy + s * (plan.th - 1) + 1:s,
+                                   dx:dx + s * (plan.tw - 1) + 1:s]
+                        acc = pk.max_ordered(acc, sub) if mode == "max" \
+                            else acc + sub
+                if mode == "avg":
+                    acc = acc * torch.tensor(pk.avg_scale(k))
+                oy0, ox0 = tr * plan.th, tc * plan.tw
+                tile = out[:, oy0:oy0 + plan.th, ox0:ox0 + plan.tw,
+                           c0:c0 + cb]
+                tile.copy_(acc[:, :tile.shape[1], :tile.shape[2],
+                               :tile.shape[3]])
+    return out.to(x.dtype)
+
+
+TILED = [c for c in POOL_CASES if c[0] not in ("window 70",)]
+
+
+@pytest.mark.parametrize("case", TILED, ids=[f"{c[0]}-{c[8]}B" for c in TILED])
+def test_pool_run_tiled_by_its_plan_is_the_plain_version(case):
+    """On signed zeros and normal values (max: and NaN), at batch 1 for the
+    phase-4 shapes: bit for bit, NaN by position."""
+    name, b, h, w, c, k, s, pad, size, mis = case
+    rng = np.random.default_rng(c + k + s + pad)
+    b = min(b, 2)
+    a = rng.standard_normal((b, h, w, c)).astype(np.float32)
+    u = rng.random(a.shape)
+    a[u < 0.3] = -0.0
+    a[(u >= 0.3) & (u < 0.4)] = 0.0
+    dtype = torch.float32 if size == 4 else torch.bfloat16
+    for mode in ("max", "avg"):
+        if mode == "max":
+            a[rng.random(a.shape) < 0.02] = np.nan
+        x = torch.from_numpy(a).to(dtype)
+        plan = pk.pool_plan(b, h, w, c, k, s, pad,
+                            *_pool_out_hw(h, w, k, s, pad), size, mis)
+        got = _tiled_pool(x, k, s, pad, mode, plan).to(torch.float32)
+        want = pk.pool2d_plain(x, k=k, stride=s, pad=pad,
+                               mode=mode).to(torch.float32)
+        assert torch.equal(torch.isnan(got), torch.isnan(want))
+        keep = ~torch.isnan(want)
+        assert torch.equal(got.view(torch.int32)[keep],
+                           want.view(torch.int32)[keep])
+
+
+def test_pool_plan_rejects_a_window_past_shared_memory():
+    with pytest.raises(ValueError, match="shared memory"):
+        pk.pool_plan(1, 130, 130, 4, 130, 1, 0, 1, 1, 4, 0)
