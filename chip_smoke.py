@@ -33,11 +33,26 @@ order; any failure raises and the script exits nonzero:
 3. The main path: ``VTAServeEngine(backend="torch")`` serves the full-width
    ResNet-18 trunk (``SERVE_REPS`` full dispatches each of buckets 2 and 8)
    and the resnet18-small served model (``SERVE_REPS`` full dispatches of
-   bucket 4). Launch counts are zeroed just before and read just after;
-   each kernel must have launched once per entry of each forward. Every
-   output must equal the same image on ``"torch-cpu"``, and request 0's
-   output must hash to ``TRUNK_DIGEST``, the JAX package's numpy-backend
-   result (tests/test_torch_serve.py pins the same digest).
+   bucket 4) through the captured path: each trace runs as chunks
+   (``TorchBackend.chunks``), each chunk one CUDA graph captured on the
+   first dispatch of its (trace, bucket) and replayed after. That first
+   dispatch of each (model, bucket) runs before the serve run, uncounted,
+   and is timed as capture cost (the eager run plus the captures). Launch
+   counts, dispatches (``fsim_torch.kernel_launch_log``) and the capture log
+   are zeroed just before the serve run and read just after
+   (``serve_checks``): each kernel must have launched once per entry of each
+   forward, each forward must have taken as many dispatches as its chunk
+   plan has chunks, each capture-log key must hold 1 and the serve run must
+   capture nothing. Every output must equal the same image on
+   ``"torch-cpu"``, and request 0's output must hash to ``TRUNK_DIGEST``,
+   the JAX package's numpy-backend result (tests/test_torch_serve.py pins
+   the same digest). ``accumulate_program``, whose ADD reads acc rows no
+   instruction of it wrote, runs three times in a row on the card against
+   the port's numpy backend, which a dispatch that skips zeroing the
+   scratchpads fails. The ``profile:`` line gives one trunk forward at batch
+   8 on the captured path under ``torch.profiler``: host wall (profiled and
+   not), device busy, idle share, device kernels and
+   ``torch.cuda.memory_reserved``.
 4. The float layer ops at full width, through ``repro_torch.kernels.ops``
    at batch ``LAYER_BATCH`` (NHWC), shapes from the port's layer tables:
    the 13 MobileNet-1.0 depthwise layers, each followed by its relu_shift
@@ -109,7 +124,8 @@ order; any failure raises and the script exits nonzero:
    the output type, plus 1e-6).
 
 Output: one line per kernel (and per phase-4 case), ms per dispatch per
-bucket (median, min, max), then a JSON line of serving numbers, a JSON line
+bucket (median, min, max), then a JSON line of serving numbers (per bucket,
+the capture cost per bucket and the ``profile:`` numbers), a JSON line
 of kernel numbers, the ``nvidia-smi`` line, and last the device line. Kernel
 times are medians of CUDA-event timings. Each VTA kernel row sums its
 launches over one forward of the model named in ``per``
@@ -130,7 +146,7 @@ boolean mask carries a window). The call is a yardstick here only: the port
 never makes it.
 
 ``--plant-faults`` runs none of the phases. It shows that the limits of
-phases 2, 4 and 5 fail a wrong kernel: the checkout is copied into a
+phases 2-5 fail a wrong kernel or executor: the checkout is copied into a
 temporary directory once as it is and once per fault of ``PLANTED_FAULTS``
 (a text substitution: a key tile from 4096 skipped, or the window 64 keys
 too wide, in each of the three attention routes; the f32 prefill's score
@@ -140,15 +156,18 @@ f32 GEMM dropped; the depthwise halo read one column to the right, by TMA
 and on the scalar path; the pooling halo read one column to the right, and
 the last tap of every compiled pooling window not taken; the last
 reduction row of every VTA GEMM group
-dropped; one thread's partial of a split tap reduction dropped), the
+dropped; one thread's partial of a split tap reduction dropped; a captured
+dispatch that does not zero the scratchpads, and one that replays every
+chunk of a trace but the last), the
 unchanged sources are built once into a build directory the copies share,
 and each copy builds its changed source and runs the cases of its route
 through their limit checks (``--case-errors``, three copies at a time): the
 phase-5 cases and those of ``FAULT_CASES`` through ``attention_error``, the
 phase-4 and edge cases of the float GEMM, depthwise, ALU or pooling kernel
-(the exact ones by value and by bits), or phase 2's
-cases of the VTA GEMM or the ALU stage-program kernel; the unchanged copy
-runs all of them. One JSON line per (fault, case) gives the kernel's error
+(the exact ones by value and by bits), phase 2's
+cases of the VTA GEMM or the ALU stage-program kernel, or phase 3's checks
+(``serve_checks``, one line a check); the unchanged copy runs all of
+them. One JSON line per (fault, case) gives the kernel's error
 and its limit (attention: the kernel's and the plain version's largest
 error against float64, the largest |out| and the elements over the limit).
 It exits 0 only if the unchanged kernels pass every case and each fault
@@ -897,18 +916,33 @@ def serve(models: dict, trunk_imgs, small_imgs):
     return outs, counts, timings
 
 
-def profile_forward(model, imgs) -> None:
-    """Where one trunk forward's time goes: device time by kernel name
-    (``torch.profiler``), device busy time against host wall time."""
+def profile_forward(model, imgs) -> dict:
+    """Where one trunk forward's time goes on the captured path: device
+    time by kernel name (``torch.profiler``, which attributes the kernels
+    inside CUDA-graph replays), device busy time against host wall time,
+    profiled and not (the profiler slows the host), and
+    ``torch.cuda.memory_reserved`` (graph pools, the keys' buffers and all
+    else the run holds; ``serve_checks`` gives what each first dispatch
+    added). Where the profiler shows no device kernel, device time comes
+    from CUDA events around the forward instead, and the line says so."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
-    model.run_batch(imgs, "torch")
-    torch.cuda.synchronize()
+    walls = []
+    for _ in range(3):                  # the same forward, not profiled
+        t0 = time.perf_counter()
+        model.run_batch(imgs, "torch")
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+    plain_wall = statistics.median(walls)
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
+        start.record()
         model.run_batch(imgs, "torch")
+        end.record()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
     rows = []
@@ -920,11 +954,174 @@ def profile_forward(model, imgs) -> None:
             rows.append((dev_us, ev.count, ev.key))
     rows.sort(reverse=True)
     busy = sum(r[0] for r in rows) / 1e6
-    log(f"profile: trunk forward at batch {len(imgs)}: wall {wall * 1e3:.1f}"
-        f" ms (profiled), device busy {busy * 1e3:.2f} ms, device idle share "
-        f"{1 - busy / wall:.3f}; device kernels {sum(r[1] for r in rows)}")
+    source = "torch.profiler"
+    if not rows:
+        busy = start.elapsed_time(end) / 1e3
+        source = "CUDA events around the forward (the profiler saw no kernel)"
+    out = dict(batch=len(imgs), wall_ms=wall * 1e3, busy_ms=busy * 1e3,
+               idle_share=1 - busy / wall,
+               wall_unprofiled_ms=plain_wall * 1e3,
+               idle_share_unprofiled=1 - busy / plain_wall,
+               device_kernels=sum(r[1] for r in rows), busy_from=source,
+               memory_reserved_mb=torch.cuda.memory_reserved() / 1e6)
+    log(f"profile: trunk forward at batch {len(imgs)} on the captured path: "
+        f"wall {out['wall_ms']:.1f} ms (profiled), device busy "
+        f"{out['busy_ms']:.2f} ms ({source}), device idle share "
+        f"{out['idle_share']:.3f}; unprofiled wall "
+        f"{out['wall_unprofiled_ms']:.1f} ms (median of 3), idle share "
+        f"against it {out['idle_share_unprofiled']:.3f}; device kernels "
+        f"{out['device_kernels']}; memory reserved "
+        f"{out['memory_reserved_mb']:.1f} MB")
     for dev_us, cnt, key in rows[:12]:
         log(f"  {dev_us / 1e3:9.3f} ms  {cnt:6d}x  {key[:90]}")
+    return out
+
+
+def plan_length(model, be) -> int:
+    """Chunks of one forward of ``model`` on backend ``be``: its
+    dispatches."""
+    from repro_torch.vta.lowering import lower_cached
+    shapes = dict(model.shapes)
+    shapes.update({k: v.shape for k, v in model.weights.items()})
+    return sum(len(be.chunks(lower_cached(s.program, model.hw, shapes)))
+               for s in model.segments)
+
+
+def accumulate_program(hw):
+    """A residual add whose loads of operand ``a`` are dropped: its ADD
+    accumulates ``b`` into acc rows that only the zeroing of the
+    scratchpads at the start of a dispatch clears (the served programs
+    write every row before they read it, so they cannot show a stale
+    scratchpad). The numpy FSim answers clip(b)."""
+    from repro_torch.core.tps import ConvWorkload
+    from repro_torch.vta.isa import Buffer, LoadInsn
+    from repro_torch.vta.runtime import Program
+    from repro_torch.vta.scheduler import schedule_add
+    wl = ConvWorkload("acc", 1, 8, 8, 1, 1, 32, 32, 0, 0, 1, 1)
+    prog = schedule_add(wl, hw, tensors={"add_a": "a", "add_b": "b",
+                                         "out": "out"}).program
+    order = [i for i in prog.order if not (
+        isinstance(i, LoadInsn) and i.buffer == Buffer.ACC
+        and getattr(i, "meta", {}).get("tensor") == "a")]
+    return Program(hw=prog.hw, order=order, uop_mem=prog.uop_mem,
+                   n_ctx=prog.n_ctx)
+
+
+def zeroing_errors(hw) -> int:
+    """Dispatches of ``accumulate_program`` on the card, three in a row on
+    other inputs at batch 2, that differ from the numpy backend."""
+    from repro_torch.vta.backend import get_backend
+    prog = accumulate_program(hw)
+    bad = 0
+    for seed in range(3):
+        b = np.random.default_rng(seed).integers(-100, 100, (2, 1, 32, 8, 8),
+                                                 dtype=np.int8)
+        batched = {"b": b, "out": np.zeros_like(b)}
+        got = get_backend("torch").run_batched(prog, hw, shared={},
+                                               batched=batched)["out"]
+        want = get_backend("numpy").run_batched(prog, hw, shared={},
+                                                batched=batched)["out"]
+        bad += not np.array_equal(got.cpu().numpy(), want.numpy())
+    return bad
+
+
+def serve_checks(trunk, small) -> tuple:
+    """Phase 3 on the captured path. The first dispatch of each (model,
+    bucket) runs apart, uncounted: it runs each trace eagerly and captures
+    its chunks (timed as capture cost). Then ``serve``, then the checks,
+    each a count of what failed: every capture-log key once and none during
+    the serve run (``captures``), dispatches equal to the chunk plan per
+    forward (``dispatches``), each kernel once per entry per forward
+    (``launches``), full dispatches of every bucket (``buckets``), requests
+    that differ from ``"torch-cpu"`` (``outputs``), request 0's digest
+    (``digest``), and ``zeroing_errors`` (``zeroing``). Returns (errors,
+    serve rows, capture rows, launch counts)."""
+    import torch
+    from repro_torch.vta import fsim_torch
+    from repro_torch.vta.backend import get_backend
+    be = get_backend("torch")
+    trunk_imgs = trunk.random_images(8, seed=0)
+    small_imgs = small.random_images(SMALL_BUCKET, seed=0)
+    models = {"resnet18-trunk": trunk, "resnet18-small": small}
+    plans = {k: plan_length(m, be) for k, m in models.items()}
+    runs = [("resnet18-trunk", b) for b in TRUNK_BUCKETS] + \
+        [("resnet18-small", SMALL_BUCKET)]
+    fsim_torch.reset_capture_log()
+    capture_rows = []
+    for key, b in runs:
+        imgs = trunk_imgs if key == "resnet18-trunk" else small_imgs
+        torch.cuda.synchronize()
+        held = torch.cuda.memory_reserved()
+        t0 = time.perf_counter()
+        models[key].run_batch(imgs[:b], "torch")
+        torch.cuda.synchronize()
+        capture_rows.append(dict(
+            model=key, bucket=b, graphs=plans[key],
+            traces=len(models[key].segments),
+            ms=(time.perf_counter() - t0) * 1e3,
+            reserved_mb=(torch.cuda.memory_reserved() - held) / 1e6))
+        log(f"capture {key} bucket {b}: first dispatch of its "
+            f"{len(models[key].segments)} traces (eager run plus the capture "
+            f"of {plans[key]} graphs) {capture_rows[-1]['ms']:.1f} ms; "
+            f"memory reserved +{capture_rows[-1]['reserved_mb']:.1f} MB")
+    captured = fsim_torch.capture_log()
+    fsim_torch.reset_kernel_launch_log()
+    outs, counts, timings = serve(models, trunk_imgs, small_imgs)
+    dispatches = fsim_torch.kernel_launch_log()
+    errs = {}
+    errs["captures"] = sum(v != 1 for v in captured.values()) + abs(
+        len(captured) - sum(plans[k] for k, _ in runs)) + \
+        (fsim_torch.capture_log() != captured)
+    fwd = SERVE_REPS * (len(TRUNK_BUCKETS) * plans["resnet18-trunk"]
+                        + plans["resnet18-small"])
+    log(f"dispatches: {dispatches} in the serve run; chunk plan per forward "
+        f"{plans}, {fwd} for its {SERVE_REPS * (len(TRUNK_BUCKETS) + 1)} "
+        f"forwards")
+    errs["dispatches"] = abs(dispatches - fwd)
+    serve_rows = []
+    for key, bucket in sorted({(k, b) for k, b, _, _ in timings}):
+        ts = [(f, t) for k, b, f, t in timings if (k, b) == (key, bucket)]
+        ms = [t * 1e3 for f, t in ts if f == bucket]
+        med = statistics.median(ms) if ms else float("nan")
+        serve_rows.append(dict(
+            model=key, bucket=bucket, dispatches=len(ms), ms_median=med,
+            ms_min=min(ms, default=med), ms_max=max(ms, default=med),
+            images_per_s=bucket * 1e3 / med,
+            chunk_dispatches_per_forward=plans[key]))
+        log(f"serve {key} bucket {bucket}: {len(ms)} full dispatches, ms per "
+            f"batch median {med:.1f} (min {min(ms, default=med):.1f}, max "
+            f"{max(ms, default=med):.1f}), {bucket * 1e3 / med:.2f} images/s")
+    errs["buckets"] = int({(r["model"], r["bucket"]) for r in serve_rows}
+                          != set(runs)) + sum(
+        r["dispatches"] != SERVE_REPS for r in serve_rows)
+    log(f"launches on the main path: {counts}")
+    # each entry of a forward launches its kernel once: SERVE_REPS forwards
+    # of each trunk bucket and of the small model's
+    per_fwd = {k: {"gemm": sum(e[0] == "gemm" for e in ops),
+                   "alu_chain": sum(e[0] == "aluchain" for e in ops),
+                   "alu_sweep": sum(e[0] == "alusweep" for e in ops)}
+               for k, ops in (("trunk", model_ops(trunk, be.device)[0]),
+                              ("small", model_ops(small, be.device)[0]))}
+    log(f"launches per forward: {per_fwd}")
+    errs["launches"] = 0
+    for k in ("gemm", "alu_chain", "alu_sweep"):
+        want = SERVE_REPS * (len(TRUNK_BUCKETS) * per_fwd["trunk"][k]
+                             + per_fwd["small"][k])
+        errs["launches"] += not want or counts.get(k, 0) != want
+    t0 = time.perf_counter()
+    ref = {"resnet18-trunk": trunk.run_batch(trunk_imgs, "torch-cpu"),
+           "resnet18-small": small.run_batch(small_imgs, "torch-cpu")}
+    log(f"torch-cpu reference: {time.perf_counter() - t0:.1f} s")
+    errs["outputs"] = sum(
+        o.shape != models[key].output_shape or o.dtype != np.int8
+        or not np.array_equal(o, ref[key][i]) for key, i, o in outs)
+    digest = hashlib.sha256(outs[0][2].tobytes()).hexdigest()
+    errs["digest"] = int(outs[0][:2] != ("resnet18-trunk", 0)
+                         or digest != TRUNK_DIGEST)
+    errs["zeroing"] = zeroing_errors(trunk.hw)
+    log(f"serve checks (count of what failed, 0 passes): {errs}; "
+        f"{len(outs)} outputs against torch-cpu, trunk digest {digest}")
+    return errs, serve_rows, capture_rows, counts
 
 
 # ---------------------------------------------------------------------------
@@ -1833,9 +2030,19 @@ PLANTED_FAULTS = {  # name: (route, file under src/repro_torch, text, stand-in)
     "alu_sweep.drop_one_split": (
         "alu_sweep", "csrc/alu_sweep.cu", "  int mine = part;",
         "  int mine = threadIdx.x % S == S - 1 ? identity(op) : part;"),
+    # a captured dispatch starts from the scratchpads the last one left
+    "serve.skip_zeroing": (
+        "serve", "vta/fsim_torch.py", "                st[k].zero_()",
+        "                pass"),
+    # every chunk of a trace but its last is replayed
+    "serve.skip_last_chunk": (
+        "serve", "vta/fsim_torch.py",
+        "for g, launches in plan.graphs:",
+        "for g, launches in plan.graphs[:-1]:"),
 }
 LAYER_FAULT_KEYS = ("gemm_float", "depthwise", "alu", "pool2d")
 VTA_FAULT_KEYS = ("gemm", "alu_sweep")
+SERVE_FAULT_KEYS = ("serve",)
 # --plant-faults runs these besides ATTENTION_CASES: the only windowed
 # decode case there, g2.local.decode, sees its whole 4096-key cache, so a
 # window 64 too wide is invisible to it. Gemma-2 27B local layers decoding
@@ -1852,15 +2059,33 @@ def case_errors(fault: str, route: str) -> int:
     line per case: the attention cases of ``ATTENTION_CASES`` and
     ``FAULT_CASES`` (``attention_errors``), the phase-4 cases, edge cases
     included, of the kernels of ``LAYER_FAULT_KEYS`` (``layer_errors``),
-    and phase 2's cases of the kernels of ``VTA_FAULT_KEYS``
-    (``vta_errors``)."""
-    if route == "all" or route not in LAYER_FAULT_KEYS + VTA_FAULT_KEYS:
+    phase 2's cases of the kernels of ``VTA_FAULT_KEYS`` (``vta_errors``),
+    and phase 3's checks of the captured path (``serve_errors``)."""
+    if route == "all" or route not in \
+            LAYER_FAULT_KEYS + VTA_FAULT_KEYS + SERVE_FAULT_KEYS:
         attention_errors(fault, route)
     if route == "all" or route in LAYER_FAULT_KEYS:
         layer_errors(fault, route)
     if route == "all" or route in VTA_FAULT_KEYS:
         vta_errors(fault, route)
+    if route == "all" or route in SERVE_FAULT_KEYS:
+        serve_errors(fault)
     return 0
+
+
+def serve_errors(fault: str) -> None:
+    """Phase 3's checks (``serve_checks``) on the captured path, one line
+    per check, limit 0."""
+    from repro_torch.serve.model import (ServedModel, resnet18_trunk_graph,
+                                         served_model)
+    from repro_torch.vta.isa import DEFAULT_VTA
+    trunk = ServedModel.compile("resnet18-trunk", resnet18_trunk_graph(),
+                                DEFAULT_VTA)
+    errs = serve_checks(trunk, served_model("resnet18", "small"))[0]
+    for check, err in errs.items():
+        print(json.dumps({"fault": fault, "case": f"serve {check}",
+                          "err": err, "limit": 0, "over": err > 0}),
+              flush=True)
 
 
 def vta_errors(fault: str, route: str) -> None:
@@ -2081,7 +2306,7 @@ def main(argv: list) -> int:
     log(f"compile: trunk {len(trunk.segments)} segments in "
         f"{time.perf_counter() - t0:.2f} s")
     main_path = vta_main_path(trunk, small, dev)
-    trunk_ops, small_ops = main_path[0][2], main_path[-1][2]
+    trunk_ops = main_path[0][2]
     n = max(TRUNK_BUCKETS)
     trunk_entries = gemm_entries(trunk_ops)
     gemm_row = check_gemm(
@@ -2093,64 +2318,14 @@ def main(argv: list) -> int:
         {"alu_sweep": TRUNK_BUCKETS.index(n), "alu_chain": len(main_path) - 1})
 
     # -- phase 3 ----------------------------------------------------------
-    trunk_imgs = trunk.random_images(8, seed=0)
-    small_imgs = small.random_images(SMALL_BUCKET, seed=0)
-    for b in TRUNK_BUCKETS:                     # first-use costs, uncounted
-        trunk.run_batch(trunk_imgs[:b], "torch")
-    small.run_batch(small_imgs, "torch")
-    models = {"resnet18-trunk": trunk, "resnet18-small": small}
-    outs, counts, timings = serve(models, trunk_imgs, small_imgs)
-    serve_rows = []
-    for key, bucket in sorted({(k, b) for k, b, _, _ in timings}):
-        runs = [(f, t) for k, b, f, t in timings if (k, b) == (key, bucket)]
-        if any(f != bucket for f, _ in runs):
-            raise AssertionError(f"{key} bucket {bucket} dispatched partly "
-                                 f"filled: {[f for f, _ in runs]}")
-        ms = [t * 1e3 for _, t in runs]
-        med = statistics.median(ms)
-        serve_rows.append(dict(
-            model=key, bucket=bucket, dispatches=len(ms), ms_median=med,
-            ms_min=min(ms), ms_max=max(ms), images_per_s=bucket * 1e3 / med))
-        log(f"serve {key} bucket {bucket}: {len(ms)} full dispatches, ms per "
-            f"batch median {med:.1f} (min {min(ms):.1f}, max {max(ms):.1f}), "
-            f"{bucket * 1e3 / med:.2f} images/s")
-    log(f"launches on the main path: {counts}")
-    # each entry of a forward launches its kernel once: SERVE_REPS forwards
-    # of each trunk bucket and of the small model's
-    per_fwd = {k: {"gemm": sum(e[0] == "gemm" for e in ops),
-                   "alu_chain": sum(e[0] == "aluchain" for e in ops),
-                   "alu_sweep": sum(e[0] == "alusweep" for e in ops)}
-               for k, ops in (("trunk", trunk_ops), ("small", small_ops))}
-    log(f"launches per forward: {per_fwd}")
-    for k in ("gemm", "alu_chain", "alu_sweep"):
-        want = SERVE_REPS * (len(TRUNK_BUCKETS) * per_fwd["trunk"][k]
-                             + per_fwd["small"][k])
-        if not want or counts.get(k, 0) != want:
-            raise AssertionError(f"kernel {k} launched {counts.get(k, 0)} "
-                                 f"times on the main path, want {want}")
-    want = {("resnet18-trunk", b) for b in TRUNK_BUCKETS}
-    want.add(("resnet18-small", SMALL_BUCKET))
-    got = {(r["model"], r["bucket"]) for r in serve_rows}
-    if got != want or any(r["dispatches"] != SERVE_REPS for r in serve_rows):
-        raise AssertionError(f"served {serve_rows}, want {SERVE_REPS} full "
-                             f"dispatches of each of {sorted(want)}")
-
     t0 = time.perf_counter()
-    ref = {"resnet18-trunk": trunk.run_batch(trunk_imgs, "torch-cpu"),
-           "resnet18-small": small.run_batch(small_imgs, "torch-cpu")}
-    log(f"torch-cpu reference: {time.perf_counter() - t0:.1f} s")
-    for j, (key, i, o) in enumerate(outs):
-        if o.shape != models[key].output_shape or o.dtype != np.int8 or \
-                not np.array_equal(o, ref[key][i]):
-            raise AssertionError(f"request {j} ({key}, image {i}) differs "
-                                 f"from torch-cpu")
-    digest = hashlib.sha256(outs[0][2].tobytes()).hexdigest()
-    if outs[0][:2] != ("resnet18-trunk", 0) or digest != TRUNK_DIGEST:
-        raise AssertionError(f"trunk request 0 digest {digest} != pinned "
-                             f"{TRUNK_DIGEST}")
-    log(f"serve: {len(outs)} outputs equal torch-cpu; trunk digest matches "
-        f"the JAX numpy backend")
-    profile_forward(trunk, trunk_imgs)
+    errs, serve_rows, capture_rows, counts = serve_checks(trunk, small)
+    if any(errs.values()):
+        raise AssertionError(f"phase 3 failed: {errs}")
+    log("serve: every output equals torch-cpu; trunk digest matches the JAX "
+        "numpy backend")
+    prof = profile_forward(trunk, trunk.random_images(8, seed=0))
+    log(f"phase 3: {time.perf_counter() - t0:.1f} s")
 
     # -- phase 4 ----------------------------------------------------------
     t0 = time.perf_counter()
@@ -2239,7 +2414,8 @@ def main(argv: list) -> int:
                 f"decode 1 x 32768 / 4096, and the edge cases"
                 + ("; the decode route's time includes its combine"
                    if key == "flash_attention.decode" else "")))
-    log(json.dumps({"serve": serve_rows}))
+    log(json.dumps({"serve": serve_rows, "capture": capture_rows,
+                    "profile": prof}))
     log(json.dumps({"kernels": kernels}))
     log(smi)
     log(json.dumps({"ok": True, "device": {

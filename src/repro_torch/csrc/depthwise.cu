@@ -2,10 +2,12 @@
 //     out[b, i, j, c] = sum over dy, dx of xpad[b, i*s + dy, j*s + dx, c] * w[dy, dx, c]
 //
 // Replaces the TPU kernel src/repro/kernels/depthwise.py::depthwise_conv
-// (body _dw_kernel): zero padding, KH*KW strided taps, f32 accumulation
-// starting from -0.0 (so the sign of a zero sum is the reference's, whose
-// zero seed XLA folds away) in dy-major, dx-minor order, no bias, result
-// rounded to the input's type (f32 or bf16, round-to-nearest-even).
+// (body _dw_kernel): zero padding, KH*KW strided taps in dy-major, dx-minor
+// order, f32 accumulation contracted as XLA's CPU build of the reference
+// contracts it (its zero seed folded away): fma(x0, w0, x1*w1) for taps 0
+// and 1, then fma(x_k, w_k, acc) for each later tap, a bare product for a
+// 1x1 window; no bias, result rounded to the input's type (f32 or bf16,
+// round-to-nearest-even).
 //
 // Bound on this card: bytes. 2*KH*KW operations per output against one
 // input read and one output write. The earlier design, one thread per output
@@ -36,10 +38,9 @@
 // - a scalar path inside the same kernel (V = 1) covers C that is not a
 //   multiple of the vector width (TMA needs 16-byte pixel strides), and
 //   element copies and stores cover pointers that are not 16-byte aligned.
-// Each output's taps still run in dy-major, dx-minor order, each as
-// __fmul_rn then __fadd_rn, so nvcc cannot contract them into an FMA and
-// the result equals the plain version's separate multiply and add bit for
-// bit.
+// Each output's taps run in dy-major, dx-minor order through tap_step, by
+// __fmul_rn and __fmaf_rn, so nvcc contracts nothing of its own and the
+// result equals the plain version's torch.addcmul chain bit for bit.
 #include <cstdint>
 #include <cuda.h>
 #include <cuda_bf16.h>
@@ -150,6 +151,20 @@ __device__ __forceinline__ void mbar_wait(uint64_t* bar, unsigned parity) {
       : "memory");
 }
 
+// Tap t of one output: tap 0 parks x0 in acc and w0 apart, tap 1 makes
+// fma(x0, w0, x1*w1), each later tap fma(x, w, acc)
+__device__ __forceinline__ void tap_step(int t, float x, float w, float& acc,
+                                         float& w0) {
+  if (t == 0) {
+    acc = x;
+    w0 = w;
+  } else if (t == 1) {
+    acc = __fmaf_rn(acc, w0, __fmul_rn(x, w));
+  } else {
+    acc = __fmaf_rn(x, w, acc);
+  }
+}
+
 // V channels a thread (1: the scalar path); KW_, S_ > 0 fix the kernel
 // width and stride at compile time (the 3x3 layers), 0 reads them from p
 template <typename T, int V, int KW_, int S_>
@@ -216,11 +231,7 @@ depthwise_kernel(const __grid_constant__ CUtensorMap map, Params p) {
   const int py = pos / (p.TW / R), px = pos - py * (p.TW / R);
   const int oy = oy0 + py, ox = ox0 + px * R;
   if (oy >= p.OH || ox >= p.OW || g * V >= cn) return;
-  float acc[R][V];
-#pragma unroll
-  for (int r = 0; r < R; ++r)
-#pragma unroll
-    for (int v = 0; v < V; ++v) acc[r][v] = -0.0f;  // IEEE addition's identity
+  float acc[R][V], w0[V];
   for (int dy = 0; dy < p.KH; ++dy) {
     const T* hrow = halo + ((py * S + dy) * HW + px * R * S) * CB + g * V;
     const float* wrow = wsm + dy * KW * CB + g * V;
@@ -237,8 +248,8 @@ depthwise_kernel(const __grid_constant__ CUtensorMap map, Params p) {
         for (int dx = 0; dx < KW_; ++dx)
 #pragma unroll
           for (int v = 0; v < V; ++v)
-            acc[r][v] = __fadd_rn(acc[r][v],
-                                  __fmul_rn(xv[r * S_ + dx][v], wv[dx][v]));
+            tap_step(dy * KW_ + dx, xv[r * S_ + dx][v], wv[dx][v], acc[r][v],
+                     w0[v]);
     } else {
       for (int dx = 0; dx < KW; ++dx) {
         float wv[V];
@@ -249,10 +260,16 @@ depthwise_kernel(const __grid_constant__ CUtensorMap map, Params p) {
           loadv<V>(hrow + (r * S + dx) * CB, xv);
 #pragma unroll
           for (int v = 0; v < V; ++v)
-            acc[r][v] = __fadd_rn(acc[r][v], __fmul_rn(xv[v], wv[v]));
+            tap_step(dy * KW + dx, xv[v], wv[v], acc[r][v], w0[v]);
         }
       }
     }
+  }
+  if (p.KH * KW == 1) {
+#pragma unroll
+    for (int r = 0; r < R; ++r)
+#pragma unroll
+      for (int v = 0; v < V; ++v) acc[r][v] = __fmul_rn(acc[r][v], w0[v]);
   }
   T* out = static_cast<T*>(p.out) +
            (((long long)b * p.OH + oy) * p.OW + ox) * p.C + c0 + g * V;

@@ -2,12 +2,14 @@
 
 Replaces ``repro/kernels/depthwise.py::depthwise_conv``: x (B, H, W, C), w
 (KH, KW, C), zero padding ``pad`` on both spatial sides, stride ``stride``;
-f32 accumulation of the KH*KW taps in dy-major order from -0.0, no bias,
-the result in x's dtype. ``depthwise_conv`` launches ``csrc/depthwise.cu``
+f32 accumulation of the KH*KW taps in dy-major order contracted as XLA
+contracts the reference on the CPU (``depthwise_plain``), no bias, the
+result in x's dtype. ``depthwise_conv`` launches ``csrc/depthwise.cu``
 for CUDA tensors (f32 or bf16, w of x's dtype) and counts the launch in
 ``LAUNCHES["depthwise"]``; for CPU tensors it takes ``depthwise_plain``, which
-repeats the reference step by step (a separate multiply and add per tap) and
-runs on either device. The two agree bit for bit.
+repeats the reference's compiled order step by step (fused multiply-adds
+by ``torch.addcmul``) and runs on either device. The two agree bit for bit,
+and with the JAX package's compiled reference on the CPU.
 
 The kernel gives each block an output tile of one image, TH rows x TW
 columns x CB channels, whose input halo it stages once in shared memory;
@@ -43,10 +45,13 @@ def _out_hw(x: torch.Tensor, w: torch.Tensor, stride: int, pad: int) -> tuple:
 
 def depthwise_plain(x: torch.Tensor, w: torch.Tensor, *, stride: int = 1,
                     pad: int = 0) -> torch.Tensor:
-    """Plain version: pad in f32, then ``out = out + sub * w[dy, dx]`` per
-    tap, as the reference does, from a seed of -0.0: IEEE addition's
-    identity, so the sum is the reference's (whose ``jnp.zeros`` seed XLA
-    folds away) in the sign of zero too."""
+    """Plain version: pad in f32, then the taps in dy-major order as XLA's
+    CPU build of the reference contracts them (its zero seed folded away):
+    ``addcmul(x1 * w1, x0, w0)`` for taps 0 and 1, a fused multiply-add
+    ``fma(x0, w0, round(x1 * w1))``, then ``out = addcmul(out, x_k, w_k)``
+    for each later tap; a 1x1 window is the bare product. ``torch.addcmul``
+    rounds once, as XLA's ``vfmadd`` does, on the CPU and on the card
+    alike (the same bits on 2^20 random f32 triples on the H100)."""
     oh, ow = _out_hw(x, w, stride, pad)
     b, h, wd, c = x.shape
     kh, kw, _ = w.shape
@@ -54,12 +59,14 @@ def depthwise_plain(x: torch.Tensor, w: torch.Tensor, *, stride: int = 1,
                      device=x.device)
     xp[:, pad:pad + h, pad:pad + wd] = x.to(torch.float32)
     wf = w.to(torch.float32)
-    out = torch.full((b, oh, ow, c), -0.0, dtype=torch.float32,
-                     device=x.device)
-    for dy in range(kh):
-        for dx in range(kw):
-            sub = xp[:, dy:dy + stride * oh:stride, dx:dx + stride * ow:stride]
-            out = out + sub * wf[dy, dx]
+    taps = [(xp[:, dy:dy + stride * oh:stride, dx:dx + stride * ow:stride],
+             wf[dy, dx]) for dy in range(kh) for dx in range(kw)]
+    if len(taps) == 1:
+        return (taps[0][0] * taps[0][1]).to(x.dtype)
+    (x0, w0), (x1, w1) = taps[:2]
+    out = torch.addcmul(x1 * w1, x0, w0)
+    for sub, wt in taps[2:]:
+        out = torch.addcmul(out, sub, wt)
     return out.to(x.dtype)
 
 

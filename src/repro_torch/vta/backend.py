@@ -3,14 +3,17 @@
 A *backend* executes the typed trace ``vta/lowering.py`` produces from a
 Program. Built-ins:
 
+  * ``"numpy"``     — the reference ``FSim`` (vta/fsim.py, a copy of the JAX
+    package's): per image, in place, program order. The oracle; its
+    ``run_batched`` returns CPU tensors, as the protocol below asks.
   * ``"torch"``     — ``TorchBackend()`` (vta/fsim_torch.py) on the CUDA
     device, compute through the hand-written kernels. Raises where there is
     no CUDA device: the card path never falls back to the CPU.
   * ``"torch-cpu"`` — ``TorchBackend(device="cpu")``: the same executor with
     the kernels' plain PyTorch versions, used only when asked for.
 
-The reference for both is the JAX package's numpy ``FSim``; the port's
-tests hold them to it bit for bit.
+The reference for both is the numpy ``FSim``; the port's tests hold them to
+it, and the port's copy to the JAX package's, bit for bit.
 
 ``run_batched``'s contract: ``batched`` maps tensor names to ``(N, ...)``
 stacks (numpy arrays or tensors), ``shared`` maps names to single arrays
@@ -22,7 +25,11 @@ from __future__ import annotations
 
 from typing import Callable, Dict, Protocol, Union, runtime_checkable
 
+import numpy as np
+import torch
+
 from repro_torch.vta.isa import VTAConfig
+from repro_torch.vta.lowering import lower_cached
 from repro_torch.vta.runtime import Program
 
 
@@ -39,6 +46,39 @@ class Backend(Protocol):
                     batched: dict) -> dict:
         """Execute N images; returns {stored tensor name: (N, ...) tensor}."""
         ...
+
+
+class NumpyBackend:
+    """The trace-executing ``FSim``, image by image: ``run_batched`` lowers
+    once and reuses the trace across the batch (the JAX package's
+    ``NumpyBackend``, returning tensors)."""
+
+    name = "numpy"
+    device = torch.device("cpu")
+
+    def run(self, prog: Program, hw: VTAConfig, dram: dict) -> None:
+        from repro_torch.vta.fsim import FSim
+        shapes = {k: np.asarray(v).shape for k, v in dram.items()}
+        FSim(hw, dram).run(prog, trace=lower_cached(prog, hw, shapes))
+
+    def run_batched(self, prog: Program, hw: VTAConfig, *, shared: dict,
+                    batched: dict) -> dict:
+        from repro_torch.vta.fsim import FSim
+        shared = {k: np.asarray(v) for k, v in shared.items()}
+        batched = {k: np.asarray(v) for k, v in batched.items()}
+        n = next(iter(batched.values())).shape[0]
+        shapes = {k: v.shape for k, v in shared.items()}
+        shapes.update({k: v.shape[1:] for k, v in batched.items()})
+        trace = lower_cached(prog, hw, shapes)
+        outs: dict = {t: [] for t in trace.tensors_written}
+        for i in range(n):
+            dram = dict(shared)
+            # fresh copies: the caller's (N, ...) stacks stay untouched
+            dram.update({k: np.array(v[i]) for k, v in batched.items()})
+            FSim(hw, dram).run(prog, trace=trace)
+            for t in outs:
+                outs[t].append(dram[t])
+        return {t: torch.from_numpy(np.stack(v)) for t, v in outs.items()}
 
 
 _FACTORIES: Dict[str, Callable[[], Backend]] = {}
@@ -83,6 +123,7 @@ def _torch_cpu_factory() -> Backend:
     return TorchBackend(device="cpu")
 
 
+register_backend("numpy", NumpyBackend)
 register_backend("torch", _torch_factory)
 register_backend("torch-cpu", _torch_cpu_factory)
 

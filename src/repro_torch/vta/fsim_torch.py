@@ -6,9 +6,15 @@ tensors are flat (N, L) tensors, and tensors the batch shares (weights,
 biases) are flat (L,) tensors with no N axis — gathers from them broadcast.
 
 A trace is split once into entries whose index maps live on the device
-(``_device_ops``, the port of ``fsim_jax._spec_of`` with ``alu_fusion=True``,
-memoized on the Trace per device), so a dispatch copies no index map. Each
-entry runs eagerly (``_exec``):
+(``_device_ops``, the port of ``fsim_jax._spec_of``, memoized on the Trace
+per device and ``alu_fusion``), so a dispatch copies no index map, and the
+entries into chunks (``_chunk_plan``, the port of ``fsim_jax._spec_chunks``:
+at most ``chunk_cap`` entries, a compiler-marked fused segment whole). A
+chunk is one dispatch: on the card one CUDA graph, captured on the first
+dispatch of its (trace, batch, shared tensors) key and replayed after
+(``TorchBackend``); ``kernel_launch_log`` counts dispatches and
+``capture_log`` captures, per ``set_capture_scope`` label. Each entry runs
+as (``_exec``):
 
   * ``gemm`` — the whole instruction through the ``"gemm"`` kernel
     (``csrc/vta_gemm.cu`` on the card): row gathers, products and the exact
@@ -26,18 +32,26 @@ shift (counts outside [0, 31] give the sign fill), stores clamp to
 [-128, 127] before the int8 cast, masked gather lanes take ``fill`` in the
 tensor's dtype. Scatters whose indices lowering does not prove unique keep
 the last writer, precomputed on the host; masked store lanes are filtered out
-before the write.
+before the write. No entry synchronizes with the host or allocates by data,
+which is what lets a chunk be captured.
 
 ``TorchBackend()`` runs on the card (``"cuda"`` kernels) and raises where
-there is none; ``TorchBackend(device="cpu")`` runs the plain versions.
+there is none; ``TorchBackend(device="cpu")`` runs the plain versions, the
+same chunks eagerly through the same buffers.
 """
 from __future__ import annotations
 
+import collections
+import functools
+import itertools
+import threading
+import types
 from typing import Optional
 
 import numpy as np
 import torch
 
+from repro_torch.kernels import add_launch_counts, launch_counts
 from repro_torch.kernels.alu_sweep import SweepProgram, last_writer_positions
 from repro_torch.kernels.registry import get_kernel
 from repro_torch.vta.isa import AluOp, Buffer, VTAConfig
@@ -157,14 +171,20 @@ def _sweep_program(c, hw: VTAConfig) -> SweepProgram:
 # ---------------------------------------------------------------------------
 # Trace -> host entries -> device entries
 # ---------------------------------------------------------------------------
-def _device_ops(trace: Trace, device: torch.device) -> list:
-    """The trace as device entries, ALU chains fused: the port of
-    ``fsim_jax._spec_of(trace, alu_fusion=True)``, with every index map
-    moved to ``device`` once and memoized on the Trace (serving replays one
-    trace per dispatch). Each entry is a tuple whose first element is its
-    kind; scatters carry their last-writer winners (``_winners``)."""
+def _device_ops(trace: Trace, device: torch.device,
+                alu_fusion: bool = True) -> list:
+    """The trace as device entries: the port of ``fsim_jax._spec_of``,
+    with every index map moved to ``device`` once and memoized on the Trace
+    per (device, ``alu_fusion``) (serving replays one trace per dispatch).
+    With ``alu_fusion`` every fusable AluSweep run lowering marked
+    (``Trace.alu_chains``) is one ``aluchain``/``alusweep`` entry at its
+    head op and the feeder gathers and absorbed stores it covers are gone
+    (``Trace.elided``); without it every op is its own entry. Each entry is
+    a tuple whose first element is its kind; scatters carry their
+    last-writer winners (``_winners``)."""
     memo = trace.__dict__.setdefault("_torch_ops", {})
-    hit = memo.get(str(device))
+    key = (str(device), alu_fusion)
+    hit = memo.get(key)
     if hit is not None:
         return hit
 
@@ -180,13 +200,15 @@ def _device_ops(trace: Trace, device: torch.device) -> list:
         tgt, lanes = _winners(idx, mask)
         return ix(tgt), ix(lanes)
 
-    heads = {c.members[0]: c for c in trace.alu_chains}
-    members = {m for c in trace.alu_chains for m in c.members}
+    chains = trace.alu_chains if alu_fusion else ()
+    heads = {c.members[0]: c for c in chains}
+    members = {m for c in chains for m in c.members}
+    elided = trace.elided if alu_fusion else frozenset()
     ops: list = []
     for i, op in enumerate(trace.ops):
         if op is None or isinstance(op, UopLoad):
             continue
-        if i in trace.elided:
+        if i in elided:
             continue     # feeder gather / absorbed store of a direct sweep
         if i in members:
             c = heads.get(i)
@@ -244,8 +266,48 @@ def _device_ops(trace: Trace, device: torch.device) -> list:
             ops.append(("spill", ix(op.src), *put_args(op.dst)))
         else:
             raise TypeError(type(op))
-    memo[str(device)] = ops
+    memo[key] = ops
     return ops
+
+
+# Whole-segment fusion runs a compiler-marked segment program
+# (``Program.fused_segment``: a conv -> add -> clip pipeline, a resident
+# spill chain) as ONE chunk, so one dispatch; longer programs fall back to
+# the capped chunk sequence (``fsim_jax.SEGMENT_FUSION_MAX_OPS``).
+SEGMENT_FUSION_MAX_OPS = 256
+
+
+def _chunks(ops: list, cap: int = 24):
+    """``fsim_jax._chunks``: blocks of at most ``cap`` entries, a block
+    closed early at a ``store`` once half full."""
+    block: list = []
+    for e in ops:
+        block.append(e)
+        if len(block) >= cap or (e[0] == "store" and len(block) >= cap // 2):
+            yield tuple(block)
+            block = []
+    if block:
+        yield tuple(block)
+
+
+def _chunk_plan(trace: Trace, device: torch.device, cap: int,
+                alu_fusion: bool, segment_fusion: bool) -> list:
+    """``fsim_jax._spec_chunks``: the trace's device entries split into
+    dispatches, memoized on the Trace per (device, ``cap``,
+    ``alu_fusion``, whole-segment). A fused segment of at most
+    ``SEGMENT_FUSION_MAX_OPS`` entries is one chunk."""
+    fuse_all = segment_fusion and trace.fused_segment
+    memo = trace.__dict__.setdefault("_torch_chunks", {})
+    key = (str(device), cap, alu_fusion, fuse_all)
+    hit = memo.get(key)
+    if hit is None:
+        ops = _device_ops(trace, device, alu_fusion)
+        if fuse_all and len(ops) <= SEGMENT_FUSION_MAX_OPS:
+            hit = [tuple(ops)] if ops else []
+        else:
+            hit = list(_chunks(ops, cap))
+        memo[key] = hit
+    return hit
 
 
 def _put(arr, tgt, lanes, val) -> None:
@@ -350,19 +412,161 @@ def _exec(ops: list, st: dict, gemm_impl: str, alu_impl: str) -> None:
 
 
 # ---------------------------------------------------------------------------
+# Dispatch accounting (the port of fsim_jax's trace and launch logs)
+# ---------------------------------------------------------------------------
+# One count per chunk dispatch: on the card one CUDA-graph replay (or, on a
+# key's first dispatch, the eager run that precedes its capture); on the CPU
+# one eager pass over the chunk. ``kernel_launch_log`` is the hook the
+# fusion tests use to show a fused segment really is ONE dispatch.
+_DISPATCHES = 0
+
+# Captures, keyed on (trace key, chunk index, arg shapes, batch, scope): a
+# CUDA graph bakes in the addresses of its chunk's index tensors, so unlike
+# an XLA executable it is never shared between two chunks of one spec. On
+# the CPU a key counts once, at its first dispatch, as jit's trace-once
+# does. Serving any number of batches at a bucket leaves every key at 1.
+_CAPTURES: collections.Counter = collections.Counter()
+_SCOPE = threading.local()
+_TRACE_KEYS = itertools.count()
+
+
+def set_capture_scope(label: Optional[str]) -> Optional[str]:
+    """Set this thread's capture-scope label (a serving worker's id; the
+    counterpart of ``fsim_jax.set_xla_trace_scope``); returns the previous
+    label so callers can restore it. ``None`` is unscoped, the default."""
+    prev = getattr(_SCOPE, "label", None)
+    _SCOPE.label = label
+    return prev
+
+
+def capture_scope() -> Optional[str]:
+    return getattr(_SCOPE, "label", None)
+
+
+def reset_capture_log() -> None:
+    _CAPTURES.clear()
+
+
+def capture_log() -> dict:
+    """{(trace key, chunk index, arg shapes, batch, scope): captures} since
+    the last ``reset_capture_log``. A value above 1 means a known chunk was
+    captured again."""
+    return dict(_CAPTURES)
+
+
+def reset_kernel_launch_log() -> None:
+    global _DISPATCHES
+    _DISPATCHES = 0
+
+
+def kernel_launch_log() -> int:
+    """Chunk dispatches since the last ``reset_kernel_launch_log``."""
+    return _DISPATCHES
+
+
+def _arg_shapes(x) -> tuple:
+    """Shapes of the index tensors of a chunk's entries, in order."""
+    if isinstance(x, torch.Tensor):
+        return (tuple(x.shape),)
+    if isinstance(x, (tuple, list)):
+        return tuple(s for v in x for s in _arg_shapes(v))
+    return ()
+
+
+def _note_capture(trace: Trace, chunks: list, n: int) -> None:
+    key = trace.__dict__.get("_torch_key")
+    if key is None:
+        key = trace.__dict__["_torch_key"] = next(_TRACE_KEYS)
+    for i, chunk in enumerate(chunks):
+        _CAPTURES[(key, i, _arg_shapes(chunk), n, capture_scope())] += 1
+
+
+# ---------------------------------------------------------------------------
+# Static state of one (trace, batch, shared tensors) key
+# ---------------------------------------------------------------------------
+class _Plan:
+    """The buffers every dispatch of one key runs in: the scratchpads and
+    one (N, L) tensor per batched tensor, allocated once (outside any graph
+    pool), plus the captured graphs. A dispatch copies its inputs in, runs
+    or replays the chunks and clones the stored tensors out, under
+    ``lock``. Shared tensors already on the device (weights) are read in
+    place: the key holds their ``data_ptr``s, so new weights get a new
+    plan. Any other shared input is copied into a buffer of its own."""
+
+    def __init__(self, trace: Trace, hw: VTAConfig, n: int, batched: dict,
+                 shared: dict, in_place: set, device: torch.device):
+        wgt_src = trace.__dict__.get("_wgt_sources")
+        if wgt_src is None:             # tensors gathered into WGT, once
+            wgt_src = trace.__dict__["_wgt_sources"] = {
+                op.tensor for op in trace.ops if isinstance(op, GatherLoad)
+                and op.buffer == Buffer.WGT}
+        nw = 1 if wgt_src <= set(shared) else n
+        zeros = functools.partial(torch.zeros, device=device)
+        self.inputs = {k: torch.empty((n, v[0].numel()), dtype=v.dtype,
+                                      device=device)
+                       for k, v in batched.items()}
+        self.inputs.update({k: torch.empty(v.numel(), dtype=v.dtype,
+                                           device=device)
+                            for k, v in shared.items() if k not in in_place})
+        self.in_place = in_place
+        self.st = {"inp": zeros((n, hw.inp_depth, hw.batch, hw.block_in),
+                                dtype=torch.int8),
+                   "wgt": zeros((nw, hw.wgt_depth, hw.block_out,
+                                 hw.block_in), dtype=torch.int8),
+                   "acc": zeros((n, hw.acc_depth, hw.batch, hw.block_out),
+                                dtype=torch.int32),
+                   "tensors": dict(self.inputs)}
+        self.warm = False               # the first dispatch has run
+        self.graphs: Optional[list] = None   # [(graph, launches)], card
+        self.pool = None
+        self.lock = threading.Lock()
+
+    def load(self, n: int, batched: dict, shared: dict) -> None:
+        for k, v in batched.items():
+            self.inputs[k].copy_(v.reshape(n, -1))
+        for k, v in shared.items():
+            if k in self.in_place:
+                self.st["tensors"][k] = v.reshape(-1)
+            else:
+                self.inputs[k].copy_(v.reshape(-1))
+
+    def unload(self) -> None:
+        """Drop the references to in-place shared tensors, so a plan left
+        behind by new weights keeps no old ones alive."""
+        for k in self.in_place:
+            self.st["tensors"].pop(k, None)
+
+
+_PLANS_LOCK = threading.Lock()
+
+
+# ---------------------------------------------------------------------------
 # The backend object
 # ---------------------------------------------------------------------------
 class TorchBackend:
-    """Eager PyTorch executor of the lowered trace, batched over images.
+    """PyTorch executor of the lowered trace, batched over images.
 
     ``device`` defaults to ``"cuda"`` with the hand-written kernels
     (``gemm_impl = alu_impl = "cuda"``) and raises when no CUDA device is
     present; ``device="cpu"`` runs the plain versions (``"torch"``).
+
+    The knobs mirror ``fsim_jax.JaxBackend``: the trace runs as chunks of at
+    most ``chunk_cap`` entries (``_chunk_plan``); ``alu_fusion`` runs each
+    fused ALU chain as one stage-program kernel, ``segment_fusion`` a
+    compiler-marked segment as one chunk. Both off is the per-op chunked
+    baseline. On the card the first dispatch of a (trace, batch, shared
+    tensors) key runs eagerly (warming every device-side cache: scalars,
+    stage programs, the kernel build) and then captures each chunk as one
+    CUDA graph into one memory pool of the key; every later dispatch copies
+    its inputs into the key's buffers and replays the graphs in order. A
+    capture that fails raises: there is no eager fallback on the card. On
+    the CPU the same chunks run eagerly through the same buffers.
     """
 
     name = "torch"
 
-    def __init__(self, device: Optional[str] = None):
+    def __init__(self, device: Optional[str] = None, chunk_cap: int = 24,
+                 alu_fusion: bool = True, segment_fusion: bool = True):
         device = torch.device(device or "cuda")
         if device.type == "cuda":
             if not torch.cuda.is_available():
@@ -370,6 +574,8 @@ class TorchBackend:
                     "the 'torch' backend runs on a CUDA device and none is "
                     "available; use TorchBackend(device='cpu') ('torch-cpu')")
             impl = "cuda"
+            if device.index is None:
+                device = torch.device("cuda", torch.cuda.current_device())
         elif device.type == "cpu":
             impl = "torch"
             self.name = "torch-cpu"
@@ -378,48 +584,123 @@ class TorchBackend:
         self.device = device
         self.gemm_impl = impl
         self.alu_impl = impl
+        self.chunk_cap = chunk_cap
+        self.alu_fusion = alu_fusion
+        self.segment_fusion = segment_fusion
 
-    def _tensor(self, v, copy: bool) -> torch.Tensor:
+    def chunks(self, trace: Trace) -> list:
+        """The trace's chunks under this backend's knobs: one dispatch
+        each."""
+        return _chunk_plan(trace, self.device, self.chunk_cap,
+                           self.alu_fusion, self.segment_fusion)
+
+    def _tensor(self, v) -> torch.Tensor:
         if isinstance(v, torch.Tensor):
-            t = v.to(self.device)
-            if copy and t.data_ptr() == v.data_ptr():
-                t = t.clone()
-            return t
-        # a copy, never a view of the caller's numpy buffer
-        return torch.tensor(np.asarray(v), device=self.device)
+            return v
+        return torch.from_numpy(np.array(v))     # a copy, never a view
+
+    def _plan(self, trace: Trace, hw: VTAConfig, n: int, batched: dict,
+              shared: dict, in_place: set) -> _Plan:
+        """The key's plan, made on its first dispatch. One plan lives per
+        (trace, batch, tensors' dtypes): new in-place shared tensors replace
+        it, graphs and pool with it."""
+        sig = (str(self.device), self.chunk_cap, self.alu_fusion,
+               self.segment_fusion, n,
+               tuple(sorted((k, v.dtype) for k, v in batched.items())),
+               tuple(sorted((k, v.dtype) for k, v in shared.items())))
+        ptrs = tuple(sorted((k, v.data_ptr()) for k, v in shared.items()
+                            if k in in_place))
+        with _PLANS_LOCK:
+            plans = trace.__dict__.setdefault("_torch_plans", {})
+            hit = plans.get(sig)
+            if hit is None or hit[0] != ptrs:
+                hit = plans[sig] = (ptrs, _Plan(trace, hw, n, batched, shared,
+                                                in_place, self.device))
+        return hit[1]
+
+    def _run_chunk(self, st: dict, chunks: list, i: int) -> None:
+        if i == 0:
+            # every dispatch starts from zeroed scratchpads, as numpy's FSim
+            # and the reference's jnp.zeros do; inside chunk 0's graph
+            for k in ("inp", "wgt", "acc"):
+                st[k].zero_()
+        _exec(chunks[i], st, self.gemm_impl, self.alu_impl)
+
+    def _capture(self, plan: _Plan, chunks: list) -> None:
+        """One CUDA graph per chunk, into the plan's memory pool, on a side
+        stream. Each graph keeps the kernel launches its capture recorded
+        (the wrappers count them as they run) and adds them to the counters
+        on each replay; the capture itself counts none. By
+        ``CUDAGraph.capture_begin``, not ``torch.cuda.graph``, which would
+        collect garbage and empty the allocator's cache at every chunk."""
+        plan.pool = torch.cuda.graph_pool_handle()
+        torch.cuda.synchronize(self.device)    # the eager run is done
+        graphs = []
+        with torch.cuda.stream(torch.cuda.Stream(self.device)):
+            for i in range(len(chunks)):
+                before = launch_counts()
+                g = torch.cuda.CUDAGraph()
+                g.capture_begin(pool=plan.pool,
+                                capture_error_mode="thread_local")
+                try:
+                    self._run_chunk(plan.st, chunks, i)
+                except BaseException:
+                    try:
+                        g.capture_end()
+                    except RuntimeError:
+                        pass                    # the chunk's error wins
+                    raise
+                g.capture_end()
+                after = launch_counts()
+                launches = {k: after[k] - before[k] for k in after
+                            if after[k] != before[k]}
+                add_launch_counts({k: -v for k, v in launches.items()})
+                graphs.append((g, launches))
+        plan.graphs = graphs
 
     def _execute(self, trace: Trace, hw: VTAConfig, batched: dict,
                  shared: Optional[dict] = None) -> dict:
         """``batched``: tensors with a leading batch axis N; ``shared``:
         single tensors every image reads (never stores into). Returns the
-        stored tensors as (N, ...) tensors on the device."""
+        stored tensors as (N, ...) tensors on the device, never the plan's
+        own buffers."""
+        global _DISPATCHES
         shared = shared or {}
         assert not (set(trace.tensors_written) & set(shared)), \
             "programs must not store into shared tensors"
-        written = set(trace.tensors_written)
+        # shared tensors the caller keeps on the device are read in place;
+        # anything else is copied in, so a fresh host array per call still
+        # meets the same plan
+        in_place = {k for k, v in shared.items()
+                    if isinstance(v, torch.Tensor) and v.device == self.device
+                    and v.is_contiguous()}
+        batched = {k: self._tensor(v) for k, v in batched.items()}
+        shared = {k: self._tensor(v) for k, v in shared.items()}
         n = next(iter(batched.values())).shape[0]
-        shapes = {k: tuple(v.shape) for k, v in batched.items()}
-        tensors = {k: self._tensor(v, k in written).reshape(n, -1)
-                   for k, v in batched.items()}
-        tensors.update({k: self._tensor(v, False).reshape(-1)
-                        for k, v in shared.items()})
-        wgt_src = trace.__dict__.get("_wgt_sources")
-        if wgt_src is None:             # tensors gathered into WGT, once
-            wgt_src = trace.__dict__["_wgt_sources"] = {
-                op.tensor for op in trace.ops if isinstance(op, GatherLoad)
-                and op.buffer == Buffer.WGT}
-        wgt_batched = not wgt_src <= set(shared)
-        dev = self.device
-        st = {"inp": torch.zeros((n, hw.inp_depth, hw.batch, hw.block_in),
-                                 dtype=torch.int8, device=dev),
-              "wgt": torch.zeros((n if wgt_batched else 1, hw.wgt_depth,
-                                  hw.block_out, hw.block_in),
-                                 dtype=torch.int8, device=dev),
-              "acc": torch.zeros((n, hw.acc_depth, hw.batch, hw.block_out),
-                                 dtype=torch.int32, device=dev),
-              "tensors": tensors}
-        _exec(_device_ops(trace, dev), st, self.gemm_impl, self.alu_impl)
-        return {t: tensors[t].reshape(shapes[t]) for t in trace.tensors_written}
+        chunks = self.chunks(trace)
+        plan = self._plan(trace, hw, n, batched, shared, in_place)
+        with plan.lock:
+            plan.load(n, batched, shared)
+            st = plan.st
+            if plan.graphs is None:
+                if not plan.warm:
+                    _note_capture(trace, chunks, n)
+                for i in range(len(chunks)):
+                    _DISPATCHES += 1
+                    self._run_chunk(st, chunks, i)
+            else:
+                for g, launches in plan.graphs:
+                    _DISPATCHES += 1
+                    g.replay()
+                    add_launch_counts(launches)
+            outs = {t: st["tensors"][t].clone().reshape(batched[t].shape)
+                    for t in trace.tensors_written}
+            if not plan.warm:
+                plan.warm = True
+                if self.device.type == "cuda":
+                    self._capture(plan, chunks)
+            plan.unload()
+        return outs
 
     # -- Backend protocol --------------------------------------------------
     def run(self, prog: Program, hw: VTAConfig, dram: dict) -> None:
@@ -440,3 +721,39 @@ class TorchBackend:
         shapes.update({k: tuple(v.shape[1:]) for k, v in batched.items()})
         trace = lower_cached(prog, hw, shapes)
         return self._execute(trace, hw, batched, shared)
+
+    # -- divergence debugging (vta/trace.py) -------------------------------
+    def run_stepped(self, prog: Program, hw: VTAConfig, dram: dict,
+                    hook) -> None:
+        """``fsim_jax.JaxBackend.run_stepped``: one instruction at a time,
+        each op its own singleton chunk run eagerly (never captured, never
+        counted), calling ``hook(step, insn, state)`` after each; ``state``
+        exposes numpy ``inp``/``wgt``/``acc``/``uop`` snapshots shaped like
+        the numpy FSim's, so vta/trace.py digests every backend alike."""
+        shapes = {k: np.asarray(v).shape for k, v in dram.items()}
+        trace = lower_cached(prog, hw, shapes)
+        dev = self.device
+        st = {"inp": torch.zeros((1, hw.inp_depth, hw.batch, hw.block_in),
+                                 dtype=torch.int8, device=dev),
+              "wgt": torch.zeros((1, hw.wgt_depth, hw.block_out,
+                                  hw.block_in), dtype=torch.int8, device=dev),
+              "acc": torch.zeros((1, hw.acc_depth, hw.batch, hw.block_out),
+                                 dtype=torch.int32, device=dev),
+              "tensors": {k: torch.tensor(np.asarray(v), device=dev)
+                          .reshape(1, -1) for k, v in dram.items()}}
+        uop = np.zeros((hw.uop_depth, 3), np.int64)
+        for step, (insn, op) in enumerate(zip(trace.insns, trace.ops)):
+            if isinstance(op, UopLoad):
+                uop[op.base:op.base + len(op.values)] = op.values
+            elif op is not None:
+                mini = Trace(hw=hw, insns=[insn], ops=[op], touches=[])
+                _exec(_device_ops(mini, dev), st, self.gemm_impl,
+                      self.alu_impl)
+            if hook is not None:
+                hook(step, insn, types.SimpleNamespace(
+                    inp=st["inp"][0].cpu().numpy(),
+                    wgt=st["wgt"][0].cpu().numpy(),
+                    acc=st["acc"][0].cpu().numpy(), uop=uop))
+        for name in trace.tensors_written:
+            dram[name][...] = st["tensors"][name].reshape(
+                np.asarray(dram[name]).shape).cpu().numpy()

@@ -1,9 +1,11 @@
 """Guards against drift between the port's copies and the JAX package.
 
 The port keeps its own copies of the JAX-free VTA plane (tps, isa, runtime,
-graph, workloads, lowering, scheduler, compiler): the Program and the Trace
-they build must stay identical to the JAX package's. Tolerance: 0 — the
-128-bit instruction encodings and every index array are compared exactly.
+graph, workloads, lowering, scheduler, compiler, the numpy FSim and the
+trace recorder): the Program and the Trace they build, the FSim's outputs
+and the recorder's digests must stay identical to the JAX package's.
+Tolerance: 0 — the 128-bit instruction encodings, every index array and
+every output byte are compared exactly.
 """
 import dataclasses
 import enum
@@ -28,16 +30,26 @@ SRC = os.path.join(os.path.dirname(__file__), os.pardir, "src")
 def test_port_imports_neither_jax_nor_repro():
     code = (
         "import sys\n"
+        "import numpy as np\n"
         "import repro_torch, repro_torch.kernels\n"
         "import repro_torch.kernels.vta_gemm, repro_torch.kernels.alu_sweep\n"
         "import repro_torch.kernels._build\n"
         "import repro_torch.kernels.ops, repro_torch.kernels.ref\n"
         "import repro_torch.kernels.flash_attention\n"
         "import repro_torch.vta.fsim_torch, repro_torch.vta.backend\n"
+        "import repro_torch.vta.fsim, repro_torch.vta.trace\n"
         "import repro_torch.serve.engine, repro_torch.serve.model\n"
         "from repro_torch.serve.model import served_model\n"
         "m = served_model('resnet18', 'tiny')\n"
         "m.run_batch(m.random_images(1), 'torch-cpu')\n"
+        "from repro_torch.vta.trace import record_trace\n"
+        "seg = m.segments[0].program\n"
+        "dram = {t: np.zeros(s, np.int8) for t, s in m.shapes.items()}\n"
+        "dram.update(m.weights)\n"
+        "steps = [record_trace(seg, m.hw, dict(dram), backend=b)\n"
+        "         for b in ('numpy', 'torch-cpu')]\n"
+        "assert [s.digests for s in steps[0]] == \\\n"
+        "    [s.digests for s in steps[1]]\n"
         "import torch\n"
         "x = torch.ones((1, 2, 4, 8))\n"
         "repro_torch.kernels.ops.flash_attention(x, x[:, :1], x[:, :1],\n"
@@ -114,3 +126,63 @@ def test_full_width_trunk_compiles_identically():
     for k, v in a.weights.items():
         np.testing.assert_array_equal(b.weights[k], v)
     _assert_same_model(a, b)
+
+
+@pytest.mark.parametrize("name", ["resnet18", "mobilenet"])
+def test_numpy_fsim_copy_matches_the_original(name):
+    """The port's ``vta/fsim.py`` gives the JAX package's numpy backend's
+    bytes, segment by segment, on the served models."""
+    a = jmodel.served_model(name, "small")
+    b = tmodel.served_model(name, "small")
+    img = a.random_images(1, seed=6)[0]
+    np.testing.assert_array_equal(b.run_single(img, "numpy"),
+                                  a.run_single(img, "numpy"))
+    np.testing.assert_array_equal(b.run_batch(img[None], "numpy"),
+                                  a.run_batch(img[None], "numpy"))
+
+
+def test_numpy_fsim_references_match_the_original():
+    from repro.vta import fsim as jfsim
+    from repro_torch.vta import fsim as tfsim
+    rng = np.random.default_rng(8)
+    x = rng.integers(-128, 128, (2, 16, 9, 9), dtype=np.int8)
+    w = rng.integers(-8, 8, (32, 16, 3, 3), dtype=np.int8)
+    dw = rng.integers(-8, 8, (16, 3, 3), dtype=np.int8)
+    for fn, args in (("conv2d_ref", (x, w, (2, 2), (1, 1))),
+                     ("depthwise_ref", (x, dw, (1, 1), (1, 1)))):
+        got = getattr(tfsim, fn)(*args)
+        np.testing.assert_array_equal(got, getattr(jfsim, fn)(*args))
+        for post in ("relu_shift", "clip_shift"):
+            np.testing.assert_array_equal(tfsim.post_op_ref(got, post),
+                                          jfsim.post_op_ref(got, post))
+    for mode in ("max", "avg"):
+        args = (x, (3, 3), (2, 2), (1, 1), mode)
+        np.testing.assert_array_equal(tfsim.pool_ref(*args),
+                                      jfsim.pool_ref(*args))
+
+
+def test_trace_copy_digests_match_the_original():
+    """The port's ``vta/trace.py`` records the JAX package's digests, step
+    by step, on one depthwise program."""
+    from repro.core.tps import ConvWorkload as JConvWorkload
+    from repro.vta import scheduler as jsched
+    from repro.vta.trace import record_trace as j_record_trace
+    from repro_torch.core.tps import ConvWorkload
+    from repro_torch.vta import scheduler as tsched
+    from repro_torch.vta.trace import record_trace
+    args = ("dw", 1, 8, 8, 3, 3, 16, 16, 1, 1, 2, 2)
+    jprog = jsched.schedule_depthwise(JConvWorkload(*args, depthwise=True),
+                                      jisa.DEFAULT_VTA).program
+    tprog = tsched.schedule_depthwise(ConvWorkload(*args, depthwise=True),
+                                      tisa.DEFAULT_VTA).program
+    rng = np.random.default_rng(3)
+    dram = {"inp": rng.integers(-128, 128, (1, 16, 8, 8), dtype=np.int8),
+            "dw_wgt": rng.integers(-8, 8, (16, 3, 3), dtype=np.int8),
+            "out": np.zeros((1, 16, 4, 4), np.int8)}
+    a = j_record_trace(jprog, jisa.DEFAULT_VTA,
+                       {k: v.copy() for k, v in dram.items()})
+    b = record_trace(tprog, tisa.DEFAULT_VTA,
+                     {k: v.copy() for k, v in dram.items()})
+    assert len(a) == len(b) == len(tprog.order)
+    assert [(s.step, s.insn, s.digests) for s in a] == \
+        [(s.step, s.insn, s.digests) for s in b]

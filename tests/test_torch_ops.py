@@ -5,9 +5,10 @@ JAX package's ``repro.kernels.ops`` (Pallas, interpret mode on the CPU) and
 Each test makes its inputs with numpy from a seed and hands the same arrays
 to both packages. Tolerances are those of tests/test_kernels.py: GEMM 1e-5
 in f32, 2e-2 in bf16 and 1e-4 with an epilogue (sums taken in another order);
-ALU 1e-6; depthwise and pooling 1e-5. On int-valued inputs every partial sum
-is exact in f32, so those cases are bit-exact against the VTA numpy oracles
-(``repro.vta.fsim``). On CPU tensors the wrappers take the plain versions and
+ALU 1e-6; depthwise and pooling 1e-5, and f32 depthwise against the JAX
+kernel the same bits (both contract their taps alike). On int-valued
+inputs every partial sum is exact in f32, so those cases are bit-exact
+against the VTA numpy oracles (``repro.vta.fsim``). On CPU tensors the wrappers take the plain versions and
 count no launch.
 """
 import jax.numpy as jnp
@@ -137,8 +138,26 @@ def test_depthwise(stride, pad, c, h):
     got = ops.depthwise_conv(xt, wt, stride=stride, pad=pad)
     want = jops.depthwise_conv(xj, wj, stride=stride, pad=pad)
     assert got.shape == want.shape
-    _close(got, want, 1e-5)
+    _same_bits(got, want)
     _close(got, jref.depthwise_ref(xj, wj, stride=stride, pad=pad), 1e-5)
+
+
+def _same_bits(got, want):
+    np.testing.assert_array_equal(_np(got).view(np.int32),
+                                  np.asarray(want, np.float32).view(np.int32))
+
+
+@pytest.mark.parametrize("k", [3, 5])
+@pytest.mark.parametrize("pad", [0, 1])
+@pytest.mark.parametrize("stride", [1, 2])
+def test_depthwise_bits_match_jax(stride, pad, k):
+    """On normal f32 values the taps contract as XLA's CPU build of the
+    reference does (fma(x0, w0, x1*w1), then fma(x_k, w_k, acc)): the
+    same bits, not only within 1e-5."""
+    xj, xt = _pair(_normal((2, 14, 14, 32)))
+    wj, wt = _pair(_normal((k, k, 32)))
+    got = ops.depthwise_conv(xt, wt, stride=stride, pad=pad)
+    _same_bits(got, jops.depthwise_conv(xj, wj, stride=stride, pad=pad))
 
 
 @pytest.mark.parametrize("mode", ["max", "avg"])
