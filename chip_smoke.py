@@ -122,11 +122,49 @@ order; any failure raises and the script exits nonzero:
    exactly 0 in rows 0-31 from both. The combine kernel is also held alone
    against its plain version on the decode kernel's partials (one step of
    the output type, plus 1e-6).
+6. The worker pool (``pool_checks``). Scale-out: the trunk through
+   ``VTAServeEngine(buckets=(2, 8), workers=WorkerPool(models, n,
+   transport="thread"))`` with the default ladder, for n = 1 and then 2;
+   each bucket's first dispatch runs alone and untimed (``warm_pool``: the
+   eager run and the capture, its ``memory_reserved`` growth given to the
+   worker that owns the bucket), then ``POOL_ROUNDS`` rounds of 8 then 2
+   trunk images (``round_images``), launch counts, dispatches and metrics
+   zeroed just before and read just after. Checks, each a count of what
+   failed: every answer equal to ``"torch-cpu"`` and request 0 to
+   ``TRUNK_DIGEST``; the affinity map (bucket 8 on worker 0, bucket 2 on
+   worker n-1), hit rate 1.0, nothing reassigned; every capture-log key
+   once, in the scope of its bucket's owner, none during the rounds;
+   kernel launches and dispatches per forward equal to phase 3's; no step
+   down the ladder and no breaker transition; each worker on a stream of
+   its own, not the default stream. Images/s is all the images of the
+   rounds over their summed wall time; the speedup of 2 workers over 1 is
+   the ratio of images/s. Cold race (``cold_race``): a fresh 2-worker pool
+   takes bucket 8 and bucket 2 together, cold, so that both workers run
+   eagerly and capture at once on their own streams, then a replayed
+   round; both rounds bit-equal to ``"torch-cpu"`` and the digest, each
+   capture-log key once in its owner's scope, each round's launches and
+   dispatches those of two forwards, no worker's executor raising.
+   Worker-death drill: a seeded ``worker.die`` on worker 1 at its
+   dispatch ``DEATH_AFTER + 1``; every ticket ok and bit-exact, bucket 2
+   moves to worker 0, which captures it once in its own scope. Ladder
+   drill (resnet18-small, one inline worker, ``FakeClock``): a
+   ``kernel.impl`` fault keyed ``gemm:cuda`` fires 3 times with
+   ``fail_threshold=2``; the batches go down to ``"torch-cpu"`` and back
+   (``LADDER_SERVED``), bit-exact, each step down counted in ``fallbacks``,
+   and the ``"torch"`` rung's log runs closed->open, open->half_open, ...,
+   half_open->closed; a fault of the card that is not injected (a launch
+   error) is raised to the caller, with no step down and no breaker moved
+   (``card_error_errors``). Process transport: one spawned worker on backend
+   ``"torch"`` and resnet18-small from the registry, its answers equal to
+   ``"torch-cpu"``, and the child reports the card's name.
 
 Output: one line per kernel (and per phase-4 case), ms per dispatch per
 bucket (median, min, max), then a JSON line of serving numbers (per bucket,
-the capture cost per bucket and the ``profile:`` numbers), a JSON line
-of kernel numbers, the ``nvidia-smi`` line, and last the device line. Kernel
+the capture cost per bucket and the ``profile:`` numbers), a JSON line of
+the pool's numbers (``{"pool": ...}``: per n, ms per round, images/s and per
+worker batches, busy ms and reserved MB; the speedup), a JSON line of
+kernel numbers (the VTA rows also give ``launches_pool``, their launches
+in the 2-worker rounds), the ``nvidia-smi`` line, and last the device line. Kernel
 times are medians of CUDA-event timings. Each VTA kernel row sums its
 launches over one forward of the model named in ``per``
 (``launches_per_forward``), while ``launches`` is the count over the whole
@@ -146,7 +184,7 @@ boolean mask carries a window). The call is a yardstick here only: the port
 never makes it.
 
 ``--plant-faults`` runs none of the phases. It shows that the limits of
-phases 2-5 fail a wrong kernel or executor: the checkout is copied into a
+phases 2-6 fail a wrong kernel, executor or pool: the checkout is copied into a
 temporary directory once as it is and once per fault of ``PLANTED_FAULTS``
 (a text substitution: a key tile from 4096 skipped, or the window 64 keys
 too wide, in each of the three attention routes; the f32 prefill's score
@@ -158,16 +196,20 @@ the last tap of every compiled pooling window not taken; the last
 reduction row of every VTA GEMM group
 dropped; one thread's partial of a split tap reduction dropped; a captured
 dispatch that does not zero the scratchpads, and one that replays every
-chunk of a trace but the last), the
+chunk of a trace but the last; plans shared by every worker,
+``pool.shared_plans``, a card rung that steps down for a fault of the
+card, ``ladder.card_error_steps_down``, and a step down the ladder left
+uncounted, ``ladder.uncounted_step_down``), the
 unchanged sources are built once into a build directory the copies share,
 and each copy builds its changed source and runs the cases of its route
 through their limit checks (``--case-errors``, three copies at a time): the
 phase-5 cases and those of ``FAULT_CASES`` through ``attention_error``, the
 phase-4 and edge cases of the float GEMM, depthwise, ALU or pooling kernel
 (the exact ones by value and by bits), phase 2's
-cases of the VTA GEMM or the ALU stage-program kernel, or phase 3's checks
-(``serve_checks``, one line a check); the unchanged copy runs all of
-them. One JSON line per (fault, case) gives the kernel's error
+cases of the VTA GEMM or the ALU stage-program kernel, phase 3's checks
+(``serve_checks``, one line a check), or phase 6's (``pool_checks``: the
+scale-out, the cold race and the drill for route ``pool``, the ladder drill for
+``ladder``); the unchanged copy runs all of them. One JSON line per (fault, case) gives the kernel's error
 and its limit (attention: the kernel's and the plain version's largest
 error against float64, the largest |out| and the elements over the limit).
 It exits 0 only if the unchanged kernels pass every case and each fault
@@ -185,6 +227,7 @@ import subprocess
 import sys
 import tempfile
 import time
+import traceback
 
 import numpy as np
 
@@ -1956,7 +1999,488 @@ def check_attention(cases, outs: dict) -> dict:
 
 
 # ---------------------------------------------------------------------------
-# --plant-faults: the limits of phases 4 and 5 against wrong kernels
+# phase 6: the worker pool, its ladder and its transports
+# ---------------------------------------------------------------------------
+TRUNK = "resnet18-trunk"
+SMALL = "resnet18-small"
+POOL_ROUNDS = 10         # rounds of the scale-out burst, each 8 then 2 images
+DRILL_ROUNDS = 6         # rounds of the worker-death drill
+DEATH_AFTER = 3          # worker 1's dispatches before the drill kills it
+LADDER_DISPATCHES = 8    # batches of the ladder drill
+LADDER_SERVED = ("torch-cpu",) * 5 + ("torch",) * 3   # rung of each batch
+
+
+def round_images(r: int) -> list:
+    """The trunk images (indices into ``random_images(8, seed=0)``) of
+    burst round ``r``: all 8, then 2 of them, so that the 8 fill bucket 8
+    and the 2 bucket 2."""
+    return list(range(8)) + [(2 * r) % 8, (2 * r + 1) % 8]
+
+
+def spy_streams(pool, seen: dict) -> None:
+    """Wrap each worker's ``"torch"`` rung so that every batch it computes
+    records the stream current on its thread: ``seen[worker id]``."""
+    import torch
+    for w in pool.workers:
+        for rung in w.executor.rungs:
+            if rung.name != "torch":
+                continue
+
+            def spy(key, images, bucket, _inner=rung.executor, _wid=w.id):
+                seen.setdefault(_wid, set()).add(
+                    torch.cuda.current_stream().cuda_stream)
+                return _inner(key, images, bucket)
+            rung.executor = spy
+
+
+def stream_errors(pool, seen: dict) -> int:
+    """Workers that ran on no stream of their own, on the default stream,
+    or on a stream another worker ran on."""
+    import torch
+    default = torch.cuda.default_stream().cuda_stream
+    mine = [w.stream.cuda_stream if w.stream is not None else None
+            for w in pool.workers]
+    bad = sum(s is None or s == default for s in mine)
+    bad += len(mine) - len(set(mine))
+    return bad + sum(seen.get(w.id, set()) != {mine[w.id]}
+                     for w in pool.workers if w.live)
+
+
+def capture_errors(log: dict, owners: dict, graphs: int) -> int:
+    """Capture-log keys away from ``owners`` ({batch: worker id}: each
+    (trace, chunk) of a bucket captured once, in its owner's scope, and
+    nothing else): keys captured more than once, scopes that are not the
+    owner's, and buckets short of ``graphs`` keys."""
+    bad = sum(v != 1 for v in log.values())
+    want = {(b, f"worker{w}") for b, w in owners.items()}
+    got: dict = {}
+    for sig in log:
+        got[(sig[3], sig[4])] = got.get((sig[3], sig[4]), 0) + 1
+    bad += sum(k not in want for k in got)
+    return bad + sum(abs(got.get(k, 0) - graphs) for k in want)
+
+
+def served_errors(results, ref) -> int:
+    """Answers (image index, output) that differ from ``"torch-cpu"``."""
+    return sum(o.dtype != np.int8 or not np.array_equal(o, ref[i])
+               for i, o in results)
+
+
+def warm_pool(eng, pool, imgs) -> tuple:
+    """Each bucket's first dispatch alone, untimed: bucket 8 then bucket 2,
+    each an eager run plus the capture of its chunks on the worker that
+    cold placement gives it. Returns (answers, {worker id: MB of
+    ``memory_reserved`` growth over its first dispatches})."""
+    import gc
+    import torch
+    gc.collect()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    grown = {w.id: 0.0 for w in pool.workers}
+    results = []
+    for b in (8, 2):
+        torch.cuda.synchronize()
+        held = torch.cuda.memory_reserved()
+        tks = [(i, eng.submit("t0", TRUNK, imgs[i])) for i in range(b)]
+        eng.drain()
+        torch.cuda.synchronize()
+        grown[pool.affinity[(TRUNK, b)]] += \
+            (torch.cuda.memory_reserved() - held) / 1e6
+        results += [(i, t.result(timeout=0)) for i, t in tks]
+    return results, grown
+
+
+def burst(eng, imgs, rounds: int) -> tuple:
+    """``rounds`` rounds of ``round_images``, each drained before the next.
+    Returns (answers in submission order, seconds per round)."""
+    results, secs = [], []
+    for r in range(rounds):
+        t0 = time.perf_counter()
+        tks = [(i, eng.submit("t0", TRUNK, imgs[i])) for i in round_images(r)]
+        eng.drain()
+        secs.append(time.perf_counter() - t0)
+        results += [(i, t.result(timeout=0)) for i, t in tks]
+    return results, secs
+
+
+def profile_round(eng, imgs) -> tuple:
+    """One more burst round under ``torch.profiler``: host wall, the device
+    kernels' summed time, the union of their intervals (busy time: what
+    the two workers' kernels overlap counts once), the overlap factor
+    (sum over union; 1.0 is no overlap) and the idle share (1 - union over
+    wall). Returns (answers, numbers); the numbers are None where the
+    profiler saw no device kernel."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        results, secs = burst(eng, imgs, 1)
+    spans = sorted((e.time_range.start, e.time_range.end)
+                   for e in prof.events()
+                   if e.device_type == DeviceType.CUDA
+                   and e.time_range.end > e.time_range.start)
+    if not spans:
+        return results, None
+    union, (lo, hi) = 0, spans[0]
+    for a, b in spans[1:]:
+        if a > hi:
+            union, lo, hi = union + hi - lo, a, b
+        else:
+            hi = max(hi, b)
+    union += hi - lo
+    total = sum(b - a for a, b in spans)
+    return results, dict(wall_ms=secs[0] * 1e3, kernels=len(spans),
+                         kernel_sum_ms=total / 1e3, busy_ms=union / 1e3,
+                         overlap=total / union,
+                         idle_share=1 - union / 1e3 / (secs[0] * 1e3))
+
+
+def scale_out(trunk, n: int, imgs, ref, per_fwd: dict, graphs: int) -> tuple:
+    """The trunk through ``VTAServeEngine(buckets=(2, 8), workers=
+    WorkerPool(models, n, transport="thread"))`` with the default ladder:
+    ``warm_pool``, then ``POOL_ROUNDS`` rounds with launch counts,
+    dispatches and metrics zeroed just before and read just after. Returns
+    (row, errors)."""
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.serve.engine import VTAServeEngine
+    from repro_torch.serve.workers import WorkerPool
+    from repro_torch.vta import fsim_torch
+    models = {TRUNK: trunk}
+    pool = WorkerPool(models, n, transport="thread")
+    seen: dict = {}
+    spy_streams(pool, seen)
+    eng = VTAServeEngine(models, buckets=(2, 8), workers=pool)
+    errs = {}
+    try:
+        fsim_torch.reset_capture_log()
+        warm, grown = warm_pool(eng, pool, imgs)
+        warm_log = fsim_torch.capture_log()
+        metrics = eng.reset_metrics()
+        reset_launch_counts()
+        fsim_torch.reset_kernel_launch_log()
+        results, secs = burst(eng, imgs, POOL_ROUNDS)
+        counts = launch_counts()
+        dispatches = fsim_torch.kernel_launch_log()
+        snap = metrics.snapshot()
+        captured = fsim_torch.capture_log()
+        profiled, prof = profile_round(eng, imgs)
+        owners = {b: pool.affinity[(TRUNK, b)] for b in (8, 2)}
+        errs["outputs"] = served_errors(warm + results + profiled, ref)
+        errs["digest"] = int(results[0][0] != 0 or hashlib.sha256(
+            results[0][1].tobytes()).hexdigest() != TRUNK_DIGEST)
+        errs["affinity"] = int(owners != {8: 0, 2: n - 1}) + int(
+            snap["workers"]["affinity"]["hit_rate"] != 1.0) + \
+            snap["workers"]["affinity"]["reassigned"]
+        errs["captures"] = capture_errors(warm_log, owners, graphs) + int(
+            captured != warm_log)
+        fwd = 2 * POOL_ROUNDS
+        errs["launches"] = sum(counts.get(k, 0) != fwd * v
+                               for k, v in per_fwd.items()) + \
+            abs(dispatches - fwd * graphs)
+        errs["ladder"] = len(metrics.fallbacks) + sum(
+            len(v) for w in pool.workers
+            for v in w.executor.breaker_log().values()) + sum(
+            len(v) for v in pool.breaker_log().values())
+        errs["streams"] = stream_errors(pool, seen)
+    finally:
+        eng.close()
+    ms = [s * 1e3 for s in secs]
+    med = statistics.median(ms)
+    row = dict(workers=n, rounds=POOL_ROUNDS, images_per_round=10,
+               ms_per_round_median=med, ms_per_round_min=min(ms),
+               ms_per_round_max=max(ms), wall_ms=sum(ms),
+               images_per_s=10 * POOL_ROUNDS * 1e3 / sum(ms),
+               per_worker={w: dict(batches=v["dispatches"],
+                                   busy_ms=v["busy_s"] * 1e3,
+                                   reserved_mb=grown[int(w)])
+                           for w, v in snap["workers"]["per_worker"].items()},
+               launches=counts, dispatches=dispatches, profile=prof)
+    log(f"pool n={n}: {POOL_ROUNDS} rounds of 8 + 2 trunk images, ms per "
+        f"round median {med:.1f} (min {min(ms):.1f}, max {max(ms):.1f}), "
+        f"{row['images_per_s']:.2f} images/s ({10 * POOL_ROUNDS} images "
+        f"over {sum(ms):.1f} ms); per worker "
+        + "; ".join(f"worker{w}: {v['batches']} batches, busy "
+                    f"{v['busy_ms']:.1f} ms, captures reserved "
+                    f"{v['reserved_mb']:.1f} MB"
+                    for w, v in row["per_worker"].items())
+        + f"; checks {errs}")
+    if prof is None:
+        log(f"pool n={n} profile: the profiler saw no device kernel")
+    else:
+        log(f"pool n={n} profile of one more round: wall "
+            f"{prof['wall_ms']:.1f} ms, {prof['kernels']} device kernels, "
+            f"their sum {prof['kernel_sum_ms']:.2f} ms, device busy (union) "
+            f"{prof['busy_ms']:.2f} ms, overlap {prof['overlap']:.3f}, idle "
+            f"share {prof['idle_share']:.3f}")
+    return row, errs
+
+
+def cold_race(trunk, imgs, ref, per_fwd: dict, graphs: int) -> dict:
+    """A fresh pool of two thread workers takes its first round cold:
+    bucket 8 and bucket 2 submitted together, so that each worker runs its
+    key eagerly and captures it while the other does the same on its own
+    stream (memos built, weights uploaded, graphs captured at once). A
+    second round replays. Both rounds' answers must be bit-equal to
+    ``"torch-cpu"`` and request 0 to ``TRUNK_DIGEST``; bucket 8 on worker 0
+    and bucket 2 on worker 1, each capture-log key once in its owner's
+    scope; each round's launches and dispatches those of two forwards; no
+    worker's executor raised."""
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.serve.engine import VTAServeEngine
+    from repro_torch.serve.workers import WorkerPool
+    from repro_torch.vta import fsim_torch
+    models = {TRUNK: trunk}
+    pool = WorkerPool(models, 2, transport="thread")
+    raised: list = []
+    for w in pool.workers:
+        def watch(key, images, bucket, _inner=w.executor, _wid=w.id):
+            try:
+                return _inner(key, images, bucket)
+            except Exception as e:                      # noqa: BLE001
+                raised.append(f"worker{_wid} bucket {bucket}: "
+                              f"{type(e).__name__}: {e}")
+                log("".join(traceback.format_exception(e)))
+                raise
+        w.executor = watch
+    eng = VTAServeEngine(models, buckets=(2, 8), workers=pool)
+    rounds = []
+    try:
+        fsim_torch.reset_capture_log()
+        for _ in range(2):
+            reset_launch_counts()
+            fsim_torch.reset_kernel_launch_log()
+            results, secs = burst(eng, imgs, 1)
+            rounds.append((results, launch_counts(),
+                           fsim_torch.kernel_launch_log(), secs[0]))
+        owners = {b: pool.affinity.get((TRUNK, b)) for b in (8, 2)}
+        log_ = fsim_torch.capture_log()
+    finally:
+        eng.close()
+    results = rounds[0][0] + rounds[1][0]
+    errs = {"race.outputs": served_errors(results, ref) + abs(
+                len(results) - 20),
+            "race.digest": int(results[0][0] != 0 or hashlib.sha256(
+                results[0][1].tobytes()).hexdigest() != TRUNK_DIGEST),
+            "race.raised": len(raised),
+            "race.affinity": int(owners != {8: 0, 2: 1}),
+            "race.captures": capture_errors(log_, {8: 0, 2: 1}, graphs),
+            "race.launches": sum(
+                sum(c.get(k, 0) != 2 * v for k, v in per_fwd.items())
+                + abs(d - 2 * graphs) for _, c, d, _ in rounds)}
+    log(f"cold race: bucket 8 and bucket 2 placed together on a fresh "
+        f"2-worker pool, owners {owners}; cold round {rounds[0][3]:.2f} s "
+        f"(eager runs and captures), replay round {rounds[1][3] * 1e3:.1f} "
+        f"ms; launches per round {rounds[0][1]} then {rounds[1][1]}; "
+        f"raised {raised}; checks {errs}")
+    return errs
+
+
+def death_drill(trunk, imgs, ref, graphs: int) -> dict:
+    """Two thread workers on the trunk; a seeded ``worker.die`` on worker 1
+    at its dispatch ``DEATH_AFTER + 1`` (warm-up included). Every ticket
+    must resolve ok and bit-exact, worker 1's bucket move to worker 0,
+    which captures it once in its own scope."""
+    from repro_torch.serve.engine import VTAServeEngine
+    from repro_torch.serve.faults import FaultInjector, FaultPlan, FaultSpec
+    from repro_torch.serve.workers import WorkerPool
+    from repro_torch.vta import fsim_torch
+    inj = FaultInjector(FaultPlan(seed=20, specs=(
+        FaultSpec("worker.die", key="1", after=DEATH_AFTER, times=1),)))
+    models = {TRUNK: trunk}
+    pool = WorkerPool(models, 2, transport="thread", faults=inj)
+    eng = VTAServeEngine(models, buckets=(2, 8), workers=pool, faults=inj)
+    errs = {}
+    try:
+        fsim_torch.reset_capture_log()
+        warm, _ = warm_pool(eng, pool, imgs)
+        results, _ = burst(eng, imgs, DRILL_ROUNDS)
+        snap = eng.metrics.snapshot()
+        errs["drill.outputs"] = served_errors(warm + results, ref) + abs(
+            len(warm + results) - 10 * (DRILL_ROUNDS + 1))
+        errs["drill.death"] = int(
+            [e["site"] for e in inj.events()] != ["worker.die"]
+            or pool.workers[1].live or not pool.workers[0].live
+            or snap["workers"]["per_worker"]["1"]["deaths"] != 1
+            or snap["workers"]["affinity"]["reassigned"] != 1)
+        log_ = fsim_torch.capture_log()
+        errs["drill.captures"] = capture_errors(
+            {k: v for k, v in log_.items() if k[4] == "worker1"}, {2: 1},
+            graphs) + capture_errors(
+            {k: v for k, v in log_.items() if k[4] == "worker0"},
+            {8: 0, 2: 0}, graphs) + int(pool.affinity != {(TRUNK, 8): 0,
+                                                            (TRUNK, 2): 0})
+    finally:
+        eng.close()
+    log(f"worker-death drill: worker 1 died at its dispatch "
+        f"{DEATH_AFTER + 1}, {10 * (DRILL_ROUNDS + 1)} tickets, affinity "
+        f"after {pool.affinity_map()}, events {inj.events()}; checks {errs}")
+    return errs
+
+
+def ladder_drill(small) -> dict:
+    """resnet18-small on one inline worker, FakeClock: a ``kernel.impl``
+    fault keyed ``gemm:cuda`` fires 3 times with ``fail_threshold=2`` and
+    ``cooldown_s=0.5``, the clock 0.3 s on after each batch. The batches
+    must move down to ``"torch-cpu"`` and back (``LADDER_SERVED``), stay
+    bit-exact, every step down counted in ``fallbacks``; the ``"torch"``
+    rung's log must run closed->open, open->half_open, ... half_open->closed."""
+    from repro_torch.serve.breaker import DegradingBackendExecutor
+    from repro_torch.serve.clock import FakeClock
+    from repro_torch.serve.engine import VTAServeEngine
+    from repro_torch.serve.faults import FaultInjector, FaultPlan, FaultSpec
+    from repro_torch.serve.metrics import ServeMetrics
+    from repro_torch.serve.workers import WorkerPool
+    from repro_torch.vta.backend import DEGRADATION_LADDER
+    clock, metrics = FakeClock(), ServeMetrics()
+    inj = FaultInjector(FaultPlan(seed=4, specs=(
+        FaultSpec("kernel.impl", key="gemm:cuda", times=3),)), clock=clock)
+    models = {SMALL: small}
+    pool = WorkerPool(models, 1, transport="inline", clock=clock, faults=inj,
+                      metrics=metrics,
+                      executor_factory=lambda wid: DegradingBackendExecutor(
+                          models, DEGRADATION_LADDER, clock=clock,
+                          faults=inj, metrics=metrics, fail_threshold=2,
+                          cooldown_s=0.5, key_prefix=f"w{wid}:"))
+    served: list = []
+    for rung in pool.workers[0].executor.rungs:
+        def record(key, images, bucket, _inner=rung.executor, _name=rung.name):
+            out = _inner(key, images, bucket)
+            served.append(_name)
+            return out
+        rung.executor = record
+    seen: dict = {}
+    spy_streams(pool, seen)
+    eng = VTAServeEngine(models, clock=clock, buckets=(SMALL_BUCKET,),
+                         workers=pool, metrics=metrics, faults=inj)
+    imgs = small.random_images(SMALL_BUCKET, seed=0)
+    ref = small.run_batch(imgs, "torch-cpu")
+    results = []
+    try:
+        for _ in range(LADDER_DISPATCHES):
+            tks = [(i, eng.submit("t1", SMALL, img))
+                   for i, img in enumerate(imgs)]
+            eng.drain()
+            clock.advance(0.3)
+            results += [(i, t.result(timeout=0)) for i, t in tks]
+    finally:
+        eng.close()
+    log_ = pool.workers[0].executor.breaker_log()["torch"]
+    want = ["closed->open", "open->half_open", "half_open->closed"]
+    it = iter(log_)
+    errs = {"ladder.outputs": served_errors(results, ref) + abs(
+                len(results) - SMALL_BUCKET * LADDER_DISPATCHES),
+            "ladder.rungs": int(tuple(served) != LADDER_SERVED),
+            "ladder.fallbacks": int(metrics.fallbacks != {
+                "torch-cpu": sum(s != "torch" for s in served)}),
+            "ladder.breaker": int(not all(w in it for w in want)
+                                  or log_[-1] != "half_open->closed"),
+            "ladder.stream": stream_errors(pool, seen),
+            "ladder.card_error": card_error_errors(models)}
+    log(f"ladder drill: rungs served {served}; fallbacks "
+        f"{metrics.fallbacks}; torch rung log {log_}; faults "
+        f"{inj.summary()}; checks {errs}")
+    return errs
+
+
+def card_error_errors(models: dict) -> int:
+    """A fault of the card that is not injected (here the error a kernel
+    that fails to launch raises) must leave the ladder as it is: raised to
+    the caller, no step down counted, no breaker moved. Counts what
+    failed."""
+    from repro_torch.serve.breaker import DegradingBackendExecutor
+    from repro_torch.serve.clock import FakeClock
+    from repro_torch.serve.metrics import ServeMetrics
+    from repro_torch.vta.backend import DEGRADATION_LADDER
+    metrics = ServeMetrics()
+    ladder = DegradingBackendExecutor(models, DEGRADATION_LADDER,
+                                      clock=FakeClock(), metrics=metrics,
+                                      fail_threshold=1)
+
+    def launch_fails(key, images, bucket):
+        raise RuntimeError("gemm: CUDA error 700 at launch")
+    ladder.rungs[0].executor = launch_fails
+    img = models[SMALL].random_images(1, seed=2)
+    try:
+        ladder(SMALL, [img[0]], SMALL_BUCKET)
+        raised = False
+    except RuntimeError as e:
+        raised = "CUDA error 700" in str(e)
+    bad = int(not raised) + int(bool(metrics.fallbacks)) + len(
+        metrics.breaker_log)
+    log(f"card error on the torch rung: raised {raised}, fallbacks "
+        f"{metrics.fallbacks}, breaker log {ladder.breaker_log()}")
+    return bad
+
+
+def process_check(small) -> dict:
+    """One spawned worker (``transport="process"``, backend ``"torch"``) on
+    resnet18-small from the registry: its answers bit-equal to
+    ``"torch-cpu"``, and the child's own report of its device."""
+    import torch
+    from repro_torch.serve.engine import VTAServeEngine
+    from repro_torch.serve.workers import WorkerPool
+    pool = WorkerPool(n=1, transport="process", backend="torch",
+                      process_specs={SMALL: ("resnet18", "small")})
+    eng = VTAServeEngine({SMALL: small}, buckets=(SMALL_BUCKET,),
+                         workers=pool)
+    imgs = small.random_images(SMALL_BUCKET, seed=1)
+    try:
+        t0 = time.perf_counter()
+        tks = [(i, eng.submit("t1", SMALL, img)) for i, img in enumerate(imgs)]
+        eng.drain()
+        results = [(i, t.result(timeout=300)) for i, t in tks]
+        secs = time.perf_counter() - t0
+        about = pool.workers[0].executor.describe()
+    finally:
+        eng.close()
+    errs = {"process.outputs": served_errors(
+                results, small.run_batch(imgs, "torch-cpu")),
+            "process.device": int(
+                about["device_name"] != torch.cuda.get_device_name(0)
+                or about["pid"] == os.getpid())}
+    log(f"process transport: child {about}, first batch (spawn, build, "
+        f"capture) {secs:.1f} s; checks {errs}")
+    return errs
+
+
+def pool_checks(trunk, small, route: str = "all") -> tuple:
+    """Phase 6 (``route`` "pool": the scale-out and the drill; "ladder":
+    the ladder drill; "all": both and the process transport). Returns
+    (errors, rows)."""
+    from repro_torch.vta.backend import get_backend
+    errs, rows = {}, []
+    if route in ("all", "pool"):
+        be = get_backend("torch")
+        imgs = trunk.random_images(8, seed=0)
+        ref = trunk.run_batch(imgs, "torch-cpu")
+        graphs = plan_length(trunk, be)
+        ops = model_ops(trunk, be.device)[0]
+        per_fwd = {k: sum(e[0] == kind for e in ops) for k, kind in (
+            ("gemm", "gemm"), ("alu_chain", "aluchain"),
+            ("alu_sweep", "alusweep"))}
+        for n in (1, 2):
+            row, e = scale_out(trunk, n, imgs, ref, per_fwd, graphs)
+            rows.append(row)
+            errs.update({f"n{n}.{k}": v for k, v in e.items()})
+        speedup = rows[1]["images_per_s"] / rows[0]["images_per_s"]
+        log(f"pool: 2 workers take the burst {speedup:.3f}x as fast as 1 "
+            f"(images/s {rows[1]['images_per_s']:.2f} / "
+            f"{rows[0]['images_per_s']:.2f}; median ms per round "
+            f"{rows[0]['ms_per_round_median']:.1f} / "
+            f"{rows[1]['ms_per_round_median']:.1f})")
+        rows.append(dict(speedup_2_over_1=speedup))
+        errs.update(cold_race(trunk, imgs, ref, per_fwd, graphs))
+        errs.update(death_drill(trunk, imgs, ref, graphs))
+    if route in ("all", "ladder"):
+        errs.update(ladder_drill(small))
+    if route == "all":
+        errs.update(process_check(small))
+    log(f"pool checks (count of what failed, 0 passes): {errs}")
+    return errs, rows
+
+
+# ---------------------------------------------------------------------------
+# --plant-faults: the checks of phases 2-6 against wrong kernels and code
 # ---------------------------------------------------------------------------
 PLANTED_FAULTS = {  # name: (route, file under src/repro_torch, text, stand-in)
     "mma.skip_tile_4096": (
@@ -2039,10 +2563,26 @@ PLANTED_FAULTS = {  # name: (route, file under src/repro_torch, text, stand-in)
         "serve", "vta/fsim_torch.py",
         "for g, launches in plan.graphs:",
         "for g, launches in plan.graphs[:-1]:"),
+    # plans no longer per capture scope: every worker shares one
+    "pool.shared_plans": (
+        "pool", "vta/fsim_torch.py",
+        "sig = (capture_scope(), str(self.device),",
+        "sig = (None, str(self.device),"),
+    # a card rung that steps down for a fault of the card
+    "ladder.card_error_steps_down": (
+        "ladder", "serve/breaker.py",
+        "if rung.on_card and not isinstance(e, InjectedFault):",
+        "if False:"),
+    # a step down the ladder that is not counted
+    "ladder.uncounted_step_down": (
+        "ladder", "serve/breaker.py",
+        "                self.metrics.on_fallback(rung.name)",
+        "                pass"),
 }
 LAYER_FAULT_KEYS = ("gemm_float", "depthwise", "alu", "pool2d")
 VTA_FAULT_KEYS = ("gemm", "alu_sweep")
 SERVE_FAULT_KEYS = ("serve",)
+POOL_FAULT_KEYS = ("pool", "ladder")
 # --plant-faults runs these besides ATTENTION_CASES: the only windowed
 # decode case there, g2.local.decode, sees its whole 4096-key cache, so a
 # window 64 too wide is invisible to it. Gemma-2 27B local layers decoding
@@ -2060,9 +2600,10 @@ def case_errors(fault: str, route: str) -> int:
     ``FAULT_CASES`` (``attention_errors``), the phase-4 cases, edge cases
     included, of the kernels of ``LAYER_FAULT_KEYS`` (``layer_errors``),
     phase 2's cases of the kernels of ``VTA_FAULT_KEYS`` (``vta_errors``),
-    and phase 3's checks of the captured path (``serve_errors``)."""
-    if route == "all" or route not in \
-            LAYER_FAULT_KEYS + VTA_FAULT_KEYS + SERVE_FAULT_KEYS:
+    phase 3's checks of the captured path (``serve_errors``), and phase
+    6's checks of the worker pool or the ladder (``pool_errors``)."""
+    if route == "all" or route not in LAYER_FAULT_KEYS + VTA_FAULT_KEYS \
+            + SERVE_FAULT_KEYS + POOL_FAULT_KEYS:
         attention_errors(fault, route)
     if route == "all" or route in LAYER_FAULT_KEYS:
         layer_errors(fault, route)
@@ -2070,7 +2611,23 @@ def case_errors(fault: str, route: str) -> int:
         vta_errors(fault, route)
     if route == "all" or route in SERVE_FAULT_KEYS:
         serve_errors(fault)
+    if route == "all" or route in POOL_FAULT_KEYS:
+        pool_errors(fault, route)
     return 0
+
+
+def pool_errors(fault: str, route: str) -> None:
+    """Phase 6's checks (``pool_checks`` of ``route``), one line per check,
+    limit 0."""
+    from repro_torch.serve.model import (ServedModel, resnet18_trunk_graph,
+                                         served_model)
+    from repro_torch.vta.isa import DEFAULT_VTA
+    trunk = ServedModel.compile(TRUNK, resnet18_trunk_graph(), DEFAULT_VTA)
+    errs = pool_checks(trunk, served_model("resnet18", "small"), route)[0]
+    for check, err in errs.items():
+        print(json.dumps({"fault": fault, "case": f"pool {check}",
+                          "err": err, "limit": 0, "over": err > 0}),
+              flush=True)
 
 
 def serve_errors(fault: str) -> None:
@@ -2373,11 +2930,19 @@ def main(argv: list) -> int:
     del cases5, outs5
     log(f"phase 5: {time.perf_counter() - t0:.1f} s")
 
+    # -- phase 6 ----------------------------------------------------------
+    t0 = time.perf_counter()
+    errs6, pool_rows = pool_checks(trunk, small)
+    if any(errs6.values()):
+        raise AssertionError(f"phase 6 failed: {errs6}")
+    log(f"phase 6: {time.perf_counter() - t0:.1f} s")
+
     src = "src/repro_torch/csrc/"
     kernels = [
         dict(name="gemm", route="cuda", source=src + "vta_gemm.cu",
              replaces="src/repro/kernels/vta_gemm.py:89",
              launches=counts["gemm"], **gemm_row,
+             launches_pool=pool_rows[1]["launches"]["gemm"],
              per=f"resnet18-trunk forward, batch {n}"),
         dict(name="alu_chain", route="cuda", source=src + "alu_sweep.cu",
              replaces="src/repro/kernels/alu_sweep.py:300",
@@ -2386,6 +2951,7 @@ def main(argv: list) -> int:
         dict(name="alu_sweep", route="cuda", source=src + "alu_sweep.cu",
              replaces="src/repro/kernels/alu_sweep.py:225",
              launches=counts["alu_sweep"], **sweep_row,
+             launches_pool=pool_rows[1]["launches"]["alu_sweep"],
              per=f"resnet18-trunk forward, batch {n}"),
     ]
     for key, (_, source, replaces, per) in LAYER_OPS.items():
@@ -2416,6 +2982,7 @@ def main(argv: list) -> int:
                    if key == "flash_attention.decode" else "")))
     log(json.dumps({"serve": serve_rows, "capture": capture_rows,
                     "profile": prof}))
+    log(json.dumps({"pool": pool_rows}))
     log(json.dumps({"kernels": kernels}))
     log(smi)
     log(json.dumps({"ok": True, "device": {

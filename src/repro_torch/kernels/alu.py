@@ -23,7 +23,7 @@ from typing import Optional
 
 import torch
 
-from repro_torch.kernels import _build
+from repro_torch.kernels import _build, count_launch
 
 LAUNCHES = {"alu": 0}
 OPS = ("add", "mul", "max", "min")
@@ -152,5 +152,5 @@ def alu(x: torch.Tensor, y: Optional[torch.Tensor] = None, *,
                     2.0 ** -shift, clip is not None, lo, hi, head, blocks,
                     tail, torch.cuda.current_stream(x.device).cuda_stream)
     _build.check(status, "alu")
-    LAUNCHES["alu"] += 1
+    count_launch(LAUNCHES, "alu")
     return out

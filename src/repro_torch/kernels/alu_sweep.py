@@ -29,15 +29,19 @@ of its taps. ``max_split`` is the largest S a program takes.
 from __future__ import annotations
 
 import ctypes
+import threading
 from typing import Optional
 
 import numpy as np
 import torch
 
-from repro_torch.kernels import _build
+from repro_torch.kernels import _build, count_launch
 from repro_torch.kernels.registry import register_kernel
 
 LAUNCHES = {"alu_chain": 0, "alu_sweep": 0}
+# guards every program's device copies: a CUDA graph captured by one
+# thread holds their addresses, so another thread must never replace them
+_DEV_LOCK = threading.Lock()
 
 
 # ---------------------------------------------------------------------------
@@ -400,18 +404,23 @@ class SweepProgram:
 
     def device_meta(self, device) -> torch.Tensor:
         key = ("meta", str(device))
-        t = self._dev.get(key)
-        if t is None:
-            t = self._dev[key] = torch.from_numpy(self.meta.copy()).to(device)
+        with _DEV_LOCK:
+            t = self._dev.get(key)
+            if t is None:
+                t = self._dev[key] = torch.from_numpy(
+                    self.meta.copy()).to(device)
         return t
 
     def tensors(self, device) -> dict:
         """The index tensors the plain versions take, on ``device``, once."""
         key = ("plain", str(device))
-        hit = self._dev.get(key)
-        if hit is not None:
-            return hit
+        with _DEV_LOCK:
+            hit = self._dev.get(key)
+            if hit is None:
+                hit = self._dev[key] = self._plain_tensors(device)
+        return hit
 
+    def _plain_tensors(self, device) -> dict:
         def long(a):
             return torch.from_numpy(np.asarray(a, np.int64).copy()).to(device)
 
@@ -419,18 +428,17 @@ class SweepProgram:
             return None if a is None else \
                 torch.from_numpy(np.asarray(a, bool).copy()).to(device)
 
-        hit = {"dst": long(self.dst),
+        out = {"dst": long(self.dst),
                "ops": [(k, long(r)) for k, r in self.operands],
                "slabs": [(long(i), boolean(m), f)
                          for _, i, m, f in self.slabs]}
         if self.store is not None:
             _, index, mask, s_unique, affine, starts = self.store
-            hit["store"] = dict(
+            out["store"] = dict(
                 store_unique=s_unique, store_affine=affine,
                 store_idx=list(starts) if affine is not None else long(index),
                 store_mask=None if affine is not None else boolean(mask))
-        self._dev[key] = hit
-        return hit
+        return out
 
 
 def chain_plain(acc, prog: SweepProgram):
@@ -577,7 +585,7 @@ def alu_chain(acc, prog: SweepProgram, *, split: Optional[int] = None):
     if prog.slabs or prog.store is not None:
         raise ValueError("alu_chain takes scratchpad-only programs")
     _launch(acc, prog, (), None, split)
-    LAUNCHES["alu_chain"] += 1
+    count_launch(LAUNCHES, "alu_chain")
     return acc
 
 
@@ -589,7 +597,7 @@ def alu_sweep(acc, prog: SweepProgram, flats=(), out_flat=None, *,
     if not acc.is_cuda:
         return sweep_plain(acc, prog, flats, out_flat)
     _launch(acc, prog, tuple(flats), out_flat, split)
-    LAUNCHES["alu_sweep"] += 1
+    count_launch(LAUNCHES, "alu_sweep")
     return acc, out_flat
 
 

@@ -22,7 +22,7 @@ import ctypes
 
 import torch
 
-from repro_torch.kernels import _build
+from repro_torch.kernels import _build, count_launch
 
 LAUNCHES = {"depthwise": 0}
 
@@ -151,5 +151,5 @@ def depthwise_conv(x: torch.Tensor, w: torch.Tensor, *, stride: int = 1,
                     kh, kw, stride, pad, oh, ow, code, *plan,
                     torch.cuda.current_stream(x.device).cuda_stream)
     _build.check(status, "depthwise_conv")
-    LAUNCHES["depthwise"] += 1
+    count_launch(LAUNCHES, "depthwise")
     return out

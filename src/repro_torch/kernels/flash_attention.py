@@ -55,7 +55,7 @@ from typing import Optional
 
 import torch
 
-from repro_torch.kernels import _build
+from repro_torch.kernels import _build, count_launch
 
 ROUTES = ("decode", "mma", "tf32x3")
 LAUNCHES = {"flash_attention": 0, "flash_attention_combine": 0,
@@ -363,7 +363,7 @@ def decode_combine(part_m: torch.Tensor, part_l: torch.Tensor,
         out.data_ptr(), rows, chunks, d, code,
         torch.cuda.current_stream(out.device).cuda_stream)
     _build.check(status, "flash_attention (combine)")
-    LAUNCHES["flash_attention_combine"] += 1
+    count_launch(LAUNCHES, "flash_attention_combine")
     return out
 
 
@@ -393,7 +393,7 @@ def decode_partials(q, k, v, causal, window, softcap, scale) -> tuple:
         chunks, _build.FLOAT_CODES[q.dtype],
         torch.cuda.current_stream(q.device).cuda_stream)
     _build.check(status, "flash_attention (decode)")
-    LAUNCHES["flash_attention.decode"] += 1
+    count_launch(LAUNCHES, "flash_attention.decode")
     return part_m, part_l, part_acc
 
 
@@ -420,7 +420,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     route = attention_route(q.dtype, sq)
     if route == "decode":
         parts = decode_partials(q, k, v, causal, window, softcap, scale)
-        LAUNCHES["flash_attention"] += 1
+        count_launch(LAUNCHES, "flash_attention")
         return decode_combine(*parts, q.dtype).view(b, h, sq, d)
     out = torch.empty_like(q)
     args = [q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
@@ -439,6 +439,6 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                  _PREFILL_ARGS + [_VP])
     _build.check(fn(*args, torch.cuda.current_stream(q.device).cuda_stream),
                  f"flash_attention ({route})")
-    LAUNCHES["flash_attention"] += 1
-    LAUNCHES[f"flash_attention.{route}"] += 1
+    count_launch(LAUNCHES, "flash_attention")
+    count_launch(LAUNCHES, f"flash_attention.{route}")
     return out

@@ -39,7 +39,7 @@ from typing import Optional
 import torch
 import torch.nn.functional as F
 
-from repro_torch.kernels import _build
+from repro_torch.kernels import _build, count_launch
 
 LAUNCHES = {"gemm_float": 0, "gemm_float_reduce": 0, "gemm_bf16": 0}
 ACTS = (None, "relu", "silu", "gelu")
@@ -197,7 +197,7 @@ def gemm_partials(x: torch.Tensor, w: torch.Tensor, plan: tuple
         _build.FLOAT_CODES[x.dtype], 0, 0, 0.0, 0.0, bm, bn, splits,
         _stream(x))
     _build.check(status, "gemm")
-    LAUNCHES["gemm_float"] += 1
+    count_launch(LAUNCHES, "gemm_float")
     return work
 
 
@@ -219,7 +219,7 @@ def gemm_float_reduce(parts: torch.Tensor, bias: Optional[torch.Tensor],
         out.data_ptr(), m, n, splits, _build.FLOAT_CODES[dtype],
         ACTS.index(act), *_clip_args(clip), _stream(parts))
     _build.check(status, "gemm")
-    LAUNCHES["gemm_float_reduce"] += 1
+    count_launch(LAUNCHES, "gemm_float_reduce")
     return out
 
 
@@ -254,5 +254,5 @@ def gemm(x: torch.Tensor, w: torch.Tensor,
         status = _fn("gemm_bf16_launch")(
             *args, m, n, k, ACTS.index(act), *_clip_args(clip), _stream(x))
     _build.check(status, "gemm")
-    LAUNCHES[route] += 1
+    count_launch(LAUNCHES, route)
     return out

@@ -27,7 +27,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
-from repro_torch.kernels import _build
+from repro_torch.kernels import _build, count_launch
 from repro_torch.kernels.alu import max_ordered
 
 LAUNCHES = {"pool2d": 0}
@@ -249,5 +249,5 @@ def pool2d(x: torch.Tensor, *, k: int, stride: int, pad: int = 0,
                     oh, ow, code, MODES.index(mode), *plan,
                     torch.cuda.current_stream(x.device).cuda_stream)
     _build.check(status, "pool2d")
-    LAUNCHES["pool2d"] += 1
+    count_launch(LAUNCHES, "pool2d")
     return out

@@ -33,7 +33,7 @@ import ctypes
 
 import torch
 
-from repro_torch.kernels import _build
+from repro_torch.kernels import _build, count_launch
 from repro_torch.kernels.registry import register_kernel
 from repro_torch.vta.lowering import F32_EXACT_TERMS
 
@@ -155,7 +155,7 @@ def vta_gemm(acc, inp, wgt, uidx, inp_idx, wrows, R: int, w_d: int,
         inp[0].numel(), wgt_ns, g, R, w_d, bv, bi, bo, int(bool(unique)),
         torch.cuda.current_stream(acc.device).cuda_stream)
     _build.check(status, "vta_gemm")
-    LAUNCHES["gemm"] += 1
+    count_launch(LAUNCHES, "gemm")
     return acc
 
 

@@ -22,8 +22,15 @@ ticket resolves; a failed one raises from ``Ticket.result``. ``faults``
 takes a seeded ``serve/faults.FaultInjector`` for deterministic chaos
 testing.
 
-``workers`` (the horizontal worker pool) is not ported yet: passing it
-raises ``NotImplementedError``.
+``workers`` adds the horizontal axis (serve/workers.py): an int builds a
+``WorkerPool`` of that many executor workers over the same models/backend,
+or pass a pre-built pool. Batches are then *placed* (sticky
+``(model, bucket) -> worker`` affinity, worker breaker state feeding
+admission) before they are dispatched, and a worker's death requeues its
+batches whole through the same retry deque bisection uses — supervision
+stays total across worker failures. On the card each thread worker runs on
+a CUDA stream of its own and owns its captured graphs. Without ``workers``
+nothing changes: the single injected executor runs every batch.
 """
 from __future__ import annotations
 
@@ -121,7 +128,8 @@ class VTAServeEngine:
                  retry_backoff_s: float = 0.005,
                  exec_timeout_s: Optional[float] = None,
                  requeue_budget: int = 6,
-                 workers=None):
+                 workers=None,
+                 worker_transport: str = "thread"):
         self.models = models or {}
         self.clock = clock or SystemClock()
         self.executor = executor if executor is not None \
@@ -147,10 +155,22 @@ class VTAServeEngine:
         self._retry_queue: deque = deque()   # bisected sub-batches, LIFO-ish
         self._thread: Optional[threading.Thread] = None
         self._stop = threading.Event()
-        self._inflight = 0           # requests handed to the executor
+        self._inflight = 0           # requests handed to a worker/executor
+        # horizontal scale-out: a pool of executor workers (lazy import —
+        # workers.py builds on breaker.py which builds on this module)
+        self.pool = None
         if workers is not None:
-            raise NotImplementedError(
-                "the worker pool (workers=) is not ported to repro_torch yet")
+            from repro_torch.serve.workers import WorkerPool
+            if isinstance(workers, WorkerPool):
+                self.pool = workers
+                if self.pool.metrics is None:
+                    self._wire_pool_metrics()
+            else:
+                self.pool = WorkerPool(
+                    self.models, int(workers), backend=backend,
+                    transport=worker_transport, clock=self.clock,
+                    faults=self.faults, metrics=self.metrics)
+            self.pool.attach(self)
 
     # ------------------------------------------------------------------
     # tenants + submission
@@ -195,12 +215,24 @@ class VTAServeEngine:
     def reset_metrics(self, metrics: Optional[ServeMetrics] = None
                       ) -> ServeMetrics:
         """Swap in a fresh ``ServeMetrics`` (benchmark warmups discard the
-        warmup's counters this way) and rewire the fault injector's
+        warmup's counters this way) and rewire every component that holds
+        a reference — the worker pool, each worker's ladder (so a step down
+        the ladder after a reset is still counted) and the fault injector's
         on-fire hook."""
         self.metrics = metrics if metrics is not None else ServeMetrics()
+        if self.pool is not None:
+            self._wire_pool_metrics()
         if self.faults is not None and self.faults.on_fire is not None:
             self.faults.on_fire = self.metrics.on_fault
         return self.metrics
+
+    def _wire_pool_metrics(self) -> None:
+        """Point the pool and every worker's ladder at ``self.metrics``: a
+        step down a ladder is always counted where the engine reports."""
+        self.pool.metrics = self.metrics
+        for w in self.pool.workers:
+            if hasattr(w.executor, "metrics"):
+                w.executor.metrics = self.metrics
 
     def pending(self) -> int:
         with self._lock:
@@ -250,32 +282,87 @@ class VTAServeEngine:
             self._expire_locked(req)
         return plan
 
+    # how many assembled plans one step scans for a placeable one before
+    # deferring: bounds the work done under the lock while letting a plan
+    # whose sticky owner is busy yield to other models' traffic instead of
+    # blocking the head of the line
+    PLACEMENT_SCAN = 4
+
+    def _next_dispatchable_locked(self):
+        """Pool placement over ``_next_plan_locked``: returns the first
+        ``(plan, worker)`` the pool will admit, or None (nothing assembled,
+        or nothing placeable right now — a placement skip). Plans that
+        assembled but could not place are pushed back to the retry deque
+        front in order, statuses untouched and requeue budgets uncharged:
+        deferral is backpressure, not failure. With zero live workers every
+        queued request is failed (``AllWorkersDead``) so drains terminate —
+        supervision stays total even when the whole pool is gone."""
+        from repro_torch.serve.workers import AllWorkersDead
+        now = self.clock.now()
+        if self.pool.live_count() == 0:
+            err = AllWorkersDead("no live workers left in the pool")
+            while True:
+                plan = self._next_plan_locked()
+                if plan is None:
+                    return None
+                for r in plan.requests:
+                    self._fail_locked(r, err)
+        skipped = []
+        picked = None
+        for _ in range(self.PLACEMENT_SCAN):
+            plan = self._next_plan_locked()
+            if plan is None:
+                break
+            worker = self.pool.place(plan, now)
+            if worker is None:
+                skipped.append(plan)
+                continue
+            picked = (plan, worker)
+            break
+        for plan in reversed(skipped):
+            self._retry_queue.appendleft(plan)
+        if picked is None and skipped:
+            self.metrics.on_placement_skip()
+        return picked
+
     def step(self) -> bool:
         """Assemble and execute at most one batch; False when nothing was
-        dispatchable (idle, or a partial batch is being held back)."""
+        dispatchable (idle, a partial batch is being held back, or — with a
+        pool — no worker was admissible for anything assembled)."""
         with self._lock:
-            plan = self._next_plan_locked()
+            worker = None
+            if self.pool is None:
+                plan = self._next_plan_locked()
+            else:
+                picked = self._next_dispatchable_locked()
+                plan, worker = picked if picked else (None, None)
             if plan is None:
                 return False
             t0 = self.clock.now()
+            plan.worker = None if worker is None else worker.id
             for req in plan.requests:
                 req.status = "dispatched"
                 req.dispatch_t = t0
+                req.worker = plan.worker
             self._inflight += len(plan.requests)
-        self._execute(plan, t0)
+        if worker is None:
+            self._execute(plan, t0)
+        else:
+            self.pool.dispatch(worker, plan, t0)
         return True
 
     # ------------------------------------------------------------------
     # supervised execution: retry -> watchdog -> bisection
     # ------------------------------------------------------------------
-    def _call_executor(self, plan: BatchPlan) -> list:
+    def _call_executor(self, plan: BatchPlan, worker=None) -> list:
         if self.faults is not None:
             self.faults.on_dispatch(plan.model, plan.requests)
-        return self.executor(plan.model,
-                             [r.payload for r in plan.requests],
-                             plan.bucket)
+        call = self.executor if worker is None else worker.call
+        return call(plan.model,
+                    [r.payload for r in plan.requests],
+                    plan.bucket)
 
-    def _dispatch(self, plan: BatchPlan, t0: float) -> list:
+    def _dispatch(self, plan: BatchPlan, t0: float, worker=None) -> list:
         """One executor attempt, watchdog-guarded when ``exec_timeout_s``
         is set: the call runs on a disposable worker thread joined with a
         real-time bound (a truly hung executor is abandoned — daemon
@@ -283,12 +370,12 @@ class VTAServeEngine:
         checked afterwards so FakeClock-driven hangs trip the watchdog
         deterministically without any real waiting."""
         if self.exec_timeout_s is None:
-            return self._call_executor(plan)
+            return self._call_executor(plan, worker)
         box: dict = {}
 
         def work():
             try:
-                box["out"] = self._call_executor(plan)
+                box["out"] = self._call_executor(plan, worker)
             except BaseException as e:               # noqa: BLE001
                 box["err"] = e
 
@@ -313,10 +400,15 @@ class VTAServeEngine:
             raise box["err"]
         return box["out"]
 
-    def _attempt(self, plan: BatchPlan) -> Optional[Exception]:
+    def _attempt(self, plan: BatchPlan,
+                 worker=None) -> Optional[Exception]:
         """Run ``plan`` with bounded retry + exponential backoff on the
         engine clock. Returns None on success (requests resolved), else
-        the last failure."""
+        the last failure. With a pool worker, every attempt feeds the
+        worker-level breaker (retries stay on the placed worker — only a
+        requeue re-places) and the per-worker metrics; a ``WorkerDied``
+        aborts immediately with no retry, since the worker cannot come
+        back and the batch must re-place instead."""
         last: Optional[Exception] = None
         for attempt in range(self.max_retries + 1):
             if attempt:
@@ -330,8 +422,16 @@ class VTAServeEngine:
                         r.status = "dispatched"
             t_a = self.clock.now()
             try:
-                outs = self._dispatch(plan, t_a)
+                outs = self._dispatch(plan, t_a, worker)
             except Exception as e:                   # noqa: BLE001
+                if worker is not None:
+                    from repro_torch.serve.workers import WorkerDied
+                    if isinstance(e, WorkerDied):
+                        return e
+                    with self._lock:
+                        worker.breaker.on_failure(self.clock.now())
+                        self.metrics.on_worker_failure(
+                            worker.id, self.clock.now() - t_a)
                 if isinstance(e, ExecutorTimeout):
                     with self._lock:
                         self.metrics.on_timeout()
@@ -339,6 +439,10 @@ class VTAServeEngine:
                 continue
             t1 = self.clock.now()
             with self._lock:
+                if worker is not None:
+                    worker.breaker.on_success(t1)
+                    self.metrics.on_worker_batch(worker.id, plan.filled,
+                                                 t1 - t_a)
                 self.metrics.on_batch(plan.filled, plan.bucket, t1 - t_a)
                 for req, out in zip(plan.requests, outs):
                     req.status = "done"
@@ -352,16 +456,63 @@ class VTAServeEngine:
             return None
         return last
 
-    def _execute(self, plan: BatchPlan, t0: float) -> None:
+    def _requeue_plan_locked(self, plan: BatchPlan, err: Exception,
+                             origin: str = "worker-requeue") -> None:
+        """Requeue a batch *whole* at the retry-deque front (budgeted,
+        deadline-checked). Used when the batch is innocent and its worker
+        is not: a dead worker's in-flight and queued batches re-place onto
+        the survivors without bisection."""
+        keep = []
+        now = self.clock.now()
+        for r in plan.requests:
+            if r.deadline is not None and r.deadline <= now:
+                self._expire_locked(r)
+            elif r.requeues >= self.requeue_budget:
+                self._fail_locked(r, err, note="requeue budget "
+                                  f"{self.requeue_budget} exhausted")
+            else:
+                r.requeues += 1
+                r.status = "queued"
+                r.worker = None
+                keep.append(r)
+        if keep:
+            self.metrics.on_requeue(len(keep))
+            self._retry_queue.appendleft(BatchPlan(
+                model=plan.model, requests=keep,
+                bucket=self.scheduler.bucket_for(len(keep)),
+                origin=origin))
+
+    def _requeue_dead_worker_plans(self, worker, plans: list) -> None:
+        """Called by the pool's worker thread when its worker died with
+        batches still queued on the inbox: every one goes back whole."""
+        from repro_torch.serve.workers import WorkerDied
+        err = WorkerDied(f"worker{worker.id} died with queued batches")
+        with self._lock:
+            for plan in plans:
+                n = len(plan.requests)
+                self._requeue_plan_locked(plan, err)
+                self._inflight -= n
+
+    def _execute(self, plan: BatchPlan, t0: float, worker=None) -> None:
         """Supervised execution: never raises. After retries are exhausted
         a multi-request batch is bisected — both halves requeued ahead of
         fresh work (budgeted, deadline-checked) — so a poisoned request is
-        eventually isolated in a batch of one and failed alone."""
+        eventually isolated in a batch of one and failed alone. A
+        ``WorkerDied`` instead requeues the batch whole (the batch is
+        innocent, the worker is not) after the pool drops the dead
+        worker's affinity entries, so the retry re-places on a survivor."""
         n = len(plan.requests)
         try:
-            err = self._attempt(plan)
+            err = self._attempt(plan, worker)
             if err is None:
                 return
+            if worker is not None:
+                from repro_torch.serve.workers import WorkerDied
+                if isinstance(err, WorkerDied):
+                    with self._lock:
+                        self.pool.on_worker_death(worker)
+                        self._requeue_plan_locked(plan, err)
+                    return
             with self._lock:
                 reqs = list(plan.requests)
                 if len(reqs) == 1:
@@ -444,6 +595,9 @@ class VTAServeEngine:
         self._thread = None
 
     def close(self) -> None:
-        """Stop the serve loop if it is running. Idempotent."""
+        """Release background resources: the serve loop (if running) and
+        the worker pool's threads/child processes. Idempotent."""
         if self._thread is not None:
             self.stop(drain=False)
+        if self.pool is not None:
+            self.pool.shutdown()

@@ -21,6 +21,7 @@ from __future__ import annotations
 import dataclasses
 import functools
 import hashlib
+import threading
 from dataclasses import dataclass, field
 from typing import Optional, Union
 
@@ -95,6 +96,8 @@ class ServedModel:
     output_name: str = ""
     _device_weights: dict = field(default_factory=dict, repr=False,
                                   compare=False)
+    _weights_lock: threading.Lock = field(default_factory=threading.Lock,
+                                          repr=False, compare=False)
 
     # ------------------------------------------------------------------
     # construction
@@ -167,13 +170,17 @@ class ServedModel:
     # execution
     # ------------------------------------------------------------------
     def weights_on(self, device: torch.device) -> dict:
-        """The weights as tensors on ``device``, copied there once."""
+        """The weights as tensors on ``device``, copied there once, under a
+        lock: serving workers that dispatch at once share one copy (the
+        executor's plans key on its addresses). A copy from host memory
+        blocks until it is done, so any stream may read them."""
         key = str(device)
-        hit = self._device_weights.get(key)
-        if hit is None:
-            hit = self._device_weights[key] = {
-                k: torch.tensor(v, device=device)
-                for k, v in self.weights.items()}
+        with self._weights_lock:
+            hit = self._device_weights.get(key)
+            if hit is None:
+                hit = {k: torch.tensor(v, device=device)
+                       for k, v in self.weights.items()}
+                self._device_weights[key] = hit
         return hit
 
     def run_batch(self, images: np.ndarray,
@@ -239,7 +246,8 @@ def load_params(model: ServedModel, params: dict) -> ServedModel:
             raise ValueError(f"{k}: expected {old.dtype}{old.shape}, got "
                              f"{v.dtype}{v.shape}")
         model.weights[k] = v.copy()
-    model._device_weights.clear()
+    with model._weights_lock:
+        model._device_weights.clear()
     return model
 
 

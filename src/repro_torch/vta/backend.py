@@ -10,7 +10,10 @@ Program. Built-ins:
     device, compute through the hand-written kernels. Raises where there is
     no CUDA device: the card path never falls back to the CPU.
   * ``"torch-cpu"`` — ``TorchBackend(device="cpu")``: the same executor with
-    the kernels' plain PyTorch versions, used only when asked for.
+    the kernels' plain PyTorch versions, used only when asked for. It is a
+    rung only of ``DEGRADATION_LADDER`` (``torch -> torch-cpu -> numpy``,
+    serve/breaker.py), on the way down from the card, never a fallback
+    that hides it.
 
 The reference for both is the numpy ``FSim``; the port's tests hold them to
 it, and the port's copy to the JAX package's, bit for bit.
@@ -23,6 +26,7 @@ device.
 """
 from __future__ import annotations
 
+import threading
 from typing import Callable, Dict, Protocol, Union, runtime_checkable
 
 import numpy as np
@@ -31,6 +35,17 @@ import torch
 from repro_torch.vta.isa import VTAConfig
 from repro_torch.vta.lowering import lower_cached
 from repro_torch.vta.runtime import Program
+
+
+_LOWER_LOCK = threading.Lock()
+
+
+def lowered(prog: Program, hw: VTAConfig, shapes: dict):
+    """``lower_cached`` under one lock: serving workers that dispatch the
+    same Program at once get the same Trace, whose executor memos (index
+    maps, captured plans) then serve them both."""
+    with _LOWER_LOCK:
+        return lower_cached(prog, hw, shapes)
 
 
 @runtime_checkable
@@ -59,7 +74,7 @@ class NumpyBackend:
     def run(self, prog: Program, hw: VTAConfig, dram: dict) -> None:
         from repro_torch.vta.fsim import FSim
         shapes = {k: np.asarray(v).shape for k, v in dram.items()}
-        FSim(hw, dram).run(prog, trace=lower_cached(prog, hw, shapes))
+        FSim(hw, dram).run(prog, trace=lowered(prog, hw, shapes))
 
     def run_batched(self, prog: Program, hw: VTAConfig, *, shared: dict,
                     batched: dict) -> dict:
@@ -69,7 +84,7 @@ class NumpyBackend:
         n = next(iter(batched.values())).shape[0]
         shapes = {k: v.shape for k, v in shared.items()}
         shapes.update({k: v.shape[1:] for k, v in batched.items()})
-        trace = lower_cached(prog, hw, shapes)
+        trace = lowered(prog, hw, shapes)
         outs: dict = {t: [] for t in trace.tensors_written}
         for i in range(n):
             dram = dict(shared)
@@ -128,10 +143,24 @@ register_backend("torch", _torch_factory)
 register_backend("torch-cpu", _torch_cpu_factory)
 
 
+# ---------------------------------------------------------------------------
+# Degradation ladder (serving reliability, serve/breaker.py)
+# ---------------------------------------------------------------------------
+# Best-first order for fault degradation: the card, the same executor on the
+# CPU, the numpy oracle. Every backend executes the identical lowered trace
+# bit for bit, so stepping down trades throughput only. "torch-cpu" is a
+# rung of this ladder only on the way down: nothing picks it on its own. A
+# ladder that names "torch" raises where there is no CUDA device (building
+# its rung resolves the backend); it never drops the rung.
+DEGRADATION_LADDER = ("torch", "torch-cpu", "numpy")
+
+
 def backend_kernel_impls(backend: Union[str, Backend]) -> tuple:
     """The registry (kernel, impl) pairs the resolved backend instance
-    routes compute through — the coordinates ``kernel.impl`` fault specs
-    are scoped by."""
+    routes compute through — the coordinates per-(backend, kernel-impl)
+    circuit breakers and ``kernel.impl`` fault specs are scoped by. The
+    numpy reference resolves no registry kernels: ``()``. Raises for
+    ``"torch"`` where there is no CUDA device."""
     be = get_backend(backend)
     pairs = []
     for kernel, attr in (("gemm", "gemm_impl"), ("alu_chain", "alu_impl"),

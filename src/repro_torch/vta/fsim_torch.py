@@ -38,6 +38,16 @@ which is what lets a chunk be captured.
 ``TorchBackend()`` runs on the card (``"cuda"`` kernels) and raises where
 there is none; ``TorchBackend(device="cpu")`` runs the plain versions, the
 same chunks eagerly through the same buffers.
+
+Serving workers (serve/workers.py) call one backend from several threads,
+each on a CUDA stream of its own. So every memo a captured graph reads
+(device entries, chunks, scalars, stage programs) is built once under a
+lock and never replaced, a plan belongs to one ``set_capture_scope`` label
+(a worker owns its buffers and graphs), a capture records its launches on
+its own thread, and a plan entered from two streams orders them by an
+event. A memo is filled by ``torch.tensor``/``.to`` from host memory, a
+copy that blocks until it is done: that is what lets any stream read it
+without waiting on the stream that built it.
 """
 from __future__ import annotations
 
@@ -51,13 +61,14 @@ from typing import Optional
 import numpy as np
 import torch
 
-from repro_torch.kernels import add_launch_counts, launch_counts
+from repro_torch.kernels import add_launch_counts, recording_launches
 from repro_torch.kernels.alu_sweep import SweepProgram, last_writer_positions
 from repro_torch.kernels.registry import get_kernel
 from repro_torch.vta.isa import AluOp, Buffer, VTAConfig
+from repro_torch.vta.backend import lowered
 from repro_torch.vta.lowering import (AluSweep, GatherLoad, GemmOp,
                                       ScatterStore, SpillStore, Trace,
-                                      UopLoad, lower_cached, scatter_hints)
+                                      UopLoad, scatter_hints)
 from repro_torch.vta.runtime import Program
 
 _BUF_KEY = {int(Buffer.INP): "inp", int(Buffer.WGT): "wgt",
@@ -65,15 +76,20 @@ _BUF_KEY = {int(Buffer.INP): "inp", int(Buffer.WGT): "wgt",
 _BUF_DTYPE = {int(Buffer.INP): torch.int8, int(Buffer.WGT): torch.int8,
               int(Buffer.ACC): torch.int32}
 _SCALARS: dict = {}
+# guards every memo a captured graph reads (scalars, device entries, chunks,
+# plans, trace keys): each entry is made once and never replaced, since a
+# graph keeps the addresses of the tensors it was captured with
+_MEMO_LOCK = threading.RLock()
 
 
 def _scalar(value: int, dtype: torch.dtype, device) -> torch.Tensor:
     """A 0-d tensor of ``value`` in ``dtype`` (wrapping) on ``device``, made
     once: a fresh one per op would be a host-to-device copy per op."""
     key = (value, dtype, str(device))
-    t = _SCALARS.get(key)
-    if t is None:
-        t = _SCALARS[key] = torch.tensor(value).to(dtype).to(device)
+    with _MEMO_LOCK:
+        t = _SCALARS.get(key)
+        if t is None:
+            t = _SCALARS[key] = torch.tensor(value).to(dtype).to(device)
     return t
 
 
@@ -181,13 +197,18 @@ def _device_ops(trace: Trace, device: torch.device,
     head op and the feeder gathers and absorbed stores it covers are gone
     (``Trace.elided``); without it every op is its own entry. Each entry is
     a tuple whose first element is its kind; scatters carry their
-    last-writer winners (``_winners``)."""
-    memo = trace.__dict__.setdefault("_torch_ops", {})
+    last-writer winners (``_winners``). Built once, under the memo lock."""
     key = (str(device), alu_fusion)
-    hit = memo.get(key)
-    if hit is not None:
-        return hit
+    with _MEMO_LOCK:
+        memo = trace.__dict__.setdefault("_torch_ops", {})
+        hit = memo.get(key)
+        if hit is None:
+            hit = memo[key] = _build_ops(trace, device, alu_fusion)
+    return hit
 
+
+def _build_ops(trace: Trace, device: torch.device, alu_fusion: bool) -> list:
+    """``_device_ops``' entries, built anew."""
     def ix(a):
         if a is None:
             return None
@@ -266,7 +287,6 @@ def _device_ops(trace: Trace, device: torch.device,
             ops.append(("spill", ix(op.src), *put_args(op.dst)))
         else:
             raise TypeError(type(op))
-    memo[key] = ops
     return ops
 
 
@@ -297,16 +317,17 @@ def _chunk_plan(trace: Trace, device: torch.device, cap: int,
     ``alu_fusion``, whole-segment). A fused segment of at most
     ``SEGMENT_FUSION_MAX_OPS`` entries is one chunk."""
     fuse_all = segment_fusion and trace.fused_segment
-    memo = trace.__dict__.setdefault("_torch_chunks", {})
     key = (str(device), cap, alu_fusion, fuse_all)
-    hit = memo.get(key)
-    if hit is None:
-        ops = _device_ops(trace, device, alu_fusion)
-        if fuse_all and len(ops) <= SEGMENT_FUSION_MAX_OPS:
-            hit = [tuple(ops)] if ops else []
-        else:
-            hit = list(_chunks(ops, cap))
-        memo[key] = hit
+    with _MEMO_LOCK:
+        memo = trace.__dict__.setdefault("_torch_chunks", {})
+        hit = memo.get(key)
+        if hit is None:
+            ops = _device_ops(trace, device, alu_fusion)
+            if fuse_all and len(ops) <= SEGMENT_FUSION_MAX_OPS:
+                hit = [tuple(ops)] if ops else []
+            else:
+                hit = list(_chunks(ops, cap))
+            memo[key] = hit
     return hit
 
 
@@ -419,6 +440,7 @@ def _exec(ops: list, st: dict, gemm_impl: str, alu_impl: str) -> None:
 # one eager pass over the chunk. ``kernel_launch_log`` is the hook the
 # fusion tests use to show a fused segment really is ONE dispatch.
 _DISPATCHES = 0
+_COUNT_LOCK = threading.Lock()
 
 # Captures, keyed on (trace key, chunk index, arg shapes, batch, scope): a
 # CUDA graph bakes in the addresses of its chunk's index tensors, so unlike
@@ -428,6 +450,9 @@ _DISPATCHES = 0
 _CAPTURES: collections.Counter = collections.Counter()
 _SCOPE = threading.local()
 _TRACE_KEYS = itertools.count()
+# scoped plans by their label: {label: {(id(trace's plans), key): plans}};
+# an unscoped plan lives and dies with its Trace
+_SCOPE_PLANS: dict = {}
 
 
 def set_capture_scope(label: Optional[str]) -> Optional[str]:
@@ -443,25 +468,46 @@ def capture_scope() -> Optional[str]:
     return getattr(_SCOPE, "label", None)
 
 
+def release_capture_scope(label: str) -> int:
+    """Drop every plan made under the scope ``label`` (its buffers, graphs
+    and graph memory pool go with the last reference): a retired worker's
+    captures.
+    The next dispatch of one of its keys under ``label`` captures again.
+    Returns the number of plans dropped."""
+    with _MEMO_LOCK:
+        entries = _SCOPE_PLANS.pop(label, {})
+        return sum(plans.pop(sig, None) is not None
+                   for (_, sig), plans in entries.items())
+
+
 def reset_capture_log() -> None:
-    _CAPTURES.clear()
+    with _COUNT_LOCK:
+        _CAPTURES.clear()
 
 
 def capture_log() -> dict:
     """{(trace key, chunk index, arg shapes, batch, scope): captures} since
     the last ``reset_capture_log``. A value above 1 means a known chunk was
     captured again."""
-    return dict(_CAPTURES)
+    with _COUNT_LOCK:
+        return dict(_CAPTURES)
 
 
 def reset_kernel_launch_log() -> None:
     global _DISPATCHES
-    _DISPATCHES = 0
+    with _COUNT_LOCK:
+        _DISPATCHES = 0
 
 
 def kernel_launch_log() -> int:
     """Chunk dispatches since the last ``reset_kernel_launch_log``."""
     return _DISPATCHES
+
+
+def _count_dispatch() -> None:
+    global _DISPATCHES
+    with _COUNT_LOCK:
+        _DISPATCHES += 1
 
 
 def _arg_shapes(x) -> tuple:
@@ -474,11 +520,32 @@ def _arg_shapes(x) -> tuple:
 
 
 def _note_capture(trace: Trace, chunks: list, n: int) -> None:
-    key = trace.__dict__.get("_torch_key")
-    if key is None:
-        key = trace.__dict__["_torch_key"] = next(_TRACE_KEYS)
-    for i, chunk in enumerate(chunks):
-        _CAPTURES[(key, i, _arg_shapes(chunk), n, capture_scope())] += 1
+    with _MEMO_LOCK:
+        key = trace.__dict__.get("_torch_key")
+        if key is None:
+            key = trace.__dict__["_torch_key"] = next(_TRACE_KEYS)
+    scope = capture_scope()
+    with _COUNT_LOCK:
+        for i, chunk in enumerate(chunks):
+            _CAPTURES[(key, i, _arg_shapes(chunk), n, scope)] += 1
+
+
+def _capture_stream(device: torch.device) -> torch.cuda.Stream:
+    """The stream this thread captures on: its current stream (a serving
+    worker's own), or, where that is the default stream, on which CUDA
+    cannot capture, a side stream the thread makes once. Never a new
+    ``torch.cuda.Stream`` per capture: PyTorch hands its 32 pooled streams
+    out in turn, so a fresh one can be another worker's current stream,
+    and that worker's work would then join this capture and break both."""
+    stream = torch.cuda.current_stream(device)
+    if stream != torch.cuda.default_stream(device):
+        return stream
+    side = getattr(_SCOPE, "side_streams", None)
+    if side is None:
+        side = _SCOPE.side_streams = {}
+    if device not in side:
+        side[device] = torch.cuda.Stream(device)
+    return side[device]
 
 
 # ---------------------------------------------------------------------------
@@ -487,11 +554,15 @@ def _note_capture(trace: Trace, chunks: list, n: int) -> None:
 class _Plan:
     """The buffers every dispatch of one key runs in: the scratchpads and
     one (N, L) tensor per batched tensor, allocated once (outside any graph
-    pool), plus the captured graphs. A dispatch copies its inputs in, runs
+    pool), plus the captured graphs and the chunks they were captured from
+    (whose index tensors they read). A dispatch copies its inputs in, runs
     or replays the chunks and clones the stored tensors out, under
-    ``lock``. Shared tensors already on the device (weights) are read in
-    place: the key holds their ``data_ptr``s, so new weights get a new
-    plan. Any other shared input is copied into a buffer of its own."""
+    ``lock``; on the card it first makes its stream wait for ``done``,
+    which the last dispatch recorded after its clone, so a plan entered
+    from two streams never has its buffers overwritten while still read.
+    Shared tensors already on the device (weights) are read in place: the
+    key holds their ``data_ptr``s, so new weights get a new plan. Any other
+    shared input is copied into a buffer of its own."""
 
     def __init__(self, trace: Trace, hw: VTAConfig, n: int, batched: dict,
                  shared: dict, in_place: set, device: torch.device):
@@ -518,8 +589,10 @@ class _Plan:
                    "tensors": dict(self.inputs)}
         self.warm = False               # the first dispatch has run
         self.graphs: Optional[list] = None   # [(graph, launches)], card
+        self.chunks: Optional[list] = None   # what the graphs captured
         self.pool = None
         self.lock = threading.Lock()
+        self.done = torch.cuda.Event() if device.type == "cuda" else None
 
     def load(self, n: int, batched: dict, shared: dict) -> None:
         for k, v in batched.items():
@@ -535,9 +608,6 @@ class _Plan:
         behind by new weights keeps no old ones alive."""
         for k in self.in_place:
             self.st["tensors"].pop(k, None)
-
-
-_PLANS_LOCK = threading.Lock()
 
 
 # ---------------------------------------------------------------------------
@@ -602,20 +672,25 @@ class TorchBackend:
     def _plan(self, trace: Trace, hw: VTAConfig, n: int, batched: dict,
               shared: dict, in_place: set) -> _Plan:
         """The key's plan, made on its first dispatch. One plan lives per
-        (trace, batch, tensors' dtypes): new in-place shared tensors replace
-        it, graphs and pool with it."""
-        sig = (str(self.device), self.chunk_cap, self.alu_fusion,
-               self.segment_fusion, n,
+        (capture scope, trace, batch, tensors' dtypes): each serving worker
+        owns its buffers and graphs, and a key that moves to another worker
+        is captured again there, once. Only new in-place shared tensors
+        (new weights) replace a plan, graphs and pool with it."""
+        sig = (capture_scope(), str(self.device), self.chunk_cap,
+               self.alu_fusion, self.segment_fusion, n,
                tuple(sorted((k, v.dtype) for k, v in batched.items())),
                tuple(sorted((k, v.dtype) for k, v in shared.items())))
         ptrs = tuple(sorted((k, v.data_ptr()) for k, v in shared.items()
                             if k in in_place))
-        with _PLANS_LOCK:
+        with _MEMO_LOCK:
             plans = trace.__dict__.setdefault("_torch_plans", {})
             hit = plans.get(sig)
             if hit is None or hit[0] != ptrs:
                 hit = plans[sig] = (ptrs, _Plan(trace, hw, n, batched, shared,
                                                 in_place, self.device))
+                if sig[0] is not None:
+                    _SCOPE_PLANS.setdefault(sig[0], {})[(id(plans), sig)] = \
+                        plans
         return hit[1]
 
     def _run_chunk(self, st: dict, chunks: list, i: int) -> None:
@@ -627,35 +702,35 @@ class TorchBackend:
         _exec(chunks[i], st, self.gemm_impl, self.alu_impl)
 
     def _capture(self, plan: _Plan, chunks: list) -> None:
-        """One CUDA graph per chunk, into the plan's memory pool, on a side
-        stream. Each graph keeps the kernel launches its capture recorded
-        (the wrappers count them as they run) and adds them to the counters
-        on each replay; the capture itself counts none. By
-        ``CUDAGraph.capture_begin``, not ``torch.cuda.graph``, which would
-        collect garbage and empty the allocator's cache at every chunk."""
+        """One CUDA graph per chunk, into the plan's memory pool, on
+        ``_capture_stream``. Each graph keeps the kernel launches its capture recorded
+        on this thread (the wrappers count them as they run, into
+        ``recording_launches``; another thread's launches never enter) and
+        adds them to the counters on each replay; the capture itself counts
+        none. The eager run is waited for on this thread's stream only:
+        other workers' streams run on. By ``CUDAGraph.capture_begin``, not
+        ``torch.cuda.graph``, which would collect garbage and empty the
+        allocator's cache at every chunk."""
         plan.pool = torch.cuda.graph_pool_handle()
-        torch.cuda.synchronize(self.device)    # the eager run is done
+        torch.cuda.current_stream(self.device).synchronize()
         graphs = []
-        with torch.cuda.stream(torch.cuda.Stream(self.device)):
+        with torch.cuda.stream(_capture_stream(self.device)):
             for i in range(len(chunks)):
-                before = launch_counts()
                 g = torch.cuda.CUDAGraph()
-                g.capture_begin(pool=plan.pool,
-                                capture_error_mode="thread_local")
-                try:
-                    self._run_chunk(plan.st, chunks, i)
-                except BaseException:
+                with recording_launches() as launches:
+                    g.capture_begin(pool=plan.pool,
+                                    capture_error_mode="thread_local")
                     try:
-                        g.capture_end()
-                    except RuntimeError:
-                        pass                    # the chunk's error wins
-                    raise
-                g.capture_end()
-                after = launch_counts()
-                launches = {k: after[k] - before[k] for k in after
-                            if after[k] != before[k]}
-                add_launch_counts({k: -v for k, v in launches.items()})
+                        self._run_chunk(plan.st, chunks, i)
+                    except BaseException:
+                        try:
+                            g.capture_end()
+                        except RuntimeError:
+                            pass                # the chunk's error wins
+                        raise
+                    g.capture_end()
                 graphs.append((g, launches))
+        plan.chunks = chunks
         plan.graphs = graphs
 
     def _execute(self, trace: Trace, hw: VTAConfig, batched: dict,
@@ -664,7 +739,6 @@ class TorchBackend:
         single tensors every image reads (never stores into). Returns the
         stored tensors as (N, ...) tensors on the device, never the plan's
         own buffers."""
-        global _DISPATCHES
         shared = shared or {}
         assert not (set(trace.tensors_written) & set(shared)), \
             "programs must not store into shared tensors"
@@ -680,25 +754,33 @@ class TorchBackend:
         chunks = self.chunks(trace)
         plan = self._plan(trace, hw, n, batched, shared, in_place)
         with plan.lock:
+            if plan.done is not None:
+                torch.cuda.current_stream(self.device).wait_event(plan.done)
             plan.load(n, batched, shared)
             st = plan.st
             if plan.graphs is None:
                 if not plan.warm:
                     _note_capture(trace, chunks, n)
                 for i in range(len(chunks)):
-                    _DISPATCHES += 1
+                    _count_dispatch()
                     self._run_chunk(st, chunks, i)
             else:
                 for g, launches in plan.graphs:
-                    _DISPATCHES += 1
+                    _count_dispatch()
                     g.replay()
                     add_launch_counts(launches)
             outs = {t: st["tensors"][t].clone().reshape(batched[t].shape)
                     for t in trace.tensors_written}
+            if plan.done is not None:
+                plan.done.record(torch.cuda.current_stream(self.device))
             if not plan.warm:
                 plan.warm = True
                 if self.device.type == "cuda":
-                    self._capture(plan, chunks)
+                    try:
+                        self._capture(plan, chunks)
+                    except BaseException:
+                        plan.warm = False   # the next dispatch captures again
+                        raise
             plan.unload()
         return outs
 
@@ -706,7 +788,7 @@ class TorchBackend:
     def run(self, prog: Program, hw: VTAConfig, dram: dict) -> None:
         """One image, in place on the caller's numpy ``dram`` dict."""
         shapes = {k: np.asarray(v).shape for k, v in dram.items()}
-        trace = lower_cached(prog, hw, shapes)
+        trace = lowered(prog, hw, shapes)
         outs = self._execute(trace, hw,
                              {k: np.asarray(v)[None] for k, v in dram.items()})
         for name, val in outs.items():
@@ -719,7 +801,7 @@ class TorchBackend:
         device}``; the caller's arrays are never written."""
         shapes = {k: tuple(v.shape) for k, v in shared.items()}
         shapes.update({k: tuple(v.shape[1:]) for k, v in batched.items()})
-        trace = lower_cached(prog, hw, shapes)
+        trace = lowered(prog, hw, shapes)
         return self._execute(trace, hw, batched, shared)
 
     # -- divergence debugging (vta/trace.py) -------------------------------
@@ -731,7 +813,7 @@ class TorchBackend:
         exposes numpy ``inp``/``wgt``/``acc``/``uop`` snapshots shaped like
         the numpy FSim's, so vta/trace.py digests every backend alike."""
         shapes = {k: np.asarray(v).shape for k, v in dram.items()}
-        trace = lower_cached(prog, hw, shapes)
+        trace = lowered(prog, hw, shapes)
         dev = self.device
         st = {"inp": torch.zeros((1, hw.inp_depth, hw.batch, hw.block_in),
                                  dtype=torch.int8, device=dev),

@@ -39,9 +39,18 @@ def test_port_imports_neither_jax_nor_repro():
         "import repro_torch.vta.fsim_torch, repro_torch.vta.backend\n"
         "import repro_torch.vta.fsim, repro_torch.vta.trace\n"
         "import repro_torch.serve.engine, repro_torch.serve.model\n"
+        "import repro_torch.serve.breaker, repro_torch.serve.workers\n"
         "from repro_torch.serve.model import served_model\n"
         "m = served_model('resnet18', 'tiny')\n"
         "m.run_batch(m.random_images(1), 'torch-cpu')\n"
+        "from repro_torch.serve.engine import VTAServeEngine\n"
+        "from repro_torch.serve.workers import WorkerPool\n"
+        "pool = WorkerPool({'m': m}, 1, transport='inline',\n"
+        "                  ladder=('torch-cpu', 'numpy'))\n"
+        "eng = VTAServeEngine({'m': m}, buckets=(1,), workers=pool)\n"
+        "t = eng.submit('a', 'm', m.random_images(1)[0])\n"
+        "eng.drain()\n"
+        "assert t.ok, t.status\n"
         "from repro_torch.vta.trace import record_trace\n"
         "seg = m.segments[0].program\n"
         "dram = {t: np.zeros(s, np.int8) for t, s in m.shapes.items()}\n"
@@ -63,6 +72,38 @@ def test_port_imports_neither_jax_nor_repro():
                        capture_output=True, text=True, timeout=300)
     assert r.returncode == 0, r.stderr
     assert r.stdout.strip() == "clean"
+
+
+def test_breaker_transitions_match_the_original():
+    """The port's ``CircuitBreaker`` (a copy) moves through the same states
+    at the same times as the JAX package's on one scripted sequence of
+    admissions, failures and successes."""
+    from repro.serve.breaker import CircuitBreaker as JBreaker
+    from repro_torch.serve.breaker import CircuitBreaker as TBreaker
+    script = [("allow", 0.0), ("fail", 0.0), ("fail", 0.1), ("fail", 0.2),
+              ("allow", 0.5), ("allow", 1.3), ("fail", 1.3), ("allow", 1.9),
+              ("allow", 2.4), ("ok", 2.4), ("fail", 2.5), ("ok", 2.6),
+              ("fail", 2.7), ("fail", 2.8), ("fail", 2.9), ("allow", 4.0),
+              ("ok", 4.0)]
+
+    def run(cls):
+        seen = []
+        br = cls("k", fail_threshold=3, cooldown_s=1.0,
+                 on_transition=lambda *a: seen.append(a))
+        steps = []
+        for op, now in script:
+            if op == "allow":
+                steps.append(br.allow(now))
+            elif op == "fail":
+                br.on_failure(now)
+            else:
+                br.on_success(now)
+            steps.append((br.state, br.consecutive_failures, br.opened_at))
+        return steps, br.transitions, seen
+
+    got, want = run(TBreaker), run(JBreaker)
+    assert got == want
+    assert len(want[1]) >= 5
 
 
 def _canon(x):
