@@ -156,15 +156,43 @@ order; any failure raises and the script exits nonzero:
    error) is raised to the caller, with no step down and no breaker moved
    (``card_error_errors``). Process transport: one spawned worker on backend
    ``"torch"`` and resnet18-small from the registry, its answers equal to
-   ``"torch-cpu"``, and the child reports the card's name.
+   ``"torch-cpu"``, and the child reports the card's name. Two pools
+   (``two_pools``): two fresh 2-worker pools alive at once, both cold,
+   each engine given a round and the two drained at once, then a replayed
+   round; the cold race's checks over both, and the four workers' streams
+   distinct (the process's stream registry, ``fsim_torch.claim_stream``).
+7. The language-model session (``lm_checks``), through the entry points a
+   user calls: ``build_model``, ``ServeSession(model, params).generate``
+   on the card, every attention layer on the port's kernels. The golden
+   runs (``golden_errors``), in f32 against ``tests/golden/
+   lm_session_f32.json``, which ``tests/make_lm_golden.py`` writes from
+   the JAX package's ``ServeSession`` on the CPU: Qwen3-0.6B at full width
+   (its depth cut to the file's 4 layers) and Gemma-2 27B's smoke config
+   (local layers with a window of 8 against 32-token prompts), weights
+   from ``numpy_params`` and the file's seed (their sha256 must be the
+   file's), 2 prompts, 8 greedy steps: the tokens equal, the logits at the
+   file's top 8 of every step within ``LM_F32_TOL``, and the attention
+   launches exactly one prefill per layer and one decode and combine per
+   layer and step (``lm_launches_want``). The bf16 run (``lm_bf16``):
+   Qwen3-0.6B at full width and depth in bf16, 4 prompts of 1024 tokens,
+   32 steps, launch counts zeroed just before and read just after (28
+   ``flash_attention.mma``, 28 x 32 ``flash_attention.decode`` and
+   ``flash_attention_combine``); each step's logits against the same
+   model on ``flash_attention_plain`` fed the kernels' tokens, within
+   ``LM_BF16_TOL``; prefill and decode times (host clock between
+   synchronizes), tokens/s, attention's share of device time and the idle
+   share under ``torch.profiler``, ``memory_reserved``.
 
 Output: one line per kernel (and per phase-4 case), ms per dispatch per
 bucket (median, min, max), then a JSON line of serving numbers (per bucket,
 the capture cost per bucket and the ``profile:`` numbers), a JSON line of
 the pool's numbers (``{"pool": ...}``: per n, ms per round, images/s and per
-worker batches, busy ms and reserved MB; the speedup), a JSON line of
-kernel numbers (the VTA rows also give ``launches_pool``, their launches
-in the 2-worker rounds), the ``nvidia-smi`` line, and last the device line. Kernel
+worker batches, busy ms and reserved MB; the speedup), a JSON line of the
+language-model runs (``{"lm": ...}``), a JSON line of kernel numbers (the
+VTA rows also give ``launches_pool``, their launches in the 2-worker
+rounds; the attention rows' ``launches`` are phase 7's, and
+``launches_cases`` phase 5's), the ``nvidia-smi`` line, and last the
+device line. Kernel
 times are medians of CUDA-event timings. Each VTA kernel row sums its
 launches over one forward of the model named in ``per``
 (``launches_per_forward``), while ``launches`` is the count over the whole
@@ -184,7 +212,7 @@ boolean mask carries a window). The call is a yardstick here only: the port
 never makes it.
 
 ``--plant-faults`` runs none of the phases. It shows that the limits of
-phases 2-6 fail a wrong kernel, executor or pool: the checkout is copied into a
+phases 2-7 fail a wrong kernel, executor or pool: the checkout is copied into a
 temporary directory once as it is and once per fault of ``PLANTED_FAULTS``
 (a text substitution: a key tile from 4096 skipped, or the window 64 keys
 too wide, in each of the three attention routes; the f32 prefill's score
@@ -198,8 +226,10 @@ dropped; one thread's partial of a split tap reduction dropped; a captured
 dispatch that does not zero the scratchpads, and one that replays every
 chunk of a trace but the last; plans shared by every worker,
 ``pool.shared_plans``, a card rung that steps down for a fault of the
-card, ``ladder.card_error_steps_down``, and a step down the ladder left
-uncounted, ``ladder.uncounted_step_down``), the
+card, ``ladder.card_error_steps_down``, a step down the ladder left
+uncounted, ``ladder.uncounted_step_down``, and in the language model a
+decode that attends to one slot fewer than are valid, a cache slot
+written one off, and a prefill that drops the sliding window), the
 unchanged sources are built once into a build directory the copies share,
 and each copy builds its changed source and runs the cases of its route
 through their limit checks (``--case-errors``, three copies at a time): the
@@ -208,8 +238,9 @@ phase-4 and edge cases of the float GEMM, depthwise, ALU or pooling kernel
 (the exact ones by value and by bits), phase 2's
 cases of the VTA GEMM or the ALU stage-program kernel, phase 3's checks
 (``serve_checks``, one line a check), or phase 6's (``pool_checks``: the
-scale-out, the cold race and the drill for route ``pool``, the ladder drill for
-``ladder``); the unchanged copy runs all of them. One JSON line per (fault, case) gives the kernel's error
+scale-out, the cold race, the two pools and the drill for route
+``pool``, the ladder drill for ``ladder``), or phase 7's golden runs
+(``lm_errors``); the unchanged copy runs all of them. One JSON line per (fault, case) gives the kernel's error
 and its limit (attention: the kernel's and the plain version's largest
 error against float64, the largest |out| and the elements over the limit).
 It exits 0 only if the unchanged kernels pass every case and each fault
@@ -2103,6 +2134,27 @@ def burst(eng, imgs, rounds: int) -> tuple:
     return results, secs
 
 
+def kernel_spans(prof) -> list:
+    """(start, end, name) of every device kernel a profile saw, in order."""
+    from torch.autograd import DeviceType
+    return sorted((e.time_range.start, e.time_range.end, e.name)
+                  for e in prof.events()
+                  if e.device_type == DeviceType.CUDA
+                  and e.time_range.end > e.time_range.start)
+
+
+def spans_union(spans: list) -> float:
+    """The length of the union of ``kernel_spans``' intervals: device busy
+    time, where kernels that overlap count once."""
+    union, (lo, hi) = 0, spans[0][:2]
+    for a, b, _ in spans[1:]:
+        if a > hi:
+            union, lo, hi = union + hi - lo, a, b
+        else:
+            hi = max(hi, b)
+    return union + hi - lo
+
+
 def profile_round(eng, imgs) -> tuple:
     """One more burst round under ``torch.profiler``: host wall, the device
     kernels' summed time, the union of their intervals (busy time: what
@@ -2110,25 +2162,15 @@ def profile_round(eng, imgs) -> tuple:
     (sum over union; 1.0 is no overlap) and the idle share (1 - union over
     wall). Returns (answers, numbers); the numbers are None where the
     profiler saw no device kernel."""
-    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         results, secs = burst(eng, imgs, 1)
-    spans = sorted((e.time_range.start, e.time_range.end)
-                   for e in prof.events()
-                   if e.device_type == DeviceType.CUDA
-                   and e.time_range.end > e.time_range.start)
+    spans = kernel_spans(prof)
     if not spans:
         return results, None
-    union, (lo, hi) = 0, spans[0]
-    for a, b in spans[1:]:
-        if a > hi:
-            union, lo, hi = union + hi - lo, a, b
-        else:
-            hi = max(hi, b)
-    union += hi - lo
-    total = sum(b - a for a, b in spans)
+    union = spans_union(spans)
+    total = sum(b - a for a, b, _ in spans)
     return results, dict(wall_ms=secs[0] * 1e3, kernels=len(spans),
                          kernel_sum_ms=total / 1e3, busy_ms=union / 1e3,
                          overlap=total / union,
@@ -2272,6 +2314,94 @@ def cold_race(trunk, imgs, ref, per_fwd: dict, graphs: int) -> dict:
         f"(eager runs and captures), replay round {rounds[1][3] * 1e3:.1f} "
         f"ms; launches per round {rounds[0][1]} then {rounds[1][1]}; "
         f"raised {raised}; checks {errs}")
+    return errs
+
+
+def two_pools(trunk, imgs, ref, per_fwd: dict, graphs: int) -> dict:
+    """Two fresh pools of two thread workers alive at once, both cold,
+    serving the trunk together: each engine takes a round (bucket 8 and
+    bucket 2) and the two are drained at once from two threads, so that
+    four workers run eagerly and capture together, each on a stream of the
+    process's registry (``fsim_torch.claim_stream``); then a replayed
+    round. ``cold_race``'s checks over both pools: every answer bit-equal
+    to ``"torch-cpu"`` and each engine's request 0 to ``TRUNK_DIGEST``; no
+    worker's executor raising; bucket 8 on worker 0 and bucket 2 on worker
+    1 in each pool; each capture-log key once in its owner's scope (the
+    scopes are named by worker id, so the two pools' workers of one id
+    share their plans); each round's launches and dispatches those of four
+    forwards. Besides, the four workers' streams differ and none is the
+    default stream."""
+    import threading
+    import torch
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.serve.engine import VTAServeEngine
+    from repro_torch.serve.workers import WorkerPool
+    from repro_torch.vta import fsim_torch
+    models = {TRUNK: trunk}
+    raised: list = []
+    pools, engines = [], []
+    for p in range(2):
+        pool = WorkerPool(models, 2, transport="thread")
+        for w in pool.workers:
+            def watch(key, images, bucket, _inner=w.executor, _tag=f"pool{p}."
+                      f"worker{w.id}"):
+                try:
+                    return _inner(key, images, bucket)
+                except Exception as e:                  # noqa: BLE001
+                    raised.append(f"{_tag} bucket {bucket}: "
+                                  f"{type(e).__name__}: {e}")
+                    log("".join(traceback.format_exception(e)))
+                    raise
+            w.executor = watch
+        pools.append(pool)
+        engines.append(VTAServeEngine(models, buckets=(2, 8), workers=pool))
+    streams = [w.stream.cuda_stream for p in pools for w in p.workers]
+    rounds = []
+    try:
+        fsim_torch.reset_capture_log()
+        for _ in range(2):
+            reset_launch_counts()
+            fsim_torch.reset_kernel_launch_log()
+            t0 = time.perf_counter()
+            tks = [[(i, eng.submit("t0", TRUNK, imgs[i]))
+                    for i in round_images(0)] for eng in engines]
+            drains = [threading.Thread(target=eng.drain) for eng in engines]
+            for th in drains:
+                th.start()
+            for th in drains:
+                th.join(timeout=600)
+            secs = time.perf_counter() - t0
+            rounds.append(([[(i, t.result(timeout=0)) for i, t in ts]
+                            for ts in tks], launch_counts(),
+                           fsim_torch.kernel_launch_log(), secs,
+                           sum(th.is_alive() for th in drains)))
+        owners = [{b: p.affinity.get((TRUNK, b)) for b in (8, 2)}
+                  for p in pools]
+        log_ = fsim_torch.capture_log()
+    finally:
+        for eng in engines:
+            eng.close()
+    answers = [r for rnd in rounds for per_eng in rnd[0] for r in per_eng]
+    default = torch.cuda.default_stream().cuda_stream
+    errs = {"pools2.outputs": served_errors(answers, ref) + abs(
+                len(answers) - 40),
+            "pools2.digest": sum(
+                per_eng[0][0] != 0 or hashlib.sha256(
+                    per_eng[0][1].tobytes()).hexdigest() != TRUNK_DIGEST
+                for rnd in rounds for per_eng in rnd[0]),
+            "pools2.raised": len(raised) + sum(r[4] for r in rounds),
+            "pools2.affinity": sum(o != {8: 0, 2: 1} for o in owners),
+            "pools2.captures": capture_errors(log_, {8: 0, 2: 1}, graphs),
+            "pools2.launches": sum(
+                sum(c.get(k, 0) != 4 * v for k, v in per_fwd.items())
+                + abs(d - 4 * graphs) for _, c, d, _, _ in rounds),
+            "pools2.streams": len(streams) - len(set(streams)) + sum(
+                s == default for s in streams)}
+    log(f"two pools: two fresh 2-worker pools take a round each at once, "
+        f"cold, owners {owners}, worker streams {streams}; cold round "
+        f"{rounds[0][3]:.2f} s, replay round {rounds[1][3] * 1e3:.1f} ms; "
+        f"launches per round {rounds[0][1]} then {rounds[1][1]}; raised "
+        f"{raised}; checks {errs}")
     return errs
 
 
@@ -2470,6 +2600,7 @@ def pool_checks(trunk, small, route: str = "all") -> tuple:
             f"{rows[1]['ms_per_round_median']:.1f})")
         rows.append(dict(speedup_2_over_1=speedup))
         errs.update(cold_race(trunk, imgs, ref, per_fwd, graphs))
+        errs.update(two_pools(trunk, imgs, ref, per_fwd, graphs))
         errs.update(death_drill(trunk, imgs, ref, graphs))
     if route in ("all", "ladder"):
         errs.update(ladder_drill(small))
@@ -2480,7 +2611,322 @@ def pool_checks(trunk, small, route: str = "all") -> tuple:
 
 
 # ---------------------------------------------------------------------------
-# --plant-faults: the checks of phases 2-6 against wrong kernels and code
+# phase 7: the language-model session at full width
+# ---------------------------------------------------------------------------
+LM_GOLDEN = os.path.join(ROOT, "tests", "golden", "lm_session_f32.json")
+# f32 against the JAX package (CPU): |logit - golden| on the golden's 8
+# largest logits of every step. Both sides are f32 (TF32 off in the
+# matmuls, the prefill kernel at 3xTF32, ~2^-22 per product) summed in
+# other orders, a few 1e-6 over four layers; one key missed of 64, or one
+# slot written off, moves a logit by ~1e-2
+LM_F32_TOL = 1e-3
+# bf16: the kernels' run against the same model on flash_attention_plain,
+# teacher-forced with the kernels' tokens: per step and sequence, the norm
+# of the logits' difference over the norm of the plain run's. The two
+# differ in each attention output's summation order, so by one bf16 step
+# (2^-8) on some elements per layer; 28 layers summed in quadrature give
+# sqrt(28) * 2^-8 = 0.021; the limit is 3x that
+LM_BF16_TOL = 2.0 ** -4
+LM_BF16 = dict(name="qwen3-0.6b", seed=0, batch=4, prompt_len=1024,
+               steps=32)
+
+
+def lm_golden() -> list:
+    with open(LM_GOLDEN) as f:
+        return json.load(f)["runs"]
+
+
+def lm_config(run: dict):
+    """The port's config of a golden run: its name, smoke or not, with the
+    run's overrides."""
+    from repro_torch.configs import ARCHS, SMOKE_ARCHS
+    return (SMOKE_ARCHS if run["smoke"] else ARCHS)[run["name"]].replace(
+        **run["overrides"])
+
+
+def record_steps(sess, times: list = None) -> list:
+    """Wrap ``sess``'s prefill and decode steps: each step's logits, (B,
+    V) in f32, go into the returned list; with ``times``, each step is
+    also timed on the host clock, from a synchronize before it to one
+    after it (seconds)."""
+    import torch
+    seen = []
+
+    def keep(step):
+        def wrapped(*args):
+            if times is not None:
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+            out = step(*args)
+            if times is not None:
+                torch.cuda.synchronize()
+                times.append(time.perf_counter() - t0)
+            seen.append(out[0].reshape(out[0].shape[0], -1).float())
+            return out
+        return wrapped
+    sess._prefill, sess._decode = keep(sess._prefill), keep(sess._decode)
+    return seen
+
+
+def lm_launches_want(n_layers: int, dtype: str, prompt_len: int,
+                     steps: int) -> dict:
+    """The attention launches of one ``generate``: each layer's prefill on
+    its route, each layer's decode step on the decode route and its
+    combine."""
+    import torch
+    from repro_torch.kernels.flash_attention import ROUTES, attention_route
+    route = attention_route(getattr(torch, dtype), prompt_len)
+    want = {f"flash_attention.{r}": 0 for r in ROUTES}
+    want[f"flash_attention.{route}"] += n_layers
+    want["flash_attention.decode"] += n_layers * steps
+    want["flash_attention_combine"] = n_layers * steps
+    want["flash_attention"] = n_layers * (1 + steps)
+    return want
+
+
+def golden_errors(run: dict, device) -> tuple:
+    """One run of the golden file (``tests/make_lm_golden.py``: the JAX
+    package's ``ServeSession`` in f32 on the CPU) through the port's
+    ``ServeSession`` on ``device``, its attention on the port's kernels
+    (on the card; the plain version on the CPU), weights from
+    ``numpy_params`` with the golden's seed. Counts, each 0 to pass:
+    weights whose sha256 is not the golden's, tokens that differ, logits
+    at the golden's top 8 more than ``LM_F32_TOL`` away, and on the card
+    attention launches other than ``lm_launches_want``. A step whose
+    golden top-1 margin is under ``LM_F32_TOL`` is reported; its token and
+    all after it are not compared (a tie may break either way), nor are
+    the logits after it. Returns (errors, row)."""
+    import torch
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.models import build_model
+    from repro_torch.models.convert import (numpy_params, params_from_numpy,
+                                            tree_sha256)
+    from repro_torch.serve.session import ServeSession
+    cfg = lm_config(run)
+    weights = numpy_params(cfg, run["seed"])
+    errs = {"weights": int(tree_sha256(weights) != run["weights_sha256"])}
+    sess = ServeSession(build_model(cfg), params_from_numpy(weights, device),
+                        device=device)
+    del weights
+    seen = record_steps(sess)
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    got = sess.generate(np.array(run["prompts"], np.int32), run["steps"])
+    got = got.cpu().numpy()
+    secs = time.perf_counter() - t0
+    counts = launch_counts()
+    low = [s for s, top in enumerate(run["top"])
+           if min(v[0] - v[1] for v in top["value"]) < LM_F32_TOL]
+    upto = min(low, default=len(run["top"]) - 1)
+    worst, over = 0.0, 0
+    for logits, top in list(zip(seen, run["top"]))[:upto + 1]:
+        idx = torch.tensor(top["index"], device=logits.device)
+        err = np.abs(logits.gather(1, idx).cpu().numpy()
+                     - np.array(top["value"], np.float32))
+        worst, over = max(worst, float(err.max())), over + int(
+            (err > LM_F32_TOL).sum())
+    want_tokens = np.array(run["tokens"])
+    errs["tokens"] = int(got.shape != want_tokens.shape) or int(
+        (got[:, :upto] != want_tokens[:, :upto]).sum())
+    errs["logits"] = over + int(len(seen) != len(run["top"]))
+    want = lm_launches_want(cfg.n_layers, cfg.dtype, run["prompt_len"],
+                            run["steps"])
+    if torch.device(device).type == "cuda":
+        errs["launches"] = sum(counts.get(k, 0) != v for k, v in want.items())
+    row = dict(config=cfg.name, layers=cfg.n_layers, d_model=cfg.d_model,
+               batch=run["batch"], prompt_len=run["prompt_len"],
+               steps=run["steps"], max_err=worst, limit=LM_F32_TOL,
+               low_margin_steps=low, tokens_compared=upto, seconds=secs,
+               launches={k: counts.get(k, 0) for k in want})
+    return errs, row
+
+
+def profiled_shares(fn) -> dict:
+    """``fn()`` once on the host clock, then once more under
+    ``torch.profiler``: the device kernels' summed time and their union
+    (busy), attention's share of the summed time (kernels named
+    ``flash_*``), the idle share (1 - busy over wall) against the profiled
+    wall and against the unprofiled one (the profiler slows the host), and
+    the five kernels that take the most time. None where the profiler saw
+    no device kernel."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    fn()
+    torch.cuda.synchronize()
+    plain_wall = (time.perf_counter() - t0) * 1e6
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e6
+    spans = kernel_spans(prof)
+    if not spans:
+        return None
+    union = spans_union(spans)
+    total = sum(b - a for a, b, _ in spans)
+    attn = sum(b - a for a, b, n in spans if "flash_" in n)
+    by_name: dict = {}
+    for a, b, n in spans:
+        t, c = by_name.get(n, (0, 0))
+        by_name[n] = (t + b - a, c + 1)
+    top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:5]
+    return dict(wall_ms=wall / 1e3, wall_unprofiled_ms=plain_wall / 1e3,
+                kernels=len(spans), kernel_sum_ms=total / 1e3,
+                busy_ms=union / 1e3, attention_ms=attn / 1e3,
+                attention_share=attn / total, idle_share=1 - union / wall,
+                idle_share_unprofiled=max(0.0, 1 - union / plain_wall),
+                top=[dict(kernel=n[:80], ms=t / 1e3, count=c)
+                     for n, (t, c) in top])
+
+
+def lm_bf16(device) -> tuple:
+    """``LM_BF16``: Qwen3-0.6B at full width and depth in its own dtype
+    (bf16 activations over f32 master weights from a seeded generator on
+    the card), ``batch`` prompts of ``prompt_len`` seeded tokens, ``steps``
+    greedy steps through ``ServeSession``, after one short warm-up
+    generation. Launch counts are zeroed just before the run and read just
+    after (``lm_launches_want``). Each step is timed (``record_steps``);
+    then one prefill and 8 decode steps run under ``torch.profiler``
+    (``profiled_shares``); then the same model on
+    ``flash_attention_plain``, fed the kernels' tokens, gives each step's
+    logits again, held to ``LM_BF16_TOL``. Returns (errors, row)."""
+    import torch
+    from repro_torch.configs import ARCHS
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.models import build_model
+    from repro_torch.serve.session import ServeSession
+    cfg = ARCHS[LM_BF16["name"]]
+    B, S, steps = (LM_BF16[k] for k in ("batch", "prompt_len", "steps"))
+    model = build_model(cfg)
+    gen = torch.Generator(device=device).manual_seed(LM_BF16["seed"])
+    sess = ServeSession(model, model.init(gen, device), device=device)
+    prompts = np.random.default_rng(LM_BF16["seed"]).integers(
+        0, cfg.vocab_size, (B, S), dtype=np.int32)
+    sess.generate(prompts[:, :64], 2)                   # warm-up, uncounted
+    times: list = []
+    seen = record_steps(sess, times)
+    reset_launch_counts()
+    toks = sess.generate(prompts, steps)
+    torch.cuda.synchronize()
+    counts = launch_counts()
+    want = lm_launches_want(cfg.n_layers, cfg.dtype, S, steps)
+    errs = {"bf16.launches": sum(counts.get(k, 0) != v
+                                 for k, v in want.items()),
+            "bf16.shape": int(tuple(toks.shape) != (B, steps)
+                              or len(seen) != steps + 1),
+            "bf16.finite": sum(not bool(torch.isfinite(x).all())
+                               for x in seen)}
+    params = sess.params
+    batch = {"tokens": torch.as_tensor(prompts, device=device)}
+    with torch.inference_mode():
+        def prefill():
+            return model.prefill(params, batch, last_only=True)
+        _, caches = prefill()
+
+        def decode8():
+            c = caches
+            for s in range(min(8, steps)):
+                c = model.decode(params, {"tokens": toks[:, s:s + 1]}, c,
+                                 S + s)[1]
+        prof = {"prefill": profiled_shares(prefill),
+                "decode_8_steps": profiled_shares(decode8)}
+        del caches
+        plain = build_model(cfg, attention="torch")
+        ref, caches = plain.prefill(params, batch, last_only=True)
+        refs = [ref.reshape(B, -1).float()]
+        for s in range(steps):
+            ref, caches = plain.decode(params, {"tokens": toks[:, s:s + 1]},
+                                       caches, S + s)
+            refs.append(ref.reshape(B, -1).float())
+        del caches
+    rel = [float(((g - r).norm(dim=-1) / r.norm(dim=-1)).max())
+           for g, r in zip(seen, refs)]
+    agree = sum(int((g.argmax(-1) == r.argmax(-1)).sum())
+                for g, r in zip(seen, refs))
+    errs["bf16.logits"] = sum(x > LM_BF16_TOL for x in rel)
+    decode_s = statistics.median(times[1:])
+    row = dict(config=cfg.name, layers=cfg.n_layers, dtype=cfg.dtype,
+               batch=B, prompt_len=S, steps=steps,
+               prefill_ms=times[0] * 1e3,
+               prefill_tokens_per_s=B * S / times[0],
+               decode_ms_per_step_median=decode_s * 1e3,
+               decode_ms_per_step_min=min(times[1:]) * 1e3,
+               decode_ms_per_step_max=max(times[1:]) * 1e3,
+               decode_tokens_per_s=B / decode_s,
+               rel_err_max=max(rel), rel_err_first=rel[0], limit=LM_BF16_TOL,
+               argmax_agree=f"{agree}/{B * (steps + 1)}", profile=prof,
+               memory_reserved_mb=torch.cuda.memory_reserved() / 1e6,
+               launches={k: counts.get(k, 0) for k in want})
+    return errs, row
+
+
+def lm_checks(device, route: str = "all") -> tuple:
+    """Phase 7: every golden run (``golden_errors``) then, for route
+    "all", the bf16 run (``lm_bf16``). Returns (errors, rows, launches:
+    the attention launches summed over the runs)."""
+    errs, rows, launches = {}, [], {}
+    for run in lm_golden():
+        e, row = golden_errors(run, device)
+        errs.update({f"{run['name']}.{k}": v for k, v in e.items()})
+        rows.append(row)
+        log(f"lm golden {row['config']} ({row['layers']} layers, d_model "
+            f"{row['d_model']}, f32): {row['batch']} prompts of "
+            f"{row['prompt_len']} tokens, {row['steps']} steps in "
+            f"{row['seconds']:.2f} s; largest |logit - JAX| {row['max_err']:.3g}"
+            f" (limit {LM_F32_TOL}); steps with a top-1 margin under the "
+            f"limit {row['low_margin_steps']}; launches {row['launches']}; "
+            f"checks {e}")
+    if route == "all":
+        e, row = lm_bf16(device)
+        errs.update(e)
+        rows.append(row)
+        log(f"lm bf16 {row['config']} ({row['layers']} layers): "
+            f"{row['batch']} x {row['prompt_len']} prompt tokens, prefill "
+            f"{row['prefill_ms']:.2f} ms ({row['prefill_tokens_per_s']:.0f} "
+            f"tokens/s); decode {row['steps']} steps, ms per step median "
+            f"{row['decode_ms_per_step_median']:.2f} (min "
+            f"{row['decode_ms_per_step_min']:.2f}, max "
+            f"{row['decode_ms_per_step_max']:.2f}), "
+            f"{row['decode_tokens_per_s']:.1f} tokens/s; against the plain "
+            f"attention, relative error of the logits max "
+            f"{row['rel_err_max']:.4f} (limit {LM_BF16_TOL}), argmax agrees "
+            f"{row['argmax_agree']}; memory reserved "
+            f"{row['memory_reserved_mb']:.1f} MB; launches {row['launches']};"
+            f" checks {e}")
+        for part, p in row["profile"].items():
+            log(f"lm bf16 profile, {part}: " + ("the profiler saw no device "
+                "kernel" if p is None else
+                f"wall {p['wall_ms']:.2f} ms, {p['kernels']} device kernels "
+                f"summing {p['kernel_sum_ms']:.3f} ms (busy "
+                f"{p['busy_ms']:.3f}), attention {p['attention_ms']:.3f} ms "
+                f"= share {p['attention_share']:.3f}, idle share "
+                f"{p['idle_share']:.3f}; unprofiled wall "
+                f"{p['wall_unprofiled_ms']:.2f} ms, idle share against it "
+                f"{p['idle_share_unprofiled']:.3f}; most time: " + "; ".join(
+                    f"{k['kernel']} {k['ms']:.3f} ms in {k['count']}"
+                    for k in p["top"])))
+    for row in rows:
+        for k, v in row["launches"].items():
+            launches[k] = launches.get(k, 0) + v
+    log(f"lm checks (count of what failed, 0 passes): {errs}")
+    return errs, rows, launches
+
+
+def lm_errors(fault: str) -> None:
+    """Phase 7's golden checks on the card, one line per check, limit 0."""
+    import torch
+    errs = lm_checks(torch.device("cuda"), route="golden")[0]
+    for check, err in errs.items():
+        print(json.dumps({"fault": fault, "case": f"lm {check}",
+                          "err": err, "limit": 0, "over": err > 0}),
+              flush=True)
+
+
+# ---------------------------------------------------------------------------
+# --plant-faults: the checks of phases 2-7 against wrong kernels and code
 # ---------------------------------------------------------------------------
 PLANTED_FAULTS = {  # name: (route, file under src/repro_torch, text, stand-in)
     "mma.skip_tile_4096": (
@@ -2578,11 +3024,23 @@ PLANTED_FAULTS = {  # name: (route, file under src/repro_torch, text, stand-in)
         "ladder", "serve/breaker.py",
         "                self.metrics.on_fallback(rung.name)",
         "                pass"),
+    # a decode step that attends to one slot fewer than are valid
+    "lm.decode_one_slot_short": (
+        "lm", "models/attention.py", "valid = min(pos + 1, L)",
+        "valid = min(pos + 1, L) - 1"),
+    # a decode step that writes its K/V one slot past its own
+    "lm.cache_slot_off_by_one": (
+        "lm", "models/attention.py", "slot = pos % L", "slot = (pos + 1) % L"),
+    # a prefill that drops the sliding window on local layers
+    "lm.prefill_drops_window": (
+        "lm", "models/attention.py",
+        "window=cfg.sliding_window if local else None,", "window=None,"),
 }
 LAYER_FAULT_KEYS = ("gemm_float", "depthwise", "alu", "pool2d")
 VTA_FAULT_KEYS = ("gemm", "alu_sweep")
 SERVE_FAULT_KEYS = ("serve",)
 POOL_FAULT_KEYS = ("pool", "ladder")
+LM_FAULT_KEYS = ("lm",)
 # --plant-faults runs these besides ATTENTION_CASES: the only windowed
 # decode case there, g2.local.decode, sees its whole 4096-key cache, so a
 # window 64 too wide is invisible to it. Gemma-2 27B local layers decoding
@@ -2603,7 +3061,7 @@ def case_errors(fault: str, route: str) -> int:
     phase 3's checks of the captured path (``serve_errors``), and phase
     6's checks of the worker pool or the ladder (``pool_errors``)."""
     if route == "all" or route not in LAYER_FAULT_KEYS + VTA_FAULT_KEYS \
-            + SERVE_FAULT_KEYS + POOL_FAULT_KEYS:
+            + SERVE_FAULT_KEYS + POOL_FAULT_KEYS + LM_FAULT_KEYS:
         attention_errors(fault, route)
     if route == "all" or route in LAYER_FAULT_KEYS:
         layer_errors(fault, route)
@@ -2613,6 +3071,8 @@ def case_errors(fault: str, route: str) -> int:
         serve_errors(fault)
     if route == "all" or route in POOL_FAULT_KEYS:
         pool_errors(fault, route)
+    if route == "all" or route in LM_FAULT_KEYS:
+        lm_errors(fault)
     return 0
 
 
@@ -2937,6 +3397,13 @@ def main(argv: list) -> int:
         raise AssertionError(f"phase 6 failed: {errs6}")
     log(f"phase 6: {time.perf_counter() - t0:.1f} s")
 
+    # -- phase 7 ----------------------------------------------------------
+    t0 = time.perf_counter()
+    errs7, lm_rows, lm_launches = lm_checks(dev)
+    if any(errs7.values()):
+        raise AssertionError(f"phase 7 failed: {errs7}")
+    log(f"phase 7: {time.perf_counter() - t0:.1f} s")
+
     src = "src/repro_torch/csrc/"
     kernels = [
         dict(name="gemm", route="cuda", source=src + "vta_gemm.cu",
@@ -2973,16 +3440,20 @@ def main(argv: list) -> int:
         kernels.append(dict(
             name=key, route="cuda", source=src + source,
             replaces="src/repro/kernels/flash_attention.py:77",
-            launches=counts5[key], **row5[key],
+            launches=lm_launches[key], launches_cases=counts5[key],
+            **row5[key],
             per=f"one pass over the phase-5 cases of its route "
                 f"({row5[key]['cases']}): Gemma-2 27B, Qwen3-0.6B, Mixtral "
                 f"8x22B and RecurrentGemma-9B attention at prefill 8192 and "
                 f"decode 1 x 32768 / 4096, and the edge cases"
                 + ("; the decode route's time includes its combine"
-                   if key == "flash_attention.decode" else "")))
+                   if key == "flash_attention.decode" else "")
+                + "; launches: phase 7's language-model runs (the golden "
+                  "f32 runs and the bf16 run), launches_cases: phase 5's"))
     log(json.dumps({"serve": serve_rows, "capture": capture_rows,
                     "profile": prof}))
     log(json.dumps({"pool": pool_rows}))
+    log(json.dumps({"lm": lm_rows}))
     log(json.dumps({"kernels": kernels}))
     log(smi)
     log(json.dumps({"ok": True, "device": {

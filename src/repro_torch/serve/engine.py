@@ -31,6 +31,9 @@ batches whole through the same retry deque bisection uses — supervision
 stays total across worker failures. On the card each thread worker runs on
 a CUDA stream of its own and owns its captured graphs. Without ``workers``
 nothing changes: the single injected executor runs every batch.
+
+The language-model session (serve/session.py: ``ServeSession`` and its
+step factories) is exported here too, as the reference exports it.
 """
 from __future__ import annotations
 
@@ -46,8 +49,12 @@ from repro_torch.serve.faults import ExecutorTimeout, FaultInjector
 from repro_torch.serve.metrics import ServeMetrics
 from repro_torch.serve.queues import REJECT_NEW, Request
 from repro_torch.serve.scheduler import DEFAULT_BUCKETS, BatchPlan, BatchScheduler
+from repro_torch.serve.session import (ServeSession, greedy_token,  # noqa: F401
+                                       make_decode_step, make_prefill_step)
 
-__all__ = ["Ticket", "BackendExecutor", "VTAServeEngine", "ExecutorTimeout"]
+__all__ = ["ServeSession", "make_prefill_step", "make_decode_step",
+           "greedy_token", "Ticket", "BackendExecutor", "VTAServeEngine",
+           "ExecutorTimeout"]
 
 
 class Ticket:

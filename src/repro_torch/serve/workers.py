@@ -52,7 +52,9 @@ with the ``"torch"`` rung, the default), each inline or thread worker owns
 one ``torch.cuda.Stream`` and runs every dispatch under it: the upload of
 the images, the graph replays and the copy of the results back. Two
 workers' graphs can then run at once; a worker never runs on the default
-stream. A ladder that names ``"torch"`` raises where there is no CUDA
+stream. The stream comes from the process's registry
+(``fsim_torch.claim_stream``), so no other worker, of this pool or
+another, and no capture thread runs on it; ``shutdown`` gives it back. A ladder that names ``"torch"`` raises where there is no CUDA
 device, as the backend does: the pool never drops the rung.
 
 Faults (serve/faults.py): ``worker.die`` and ``worker.stall`` are seeded,
@@ -67,6 +69,7 @@ from __future__ import annotations
 
 import queue
 import threading
+import weakref
 from typing import Callable, List, Optional
 
 import numpy as np
@@ -182,7 +185,11 @@ class ExecutorWorker:
         self.id = wid
         self.executor = executor
         device = _card_device(executor)
-        self.stream = None if device is None else torch.cuda.Stream(device)
+        self.stream = None if device is None else fsim_torch.claim_stream(
+            device, f"worker{wid}")
+        if self.stream is not None:
+            self._release = weakref.finalize(
+                self, fsim_torch.release_stream, self.stream)
         self.clock = clock
         self.faults = faults
         self.state = WORKER_LIVE
@@ -205,6 +212,13 @@ class ExecutorWorker:
     def scope(self) -> str:
         """The capture-scope label of this worker's dispatches."""
         return f"worker{self.id}"
+
+    def stop(self) -> None:
+        """Give the worker's stream back to the process's registry
+        (``fsim_torch.claim_stream``); the pool's ``shutdown`` calls it once
+        the worker's thread has ended."""
+        if self.stream is not None:
+            self._release()
 
     def kill(self) -> None:
         self.state = WORKER_DEAD
@@ -284,13 +298,6 @@ class WorkerPool:
                 wid, ex, clock=self.clock, faults=faults,
                 fail_threshold=fail_threshold, cooldown_s=cooldown_s,
                 on_transition=self._on_breaker, inbox_depth=inbox_depth))
-        # PyTorch hands its 32 pooled streams out in turn: past that, two
-        # workers would share one, and one's capture would take the other in
-        streams = [w.stream.cuda_stream for w in self.workers
-                   if w.stream is not None]
-        if len(set(streams)) != len(streams):
-            raise ValueError(f"{len(streams)} workers on the card need as "
-                             f"many CUDA streams; PyTorch's pool has 32")
 
     # ------------------------------------------------------------------
     # wiring
@@ -345,6 +352,7 @@ class WorkerPool:
             if w.thread is not None:
                 w.thread.join(timeout=5)
                 w.thread = None
+            w.stop()
             fsim_torch.release_capture_scope(w.scope)
 
     # ------------------------------------------------------------------

@@ -56,6 +56,7 @@ import functools
 import itertools
 import threading
 import types
+import weakref
 from typing import Optional
 
 import numpy as np
@@ -530,13 +531,53 @@ def _note_capture(trace: Trace, chunks: list, n: int) -> None:
             _CAPTURES[(key, i, _arg_shapes(chunk), n, scope)] += 1
 
 
+# CUDA streams given to owners (serving workers, capture threads), by
+# ``cuda_stream`` handle: PyTorch hands its pooled streams out in turn, so a
+# plain ``torch.cuda.Stream(device)`` can be one that another owner runs on,
+# and that owner's work would then join this one's captures and break both
+POOLED_STREAMS = 32          # PyTorch's pool of streams of one priority
+_STREAM_LOCK = threading.Lock()
+_STREAM_OWNERS: dict = {}    # cuda_stream handle -> owner label
+
+
+def claim_stream(device: torch.device, owner: str) -> torch.cuda.Stream:
+    """A stream of PyTorch's pool on ``device`` that no other owner holds,
+    registered to ``owner`` until ``release_stream``: drawn from
+    ``torch.cuda.Stream(device)`` until one is free. Raises when all
+    ``POOLED_STREAMS`` are held."""
+    with _STREAM_LOCK:
+        for _ in range(POOLED_STREAMS):
+            stream = torch.cuda.Stream(device)
+            if stream.cuda_stream not in _STREAM_OWNERS:
+                _STREAM_OWNERS[stream.cuda_stream] = owner
+                return stream
+        held = sorted(_STREAM_OWNERS.values())
+    raise RuntimeError(f"{owner}: all {POOLED_STREAMS} pooled CUDA streams "
+                       f"of {device} are held, by {held}")
+
+
+def release_stream(stream: torch.cuda.Stream) -> None:
+    """Give ``stream`` back: a later ``claim_stream`` may hand it out."""
+    with _STREAM_LOCK:
+        _STREAM_OWNERS.pop(stream.cuda_stream, None)
+
+
+class _SideStream:
+    """A thread's capture stream on one device, claimed at creation and
+    released when the thread ends (its thread-local storage, the only
+    holder, is dropped then)."""
+
+    def __init__(self, device: torch.device):
+        self.stream = claim_stream(
+            device, f"capture thread {threading.current_thread().name}")
+        weakref.finalize(self, release_stream, self.stream)
+
+
 def _capture_stream(device: torch.device) -> torch.cuda.Stream:
     """The stream this thread captures on: its current stream (a serving
     worker's own), or, where that is the default stream, on which CUDA
-    cannot capture, a side stream the thread makes once. Never a new
-    ``torch.cuda.Stream`` per capture: PyTorch hands its 32 pooled streams
-    out in turn, so a fresh one can be another worker's current stream,
-    and that worker's work would then join this capture and break both."""
+    cannot capture, a side stream the thread claims once
+    (``claim_stream``), so that it is no other owner's."""
     stream = torch.cuda.current_stream(device)
     if stream != torch.cuda.default_stream(device):
         return stream
@@ -544,8 +585,8 @@ def _capture_stream(device: torch.device) -> torch.cuda.Stream:
     if side is None:
         side = _SCOPE.side_streams = {}
     if device not in side:
-        side[device] = torch.cuda.Stream(device)
-    return side[device]
+        side[device] = _SideStream(device)
+    return side[device].stream
 
 
 # ---------------------------------------------------------------------------

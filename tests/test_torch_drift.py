@@ -63,6 +63,20 @@ def test_port_imports_neither_jax_nor_repro():
         "x = torch.ones((1, 2, 4, 8))\n"
         "repro_torch.kernels.ops.flash_attention(x, x[:, :1], x[:, :1],\n"
         "                                        window=2, softcap=5.0)\n"
+        "import repro_torch.configs, repro_torch.sharding\n"
+        "import repro_torch.models.layers, repro_torch.models.attention\n"
+        "import repro_torch.models.moe, repro_torch.models.transformer\n"
+        "import repro_torch.models.convert, repro_torch.serve.session\n"
+        "from repro_torch.configs import SMOKE_ARCHS\n"
+        "from repro_torch.models import build_model\n"
+        "from repro_torch.models.convert import numpy_params\n"
+        "from repro_torch.serve.engine import ServeSession\n"
+        "cfg = SMOKE_ARCHS['qwen3-0.6b']\n"
+        "sess = ServeSession(build_model(cfg), repro_torch.models.convert.\n"
+        "                    params_from_numpy(numpy_params(cfg, 0), 'cpu'),\n"
+        "                    device='cpu')\n"
+        "out = sess.generate(np.ones((2, 8), np.int32), n_steps=3)\n"
+        "assert tuple(out.shape) == (2, 3), out.shape\n"
         "bad = sorted(k for k in sys.modules\n"
         "             if k.split('.')[0] in ('jax', 'jaxlib', 'repro'))\n"
         "assert not bad, bad\n"
@@ -72,6 +86,27 @@ def test_port_imports_neither_jax_nor_repro():
                        capture_output=True, text=True, timeout=300)
     assert r.returncode == 0, r.stderr
     assert r.stdout.strip() == "clean"
+
+
+def test_config_copies_match_the_originals():
+    """The port's ``configs/`` is a copy: every config of ``ARCHS``,
+    ``SMOKE_ARCHS`` and ``SHAPES`` equals the JAX package's field by
+    field, and so do the properties the models read."""
+    from repro import configs as jc
+    from repro_torch import configs as tc
+    for name in ("ARCHS", "SMOKE_ARCHS", "SHAPES"):
+        a, b = getattr(jc, name), getattr(tc, name)
+        assert list(a) == list(b), name
+        for key in a:
+            assert dataclasses.asdict(a[key]) == dataclasses.asdict(b[key])
+    for key, cfg in jc.ARCHS.items():
+        port = tc.ARCHS[key]
+        assert (cfg.layer_kinds, cfg.n_groups, cfg.param_count(),
+                cfg.active_param_count(), cfg.long_context_capable) == (
+            port.layer_kinds, port.n_groups, port.param_count(),
+            port.active_param_count(), port.long_context_capable)
+        assert dataclasses.asdict(jc.smoke_variant(cfg)) == \
+            dataclasses.asdict(tc.smoke_variant(port))
 
 
 def test_breaker_transitions_match_the_original():

@@ -554,12 +554,13 @@ def test_capture_stream_is_the_workers_own(monkeypatch):
     made = []
 
     def make(device=None):
-        made.append(object())
+        made.append(types.SimpleNamespace(cuda_stream=len(made) + 1))
         return made[-1]
 
     default, worker = object(), object()
     current = threading.local()
     monkeypatch.setattr(torch.cuda, "Stream", make)
+    monkeypatch.setattr(fsim_torch, "_STREAM_OWNERS", {})
     monkeypatch.setattr(torch.cuda, "default_stream", lambda device=None:
                         default)
     monkeypatch.setattr(torch.cuda, "current_stream", lambda device=None:
@@ -578,6 +579,58 @@ def test_capture_stream_is_the_workers_own(monkeypatch):
     th.start()
     th.join()
     assert got[0] is not side and made == [side, got[0]]
+
+
+def test_stream_registry_keeps_owners_apart(monkeypatch):
+    """PyTorch hands its 32 pooled streams out in turn. Two pools of card
+    workers alive at once, with 30 unregistered streams drawn between them
+    (the pool wraps around), and a thread capturing from the default
+    stream, never share a stream; the 33rd owner raises; a stopped pool's
+    and an ended thread's streams are free again."""
+    pooled = [types.SimpleNamespace(cuda_stream=0x100 + i)
+              for i in range(fsim_torch.POOLED_STREAMS)]
+    turn = iter(range(10 ** 6))
+    monkeypatch.setattr(torch.cuda, "Stream", lambda device=None: pooled[
+        next(turn) % len(pooled)])
+    default = types.SimpleNamespace(cuda_stream=0)
+    monkeypatch.setattr(torch.cuda, "default_stream",
+                        lambda device=None: default)
+    monkeypatch.setattr(torch.cuda, "current_stream",
+                        lambda device=None: default)
+    monkeypatch.setattr(fsim_torch, "_STREAM_OWNERS", {})
+    dev = torch.device("cuda", 0)
+    monkeypatch.setattr("repro_torch.serve.workers._card_device",
+                        lambda executor: dev)
+
+    def pool():
+        return WorkerPool(n=2, transport="inline", clock=FakeClock(),
+                          executor_factory=RecordingFactory())
+
+    first = pool()
+    for _ in range(30):
+        torch.cuda.Stream(dev)
+    second = pool()
+    got = []
+    th = threading.Thread(target=lambda: got.append(
+        fsim_torch._capture_stream(dev)))
+    th.start()
+    th.join(timeout=5)
+    assert not th.is_alive()
+    streams = [w.stream.cuda_stream for p in (first, second)
+               for w in p.workers] + [got[0].cuda_stream]
+    assert len(set(streams)) == 5
+    del got, th
+    import gc
+    gc.collect()                       # the ended thread's stream is free
+    assert len(fsim_torch._STREAM_OWNERS) == 4
+    rest = [fsim_torch.claim_stream(dev, f"owner{i}") for i in range(28)]
+    assert len({s.cuda_stream for s in rest} | set(streams[:4])) == 32
+    with pytest.raises(RuntimeError, match="all 32 pooled CUDA streams"):
+        fsim_torch.claim_stream(dev, "owner33")
+    second.shutdown()
+    again = {fsim_torch.claim_stream(dev, "after").cuda_stream
+             for _ in range(2)}
+    assert again == set(streams[2:4])
 
 
 def test_counters_survive_concurrent_updates():
