@@ -159,29 +159,48 @@ order; any failure raises and the script exits nonzero:
    ``"torch-cpu"``, and the child reports the card's name. Two pools
    (``two_pools``): two fresh 2-worker pools alive at once, both cold,
    each engine given a round and the two drained at once, then a replayed
-   round; the cold race's checks over both, and the four workers' streams
-   distinct (the process's stream registry, ``fsim_torch.claim_stream``).
+   round; the cold race's checks over both, each key captured once per
+   pool (a worker's capture scope is ``pool<k>.worker<id>``), and the four
+   workers' streams distinct (the process's stream registry,
+   ``fsim_torch.claim_stream``); then the first pool shuts down and the
+   second's next round replays with no new capture.
 7. The language-model session (``lm_checks``), through the entry points a
    user calls: ``build_model``, ``ServeSession(model, params).generate``
-   on the card, every attention layer on the port's kernels. The golden
-   runs (``golden_errors``), in f32 against ``tests/golden/
-   lm_session_f32.json``, which ``tests/make_lm_golden.py`` writes from
-   the JAX package's ``ServeSession`` on the CPU: Qwen3-0.6B at full width
-   (its depth cut to the file's 4 layers) and Gemma-2 27B's smoke config
-   (local layers with a window of 8 against 32-token prompts), weights
-   from ``numpy_params`` and the file's seed (their sha256 must be the
-   file's), 2 prompts, 8 greedy steps: the tokens equal, the logits at the
-   file's top 8 of every step within ``LM_F32_TOL``, and the attention
-   launches exactly one prefill per layer and one decode and combine per
-   layer and step (``lm_launches_want``). The bf16 run (``lm_bf16``):
-   Qwen3-0.6B at full width and depth in bf16, 4 prompts of 1024 tokens,
-   32 steps, launch counts zeroed just before and read just after (28
-   ``flash_attention.mma``, 28 x 32 ``flash_attention.decode`` and
-   ``flash_attention_combine``); each step's logits against the same
-   model on ``flash_attention_plain`` fed the kernels' tokens, within
-   ``LM_BF16_TOL``; prefill and decode times (host clock between
-   synchronizes), tokens/s, attention's share of device time and the idle
-   share under ``torch.profiler``, ``memory_reserved``.
+   on the card, every attention layer on the port's kernels, the RWKV-6
+   and RG-LRU blocks in PyTorch. The golden runs (``golden_errors``), in
+   f32 against ``tests/golden/lm_session_f32.json`` and
+   ``lm_session_recurrent_f32.json``, which ``tests/make_lm_golden.py``
+   writes from the JAX package's ``ServeSession`` on the CPU: Qwen3-0.6B
+   at full width (its depth cut to the file's 4 layers), Gemma-2 27B's
+   smoke config (local layers with a window of 8 against 32-token
+   prompts), RWKV-6 1.6B at full width cut to 2 layers (2048-token
+   prompts: two chunks of 1024, the state carried between) and its smoke
+   config (40 tokens: one padded chunk), RecurrentGemma-9B at full width
+   cut to one pattern group of 3 layers, and its smoke config (window 8,
+   32 tokens); weights from ``numpy_params`` and the file's seed (their
+   sha256 must be the file's, and every weight the reference reads in f32
+   must stay f32), 2 prompts, 8 greedy steps: the tokens equal, the
+   logits at the file's top 8 of every step within ``LM_F32_TOL``, and
+   the attention launches exactly one prefill per attention layer and one
+   decode and combine per attention layer and step
+   (``lm_launches_want``). The bf16 runs (``lm_bf16``, ``LM_BF16_RUNS``),
+   each at full width and depth, weights from a seeded generator on the
+   card, launch counts zeroed just before and read just after: Qwen3-0.6B,
+   4 prompts of 1024 tokens, 32 steps (28 ``flash_attention.mma``, 28 x
+   32 ``flash_attention.decode`` and ``flash_attention_combine``);
+   RecurrentGemma-9B, 2 prompts of 2560 tokens (past its 2048 window),
+   32 steps (12 ``mma`` per prefill, 12 ``decode`` and 12 ``combine`` a
+   step), its f32 master weights freed once cast; each step's logits of
+   both against the same model on ``flash_attention_plain`` fed the
+   kernels' tokens, within ``LM_BF16_TOL``, every argmax equal. RWKV-6
+   1.6B, 4 prompts of 2048 tokens, 32 steps, no kernel: finite logits;
+   then, in f32 at full width and depth, a decode step of its first token
+   against its forward pass over the prompt and that token, within
+   ``LM_FORWARD_TOL`` (the bf16 pair's gap recorded). Each prints prefill
+   and decode times (host clock between synchronizes), tokens/s,
+   attention's share of device time and the idle share under
+   ``torch.profiler``, the params' size, the peak of init and cast,
+   ``memory_reserved``.
 
 Output: one line per kernel (and per phase-4 case), ms per dispatch per
 bucket (median, min, max), then a JSON line of serving numbers (per bucket,
@@ -229,7 +248,9 @@ chunk of a trace but the last; plans shared by every worker,
 card, ``ladder.card_error_steps_down``, a step down the ladder left
 uncounted, ``ladder.uncounted_step_down``, and in the language model a
 decode that attends to one slot fewer than are valid, a cache slot
-written one off, and a prefill that drops the sliding window), the
+written one off, a prefill that drops the sliding window, a WKV chunk
+without its inter-sub-block term, an RG-LRU decode step that ignores its
+state, and a cast at load that rounds the RG-LRU gates to bf16), the
 unchanged sources are built once into a build directory the copies share,
 and each copy builds its changed source and runs the cases of its route
 through their limit checks (``--case-errors``, three copies at a time): the
@@ -2077,13 +2098,19 @@ def stream_errors(pool, seen: dict) -> int:
                      for w in pool.workers if w.live)
 
 
-def capture_errors(log: dict, owners: dict, graphs: int) -> int:
-    """Capture-log keys away from ``owners`` ({batch: worker id}: each
-    (trace, chunk) of a bucket captured once, in its owner's scope, and
-    nothing else): keys captured more than once, scopes that are not the
-    owner's, and buckets short of ``graphs`` keys."""
+def owner_scopes(pool, owners: dict) -> set:
+    """{(batch, capture scope)} of ``owners`` ({batch: worker id}) in
+    ``pool``: the scope each bucket's captures must carry."""
+    return {(b, pool.workers[w].scope) for b, w in owners.items()}
+
+
+def capture_errors(log: dict, owners: set, graphs: int) -> int:
+    """Capture-log keys away from ``owners`` ({(batch, capture scope)}: each
+    (trace, chunk) of a bucket captured once in each scope it is owned in,
+    and nothing else): keys captured more than once, scopes that are not
+    an owner's, and (batch, scope) pairs short of ``graphs`` keys."""
     bad = sum(v != 1 for v in log.values())
-    want = {(b, f"worker{w}") for b, w in owners.items()}
+    want = set(owners)
     got: dict = {}
     for sig in log:
         got[(sig[3], sig[4])] = got.get((sig[3], sig[4]), 0) + 1
@@ -2213,7 +2240,8 @@ def scale_out(trunk, n: int, imgs, ref, per_fwd: dict, graphs: int) -> tuple:
         errs["affinity"] = int(owners != {8: 0, 2: n - 1}) + int(
             snap["workers"]["affinity"]["hit_rate"] != 1.0) + \
             snap["workers"]["affinity"]["reassigned"]
-        errs["captures"] = capture_errors(warm_log, owners, graphs) + int(
+        errs["captures"] = capture_errors(
+            warm_log, owner_scopes(pool, owners), graphs) + int(
             captured != warm_log)
         fwd = 2 * POOL_ROUNDS
         errs["launches"] = sum(counts.get(k, 0) != fwd * v
@@ -2305,7 +2333,8 @@ def cold_race(trunk, imgs, ref, per_fwd: dict, graphs: int) -> dict:
                 results[0][1].tobytes()).hexdigest() != TRUNK_DIGEST),
             "race.raised": len(raised),
             "race.affinity": int(owners != {8: 0, 2: 1}),
-            "race.captures": capture_errors(log_, {8: 0, 2: 1}, graphs),
+            "race.captures": capture_errors(
+                log_, owner_scopes(pool, {8: 0, 2: 1}), graphs),
             "race.launches": sum(
                 sum(c.get(k, 0) != 2 * v for k, v in per_fwd.items())
                 + abs(d - 2 * graphs) for _, c, d, _ in rounds)}
@@ -2326,11 +2355,13 @@ def two_pools(trunk, imgs, ref, per_fwd: dict, graphs: int) -> dict:
     round. ``cold_race``'s checks over both pools: every answer bit-equal
     to ``"torch-cpu"`` and each engine's request 0 to ``TRUNK_DIGEST``; no
     worker's executor raising; bucket 8 on worker 0 and bucket 2 on worker
-    1 in each pool; each capture-log key once in its owner's scope (the
-    scopes are named by worker id, so the two pools' workers of one id
-    share their plans); each round's launches and dispatches those of four
-    forwards. Besides, the four workers' streams differ and none is the
-    default stream."""
+    1 in each pool; each capture-log key once per pool, in its owner's
+    scope (``pool<k>.worker<id>``: no plan is shared across pools); each
+    round's launches and dispatches those of four forwards. Besides, the
+    four workers' streams differ and none is the default stream. Then the
+    first pool shuts down, and the second takes one more round alone: it
+    must replay, bit-exact, with no new capture (the first pool's
+    ``shutdown`` released only its own scopes)."""
     import threading
     import torch
     from repro_torch.kernels import launch_counts, reset_launch_counts
@@ -2378,6 +2409,13 @@ def two_pools(trunk, imgs, ref, per_fwd: dict, graphs: int) -> dict:
         owners = [{b: p.affinity.get((TRUNK, b)) for b in (8, 2)}
                   for p in pools]
         log_ = fsim_torch.capture_log()
+        engines[0].close()
+        fsim_torch.reset_capture_log()
+        tks = [(i, engines[1].submit("t0", TRUNK, imgs[i]))
+               for i in round_images(0)]
+        engines[1].drain()
+        after = [(i, t.result(timeout=0)) for i, t in tks]
+        recaptured = sum(fsim_torch.capture_log().values())
     finally:
         for eng in engines:
             eng.close()
@@ -2391,7 +2429,10 @@ def two_pools(trunk, imgs, ref, per_fwd: dict, graphs: int) -> dict:
                 for rnd in rounds for per_eng in rnd[0]),
             "pools2.raised": len(raised) + sum(r[4] for r in rounds),
             "pools2.affinity": sum(o != {8: 0, 2: 1} for o in owners),
-            "pools2.captures": capture_errors(log_, {8: 0, 2: 1}, graphs),
+            "pools2.captures": capture_errors(log_, set().union(*(
+                owner_scopes(p, {8: 0, 2: 1}) for p in pools)), graphs),
+            "pools2.after_shutdown": recaptured + served_errors(after, ref)
+            + abs(len(after) - 10),
             "pools2.launches": sum(
                 sum(c.get(k, 0) != 4 * v for k, v in per_fwd.items())
                 + abs(d - 4 * graphs) for _, c, d, _, _ in rounds),
@@ -2400,8 +2441,9 @@ def two_pools(trunk, imgs, ref, per_fwd: dict, graphs: int) -> dict:
     log(f"two pools: two fresh 2-worker pools take a round each at once, "
         f"cold, owners {owners}, worker streams {streams}; cold round "
         f"{rounds[0][3]:.2f} s, replay round {rounds[1][3] * 1e3:.1f} ms; "
-        f"launches per round {rounds[0][1]} then {rounds[1][1]}; raised "
-        f"{raised}; checks {errs}")
+        f"launches per round {rounds[0][1]} then {rounds[1][1]}; after the "
+        f"first pool's shutdown the second's round captured {recaptured}; "
+        f"raised {raised}; checks {errs}")
     return errs
 
 
@@ -2433,12 +2475,13 @@ def death_drill(trunk, imgs, ref, graphs: int) -> dict:
             or snap["workers"]["per_worker"]["1"]["deaths"] != 1
             or snap["workers"]["affinity"]["reassigned"] != 1)
         log_ = fsim_torch.capture_log()
+        w0, w1 = (w.scope for w in pool.workers)
         errs["drill.captures"] = capture_errors(
-            {k: v for k, v in log_.items() if k[4] == "worker1"}, {2: 1},
-            graphs) + capture_errors(
-            {k: v for k, v in log_.items() if k[4] == "worker0"},
-            {8: 0, 2: 0}, graphs) + int(pool.affinity != {(TRUNK, 8): 0,
-                                                            (TRUNK, 2): 0})
+            {k: v for k, v in log_.items() if k[4] == w1},
+            owner_scopes(pool, {2: 1}), graphs) + capture_errors(
+            {k: v for k, v in log_.items() if k[4] == w0},
+            owner_scopes(pool, {8: 0, 2: 0}), graphs) + int(
+            pool.affinity != {(TRUNK, 8): 0, (TRUNK, 2): 0})
     finally:
         eng.close()
     log(f"worker-death drill: worker 1 died at its dispatch "
@@ -2614,6 +2657,8 @@ def pool_checks(trunk, small, route: str = "all") -> tuple:
 # phase 7: the language-model session at full width
 # ---------------------------------------------------------------------------
 LM_GOLDEN = os.path.join(ROOT, "tests", "golden", "lm_session_f32.json")
+LM_GOLDEN_RECURRENT = os.path.join(ROOT, "tests", "golden",
+                                   "lm_session_recurrent_f32.json")
 # f32 against the JAX package (CPU): |logit - golden| on the golden's 8
 # largest logits of every step. Both sides are f32 (TF32 off in the
 # matmuls, the prefill kernel at 3xTF32, ~2^-22 per product) summed in
@@ -2625,14 +2670,29 @@ LM_F32_TOL = 1e-3
 # of the logits' difference over the norm of the plain run's. The two
 # differ in each attention output's summation order, so by one bf16 step
 # (2^-8) on some elements per layer; 28 layers summed in quadrature give
-# sqrt(28) * 2^-8 = 0.021; the limit is 3x that
+# sqrt(28) * 2^-8 = 0.021 (38 layers: 0.024); the limit is 3x that
 LM_BF16_TOL = 2.0 ** -4
-LM_BF16 = dict(name="qwen3-0.6b", seed=0, batch=4, prompt_len=1024,
-               steps=32)
+# a model with no attention layer (RWKV-6) holds one decode step to its
+# forward pass over the prompt and that token, at full width and depth in
+# f32: two orders of summation, ~2e-6 relative over 4 layers and ~4e-6
+# over 8 (full width, CPU). In bf16 the same pair drifts apart with depth
+# (0.013 over 4 layers and 0.029 over 8 on the CPU, 0.10 over 24 on an
+# H100): rounding noise through 2048 steps of a data-dependent decay,
+# recorded, not held
+LM_FORWARD_TOL = 1e-3
+# bf16 at full width and depth, weights from a seeded generator on the card
+LM_BF16_RUNS = (
+    dict(name="qwen3-0.6b", seed=0, batch=4, prompt_len=1024, steps=32),
+    dict(name="rwkv6-1.6b", seed=0, batch=4, prompt_len=2048, steps=32),
+    # 2560 > the 2048 window: the window bites in prefill, and the ring of
+    # every local layer wraps from the first decode step
+    dict(name="recurrentgemma-9b", seed=0, batch=2, prompt_len=2560,
+         steps=32),
+)
 
 
-def lm_golden() -> list:
-    with open(LM_GOLDEN) as f:
+def lm_golden(path: str = LM_GOLDEN) -> list:
+    with open(path) as f:
         return json.load(f)["runs"]
 
 
@@ -2642,6 +2702,27 @@ def lm_config(run: dict):
     from repro_torch.configs import ARCHS, SMOKE_ARCHS
     return (SMOKE_ARCHS if run["smoke"] else ARCHS)[run["name"]].replace(
         **run["overrides"])
+
+
+def attention_layers(cfg) -> int:
+    """The attention layers of ``cfg`` (global and local)."""
+    from repro_torch.configs.base import ATTN_GLOBAL, ATTN_LOCAL
+    return sum(k in (ATTN_GLOBAL, ATTN_LOCAL) for k in cfg.layer_kinds)
+
+
+def f32_cast_errors(params, cfg) -> int:
+    """Weights the reference reads in f32 (``transformer._read_in_f32``:
+    norms, router, codebook embeddings, RWKV-6's decay weights, bonus and
+    group-norm affine, the RG-LRU's gates and Lambda) that a session's
+    params hold in another dtype."""
+    import torch
+    from repro_torch.models.transformer import _read_in_f32
+
+    def walk(tree, path):
+        if isinstance(tree, dict):
+            return sum(walk(v, path + (k,)) for k, v in tree.items())
+        return int(_read_in_f32(path, cfg) and tree.dtype != torch.float32)
+    return walk(params, ())
 
 
 def record_steps(sess, times: list = None) -> list:
@@ -2670,9 +2751,9 @@ def record_steps(sess, times: list = None) -> list:
 
 def lm_launches_want(n_layers: int, dtype: str, prompt_len: int,
                      steps: int) -> dict:
-    """The attention launches of one ``generate``: each layer's prefill on
-    its route, each layer's decode step on the decode route and its
-    combine."""
+    """The attention launches of one ``generate`` over ``n_layers``
+    attention layers: each layer's prefill on its route, each layer's
+    decode step on the decode route and its combine."""
     import torch
     from repro_torch.kernels.flash_attention import ROUTES, attention_route
     route = attention_route(getattr(torch, dtype), prompt_len)
@@ -2695,7 +2776,9 @@ def golden_errors(run: dict, device) -> tuple:
     attention launches other than ``lm_launches_want``. A step whose
     golden top-1 margin is under ``LM_F32_TOL`` is reported; its token and
     all after it are not compared (a tie may break either way), nor are
-    the logits after it. Returns (errors, row)."""
+    the logits after it. ``weights`` also counts the weights the reference
+    reads in f32 that the session holds in another dtype
+    (``f32_cast_errors``). Returns (errors, row)."""
     import torch
     from repro_torch.kernels import launch_counts, reset_launch_counts
     from repro_torch.models import build_model
@@ -2708,6 +2791,7 @@ def golden_errors(run: dict, device) -> tuple:
     sess = ServeSession(build_model(cfg), params_from_numpy(weights, device),
                         device=device)
     del weights
+    errs["weights"] += f32_cast_errors(sess.params, cfg)
     seen = record_steps(sess)
     reset_launch_counts()
     t0 = time.perf_counter()
@@ -2729,8 +2813,8 @@ def golden_errors(run: dict, device) -> tuple:
     errs["tokens"] = int(got.shape != want_tokens.shape) or int(
         (got[:, :upto] != want_tokens[:, :upto]).sum())
     errs["logits"] = over + int(len(seen) != len(run["top"]))
-    want = lm_launches_want(cfg.n_layers, cfg.dtype, run["prompt_len"],
-                            run["steps"])
+    want = lm_launches_want(attention_layers(cfg), cfg.dtype,
+                            run["prompt_len"], run["steps"])
     if torch.device(device).type == "cuda":
         errs["launches"] = sum(counts.get(k, 0) != v for k, v in want.items())
     row = dict(config=cfg.name, layers=cfg.n_layers, d_model=cfg.d_model,
@@ -2782,28 +2866,71 @@ def profiled_shares(fn) -> dict:
                      for n, (t, c) in top])
 
 
-def lm_bf16(device) -> tuple:
-    """``LM_BF16``: Qwen3-0.6B at full width and depth in its own dtype
-    (bf16 activations over f32 master weights from a seeded generator on
-    the card), ``batch`` prompts of ``prompt_len`` seeded tokens, ``steps``
-    greedy steps through ``ServeSession``, after one short warm-up
-    generation. Launch counts are zeroed just before the run and read just
-    after (``lm_launches_want``). Each step is timed (``record_steps``);
-    then one prefill and 8 decode steps run under ``torch.profiler``
-    (``profiled_shares``); then the same model on
-    ``flash_attention_plain``, fed the kernels' tokens, gives each step's
-    logits again, held to ``LM_BF16_TOL``. Returns (errors, row)."""
+def rel_err(got, ref) -> float:
+    """The largest, over sequences, norm of got - ref over the norm of ref
+    (logits (B, V))."""
+    return float(((got - ref).norm(dim=-1) / ref.norm(dim=-1)).max())
+
+
+def decode_and_forward(model, params, prompts, tok) -> tuple:
+    """(logits of one decode step of ``tok`` after a prefill of
+    ``prompts``, logits of the forward pass over ``prompts`` and ``tok`` at
+    its last position), each (B, V) in f32."""
+    import torch
+    B, S = prompts.shape
+    with torch.inference_mode():
+        _, caches = model.prefill(params, {"tokens": prompts}, last_only=True)
+        got = model.decode(params, {"tokens": tok}, caches, S)[0]
+        del caches
+        ref = model.prefill(params, {"tokens": torch.cat([prompts, tok], 1)},
+                            last_only=True)[0]
+    return got.reshape(B, -1).float(), ref.reshape(B, -1).float()
+
+
+def tree_bytes(tree) -> int:
+    if isinstance(tree, dict):
+        return sum(tree_bytes(v) for v in tree.values())
+    return tree.numel() * tree.element_size()
+
+
+def lm_bf16(device, spec: dict) -> tuple:
+    """One run of ``LM_BF16_RUNS``: the model at full width and depth in
+    its own dtype (bf16 activations over f32 master weights from a seeded
+    generator on the card, cast once by the session; the f32 leaves it
+    casts must be freed: the memory the session holds is its params'),
+    ``batch`` prompts of ``prompt_len`` seeded tokens, ``steps`` greedy
+    steps through ``ServeSession``, after one short warm-up generation.
+    Launch counts are zeroed just before the run and read just after
+    (``lm_launches_want``). Each step is timed (``record_steps``); then
+    one prefill and 8 decode steps run under ``torch.profiler``
+    (``profiled_shares``). A model with attention layers then runs again on
+    ``flash_attention_plain``, fed the kernels' tokens, and each step's
+    logits are held to ``LM_BF16_TOL``, every argmax equal. One without
+    (RWKV-6) holds a decode step of its first token to its forward pass
+    over the prompt and that token, in f32 at full width and depth (the
+    same seed's weights), within ``LM_FORWARD_TOL``, the argmaxes equal;
+    the bf16 pair's gap is recorded. Returns (errors, row)."""
     import torch
     from repro_torch.configs import ARCHS
     from repro_torch.kernels import launch_counts, reset_launch_counts
     from repro_torch.models import build_model
     from repro_torch.serve.session import ServeSession
-    cfg = ARCHS[LM_BF16["name"]]
-    B, S, steps = (LM_BF16[k] for k in ("batch", "prompt_len", "steps"))
+    cfg = ARCHS[spec["name"]]
+    B, S, steps = (spec[k] for k in ("batch", "prompt_len", "steps"))
+    tag = f"bf16.{cfg.name}"
+    n_attn = attention_layers(cfg)
     model = build_model(cfg)
-    gen = torch.Generator(device=device).manual_seed(LM_BF16["seed"])
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    gen = torch.Generator(device=device).manual_seed(spec["seed"])
     sess = ServeSession(model, model.init(gen, device), device=device)
-    prompts = np.random.default_rng(LM_BF16["seed"]).integers(
+    torch.cuda.synchronize()
+    peak, held = torch.cuda.max_memory_allocated() - base, \
+        torch.cuda.memory_allocated() - base
+    params = sess.params
+    weights = tree_bytes(params)
+    prompts = np.random.default_rng(spec["seed"]).integers(
         0, cfg.vocab_size, (B, S), dtype=np.int32)
     sess.generate(prompts[:, :64], 2)                   # warm-up, uncounted
     times: list = []
@@ -2812,14 +2939,16 @@ def lm_bf16(device) -> tuple:
     toks = sess.generate(prompts, steps)
     torch.cuda.synchronize()
     counts = launch_counts()
-    want = lm_launches_want(cfg.n_layers, cfg.dtype, S, steps)
-    errs = {"bf16.launches": sum(counts.get(k, 0) != v
-                                 for k, v in want.items()),
-            "bf16.shape": int(tuple(toks.shape) != (B, steps)
-                              or len(seen) != steps + 1),
-            "bf16.finite": sum(not bool(torch.isfinite(x).all())
-                               for x in seen)}
-    params = sess.params
+    want = lm_launches_want(n_attn, cfg.dtype, S, steps)
+    errs = {f"{tag}.launches": sum(counts.get(k, 0) != v
+                                   for k, v in want.items()),
+            f"{tag}.shape": int(tuple(toks.shape) != (B, steps)
+                                or len(seen) != steps + 1),
+            f"{tag}.finite": sum(not bool(torch.isfinite(x).all())
+                                 for x in seen),
+            f"{tag}.cast": f32_cast_errors(params, cfg),
+            # the f32 leaves the cast replaced are freed (64 MB of slack)
+            f"{tag}.freed": int(held > weights + (64 << 20))}
     batch = {"tokens": torch.as_tensor(prompts, device=device)}
     with torch.inference_mode():
         def prefill():
@@ -2834,71 +2963,97 @@ def lm_bf16(device) -> tuple:
         prof = {"prefill": profiled_shares(prefill),
                 "decode_8_steps": profiled_shares(decode8)}
         del caches
-        plain = build_model(cfg, attention="torch")
-        ref, caches = plain.prefill(params, batch, last_only=True)
-        refs = [ref.reshape(B, -1).float()]
-        for s in range(steps):
-            ref, caches = plain.decode(params, {"tokens": toks[:, s:s + 1]},
-                                       caches, S + s)
-            refs.append(ref.reshape(B, -1).float())
-        del caches
-    rel = [float(((g - r).norm(dim=-1) / r.norm(dim=-1)).max())
-           for g, r in zip(seen, refs)]
+        if n_attn:
+            compared = "flash_attention_plain"
+            plain = build_model(cfg, attention="torch")
+            ref, caches = plain.prefill(params, batch, last_only=True)
+            refs = [ref.reshape(B, -1).float()]
+            for s in range(steps):
+                ref, caches = plain.decode(
+                    params, {"tokens": toks[:, s:s + 1]}, caches, S + s)
+                refs.append(ref.reshape(B, -1).float())
+            del caches
+            got = seen
+        else:
+            # bf16: recorded; the gate runs in f32 (see LM_FORWARD_TOL)
+            got, ref = decode_and_forward(model, params, batch["tokens"],
+                                          toks[:, :1])
+            bf16_rel = rel_err(got, ref)
+            f32 = build_model(cfg.replace(dtype="float32"))
+            gen = torch.Generator(device=device).manual_seed(spec["seed"])
+            got, ref = decode_and_forward(f32, f32.init(gen, device),
+                                          batch["tokens"], toks[:, :1])
+            compared = ("forward over the prompt and the first token, in "
+                        f"f32 (in bf16: {bf16_rel:.4f})")
+            got, refs = [got], [ref]
+    limit = LM_BF16_TOL if n_attn else LM_FORWARD_TOL
+    rel = [rel_err(g, r) for g, r in zip(got, refs)]
     agree = sum(int((g.argmax(-1) == r.argmax(-1)).sum())
-                for g, r in zip(seen, refs))
-    errs["bf16.logits"] = sum(x > LM_BF16_TOL for x in rel)
+                for g, r in zip(got, refs))
+    errs[f"{tag}.logits"] = sum(x > limit for x in rel) + int(
+        agree != B * len(refs))
     decode_s = statistics.median(times[1:])
     row = dict(config=cfg.name, layers=cfg.n_layers, dtype=cfg.dtype,
-               batch=B, prompt_len=S, steps=steps,
+               attention_layers=n_attn, batch=B, prompt_len=S, steps=steps,
                prefill_ms=times[0] * 1e3,
                prefill_tokens_per_s=B * S / times[0],
                decode_ms_per_step_median=decode_s * 1e3,
                decode_ms_per_step_min=min(times[1:]) * 1e3,
                decode_ms_per_step_max=max(times[1:]) * 1e3,
-               decode_tokens_per_s=B / decode_s,
-               rel_err_max=max(rel), rel_err_first=rel[0], limit=LM_BF16_TOL,
-               argmax_agree=f"{agree}/{B * (steps + 1)}", profile=prof,
+               decode_tokens_per_s=B / decode_s, compared_with=compared,
+               rel_err_max=max(rel), rel_err_first=rel[0], limit=limit,
+               argmax_agree=f"{agree}/{B * len(refs)}", profile=prof,
+               params_mb=weights / 1e6, held_mb=held / 1e6,
+               peak_allocated_mb=peak / 1e6,
                memory_reserved_mb=torch.cuda.memory_reserved() / 1e6,
                launches={k: counts.get(k, 0) for k in want})
     return errs, row
 
 
 def lm_checks(device, route: str = "all") -> tuple:
-    """Phase 7: every golden run (``golden_errors``) then, for route
-    "all", the bf16 run (``lm_bf16``). Returns (errors, rows, launches:
-    the attention launches summed over the runs)."""
+    """Phase 7: every golden run of both golden files (``golden_errors``)
+    then, for route "all", each bf16 run of ``LM_BF16_RUNS``
+    (``lm_bf16``). Returns (errors, rows, launches: the attention launches
+    summed over the runs)."""
+    import torch
     errs, rows, launches = {}, [], {}
-    for run in lm_golden():
-        e, row = golden_errors(run, device)
-        errs.update({f"{run['name']}.{k}": v for k, v in e.items()})
-        rows.append(row)
-        log(f"lm golden {row['config']} ({row['layers']} layers, d_model "
-            f"{row['d_model']}, f32): {row['batch']} prompts of "
-            f"{row['prompt_len']} tokens, {row['steps']} steps in "
-            f"{row['seconds']:.2f} s; largest |logit - JAX| {row['max_err']:.3g}"
-            f" (limit {LM_F32_TOL}); steps with a top-1 margin under the "
-            f"limit {row['low_margin_steps']}; launches {row['launches']}; "
-            f"checks {e}")
-    if route == "all":
-        e, row = lm_bf16(device)
+    for path in (LM_GOLDEN, LM_GOLDEN_RECURRENT):
+        for run in lm_golden(path):
+            e, row = golden_errors(run, device)
+            errs.update({f"{run['name']}{'-smoke' if run['smoke'] else ''}"
+                         f".{k}": v for k, v in e.items()})
+            rows.append(row)
+            log(f"lm golden {row['config']} ({row['layers']} layers, d_model "
+                f"{row['d_model']}, f32): {row['batch']} prompts of "
+                f"{row['prompt_len']} tokens, {row['steps']} steps in "
+                f"{row['seconds']:.2f} s; largest |logit - JAX| "
+                f"{row['max_err']:.3g} (limit {LM_F32_TOL}); steps with a "
+                f"top-1 margin under the limit {row['low_margin_steps']}; "
+                f"launches {row['launches']}; checks {e}")
+    for spec in LM_BF16_RUNS if route == "all" else ():
+        torch.cuda.empty_cache()
+        e, row = lm_bf16(device, spec)
         errs.update(e)
         rows.append(row)
-        log(f"lm bf16 {row['config']} ({row['layers']} layers): "
-            f"{row['batch']} x {row['prompt_len']} prompt tokens, prefill "
+        log(f"lm bf16 {row['config']} ({row['layers']} layers, "
+            f"{row['attention_layers']} of attention): {row['batch']} x "
+            f"{row['prompt_len']} prompt tokens, prefill "
             f"{row['prefill_ms']:.2f} ms ({row['prefill_tokens_per_s']:.0f} "
             f"tokens/s); decode {row['steps']} steps, ms per step median "
             f"{row['decode_ms_per_step_median']:.2f} (min "
             f"{row['decode_ms_per_step_min']:.2f}, max "
             f"{row['decode_ms_per_step_max']:.2f}), "
-            f"{row['decode_tokens_per_s']:.1f} tokens/s; against the plain "
-            f"attention, relative error of the logits max "
-            f"{row['rel_err_max']:.4f} (limit {LM_BF16_TOL}), argmax agrees "
-            f"{row['argmax_agree']}; memory reserved "
-            f"{row['memory_reserved_mb']:.1f} MB; launches {row['launches']};"
-            f" checks {e}")
+            f"{row['decode_tokens_per_s']:.1f} tokens/s; against "
+            f"{row['compared_with']}, relative error of the logits max "
+            f"{row['rel_err_max']:.4g} (limit {row['limit']}), argmax agrees "
+            f"{row['argmax_agree']}; params {row['params_mb']:.1f} MB after "
+            f"the cast, held {row['held_mb']:.1f} MB, peak allocated "
+            f"{row['peak_allocated_mb']:.1f} MB in init and cast; memory "
+            f"reserved {row['memory_reserved_mb']:.1f} MB; launches "
+            f"{row['launches']}; checks {e}")
         for part, p in row["profile"].items():
-            log(f"lm bf16 profile, {part}: " + ("the profiler saw no device "
-                "kernel" if p is None else
+            log(f"lm bf16 {row['config']} profile, {part}: " + (
+                "the profiler saw no device kernel" if p is None else
                 f"wall {p['wall_ms']:.2f} ms, {p['kernels']} device kernels "
                 f"summing {p['kernel_sum_ms']:.3f} ms (busy "
                 f"{p['busy_ms']:.3f}), attention {p['attention_ms']:.3f} ms "
@@ -3035,6 +3190,23 @@ PLANTED_FAULTS = {  # name: (route, file under src/repro_torch, text, stand-in)
     "lm.prefill_drops_window": (
         "lm", "models/attention.py",
         "window=cfg.sliding_window if local else None,", "window=None,"),
+    # a WKV chunk whose sub-blocks do not see the state before them
+    "lm.wkv_drops_inter_block": (
+        "lm", "models/rwkv6.py",
+        "    y = (y_intra + y_inter).reshape(B, L, H, N)",
+        "    y = y_intra.reshape(B, L, H, N)"),
+    # an RG-LRU decode step that forgets the state before it
+    "lm.rglru_decode_drops_h_prev": (
+        "lm", "models/griffin.py",
+        "h = torch.exp(log_a[:, 0]) * h_prev + gated[:, 0]",
+        "h = gated[:, 0]"),
+    # a cast at load that rounds the RG-LRU gates to bf16
+    "lm.cast_rglru_gates_bf16": (
+        "lm", "models/transformer.py",
+        "        return tree if _read_in_f32(path, cfg) else tree.to(dt)",
+        "        if path[-1].startswith(\"gate_\"):\n"
+        "            return tree.to(torch.bfloat16)\n"
+        "        return tree if _read_in_f32(path, cfg) else tree.to(dt)"),
 }
 LAYER_FAULT_KEYS = ("gemm_float", "depthwise", "alu", "pool2d")
 VTA_FAULT_KEYS = ("gemm", "alu_sweep")
@@ -3449,7 +3621,8 @@ def main(argv: list) -> int:
                 + ("; the decode route's time includes its combine"
                    if key == "flash_attention.decode" else "")
                 + "; launches: phase 7's language-model runs (the golden "
-                  "f32 runs and the bf16 run), launches_cases: phase 5's"))
+                  "f32 runs and the bf16 runs of Qwen3-0.6B and "
+                  "RecurrentGemma-9B), launches_cases: phase 5's"))
     log(json.dumps({"serve": serve_rows, "capture": capture_rows,
                     "profile": prof}))
     log(json.dumps({"pool": pool_rows}))

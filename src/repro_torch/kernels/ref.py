@@ -3,7 +3,8 @@
 The port's plain versions already repeat the reference's arithmetic step by
 step and run on either device, so they are the oracles, under the
 reference's names. ``attention_ref`` is its own full-softmax copy, as in the
-reference. ``wkv6_ref`` waits for the RWKV-6 model slice: it has no kernel.
+reference. ``wkv6_ref`` is the exact sequential RWKV-6 recurrence, the
+oracle of ``models/rwkv6.py``'s chunked form: it has no kernel.
 """
 from typing import Optional
 
@@ -15,7 +16,7 @@ from repro_torch.kernels.gemm import gemm_plain
 from repro_torch.kernels.pool2d import pool2d_plain as pool2d_ref
 
 __all__ = ["alu_ref", "attention_ref", "depthwise_ref", "matmul_ref",
-           "pool2d_ref"]
+           "pool2d_ref", "wkv6_ref"]
 
 
 def matmul_ref(x, w, *, bias=None, act=None, clip=None):
@@ -50,3 +51,16 @@ def attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     wts = torch.softmax(logits, dim=-1)
     out = torch.einsum("bhqk,bkhd->bqhd", wts, v.to(torch.float32))
     return out.to(q.dtype)
+
+
+def wkv6_ref(r, k, v, lw, u, S0):
+    """Exact sequential RWKV6 recurrence (f32). Shapes (B,T,H,N); u (H,N);
+    S0 (B,H,N,N). Returns (y, S_T)."""
+    S, ys = S0, []
+    for t in range(r.shape[1]):
+        rt, kt, vt, lwt = r[:, t], k[:, t], v[:, t], lw[:, t]
+        y = torch.einsum("bhd,bhde->bhe", rt, S) + torch.einsum(
+            "bhd,hd,bhd,bhe->bhe", rt, u, kt, vt)
+        S = torch.exp(lwt)[..., None] * S + kt[..., None] * vt[..., None, :]
+        ys.append(y)
+    return torch.stack(ys, dim=1), S

@@ -4,8 +4,9 @@ The port of ``repro/models/layers.py``. Every parameter is declared as a
 ``Spec`` (shape + logical dim names + initializer); one spec tree is the
 source of truth for initialization and the logical names. A tree is a
 nested dict whose leaves are Specs or tensors, flattened in sorted key
-order, as JAX flattens dicts. ``group_norm`` and ``cross_entropy`` wait for
-the RWKV-6 and training slices.
+order, as JAX flattens dicts. ``associative_scan`` is the port of
+``jax.lax.associative_scan``, which the recurrent blocks use.
+``cross_entropy`` waits for the training slice.
 """
 from __future__ import annotations
 
@@ -119,16 +120,86 @@ def rms_norm(x, scale, eps: float = 1e-6, upcast: bool = True):
     return x * inv.to(dt) * (1.0 + scale).to(dt)
 
 
+def group_norm(x, scale, bias, n_groups: int, eps: float = 1e-5):
+    """GroupNorm over the channel dim (used by RWKV6 after WKV): f32 inside,
+    the variance the mean of squared deviations, as ``jnp.var``."""
+    dt = x.dtype
+    *lead, c = x.shape
+    xf = x.to(torch.float32).reshape(*lead, n_groups, c // n_groups)
+    mu = torch.mean(xf, dim=-1, keepdim=True)
+    centered = xf - mu
+    var = torch.mean(centered * centered, dim=-1, keepdim=True)
+    y = (centered * torch.rsqrt(var + eps)).reshape(*lead, c)
+    return (y * scale.to(torch.float32)
+            + bias.to(torch.float32)).to(dt)
+
+
+def _along(x, dim: int, start: int, stop: Optional[int] = None,
+           step: int = 1):
+    """x[start:stop:step] along ``dim``, a view."""
+    idx = [slice(None)] * x.dim()
+    idx[dim] = slice(start, stop, step)
+    return x[tuple(idx)]
+
+
+def associative_scan(fn: Callable, elems: Sequence, dim: int = 0) -> tuple:
+    """Inclusive scan of the tuple of tensors ``elems`` along ``dim`` under
+    the associative ``fn(a, b) -> c`` (tuples of tensors): the k-th result
+    combines the first k + 1 elements.
+
+    The recursion of ``jax.lax.associative_scan``, so that the results
+    are associated as the reference's are: combine the even and odd pairs,
+    scan the half-length result, combine its results with the remaining
+    even elements, and interleave. log2(T) levels of elementwise ``fn``
+    calls on the card, not T steps. (JAX interleaves by padding both
+    halves with zeros and adding them, which turns a -0.0 into +0.0; this
+    writes each value as it is.)"""
+    elems = tuple(elems)
+    dim = dim % elems[0].dim()
+
+    def scan(xs: tuple) -> tuple:
+        n = xs[0].shape[dim]
+        if n < 2:
+            return xs
+        odd = scan(tuple(fn(tuple(_along(x, dim, 0, n - 1, 2) for x in xs),
+                            tuple(_along(x, dim, 1, None, 2) for x in xs))))
+        rest = tuple(_along(x, dim, 2, None, 2) for x in xs)
+        if n % 2 == 0:
+            even = fn(tuple(_along(o, dim, 0, -1) for o in odd), rest)
+        else:
+            even = fn(odd, rest)
+        out = []
+        for x, e, o in zip(xs, even, odd):
+            y = torch.empty_like(x)
+            _along(y, dim, 0, 1).copy_(_along(x, dim, 0, 1))
+            _along(y, dim, 2, None, 2).copy_(e)
+            _along(y, dim, 1, None, 2).copy_(o)
+            out.append(y)
+        return tuple(out)
+    return scan(elems)
+
+
 def softcap(x, cap: Optional[float]):
     if cap is None:
         return x
     return (cap * torch.tanh(x.to(torch.float32) / cap)).to(x.dtype)
 
 
+def sigmoid(x):
+    """The logistic in the reference's steps, each rounded to x's dtype:
+    XLA expands it to 1 / (1 + exp(-x))."""
+    return 1 / (1 + torch.exp(-x))
+
+
+def softplus(x):
+    """``jax.nn.softplus``'s form, ``jnp.logaddexp(x, 0)``: max(x, 0) +
+    log1p(exp(-|x|))."""
+    return torch.clamp(x, min=0) + torch.log1p(torch.exp(-torch.abs(x)))
+
+
 def _silu(x):
-    """x * sigmoid(x) in the reference's steps, each rounded to x's dtype:
-    XLA expands the logistic to 1 / (1 + exp(-x))."""
-    return x * (1 / (1 + torch.exp(-x)))
+    """x * sigmoid(x) in the reference's steps, each rounded to x's dtype."""
+    return x * sigmoid(x)
 
 
 def _gelu_tanh(x):

@@ -1,4 +1,4 @@
-"""Generic decoder over the attention families: dense, vlm, audio and moe.
+"""Generic decoder composing all assigned families.
 
 The port of ``repro/models/transformer.py``. A model is a tiled repeating
 ``pattern`` of layers (see ModelConfig). The params of one pattern group
@@ -14,12 +14,15 @@ makes those casts once, ahead of time: casting the same weights yields the
 same bits, so a model given its output computes what it computes on the
 master weights, without casting them again at every step. The weights the
 reference reads in f32 (the norm scales, the MoE router, a codebook
-model's embeddings, which it sums before the cast) stay f32.
+model's embeddings, which it sums before the cast, RWKV-6's decay weights,
+bonus and group-norm affine, and the RG-LRU's gates and Lambda) stay f32.
 
 Attention runs through ``attend`` (``repro_torch.kernels.ops.
 flash_attention``, or its plain version: ``models/registry.py``). The
-RWKV-6 and RG-LRU blocks, and ``forward_backbone``, ``fused_head_loss``
-and ``loss_fn`` (training), wait for later slices.
+RWKV-6 and RG-LRU blocks (``models/rwkv6.py``, ``models/griffin.py``) run
+in PyTorch: their scans have no kernel in the reference either.
+``forward_backbone``, ``fused_head_loss`` and ``loss_fn`` (training) wait
+for a later slice.
 """
 from __future__ import annotations
 
@@ -33,41 +36,39 @@ from repro_torch.configs.base import (ATTN_GLOBAL, ATTN_LOCAL, RGLRU, RWKV6,
                                       ModelConfig)
 from repro_torch.kernels.ops import flash_attention
 from repro_torch.models import attention as attn
-from repro_torch.models import moe
+from repro_torch.models import griffin, moe, rwkv6
 from repro_torch.models.layers import (Spec, init_tree, mlp_apply, mlp_specs,
                                        names_tree, rms_norm, rope_angles,
                                        softcap, stack_specs, tree_map)
 from repro_torch.sharding import lshard
 
-RECURRENT_SLICE = "RWKV-6 and RG-LRU blocks wait for the next slice"
-
 # a cache leaf's shape and dtype (the reference's ShapeDtypeStruct)
 TensorSpec = namedtuple("TensorSpec", "shape dtype")
-
-
-def _is_local(kind: str) -> bool:
-    """Whether an attention layer is a local (sliding-window) one; raises
-    for the recurrent kinds."""
-    if kind in (RWKV6, RGLRU):
-        raise NotImplementedError(RECURRENT_SLICE)
-    if kind not in (ATTN_GLOBAL, ATTN_LOCAL):
-        raise ValueError(kind)
-    return kind == ATTN_LOCAL
+RECURRENT = (RWKV6, RGLRU)
 
 
 # ---------------------------------------------------------------------------
 # Specs
 # ---------------------------------------------------------------------------
 def layer_specs(cfg: ModelConfig, kind: str) -> dict:
-    _is_local(kind)                     # raises for the recurrent kinds
     d = cfg.d_model
     s: dict = {"mixer_norm": Spec((d,), ("d_model",), "zeros"),
                "ffn_norm": Spec((d,), ("d_model",), "zeros")}
     if cfg.post_norms:
         s["mixer_post_norm"] = Spec((d,), ("d_model",), "zeros")
         s["ffn_post_norm"] = Spec((d,), ("d_model",), "zeros")
-    s["mixer"] = attn.attn_specs(cfg)
-    s["ffn"] = moe.moe_specs(cfg) if cfg.family == "moe" else mlp_specs(cfg)
+    if kind in (ATTN_GLOBAL, ATTN_LOCAL):
+        s["mixer"] = attn.attn_specs(cfg)
+    elif kind == RWKV6:
+        s["mixer"] = rwkv6.rwkv6_specs(cfg)
+    elif kind == RGLRU:
+        s["mixer"] = griffin.rglru_specs(cfg)
+    if kind == RWKV6:
+        s["ffn"] = rwkv6.rwkv6_cm_specs(cfg)
+    elif cfg.family == "moe":
+        s["ffn"] = moe.moe_specs(cfg)
+    else:
+        s["ffn"] = mlp_specs(cfg)
     return s
 
 
@@ -110,24 +111,36 @@ def _group(tree, g: int):
 # ---------------------------------------------------------------------------
 def _apply_layer(p, x, kind: str, cfg: ModelConfig, ctx: dict):
     """Residual layer. Returns (x, aux, cache_out)."""
-    local = _is_local(kind)
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     h = rms_norm(x, p["mixer_norm"], cfg.norm_eps, cfg.norm_upcast)
     cache = None
-    y, (k, v) = attn.attention_full(p["mixer"], h, cfg, ctx["sin"],
-                                    ctx["cos"], local=local,
-                                    attend=ctx["attend"])
-    if ctx.get("want_cache"):
-        L = attn.cache_len(cfg, x.shape[1], local=local)
-        cache = {"k": attn.quantize_kv(cfg, k[:, -L:]),
-                 "v": attn.quantize_kv(cfg, v[:, -L:])}
+    if kind in (ATTN_GLOBAL, ATTN_LOCAL):
+        local = kind == ATTN_LOCAL
+        y, (k, v) = attn.attention_full(p["mixer"], h, cfg, ctx["sin"],
+                                        ctx["cos"], local=local,
+                                        attend=ctx["attend"])
+        if ctx.get("want_cache"):
+            L = attn.cache_len(cfg, x.shape[1], local=local)
+            cache = {"k": attn.quantize_kv(cfg, k[:, -L:]),
+                     "v": attn.quantize_kv(cfg, v[:, -L:])}
+    elif kind == RWKV6:
+        y, (tm_x, tm_S) = rwkv6.rwkv6_time_mix(p["mixer"], h, cfg)
+        cache = {"tm_x": tm_x, "tm_S": tm_S}
+    elif kind == RGLRU:
+        y, (conv, hlast) = griffin.rglru_block(p["mixer"], h, cfg)
+        cache = {"conv": conv, "h": hlast}
+    else:
+        raise ValueError(kind)
     if cfg.post_norms:
         y = rms_norm(y, p["mixer_post_norm"], cfg.norm_eps, cfg.norm_upcast)
     x = x + y
     x = lshard(x, "batch", "seq", "d_model")
 
     h = rms_norm(x, p["ffn_norm"], cfg.norm_eps, cfg.norm_upcast)
-    if cfg.family == "moe":
+    if kind == RWKV6:
+        y, cm_x = rwkv6.rwkv6_channel_mix(p["ffn"], h, cfg)
+        cache["cm_x"] = cm_x
+    elif cfg.family == "moe":
         y, aux = moe.moe_apply(p["ffn"], h, cfg)
     else:
         y = mlp_apply(p["ffn"], h, cfg)
@@ -182,6 +195,10 @@ def lm_head(params, x, cfg: ModelConfig):
 
 def _make_ctx(cfg: ModelConfig, batch, B: int, S: int, *, device,
               want_cache=False, attend: Callable = flash_attention):
+    if cfg.attention_free and ATTN_GLOBAL not in cfg.pattern \
+            and ATTN_LOCAL not in cfg.pattern:
+        return {"sin": None, "cos": None, "want_cache": want_cache,
+                "attend": attend}
     positions = batch.get("positions")
     if positions is None:
         positions = torch.arange(S, dtype=torch.int32,
@@ -234,17 +251,35 @@ def forward(params, batch, cfg: ModelConfig, *, want_cache: bool = False,
 # Decode (single token against caches)
 # ---------------------------------------------------------------------------
 def _decode_layer(p, x, kind: str, cfg: ModelConfig, cache, ctx):
-    local = _is_local(kind)
+    """One layer's decode step. Returns (x, cache): an attention layer's
+    cache written in place, a recurrent layer's new states in a new dict
+    (RG-LRU's ``h`` turns f32 here from the prefill's activation dtype, as
+    in the reference)."""
     h = rms_norm(x, p["mixer_norm"], cfg.norm_eps, cfg.norm_upcast)
-    y, new_cache = attn.attention_decode(
-        p["mixer"], h, cache, ctx["pos"], cfg, ctx["sin"], ctx["cos"],
-        local=local, attend=ctx["attend"])
+    if kind in (ATTN_GLOBAL, ATTN_LOCAL):
+        y, new_cache = attn.attention_decode(
+            p["mixer"], h, cache, ctx["pos"], cfg, ctx["sin"], ctx["cos"],
+            local=(kind == ATTN_LOCAL), attend=ctx["attend"])
+    elif kind == RWKV6:
+        y, (tm_x, tm_S) = rwkv6.rwkv6_decode(p["mixer"], h, cache["tm_x"],
+                                             cache["tm_S"], cfg)
+        new_cache = {"tm_x": tm_x, "tm_S": tm_S, "cm_x": cache["cm_x"]}
+    elif kind == RGLRU:
+        y, (conv, hh) = griffin.rglru_decode(p["mixer"], h, cache["conv"],
+                                             cache["h"], cfg)
+        new_cache = {"conv": conv, "h": hh}
+    else:
+        raise ValueError(kind)
     if cfg.post_norms:
         y = rms_norm(y, p["mixer_post_norm"], cfg.norm_eps, cfg.norm_upcast)
     x = x + y
 
     h = rms_norm(x, p["ffn_norm"], cfg.norm_eps, cfg.norm_upcast)
-    if cfg.family == "moe":
+    if kind == RWKV6:
+        y, cm_x = rwkv6.rwkv6_channel_mix(p["ffn"], h, cfg,
+                                          xprev=cache["cm_x"][:, None])
+        new_cache["cm_x"] = cm_x
+    elif cfg.family == "moe":
         y, _ = moe.moe_apply(p["ffn"], h, cfg)
     else:
         y = mlp_apply(p["ffn"], h, cfg)
@@ -258,7 +293,9 @@ def decode_step(params, batch, caches, pos: int, cfg: ModelConfig, *,
     """One-token decode. batch: {"tokens": (B,1)[,(B,K,1)]} or {"embeds"}.
 
     pos: the current absolute position, a Python int. The caches are
-    updated in place (``attention_decode``); returns (logits, caches)."""
+    updated in place: attention writes its slot (``attention_decode``),
+    and each recurrent layer's new states replace its entries in
+    ``caches`` (stacked again over the groups). Returns (logits, caches)."""
     x = embed(params, batch, cfg)
     B = x.shape[0]
     positions = torch.full((B, 1), pos, dtype=torch.int32, device=x.device)
@@ -268,15 +305,23 @@ def decode_step(params, batch, caches, pos: int, cfg: ModelConfig, *,
                     attend=attend)
     ctx["pos"] = int(pos)
     if "scan" in params:
+        states = {f"l{i}": [] for i, kind in enumerate(cfg.pattern)
+                  if kind in RECURRENT}
         for g in range(cfg.n_groups):
             gp, gc = _group(params["scan"], g), _group(caches["scan"], g)
             for i, kind in enumerate(cfg.pattern):
-                x, _ = _decode_layer(gp[f"l{i}"], x, kind, cfg, gc[f"l{i}"],
-                                     ctx)
+                x, nc = _decode_layer(gp[f"l{i}"], x, kind, cfg, gc[f"l{i}"],
+                                      ctx)
+                if kind in RECURRENT:
+                    states[f"l{i}"].append(nc)
+        for key, per_group in states.items():
+            caches["scan"][key] = tree_map(lambda *t: torch.stack(t),
+                                           *per_group)
     if "rem" in params:
         for j, kind in enumerate(_rem_kinds(cfg)):
-            x, _ = _decode_layer(params["rem"][f"l{j}"], x, kind, cfg,
-                                 caches["rem"][f"l{j}"], ctx)
+            x, caches["rem"][f"l{j}"] = _decode_layer(
+                params["rem"][f"l{j}"], x, kind, cfg, caches["rem"][f"l{j}"],
+                ctx)
     x = rms_norm(x, params["final_norm"], cfg.norm_eps, cfg.norm_upcast)
     logits = lm_head(params, x, cfg)
     logits = softcap(logits, cfg.final_logit_softcap)
@@ -287,10 +332,22 @@ def decode_step(params, batch, caches, pos: int, cfg: ModelConfig, *,
 # Cache initialization (steady-state decode at a given context length)
 # ---------------------------------------------------------------------------
 def _layer_cache_spec(cfg: ModelConfig, kind: str, B: int, S: int) -> dict:
-    L = attn.cache_len(cfg, S, local=_is_local(kind))
-    shp = (B, L, cfg.n_kv_heads, cfg.head_dim)
-    kv_dt = attn.kv_cache_dtype(cfg)
-    return {"k": TensorSpec(shp, kv_dt), "v": TensorSpec(shp, kv_dt)}
+    dt = getattr(torch, cfg.dtype)
+    if kind in (ATTN_GLOBAL, ATTN_LOCAL):
+        L = attn.cache_len(cfg, S, local=(kind == ATTN_LOCAL))
+        shp = (B, L, cfg.n_kv_heads, cfg.head_dim)
+        kv_dt = attn.kv_cache_dtype(cfg)
+        return {"k": TensorSpec(shp, kv_dt), "v": TensorSpec(shp, kv_dt)}
+    if kind == RWKV6:
+        C, n = cfg.d_model, cfg.rwkv_head_dim
+        return {"tm_x": TensorSpec((B, C), dt),
+                "tm_S": TensorSpec((B, C // n, n, n), torch.float32),
+                "cm_x": TensorSpec((B, C), dt)}
+    if kind == RGLRU:
+        w = cfg.lru_width or cfg.d_model
+        return {"conv": TensorSpec((B, cfg.conv1d_width - 1, w), dt),
+                "h": TensorSpec((B, w), torch.float32)}
+    raise ValueError(kind)
 
 
 def cache_specs(cfg: ModelConfig, batch: int, seq_len: int) -> dict:
@@ -326,12 +383,22 @@ def param_logical_names(cfg: ModelConfig):
     return names_tree(model_specs(cfg))
 
 
+# the recurrent mixers' weights the reference reads from its f32 master:
+# RWKV-6's decay LoRA, bonus and group-norm affine (``rwkv6._project``,
+# ``group_norm``) and the RG-LRU's gates and Lambda (``griffin._gates``);
+# no other mixer has a weight of these names
+F32_MIXER_WEIGHTS = frozenset({"w0", "wd1", "wd2", "u", "ln_x_scale",
+                               "ln_x_bias", "gate_a", "gate_a_b", "gate_x",
+                               "gate_x_b", "lam"})
+
+
 def _read_in_f32(path: tuple, cfg: ModelConfig) -> bool:
     """Whether the reference reads the weight at ``path`` (its keys) in
     f32, not cast to the activation dtype."""
     leaf = path[-1]
     return leaf.endswith("norm") or leaf == "router" or (
-        leaf == "embed" and bool(cfg.n_codebooks))
+        leaf == "embed" and bool(cfg.n_codebooks)) or (
+        path[-2:-1] == ("mixer",) and leaf in F32_MIXER_WEIGHTS)
 
 
 def cast_params(params, cfg: ModelConfig):

@@ -67,6 +67,7 @@ engine's locked sections, which is the pool's consistency model.
 """
 from __future__ import annotations
 
+import itertools
 import queue
 import threading
 import weakref
@@ -80,6 +81,11 @@ from repro_torch.serve.breaker import (CLOSED, OPEN, CircuitBreaker,
 from repro_torch.serve.clock import SystemClock
 from repro_torch.vta import fsim_torch
 from repro_torch.vta.backend import DEGRADATION_LADDER, get_backend
+
+# the labels of the process's pools, "pool<k>", each taken once: a worker's
+# capture scope carries its pool's, so two pools alive at once never share
+# a plan and one pool's shutdown releases only its own
+_POOL_IDS = itertools.count()
 
 WORKER_LIVE, WORKER_DEAD = "live", "dead"
 TRANSPORTS = ("inline", "thread", "process")
@@ -181,12 +187,13 @@ class ExecutorWorker:
     def __init__(self, wid: int, executor: Callable, *, clock,
                  faults=None, fail_threshold: int = 3, cooldown_s: float = 1.0,
                  on_transition: Optional[Callable] = None,
-                 inbox_depth: int = 4):
+                 inbox_depth: int = 4, pool_label: Optional[str] = None):
         self.id = wid
+        self.pool_label = pool_label
         self.executor = executor
         device = _card_device(executor)
         self.stream = None if device is None else fsim_torch.claim_stream(
-            device, f"worker{wid}")
+            device, self.scope)
         if self.stream is not None:
             self._release = weakref.finalize(
                 self, fsim_torch.release_stream, self.stream)
@@ -210,8 +217,11 @@ class ExecutorWorker:
 
     @property
     def scope(self) -> str:
-        """The capture-scope label of this worker's dispatches."""
-        return f"worker{self.id}"
+        """The capture-scope label of this worker's dispatches:
+        ``pool<k>.worker<id>`` in a pool, ``worker<id>`` alone."""
+        if self.pool_label is None:
+            return f"worker{self.id}"
+        return f"{self.pool_label}.worker{self.id}"
 
     def stop(self) -> None:
         """Give the worker's stream back to the process's registry
@@ -259,8 +269,9 @@ class WorkerPool:
     key-prefixed ``w<id>:`` so a shared metrics log stays unambiguous. For
     ``transport="process"``, pass ``process_specs`` mapping each served
     model key to its ``(registry name, scale)`` config instead of models.
-    ``shutdown`` releases each worker's captures
-    (``fsim_torch.release_capture_scope``).
+    Each pool takes a process-unique ``label`` (``pool<k>``), which its
+    workers' capture scopes carry: ``shutdown`` releases each worker's
+    captures (``fsim_torch.release_capture_scope``), and no other pool's.
     """
 
     def __init__(self, models: Optional[dict] = None, n: int = 2, *,
@@ -275,6 +286,7 @@ class WorkerPool:
         assert transport in TRANSPORTS, \
             f"unknown transport {transport!r}; known: {TRANSPORTS}"
         self.transport = transport
+        self.label = f"pool{next(_POOL_IDS)}"
         self.clock = clock or SystemClock()
         self.faults = faults
         self.metrics = metrics
@@ -297,7 +309,8 @@ class WorkerPool:
             self.workers.append(ExecutorWorker(
                 wid, ex, clock=self.clock, faults=faults,
                 fail_threshold=fail_threshold, cooldown_s=cooldown_s,
-                on_transition=self._on_breaker, inbox_depth=inbox_depth))
+                on_transition=self._on_breaker, inbox_depth=inbox_depth,
+                pool_label=self.label))
 
     # ------------------------------------------------------------------
     # wiring

@@ -1,16 +1,32 @@
-"""Write the golden file of ``chip_smoke.py`` phase 7: the JAX package's
+"""Write the golden files of ``chip_smoke.py`` phase 7: the JAX package's
 ``ServeSession`` on the CPU, greedy generation in f32 from weights and
 prompts that numpy makes from a seed.
 
     PYTHONPATH=src JAX_PLATFORMS=cpu python tests/make_lm_golden.py
+    PYTHONPATH=src JAX_PLATFORMS=cpu python tests/make_lm_golden.py --recurrent
 
-Not a test (pytest collects ``test_*.py`` only). Runs, each in f32:
+Not a test (pytest collects ``test_*.py`` only). The first writes
+``golden/lm_session_f32.json``, runs each in f32:
 
 - ``qwen3-0.6b`` at full width (d_model 1024, 16/8 heads of 128, d_ff 3072,
   vocab 151936) with its depth cut to ``QWEN3_LAYERS`` of 28, so that the
   JAX run on a CPU stays small (0.9 GB of weights);
 - ``gemma2-27b``'s smoke config, whose local layers (window 8) see a
   32-token prompt: the run that holds the sliding window.
+
+``--recurrent`` writes ``golden/lm_session_recurrent_f32.json`` (~4 min,
+~14 GB at its peak), runs each in f32:
+
+- ``rwkv6-1.6b`` at full width (d_model 2048, 32 heads of 64, d_ff 7168,
+  vocab 65536) cut to ``RWKV_LAYERS`` of 24 layers, 2 prompts of 2048
+  tokens: two whole ``scan_chunk``s of 1024, the state carried between;
+- ``rwkv6-1.6b``'s smoke config with 40-token prompts: one padded chunk;
+- ``recurrentgemma-9b`` at full width (d_model and lru_width 4096, 16
+  heads of 256 over 1 KV head, d_ff 12288, vocab 256000) cut to
+  ``GRIFFIN_LAYERS`` of 38, one pattern group (RG-LRU, RG-LRU, local
+  attention; 1.64 B parameters, 6.6 GB), 2 prompts of 64 tokens;
+- ``recurrentgemma-9b``'s smoke config (window 8), 32-token prompts: the
+  window and the ring wrapping on a local layer.
 
 Per run the file keeps the config's name and overrides, the seeds, the
 prompts, a sha256 of the weights (``convert.tree_sha256``: whether numpy
@@ -21,8 +37,8 @@ this JSON.
 """
 import json
 import os
+import sys
 
-import jax
 import jax.numpy as jnp
 import numpy as np
 
@@ -33,9 +49,12 @@ from repro_torch.configs import ARCHS as T_ARCHS
 from repro_torch.configs import SMOKE_ARCHS as T_SMOKE
 from repro_torch.models.convert import numpy_params, tree_sha256
 
-OUT = os.path.join(os.path.dirname(os.path.abspath(__file__)), "golden",
-                   "lm_session_f32.json")
+GOLDEN = os.path.join(os.path.dirname(os.path.abspath(__file__)), "golden")
+OUT = os.path.join(GOLDEN, "lm_session_f32.json")
+OUT_RECURRENT = os.path.join(GOLDEN, "lm_session_recurrent_f32.json")
 QWEN3_LAYERS = 4
+RWKV_LAYERS = 2
+GRIFFIN_LAYERS = 3
 TOP = 8
 RUNS = [
     dict(name="qwen3-0.6b", smoke=False,
@@ -44,6 +63,31 @@ RUNS = [
     dict(name="gemma2-27b", smoke=True, overrides=dict(dtype="float32"),
          seed=0, prompt_seed=1, batch=2, prompt_len=32, steps=8),
 ]
+RECURRENT_RUNS = [
+    dict(name="rwkv6-1.6b", smoke=False,
+         overrides=dict(dtype="float32", n_layers=RWKV_LAYERS),
+         seed=0, prompt_seed=1, batch=2, prompt_len=2048, steps=8),
+    # prompt seed 2: seed 1's prompts leave top-1 margins under chip_smoke's
+    # LM_F32_TOL at steps 1 and 2, after which no token would be compared
+    dict(name="rwkv6-1.6b", smoke=True, overrides=dict(dtype="float32"),
+         seed=0, prompt_seed=2, batch=2, prompt_len=40, steps=8),
+    dict(name="recurrentgemma-9b", smoke=False,
+         overrides=dict(dtype="float32", n_layers=GRIFFIN_LAYERS),
+         seed=0, prompt_seed=1, batch=2, prompt_len=64, steps=8),
+    dict(name="recurrentgemma-9b", smoke=True,
+         overrides=dict(dtype="float32"),
+         seed=0, prompt_seed=1, batch=2, prompt_len=32, steps=8),
+]
+
+
+def _to_jax(tree):
+    """``tree``'s numpy leaves as JAX arrays, each numpy leaf dropped once
+    it is copied, so that the two copies of the weights never coexist."""
+    out = {}
+    for k in list(tree):
+        v = tree.pop(k)
+        out[k] = _to_jax(v) if isinstance(v, dict) else jnp.array(v)
+    return out
 
 
 def golden_run(run: dict) -> dict:
@@ -52,8 +96,8 @@ def golden_run(run: dict) -> dict:
     tcfg = (T_SMOKE if run["smoke"] else T_ARCHS)[run["name"]].replace(
         **run["overrides"])
     weights = numpy_params(tcfg, run["seed"])
-    sess = ServeSession(build_model(cfg),
-                        jax.tree_util.tree_map(jnp.asarray, weights))
+    sha = tree_sha256(weights)
+    sess = ServeSession(build_model(cfg), _to_jax(weights))
     seen = []
     prefill, decode = sess._prefill, sess._decode
 
@@ -73,14 +117,18 @@ def golden_run(run: dict) -> dict:
         idx = np.argsort(-logits, axis=-1, kind="stable")[:, :TOP]
         top.append({"index": idx.tolist(),
                     "value": np.take_along_axis(logits, idx, -1).tolist()})
-    return dict(run, weights_sha256=tree_sha256(weights),
-                prompts=toks.tolist(), tokens=out.tolist(), top=top)
+    return dict(run, weights_sha256=sha, prompts=toks.tolist(),
+                tokens=out.tolist(), top=top)
 
 
-def main() -> None:
-    runs = [golden_run(r) for r in RUNS]
-    os.makedirs(os.path.dirname(OUT), exist_ok=True)
-    with open(OUT, "w") as f:
+def main(argv: list) -> None:
+    recurrent = argv[1:] == ["--recurrent"]
+    if argv[1:] and not recurrent:
+        raise SystemExit(f"usage: {argv[0]} [--recurrent]")
+    out_path = OUT_RECURRENT if recurrent else OUT
+    runs = [golden_run(r) for r in (RECURRENT_RUNS if recurrent else RUNS)]
+    os.makedirs(GOLDEN, exist_ok=True)
+    with open(out_path, "w") as f:
         json.dump({"made_by": "tests/make_lm_golden.py", "top": TOP,
                    "runs": runs}, f, indent=1)
         f.write("\n")
@@ -89,4 +137,4 @@ def main() -> None:
 
 
 if __name__ == "__main__":
-    main()
+    main(sys.argv)

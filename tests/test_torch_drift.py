@@ -67,16 +67,18 @@ def test_port_imports_neither_jax_nor_repro():
         "import repro_torch.models.layers, repro_torch.models.attention\n"
         "import repro_torch.models.moe, repro_torch.models.transformer\n"
         "import repro_torch.models.convert, repro_torch.serve.session\n"
+        "import repro_torch.models.rwkv6, repro_torch.models.griffin\n"
         "from repro_torch.configs import SMOKE_ARCHS\n"
         "from repro_torch.models import build_model\n"
         "from repro_torch.models.convert import numpy_params\n"
         "from repro_torch.serve.engine import ServeSession\n"
-        "cfg = SMOKE_ARCHS['qwen3-0.6b']\n"
-        "sess = ServeSession(build_model(cfg), repro_torch.models.convert.\n"
-        "                    params_from_numpy(numpy_params(cfg, 0), 'cpu'),\n"
-        "                    device='cpu')\n"
-        "out = sess.generate(np.ones((2, 8), np.int32), n_steps=3)\n"
-        "assert tuple(out.shape) == (2, 3), out.shape\n"
+        "for name in ('qwen3-0.6b', 'rwkv6-1.6b', 'recurrentgemma-9b'):\n"
+        "    cfg = SMOKE_ARCHS[name]\n"
+        "    sess = ServeSession(build_model(cfg), repro_torch.models.\n"
+        "        convert.params_from_numpy(numpy_params(cfg, 0), 'cpu'),\n"
+        "        device='cpu')\n"
+        "    out = sess.generate(np.ones((2, 8), np.int32), n_steps=3)\n"
+        "    assert tuple(out.shape) == (2, 3), out.shape\n"
         "bad = sorted(k for k in sys.modules\n"
         "             if k.split('.')[0] in ('jax', 'jaxlib', 'repro'))\n"
         "assert not bad, bad\n"
@@ -86,6 +88,17 @@ def test_port_imports_neither_jax_nor_repro():
                        capture_output=True, text=True, timeout=300)
     assert r.returncode == 0, r.stderr
     assert r.stdout.strip() == "clean"
+
+
+def test_recurrent_constants_match_the_originals():
+    """The constants the recurrent blocks copy from the reference: RWKV-6's
+    log-decay floor and sub-block size, the RG-LRU's gate constant."""
+    from repro.models import griffin as jgriffin
+    from repro.models import rwkv6 as jrwkv6
+    from repro_torch.models import griffin as tgriffin
+    from repro_torch.models import rwkv6 as trwkv6
+    assert (trwkv6.LW_CLAMP, trwkv6.SUB) == (jrwkv6.LW_CLAMP, jrwkv6.SUB)
+    assert tgriffin.RGLRU_C == jgriffin.RGLRU_C
 
 
 def test_config_copies_match_the_originals():

@@ -394,12 +394,20 @@ def test_materialize_random_inits_follow_the_spec(init):
         assert float(x.abs().max()) <= 0.01 and float(x.std()) > 0.005
 
 
+# the recurrent blocks' weights the reference reads from its f32 master
+# (repro/models/rwkv6.py::_project, layers.group_norm; griffin.py::_gates)
+F32_RECURRENT = {"w0", "wd1", "wd2", "u", "ln_x_scale", "ln_x_bias",
+                 "gate_a", "gate_a_b", "gate_x", "gate_x_b", "lam"}
+
+
 @pytest.mark.parametrize("name", ["qwen3-0.6b", "mixtral-8x22b",
-                                  "musicgen-large"])
+                                  "musicgen-large", "rwkv6-1.6b",
+                                  "recurrentgemma-9b"])
 def test_init_params_has_the_reference_tree(name):
     """``Model.init``, ``numpy_params`` and the reference's ``init`` give
-    the same tree of shapes; ``cast_params`` casts every weight to the
-    activation dtype but the ones the reference reads in f32."""
+    the same tree of shapes and dtypes; ``cast_params`` casts every weight
+    to the activation dtype but the ones the reference reads in f32 (for
+    the recurrent blocks, the 11 of ``F32_RECURRENT``)."""
     from repro.models import build_model as jbuild
     from repro_torch.models import build_model
     from repro_torch.models.convert import numpy_params
@@ -410,14 +418,22 @@ def test_init_params_has_the_reference_tree(name):
                           jax.random.PRNGKey(0))
 
     def shapes(tree):
-        return jax.tree_util.tree_map(lambda a: tuple(a.shape), tree)
+        return jax.tree_util.tree_map(
+            lambda a: (tuple(a.shape), str(a.dtype).removeprefix("torch.")),
+            tree)
     assert shapes(got) == shapes(want) == shapes(numpy_params(cfg, 0))
     cast = model.cast_params(got)
+    kept = set()
     for path, leaf in jax.tree_util.tree_leaves_with_path(cast):
         key = path[-1].key
         f32 = key.endswith("norm") or key == "router" or (
-            key == "embed" and cfg.n_codebooks > 0)
+            key == "embed" and cfg.n_codebooks > 0) or key in F32_RECURRENT
         assert leaf.dtype == (torch.float32 if f32 else torch.bfloat16), path
+        kept |= {key} & F32_RECURRENT
+    assert kept == {"ssm": F32_RECURRENT - {"gate_a", "gate_a_b", "gate_x",
+                                            "gate_x_b", "lam"},
+                    "hybrid": {"gate_a", "gate_a_b", "gate_x", "gate_x_b",
+                               "lam"}}.get(cfg.family, set())
 
 
 def test_init_kv_cache_matches_jax():

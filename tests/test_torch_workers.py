@@ -246,7 +246,7 @@ def test_affinity_capture_reuse_once_per_owning_worker():
     assert log and all(count == 1 for count in log.values()), log
     # (trace key, chunk, arg shapes, batch, scope)
     assert {(sig[3], sig[4]) for sig in log} \
-        == {(6, "worker0"), (10, "worker1")}
+        == {(6, pool.workers[0].scope), (10, pool.workers[1].scope)}
     before = sum(log.values())
     wave()
     assert sum(fsim_torch.capture_log().values()) == before
@@ -256,6 +256,54 @@ def test_affinity_capture_reuse_once_per_owning_worker():
     for (model, _), (imgs, got) in outs.items():
         want = models[model].run_batch(imgs, "numpy")
         assert all(np.array_equal(g, w) for g, w in zip(got, want))
+
+
+def test_two_pools_keep_their_plans_apart():
+    """Two pools alive at once: their workers' capture scopes differ, each
+    pool captures its own plans, and one pool's shutdown releases only its
+    own scopes, so the other's next wave replays with no new capture."""
+    models = {"mobilenet": served_model("mobilenet", "tiny")}
+    clock = FakeClock()
+    pools, engines = [], []
+    for _ in range(2):
+        pool = WorkerPool(n=2, transport="inline", clock=clock,
+                          executor_factory=lambda wid: BackendExecutor(
+                              models, "torch-cpu"))
+        eng = VTAServeEngine(models, clock=clock, buckets=(5,), workers=pool)
+        eng.add_tenant("a")
+        pools.append(pool)
+        engines.append(eng)
+    imgs = models["mobilenet"].random_images(5, seed=22)
+    want = models["mobilenet"].run_batch(imgs, "numpy")
+
+    def wave(eng):
+        tks = [eng.submit("a", "mobilenet", img) for img in imgs]
+        eng.drain()
+        got = [t.result() for t in tks]
+        assert all(np.array_equal(g, w) for g, w in zip(got, want))
+
+    scopes = [[w.scope for w in p.workers] for p in pools]
+    assert len({s for ss in scopes for s in ss}) == 4, scopes
+    try:
+        fsim_torch.reset_capture_log()
+        for eng in engines:
+            wave(eng)
+        owner = [p.workers[p.affinity[("mobilenet", 5)]].scope
+                 for p in pools]
+        log = fsim_torch.capture_log()
+        assert {sig[4] for sig in log} == set(owner)
+        assert all(count == 1 for count in log.values()), log
+        assert all(s in fsim_torch._SCOPE_PLANS for s in owner)
+        engines[0].close()
+        assert owner[0] not in fsim_torch._SCOPE_PLANS
+        assert owner[1] in fsim_torch._SCOPE_PLANS
+        fsim_torch.reset_capture_log()
+        wave(engines[1])
+        assert fsim_torch.capture_log() == {}
+    finally:
+        for eng in engines:
+            eng.close()
+    assert not any(s in fsim_torch._SCOPE_PLANS for ss in scopes for s in ss)
 
 
 def test_process_transport_smoke():
