@@ -201,16 +201,48 @@ order; any failure raises and the script exits nonzero:
    attention's share of device time and the idle share under
    ``torch.profiler``, the params' size, the peak of init and cast,
    ``memory_reserved``.
+8. Training (``train_checks``), through the entry points a user calls:
+   ``make_train_step`` and the ``Trainer`` on the card, every attention
+   layer's forward on the port's kernels (``FlashAttentionFn``), its
+   backward ``flash_attention_backward`` in PyTorch (the reference has no
+   backward kernel either). The golden runs (``train_golden_errors``), in
+   f32 against ``tests/golden/train_f32.json``, which
+   ``tests/make_train_golden.py`` writes from the JAX package's
+   ``make_train_step`` on the CPU: Qwen3-0.6B at full width cut to 4
+   layers, 2 x 256 tokens, and Gemma-2 27B's smoke config (window 8, both
+   softcaps, its query scale), 2 x 32; weights from ``numpy_params`` (the
+   file's sha256), the file's batches, three AdamW steps: each step's
+   loss within ``TRAIN_LOSS_RTOL`` and grad_norm within
+   ``TRAIN_GNORM_RTOL`` (1e-4 on the first step, 5e-3 after: AdamW
+   carries rounding into the weights) of the golden's, and the attention
+   launches exactly ``train_launches_want`` (``tf32x3``: one per
+   attention layer in the forward and one more in its group's
+   recompute). The bf16 run
+   (``train_bf16``, ``TRAIN_BF16``): Qwen3-0.6B at full width and depth
+   (28 layers, f32 master weights from a seeded generator on the card,
+   bf16 compute, remat ``"full"``, the loss in 8 chunks), the ``Trainer``
+   4 steps of 4 x 2048 tokens from ``DataLoader`` with a checkpoint at
+   step 2: each step 56 ``flash_attention.mma`` launches (28 x (1 + 1)),
+   counts zeroed just before it and read just after; the step-2
+   checkpoint restored equal by bits; step 1 again on the kernels and on
+   ``flash_attention_plain``: every gradient leaf finite and nonzero on
+   the kernels, each within ``TRAIN_GRAD_TOL`` of the plain run's by norm,
+   the losses within ``TRAIN_BF16_LOSS_TOL``. It prints ms per step (the
+   median of steps 2-4), tokens/s, the peak of
+   ``torch.cuda.max_memory_allocated`` in a step, and from one profiled
+   step the attention forward's share of device time, the backward's (the
+   kernels inside FlashAttentionFn's profiler range) and the idle share.
 
 Output: one line per kernel (and per phase-4 case), ms per dispatch per
 bucket (median, min, max), then a JSON line of serving numbers (per bucket,
 the capture cost per bucket and the ``profile:`` numbers), a JSON line of
 the pool's numbers (``{"pool": ...}``: per n, ms per round, images/s and per
 worker batches, busy ms and reserved MB; the speedup), a JSON line of the
-language-model runs (``{"lm": ...}``), a JSON line of kernel numbers (the
-VTA rows also give ``launches_pool``, their launches in the 2-worker
-rounds; the attention rows' ``launches`` are phase 7's, and
-``launches_cases`` phase 5's), the ``nvidia-smi`` line, and last the
+language-model runs (``{"lm": ...}``), one of the training runs
+(``{"train": ...}``), a JSON line of kernel numbers (the VTA rows also
+give ``launches_pool``, their launches in the 2-worker rounds; the
+attention rows' ``launches`` are phase 7's, ``launches_train`` phase 8's
+and ``launches_cases`` phase 5's), the ``nvidia-smi`` line, and last the
 device line. Kernel
 times are medians of CUDA-event timings. Each VTA kernel row sums its
 launches over one forward of the model named in ``per``
@@ -231,7 +263,8 @@ boolean mask carries a window). The call is a yardstick here only: the port
 never makes it.
 
 ``--plant-faults`` runs none of the phases. It shows that the limits of
-phases 2-7 fail a wrong kernel, executor or pool: the checkout is copied into a
+phases 2-8 fail a wrong kernel, executor, pool or gradient: the checkout
+is copied into a
 temporary directory once as it is and once per fault of ``PLANTED_FAULTS``
 (a text substitution: a key tile from 4096 skipped, or the window 64 keys
 too wide, in each of the three attention routes; the f32 prefill's score
@@ -250,7 +283,9 @@ uncounted, ``ladder.uncounted_step_down``, and in the language model a
 decode that attends to one slot fewer than are valid, a cache slot
 written one off, a prefill that drops the sliding window, a WKV chunk
 without its inter-sub-block term, an RG-LRU decode step that ignores its
-state, and a cast at load that rounds the RG-LRU gates to bf16), the
+state, and a cast at load that rounds the RG-LRU gates to bf16; in
+training, an attention forward whose result has no ``grad_fn``, and a
+backward whose dK and dV keep one query head of each GQA group), the
 unchanged sources are built once into a build directory the copies share,
 and each copy builds its changed source and runs the cases of its route
 through their limit checks (``--case-errors``, three copies at a time): the
@@ -260,8 +295,9 @@ phase-4 and edge cases of the float GEMM, depthwise, ALU or pooling kernel
 cases of the VTA GEMM or the ALU stage-program kernel, phase 3's checks
 (``serve_checks``, one line a check), or phase 6's (``pool_checks``: the
 scale-out, the cold race, the two pools and the drill for route
-``pool``, the ladder drill for ``ladder``), or phase 7's golden runs
-(``lm_errors``); the unchanged copy runs all of them. One JSON line per (fault, case) gives the kernel's error
+``pool``, the ladder drill for ``ladder``), or the golden runs of phase
+7 (``lm_errors``) or phase 8 (``train_errors``); the unchanged copy runs
+all of them. One JSON line per (fault, case) gives the kernel's error
 and its limit (attention: the kernel's and the plain version's largest
 error against float64, the largest |out| and the elements over the limit).
 It exits 0 only if the unchanged kernels pass every case and each fault
@@ -271,6 +307,7 @@ from __future__ import annotations
 
 import hashlib
 import json
+import math
 import os
 import re
 import statistics
@@ -2830,11 +2867,16 @@ def profiled_shares(fn) -> dict:
     ``torch.profiler``: the device kernels' summed time and their union
     (busy), attention's share of the summed time (kernels named
     ``flash_*``), the idle share (1 - busy over wall) against the profiled
-    wall and against the unprofiled one (the profiler slows the host), and
-    the five kernels that take the most time. None where the profiler saw
-    no device kernel."""
+    wall and against the unprofiled one (the profiler slows the host), the
+    five kernels that take the most time, and the attention backward's
+    device time and share of the summed time: the kernels that start
+    inside the device spans of FlashAttentionFn's profiler range
+    ``BACKWARD_RANGE`` (0 where no backward ran). None where the profiler
+    saw no device kernel."""
     import torch
+    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
+    from repro_torch.kernels.flash_attention import BACKWARD_RANGE
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     fn()
@@ -2846,12 +2888,18 @@ def profiled_shares(fn) -> dict:
         fn()
         torch.cuda.synchronize()
         wall = (time.perf_counter() - t0) * 1e6
-    spans = kernel_spans(prof)
+    # the range's own device spans are annotations, not kernels
+    spans = [x for x in kernel_spans(prof) if x[2] != BACKWARD_RANGE]
     if not spans:
         return None
     union = spans_union(spans)
     total = sum(b - a for a, b, _ in spans)
     attn = sum(b - a for a, b, n in spans if "flash_" in n)
+    ranges = [(e.time_range.start, e.time_range.end) for e in prof.events()
+              if e.name == BACKWARD_RANGE
+              and e.device_type == DeviceType.CUDA]
+    backward = sum(b - a for a, b, _ in spans
+                   if any(lo <= a <= hi for lo, hi in ranges))
     by_name: dict = {}
     for a, b, n in spans:
         t, c = by_name.get(n, (0, 0))
@@ -2863,7 +2911,9 @@ def profiled_shares(fn) -> dict:
                 attention_share=attn / total, idle_share=1 - union / wall,
                 idle_share_unprofiled=max(0.0, 1 - union / plain_wall),
                 top=[dict(kernel=n[:80], ms=t / 1e3, count=c)
-                     for n, (t, c) in top])
+                     for n, (t, c) in top],
+                attention_backward_ms=backward / 1e3,
+                attention_backward_share=backward / total)
 
 
 def rel_err(got, ref) -> float:
@@ -3081,7 +3131,349 @@ def lm_errors(fault: str) -> None:
 
 
 # ---------------------------------------------------------------------------
-# --plant-faults: the checks of phases 2-7 against wrong kernels and code
+# phase 8: training at full width
+# ---------------------------------------------------------------------------
+TRAIN_GOLDEN = os.path.join(ROOT, "tests", "golden", "train_f32.json")
+# f32 against the JAX package's make_train_step (CPU), per step, relative.
+# The loss at the reference's own limit for grad_accum (tests/
+# test_train.py), 1e-5: the port lies within 1.9e-7 of the golden on the
+# CPU and 1.14e-6 on an H100 (full width and smoke). grad_norm at the
+# reference's 1e-4 on the first step, which compares the gradients
+# alone: the golden's own f32 sum over 218 M squared gradients at full
+# width is 1.14e-5 off their norm in float64 (the port's f32 sum 1.2e-8),
+# and the port lies 1.1e-5 from it on the CPU and on an H100. After a
+# step, AdamW moves each weight by about lr * g / (|g| + eps), so a weight
+# whose gradient is within rounding of 0 moves by up to 2 lr in one
+# correct run against another, and the gradients drift apart: at step 3
+# the port lies 1.18e-4 (CPU) and 5.28e-4 (H100) from the golden's
+# grad_norm. The limit after the first step is 5e-3, ~10x that. A
+# gradient that misses the attention projections, or a GQA group's sum,
+# moves grad_norm by 0.1-0.5 from the first step on
+TRAIN_LOSS_RTOL = 1e-5
+TRAIN_GNORM_RTOL = (1e-4, 5e-3)     # the first step, the later ones
+# bf16, the kernels' path against flash_attention_plain (autograd) on the
+# same weights and batch, per parameter leaf: the norm of the gradients'
+# difference over the norm of the plain run's. The two backward passes
+# differ in rounding only (0.8% on the worst leaf over 4 layers at full
+# width on the CPU, where both take the same forward), the forward by one
+# bf16 step on some attention outputs per layer; over 28 layers ~2%
+# expected, 0.61% measured on an H100 (the embedding, then wk and wq).
+# The limit is 2^-4; a dropped GQA-group sum or a gradient that never
+# reaches the attention projections is off by order 1
+TRAIN_GRAD_TOL = 2.0 ** -4
+# the same two runs' losses, relative: each is the mean over 8192 tokens
+# of a loss near 12, which one bf16 step on some attention outputs moves
+# by far less (7.8e-6 on an H100)
+TRAIN_BF16_LOSS_TOL = 2.0 ** -8
+# bf16 at full width and depth: Qwen3-0.6B, 28 layers, f32 master weights
+# from a seeded generator on the card, remat "full", loss in 8 chunks;
+# 4 Trainer steps of 4 x 2048 tokens, a checkpoint at step 2
+TRAIN_BF16 = dict(name="qwen3-0.6b", seed=0, batch=4, seq_len=2048, steps=4,
+                  ckpt_every=2,
+                  opt=dict(lr=1e-4, warmup_steps=2, total_steps=100))
+
+
+def train_golden(path: str = TRAIN_GOLDEN) -> list:
+    with open(path) as f:
+        return json.load(f)["runs"]
+
+
+def train_attention_launches(cfg) -> int:
+    """The attention kernel's launches in one train step of ``cfg``
+    (forward and backward): one per attention layer in the forward, and
+    one more per attention layer of a checkpointed pattern group, whose
+    recompute in the backward runs its forward again (remat ``"full"``
+    or ``"dots"``; the trailing layers are not checkpointed). The backward
+    itself launches none. Qwen3-0.6B, 28 attention layers under remat
+    ``"full"``: 28 x (1 + 1) = 56 a step."""
+    from repro_torch.configs.base import ATTN_GLOBAL, ATTN_LOCAL
+    attn = [k in (ATTN_GLOBAL, ATTN_LOCAL) for k in cfg.layer_kinds]
+    grouped = sum(attn[:cfg.n_groups * len(cfg.pattern)])
+    remat = cfg.remat and cfg.remat_policy != "none"
+    return sum(attn) + (grouped if remat else 0)
+
+
+def train_launches_want(cfg, seq_len: int, steps: int) -> dict:
+    """The attention launches of ``steps`` train steps of ``cfg`` at
+    ``seq_len``: all on the prefill route of ``cfg.dtype``."""
+    import torch
+    from repro_torch.kernels.flash_attention import ROUTES, attention_route
+    n = steps * train_attention_launches(cfg)
+    want = {f"flash_attention.{r}": 0 for r in ROUTES}
+    want[f"flash_attention.{attention_route(getattr(torch, cfg.dtype), seq_len)}"] = n
+    want["flash_attention_combine"] = 0
+    want["flash_attention"] = n
+    return want
+
+
+def train_golden_errors(run: dict, device) -> tuple:
+    """One run of the golden file (``tests/make_train_golden.py``: the JAX
+    package's ``make_train_step`` in f32 on the CPU) through the port's
+    ``make_train_step`` on ``device``, its attention on the port's kernels
+    (on the card; the plain version's forward on the CPU), weights from
+    ``numpy_params`` with the golden's seed, the batches the golden
+    recorded (``make_batch``'s on the machine that wrote it: numpy's
+    ``Generator.zipf`` draws other tokens under other numpy versions, so
+    whether this machine's ``make_batch`` gives the same ones is only
+    reported). Counts, each 0 to pass: weights whose sha256 is not the
+    golden's, steps whose loss lies more than ``TRAIN_LOSS_RTOL``, or
+    grad_norm more than ``TRAIN_GNORM_RTOL`` (the first step's, the later
+    steps'), from the golden's (relative), or whose lr is not the
+    golden's, and on the card attention launches other than
+    ``train_launches_want``. Returns (errors, row)."""
+    import torch
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.models import build_model
+    from repro_torch.models.convert import (numpy_params, params_from_numpy,
+                                            tree_sha256)
+    from repro_torch.train.data import DataConfig, make_batch
+    from repro_torch.train.optimizer import AdamWConfig, init_opt_state
+    from repro_torch.train.step import make_train_step
+    cfg = lm_config(run)
+    weights = numpy_params(cfg, run["seed"])
+    errs = {"weights": int(tree_sha256(weights) != run["weights_sha256"])}
+    params = params_from_numpy(weights, device)
+    del weights
+    opt_state = init_opt_state(params)
+    step = make_train_step(build_model(cfg), AdamWConfig(**run["opt"]))
+    dcfg = DataConfig(**run["data"])
+    batches = [{k: np.array(g[k], np.int32) for k in ("tokens", "labels")}
+               for g in run["per_step"]]
+    same_data = all(all(np.array_equal(v, b[k]) for k, v in make_batch(
+        dcfg, cfg, s).items()) for s, b in enumerate(batches))
+    batches = [{k: torch.as_tensor(v, device=device) for k, v in b.items()}
+               for b in batches]
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    got = []
+    for batch in batches:
+        params, opt_state, m = step(params, opt_state, batch)
+        got.append({k: float(m[k]) for k in ("loss", "grad_norm", "lr")})
+    secs = time.perf_counter() - t0
+    counts = launch_counts()
+    want_steps = run["per_step"]
+    rel = {k: [abs(g[k] - w[k]) / abs(w[k]) for g, w in zip(got, want_steps)]
+           for k in ("loss", "grad_norm", "lr")}
+    errs["loss"] = sum(e > TRAIN_LOSS_RTOL for e in rel["loss"]) + int(
+        len(got) != len(want_steps))
+    errs["grad_norm"] = sum(e > TRAIN_GNORM_RTOL[min(i, 1)]
+                            for i, e in enumerate(rel["grad_norm"]))
+    errs["lr"] = sum(e > 1e-6 for e in rel["lr"])
+    want = train_launches_want(cfg, dcfg.seq_len, run["steps"])
+    if torch.device(device).type == "cuda":
+        errs["launches"] = sum(counts.get(k, 0) != v for k, v in want.items())
+    row = dict(config=cfg.name, layers=cfg.n_layers, d_model=cfg.d_model,
+               vocab=cfg.vocab_size, batch=dcfg.batch, seq_len=dcfg.seq_len,
+               steps=run["steps"], loss=[g["loss"] for g in got],
+               grad_norm=[g["grad_norm"] for g in got],
+               loss_rel_err=rel["loss"], grad_norm_rel_err=rel["grad_norm"],
+               limits=dict(loss=TRAIN_LOSS_RTOL,
+                           grad_norm=TRAIN_GNORM_RTOL), seconds=secs,
+               make_batch_matches_golden=same_data,
+               launches={k: counts.get(k, 0) for k in want})
+    return errs, row
+
+
+def train_bf16(device, spec: dict = TRAIN_BF16) -> tuple:
+    """Phase 8's run at full width and depth (``TRAIN_BF16``): the
+    ``Trainer`` on the card, its data from ``DataLoader``, with a
+    checkpoint at step ``ckpt_every``. Each step is timed on the host
+    clock between synchronizes, its attention launches zeroed just before
+    it and read just after (``train_launches_want``). Checks, each a count
+    of what failed: launches per step; every step's loss and grad_norm
+    finite; the checkpoint of step ``ckpt_every`` restored
+    (``CheckpointManager.restore``) equal by bits to that step's params
+    and optimizer state; then step 1 again on its weights and batch
+    (``loss_and_grads``), on the kernels and on ``flash_attention_plain``
+    (``build_model(cfg, attention="torch")``): every parameter leaf's
+    gradient on the kernels' path finite and not all zero, within
+    ``TRAIN_GRAD_TOL`` of the plain run's by norm, the losses within
+    ``TRAIN_BF16_LOSS_TOL``, the repeat's launches those of one step.
+    Last, one more step under ``torch.profiler`` (``profiled_shares``):
+    the attention forward's and backward's shares of device time and the
+    idle share. Memory: ``torch.cuda.max_memory_allocated`` in each step,
+    over what was allocated before the Trainer was built; step 1's is the
+    training's own (later steps also hold what this check keeps: step 1's
+    weights, the checkpointed step's state). Returns (errors, row)."""
+    import torch
+    from repro_torch.configs import ARCHS
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.models import build_model
+    from repro_torch.train.checkpoint import CheckpointManager
+    from repro_torch.train.data import DataConfig
+    from repro_torch.train.loop import Trainer, TrainerConfig
+    from repro_torch.train.optimizer import AdamWConfig
+    from repro_torch.train.step import compute_params, loss_and_grads
+    from repro_torch.utils.tree import flatten_dict, tree_leaves
+    cfg = ARCHS[spec["name"]].replace(remat=True, remat_policy="full",
+                                      loss_chunks=8)
+    B, S, steps, at = (spec[k] for k in ("batch", "seq_len", "steps",
+                                         "ckpt_every"))
+    tag, dt = f"train.{cfg.name}", getattr(torch, cfg.dtype)
+    want1 = train_launches_want(cfg, S, 1)
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    ckpt_dir = tempfile.mkdtemp(prefix="chip_smoke_train_")
+    try:
+        tr = Trainer(cfg, DataConfig(seed=spec["seed"], batch=B, seq_len=S),
+                     AdamWConfig(**spec["opt"]),
+                     TrainerConfig(num_steps=steps, log_every=1,
+                                   ckpt_every=at, ckpt_dir=ckpt_dir,
+                                   seed=spec["seed"]), device=device)
+        inner, seen, kept = tr.step_fn, [], {}
+
+        def step_fn(params, opt_state, batch):
+            if not seen:
+                kept["first"] = (params, batch)
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            reset_launch_counts()
+            t0 = time.perf_counter()
+            out = inner(params, opt_state, batch)
+            torch.cuda.synchronize()
+            seen.append((time.perf_counter() - t0, launch_counts()))
+            peaks.append(torch.cuda.max_memory_allocated() - base)
+            if len(seen) == at:
+                kept["ckpt"] = out[:2]
+            return out
+        tr.step_fn, peaks = step_fn, []
+        torch.cuda.synchronize()
+        params, opt_state, hist = tr.run(steps)
+        restored, rstep = CheckpointManager(ckpt_dir).restore(
+            kept["ckpt"], step=at, device=device)
+        pairs = list(zip(tree_leaves(restored), tree_leaves(kept["ckpt"])))
+        errs = {f"{tag}.launches": sum(
+                    any(c.get(k, 0) != v for k, v in want1.items())
+                    for _, c in seen) + int(len(seen) != steps),
+                f"{tag}.finite": sum(
+                    not (math.isfinite(h["loss"])
+                         and math.isfinite(h["grad_norm"])) for h in hist),
+                f"{tag}.checkpoint": int(rstep != at) + sum(
+                    a.dtype != b.dtype or not torch.equal(a, b)
+                    for a, b in pairs)}
+        del restored, pairs, kept["ckpt"]
+        p0, b0 = kept.pop("first")
+        reset_launch_counts()
+        lk, _, gk = loss_and_grads(tr.model, compute_params(p0, dt), b0)
+        torch.cuda.synchronize()
+        repeat = launch_counts()
+        lp, _, gp = loss_and_grads(build_model(cfg, attention="torch"),
+                                   compute_params(p0, dt), b0)
+        fk, fp = flatten_dict(gk), flatten_dict(gp)
+        del gk, gp
+        rel = {k: float((fk[k].float() - fp[k].float()).norm()
+                        / fp[k].float().norm()) for k in fp}
+        bad = [k for k, g in fk.items() if not bool(torch.isfinite(g).all())
+               or not bool((g != 0).any())]
+        loss_rel = abs(float(lk) - float(lp)) / abs(float(lp))
+        errs[f"{tag}.grads_nonzero"] = len(bad) + int(sorted(fk) != sorted(fp))
+        errs[f"{tag}.grads"] = sum(not r <= TRAIN_GRAD_TOL
+                                   for r in rel.values())
+        errs[f"{tag}.loss"] = int(not loss_rel <= TRAIN_BF16_LOSS_TOL)
+        errs[f"{tag}.repeat_launches"] = int(any(
+            repeat.get(k, 0) != v for k, v in want1.items()))
+        del fk, fp
+        prof = profiled_shares(lambda: inner(params, opt_state, b0))
+    finally:
+        shutil.rmtree(ckpt_dir, ignore_errors=True)
+    secs = [s for s, _ in seen]
+    step_s = statistics.median(secs[1:])
+    worst = sorted(rel.items(), key=lambda kv: -kv[1])[:3]
+    row = dict(config=cfg.name, layers=cfg.n_layers, dtype=cfg.dtype,
+               remat=cfg.remat_policy, loss_chunks=cfg.loss_chunks, batch=B,
+               seq_len=S, steps=steps, loss=[h["loss"] for h in hist],
+               grad_norm=[h["grad_norm"] for h in hist],
+               step_ms=[s * 1e3 for s in secs],
+               step_ms_median_2_on=step_s * 1e3,
+               tokens_per_s=B * S / step_s,
+               peak_allocated_mb=peaks[0] / 1e6,
+               peak_allocated_mb_per_step=[x / 1e6 for x in peaks],
+               memory_reserved_mb=torch.cuda.memory_reserved() / 1e6,
+               launches_per_step=[c.get("flash_attention", 0) for _, c in seen],
+               launches={k: sum(c.get(k, 0) for _, c in seen) for k in want1},
+               grad_rel_err_max=max(rel.values()),
+               grad_rel_err_worst=worst, grad_limit=TRAIN_GRAD_TOL,
+               zero_or_nonfinite_grads=bad, loss_kernels=float(lk),
+               loss_plain=float(lp), loss_rel_err=loss_rel,
+               loss_limit=TRAIN_BF16_LOSS_TOL, profile=prof)
+    return errs, row
+
+
+def train_checks(device, route: str = "all") -> tuple:
+    """Phase 8: every golden run (``train_golden_errors``) then, for
+    route "all", the bf16 run (``train_bf16``). Returns (errors, rows,
+    launches: the attention launches summed over the runs)."""
+    import torch
+    errs, rows, launches = {}, [], {}
+    for run in train_golden():
+        e, row = train_golden_errors(run, device)
+        errs.update({f"{run['name']}{'-smoke' if run['smoke'] else ''}"
+                     f".{k}": v for k, v in e.items()})
+        rows.append(row)
+        log(f"train golden {row['config']} ({row['layers']} layers, d_model "
+            f"{row['d_model']}, vocab {row['vocab']}, f32): {row['steps']} "
+            f"steps of {row['batch']} x {row['seq_len']} tokens in "
+            f"{row['seconds']:.2f} s; loss {row['loss']}, relative error "
+            f"{max(row['loss_rel_err']):.3g} (limit {TRAIN_LOSS_RTOL}); "
+            f"grad_norm {row['grad_norm']}, relative error by step "
+            f"{[float(f'{e:.3g}') for e in row['grad_norm_rel_err']]} "
+            f"(limits {TRAIN_GNORM_RTOL[0]} on the first step, "
+            f"{TRAIN_GNORM_RTOL[1]} after); this machine's make_batch gives "
+            f"the golden's batches: {row['make_batch_matches_golden']}; "
+            f"launches {row['launches']}; checks {e}")
+    if route == "all":
+        torch.cuda.empty_cache()
+        e, row = train_bf16(device)
+        errs.update(e)
+        rows.append(row)
+        p = row["profile"]
+        log(f"train bf16 {row['config']} ({row['layers']} layers, remat "
+            f"{row['remat']}, loss in {row['loss_chunks']} chunks): "
+            f"{row['steps']} steps of {row['batch']} x {row['seq_len']} "
+            f"tokens, ms per step {[round(x, 2) for x in row['step_ms']]}, "
+            f"median of steps 2-{row['steps']} "
+            f"{row['step_ms_median_2_on']:.2f} ms, "
+            f"{row['tokens_per_s']:.0f} tokens/s; peak allocated "
+            f"{row['peak_allocated_mb']:.1f} MB, reserved "
+            f"{row['memory_reserved_mb']:.1f} MB; loss {row['loss']}; "
+            f"step 1 against flash_attention_plain: loss "
+            f"{row['loss_kernels']:.6f} vs {row['loss_plain']:.6f} "
+            f"(relative {row['loss_rel_err']:.3g}, limit "
+            f"{row['loss_limit']}), gradients by norm worst "
+            f"{row['grad_rel_err_worst']} (limit {row['grad_limit']}); "
+            f"launches {row['launches']}; checks {e}")
+        log(f"train bf16 {row['config']} profile, one step: " + (
+            "the profiler saw no device kernel" if p is None else
+            f"wall {p['wall_ms']:.2f} ms, {p['kernels']} device kernels "
+            f"summing {p['kernel_sum_ms']:.3f} ms (busy "
+            f"{p['busy_ms']:.3f}); attention forward {p['attention_ms']:.3f}"
+            f" ms = share {p['attention_share']:.3f}; attention backward "
+            f"{p['attention_backward_ms']:.3f} ms = share "
+            f"{p['attention_backward_share']:.3f}; idle share "
+            f"{p['idle_share']:.3f}; unprofiled wall "
+            f"{p['wall_unprofiled_ms']:.2f} ms, idle share against it "
+            f"{p['idle_share_unprofiled']:.3f}; most time: " + "; ".join(
+                f"{k['kernel']} {k['ms']:.3f} ms in {k['count']}"
+                for k in p["top"])))
+    for row in rows:
+        for k, v in row["launches"].items():
+            launches[k] = launches.get(k, 0) + v
+    log(f"train checks (count of what failed, 0 passes): {errs}")
+    return errs, rows, launches
+
+
+def train_errors(fault: str) -> None:
+    """Phase 8's golden checks on the card, one line per check, limit 0."""
+    import torch
+    errs = train_checks(torch.device("cuda"), route="golden")[0]
+    for check, err in errs.items():
+        print(json.dumps({"fault": fault, "case": f"train {check}",
+                          "err": err, "limit": 0, "over": err > 0}),
+              flush=True)
+
+
+# ---------------------------------------------------------------------------
+# --plant-faults: the checks of phases 2-8 against wrong kernels and code
 # ---------------------------------------------------------------------------
 PLANTED_FAULTS = {  # name: (route, file under src/repro_torch, text, stand-in)
     "mma.skip_tile_4096": (
@@ -3207,12 +3599,31 @@ PLANTED_FAULTS = {  # name: (route, file under src/repro_torch, text, stand-in)
         "        if path[-1].startswith(\"gate_\"):\n"
         "            return tree.to(torch.bfloat16)\n"
         "        return tree if _read_in_f32(path, cfg) else tree.to(dt)"),
+    # a forward whose result has no grad_fn (the wrapper before
+    # FlashAttentionFn): the attention projections get no gradient
+    "train.no_grad_fn": (
+        "train", "kernels/flash_attention.py",
+        "    return FlashAttentionFn.apply(q, k, v, causal, window, softcap, "
+        "scale,\n                                  block_q, block_k)",
+        "    return attention_forward(\n        q, k, v, causal=causal, "
+        "window=window, softcap=softcap, scale=scale,\n        "
+        "block_q=block_q, block_k=block_k).detach()"),
+    # a backward whose dK and dV take the first query head of each GQA
+    # group only, not the sum over the group
+    "train.drops_gqa_sum": (
+        "train", "kernels/flash_attention.py",
+        '        dk[:, :, k0:k1] += torch.einsum("bkgcl,bkgcd->bkld", ds, qc)\n'
+        '        dv[:, :, k0:k1] += torch.einsum("bkgcl,bkgcd->bkld", p, doc)',
+        '        dk[:, :, k0:k1] += torch.einsum("bkcl,bkcd->bkld", ds[:, :, 0],'
+        ' qc[:, :, 0])\n        dv[:, :, k0:k1] += torch.einsum('
+        '"bkcl,bkcd->bkld", p[:, :, 0], doc[:, :, 0])'),
 }
 LAYER_FAULT_KEYS = ("gemm_float", "depthwise", "alu", "pool2d")
 VTA_FAULT_KEYS = ("gemm", "alu_sweep")
 SERVE_FAULT_KEYS = ("serve",)
 POOL_FAULT_KEYS = ("pool", "ladder")
 LM_FAULT_KEYS = ("lm",)
+TRAIN_FAULT_KEYS = ("train",)
 # --plant-faults runs these besides ATTENTION_CASES: the only windowed
 # decode case there, g2.local.decode, sees its whole 4096-key cache, so a
 # window 64 too wide is invisible to it. Gemma-2 27B local layers decoding
@@ -3230,10 +3641,12 @@ def case_errors(fault: str, route: str) -> int:
     ``FAULT_CASES`` (``attention_errors``), the phase-4 cases, edge cases
     included, of the kernels of ``LAYER_FAULT_KEYS`` (``layer_errors``),
     phase 2's cases of the kernels of ``VTA_FAULT_KEYS`` (``vta_errors``),
-    phase 3's checks of the captured path (``serve_errors``), and phase
-    6's checks of the worker pool or the ladder (``pool_errors``)."""
+    phase 3's checks of the captured path (``serve_errors``), phase 6's
+    checks of the worker pool or the ladder (``pool_errors``), and the
+    golden checks of phases 7 and 8 (``lm_errors``, ``train_errors``)."""
     if route == "all" or route not in LAYER_FAULT_KEYS + VTA_FAULT_KEYS \
-            + SERVE_FAULT_KEYS + POOL_FAULT_KEYS + LM_FAULT_KEYS:
+            + SERVE_FAULT_KEYS + POOL_FAULT_KEYS + LM_FAULT_KEYS \
+            + TRAIN_FAULT_KEYS:
         attention_errors(fault, route)
     if route == "all" or route in LAYER_FAULT_KEYS:
         layer_errors(fault, route)
@@ -3245,6 +3658,8 @@ def case_errors(fault: str, route: str) -> int:
         pool_errors(fault, route)
     if route == "all" or route in LM_FAULT_KEYS:
         lm_errors(fault)
+    if route == "all" or route in TRAIN_FAULT_KEYS:
+        train_errors(fault)
     return 0
 
 
@@ -3576,6 +3991,13 @@ def main(argv: list) -> int:
         raise AssertionError(f"phase 7 failed: {errs7}")
     log(f"phase 7: {time.perf_counter() - t0:.1f} s")
 
+    # -- phase 8 ----------------------------------------------------------
+    t0 = time.perf_counter()
+    errs8, train_rows, train_launches = train_checks(dev)
+    if any(errs8.values()):
+        raise AssertionError(f"phase 8 failed: {errs8}")
+    log(f"phase 8: {time.perf_counter() - t0:.1f} s")
+
     src = "src/repro_torch/csrc/"
     kernels = [
         dict(name="gemm", route="cuda", source=src + "vta_gemm.cu",
@@ -3613,7 +4035,7 @@ def main(argv: list) -> int:
             name=key, route="cuda", source=src + source,
             replaces="src/repro/kernels/flash_attention.py:77",
             launches=lm_launches[key], launches_cases=counts5[key],
-            **row5[key],
+            launches_train=train_launches.get(key, 0), **row5[key],
             per=f"one pass over the phase-5 cases of its route "
                 f"({row5[key]['cases']}): Gemma-2 27B, Qwen3-0.6B, Mixtral "
                 f"8x22B and RecurrentGemma-9B attention at prefill 8192 and "
@@ -3622,11 +4044,15 @@ def main(argv: list) -> int:
                    if key == "flash_attention.decode" else "")
                 + "; launches: phase 7's language-model runs (the golden "
                   "f32 runs and the bf16 runs of Qwen3-0.6B and "
-                  "RecurrentGemma-9B), launches_cases: phase 5's"))
+                  "RecurrentGemma-9B), launches_train: phase 8's training "
+                  "runs (the f32 golden runs and the bf16 Qwen3-0.6B "
+                  "Trainer steps), "
+                  "launches_cases: phase 5's"))
     log(json.dumps({"serve": serve_rows, "capture": capture_rows,
                     "profile": prof}))
     log(json.dumps({"pool": pool_rows}))
     log(json.dumps({"lm": lm_rows}))
+    log(json.dumps({"train": train_rows}))
     log(json.dumps({"kernels": kernels}))
     log(smi)
     log(json.dumps({"ok": True, "device": {

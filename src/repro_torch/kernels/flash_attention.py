@@ -41,6 +41,15 @@ launches: ``LAUNCHES["flash_attention.<route>"]`` for the route's kernel, and
 ``LAUNCHES["flash_attention_combine"]`` for the decode route's combine. For CPU tensors the
 wrapper takes ``flash_attention_plain``, which runs on either device.
 
+Gradient. ``flash_attention`` is ``FlashAttentionFn``, an autograd
+function: its forward is the wrapper above (``attention_forward``: the
+kernels on CUDA tensors, the plain version on CPU tensors), and its
+backward ``flash_attention_backward`` is plain PyTorch on either device,
+so that the CPU tests run the backward the card runs. The reference has no
+backward kernel either: XLA differentiates its chunked softmax. Without a
+graph to build (``torch.inference_mode``, ``torch.no_grad``, or inputs
+that need no gradient) the forward is all that runs, with nothing saved.
+
 Blocks. ``block_q``/``block_k`` have the reference's meaning for the plain
 version, halved until they divide Sq and Sk; without them it takes the
 kernel's tile (``attention_tile``). The CUDA kernels pick their tiles
@@ -397,15 +406,17 @@ def decode_partials(q, k, v, causal, window, softcap, scale) -> tuple:
     return part_m, part_l, part_acc
 
 
-def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
-                    causal: bool = True, window: Optional[int] = None,
-                    softcap: Optional[float] = None,
-                    scale: Optional[float] = None,
-                    block_q: Optional[int] = None,
-                    block_k: Optional[int] = None) -> torch.Tensor:
+def attention_forward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                      causal: bool = True, window: Optional[int] = None,
+                      softcap: Optional[float] = None,
+                      scale: Optional[float] = None,
+                      block_q: Optional[int] = None,
+                      block_k: Optional[int] = None) -> torch.Tensor:
     """The kernels' wrapper: CUDA tensors take the route
     ``attention_route`` names; CPU tensors take ``flash_attention_plain``.
-    Raises on anything the kernels do not take, on either device."""
+    Raises on anything the kernels do not take, on either device. Its
+    result on the card has no ``grad_fn``: ``flash_attention`` gives it
+    one."""
     b, h, sq, d, kv, sk = _check(q, k, v)
     _build.float_code("flash_attention", q, k, v)
     if not _build.on_card("flash_attention", q, k, v):
@@ -442,3 +453,110 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     count_launch(LAUNCHES, "flash_attention")
     count_launch(LAUNCHES, f"flash_attention.{route}")
     return out
+
+
+BACKWARD_ROWS = 256        # query rows a chunk of the backward
+# the profiler range the backward runs in: what a profile of a train step
+# reads the backward's device time from
+BACKWARD_RANGE = "flash_attention_backward"
+
+
+def flash_attention_backward(q: torch.Tensor, k: torch.Tensor,
+                             v: torch.Tensor, dout: torch.Tensor, *,
+                             causal: bool = True,
+                             window: Optional[int] = None,
+                             softcap: Optional[float] = None,
+                             scale: Optional[float] = None,
+                             rows: int = BACKWARD_ROWS) -> tuple:
+    """(dq, dk, dv) of ``flash_attention`` for the gradient ``dout`` of
+    its output, in q's, k's and v's dtypes: plain PyTorch on either
+    device, in f32, ``rows`` query rows at a time so that memory stays
+    O(Sq x rows), as the reference's q-chunk loop keeps it.
+
+    Per chunk it recomputes the f32 scores s = (q * scale) @ k^T over the
+    keys the chunk's rows can see, the softcap c * tanh(s / c) and the
+    mask, and forms P = softmax(s), dV += P^T dO and dP = dO V^T; then dS
+    = P * (dP - rowsum(dO * O)), with rowsum(dO * O) taken as rowsum(P *
+    dP), its value in exact arithmetic (O rounded to q's dtype would add
+    its rounding); dS times the softcap's derivative 1 - tanh^2(s / c);
+    dQ = scale * dS @ K and dK += dS^T @ (q * scale). dK and dV sum over
+    each GQA group's query heads, to the KV heads. A row that sees no key
+    gets an output of 0 from the kernels and a gradient of 0 here; such
+    rows do not occur in training, where Sq = Sk and each row sees its own
+    key."""
+    b, h, sq, d, kv, sk = _check(q, k, v)
+    g, f32, dev = h // kv, torch.float32, q.device
+    scale = d ** -0.5 if scale is None else float(scale)
+    qs = q.to(f32).reshape(b, kv, g, sq, d) * scale
+    do = dout.to(f32).reshape(b, kv, g, sq, d)
+    kf, vf = k.to(f32).unsqueeze(2), v.to(f32).unsqueeze(2)
+    dq = torch.zeros_like(qs)
+    dk = torch.zeros((b, kv, sk, d), dtype=f32, device=dev)
+    dv = torch.zeros_like(dk)
+    off = sk - sq
+    for i0 in range(0, sq, rows):
+        i1 = min(i0 + rows, sq)
+        k0 = 0 if window is None else max(0, i0 + off - int(window) + 1)
+        k1 = max(0, min(sk, i1 + off)) if causal else sk
+        if k1 <= k0:
+            continue
+        kb, vb = kf[:, :, :, k0:k1], vf[:, :, :, k0:k1]
+        qc, doc = qs[:, :, :, i0:i1], do[:, :, :, i0:i1]
+        s = torch.matmul(qc, kb.transpose(-1, -2))      # (b, kv, g, c, L)
+        if softcap is not None:
+            t = torch.tanh(s / softcap)
+            s = softcap * t
+        mask = _key_mask(torch.arange(i0, i1, device=dev).view(-1, 1) + off,
+                         torch.arange(k0, k1, device=dev).view(1, -1),
+                         causal, window)
+        s = torch.where(mask, s, NEG_INF)
+        p = torch.where(mask, torch.exp(s - s.amax(dim=-1, keepdim=True)),
+                        0.0)
+        p = p / torch.clamp(p.sum(dim=-1, keepdim=True), min=1e-30)
+        dp = torch.matmul(doc, vb.transpose(-1, -2))
+        ds = p * (dp - (p * dp).sum(dim=-1, keepdim=True))
+        if softcap is not None:
+            ds = ds * (1.0 - t * t)
+        dq[:, :, :, i0:i1] = torch.matmul(ds, kb) * scale
+        # one product sums over the group's heads and the chunk's rows
+        dk[:, :, k0:k1] += torch.einsum("bkgcl,bkgcd->bkld", ds, qc)
+        dv[:, :, k0:k1] += torch.einsum("bkgcl,bkgcd->bkld", p, doc)
+    return (dq.reshape(b, h, sq, d).to(q.dtype), dk.to(k.dtype),
+            dv.to(v.dtype))
+
+
+class FlashAttentionFn(torch.autograd.Function):
+    """``attention_forward`` with a gradient: the forward is the kernels'
+    wrapper, and saves q, k and v; the backward is
+    ``flash_attention_backward``. Arguments as ``attention_forward``'s,
+    positional."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal, window, softcap, scale, block_q,
+                block_k):
+        ctx.save_for_backward(q, k, v)
+        ctx.kw = dict(causal=causal, window=window, softcap=softcap,
+                      scale=scale)
+        return attention_forward(q, k, v, block_q=block_q, block_k=block_k,
+                                 **ctx.kw)
+
+    @staticmethod
+    def backward(ctx, dout):
+        q, k, v = ctx.saved_tensors
+        with torch.profiler.record_function(BACKWARD_RANGE):
+            grads = flash_attention_backward(q, k, v, dout, **ctx.kw)
+        return grads + (None,) * 6
+
+
+def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                    causal: bool = True, window: Optional[int] = None,
+                    softcap: Optional[float] = None,
+                    scale: Optional[float] = None,
+                    block_q: Optional[int] = None,
+                    block_k: Optional[int] = None) -> torch.Tensor:
+    """Online-softmax attention with a gradient (``FlashAttentionFn``):
+    CUDA tensors launch the kernels of the route ``attention_route``
+    names, CPU tensors take ``flash_attention_plain``; either way the
+    backward is ``flash_attention_backward``."""
+    return FlashAttentionFn.apply(q, k, v, causal, window, softcap, scale,
+                                  block_q, block_k)

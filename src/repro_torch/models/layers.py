@@ -5,8 +5,8 @@ The port of ``repro/models/layers.py``. Every parameter is declared as a
 source of truth for initialization and the logical names. A tree is a
 nested dict whose leaves are Specs or tensors, flattened in sorted key
 order, as JAX flattens dicts. ``associative_scan`` is the port of
-``jax.lax.associative_scan``, which the recurrent blocks use.
-``cross_entropy`` waits for the training slice.
+``jax.lax.associative_scan``, which the recurrent blocks use;
+``cross_entropy`` is the training loss.
 """
 from __future__ import annotations
 
@@ -20,6 +20,7 @@ import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.sharding import lshard
+from repro_torch.utils.tree import tree_map
 
 
 # ---------------------------------------------------------------------------
@@ -48,15 +49,6 @@ def std_of(spec: Spec) -> float:
     if spec.scale is not None:
         return spec.scale
     return 1.0 / math.sqrt(max(1, _fan_in(spec.shape)))
-
-
-def tree_map(fn: Callable, tree, *rest):
-    """``fn`` over the leaves of nested dicts (``rest``: trees of the same
-    structure, whose leaves are passed alongside)."""
-    if isinstance(tree, dict):
-        return {k: tree_map(fn, v, *(r[k] for r in rest))
-                for k, v in tree.items()}
-    return fn(tree, *rest)
 
 
 def materialize(spec: Spec, generator: torch.Generator, dtype,
@@ -274,3 +266,17 @@ def mlp_apply(p, x, cfg: ModelConfig):
     h = h * torch.matmul(x, p["wi"].to(x.dtype))
     h = lshard(h, "batch", "seq", "d_ff")
     return torch.matmul(h, p["wo"].to(x.dtype))
+
+
+def cross_entropy(logits, labels, final_cap: Optional[float] = None,
+                  z_loss: float = 0.0):
+    """Mean token cross-entropy in f32. logits (..., V), labels (...) int:
+    the softcapped f32 logits' logsumexp minus the gold logit, plus
+    ``z_loss * lse^2``, averaged over every label position."""
+    logits = softcap(logits.to(torch.float32), final_cap)
+    lse = torch.logsumexp(logits, dim=-1)
+    gold = torch.gather(logits, -1, labels.long()[..., None])[..., 0]
+    loss = lse - gold
+    if z_loss:
+        loss = loss + z_loss * torch.square(lse)
+    return torch.mean(loss)

@@ -1,12 +1,14 @@
 """Model facade: config -> bound init/apply/serve functions.
 
-The port of ``repro/models/registry.py``, less ``loss`` (training waits for
-a later slice). ``build_model(cfg, attention=...)`` picks what every
-attention layer calls: ``"cuda"`` (the default),
+The port of ``repro/models/registry.py``. ``build_model(cfg,
+attention=...)`` picks what every attention layer calls, in ``forward``,
+``prefill``, ``decode`` and ``loss`` alike: ``"cuda"`` (the default),
 ``repro_torch.kernels.ops.flash_attention``, whose CUDA tensors launch the
-port's kernels or raise and whose CPU tensors take the plain version;
-``"torch"``, the plain version ``flash_attention_plain`` on either device,
-which only the tests and ``chip_smoke.py``'s comparison use.
+port's kernels or raise and whose CPU tensors take the plain version, with
+the gradient of ``FlashAttentionFn`` on both; ``"torch"``, the plain
+version ``flash_attention_plain`` on either device (autograd
+differentiates it), which only the tests and ``chip_smoke.py``'s
+comparison use.
 """
 from __future__ import annotations
 
@@ -28,6 +30,7 @@ class Model:
     specs: Callable           # () -> Spec tree
     logical_names: Callable   # () -> names tree
     forward: Callable         # (params, batch) -> (logits, aux, caches)
+    loss: Callable            # (params, batch) -> (loss, metrics)
     prefill: Callable         # (params, batch, last_only=False) -> (logits, caches)
     decode: Callable          # (params, batch, caches, pos) -> (logits, caches)
     cache_specs: Callable     # (batch, seq) -> cache tree of TensorSpecs
@@ -53,6 +56,8 @@ def build_model(cfg: ModelConfig, *, attention: str = "cuda") -> Model:
         logical_names=lambda: tfm.param_logical_names(cfg),
         forward=lambda params, batch: tfm.forward(params, batch, cfg,
                                                   attend=attend),
+        loss=lambda params, batch: tfm.loss_fn(params, batch, cfg,
+                                               attend=attend),
         prefill=prefill,
         decode=lambda params, batch, caches, pos: tfm.decode_step(
             params, batch, caches, pos, cfg, attend=attend),

@@ -3,10 +3,10 @@
 The port of ``repro/models/transformer.py``. A model is a tiled repeating
 ``pattern`` of layers (see ModelConfig). The params of one pattern group
 are stacked over ``n_groups``, as in the reference, and a Python loop over
-the groups takes the place of its ``lax.scan`` (remat has no meaning
-without a backward pass). Pattern remainders are unstacked trailing
-layers. Params and caches are nested dicts of tensors in the reference's
-layout, so ``models/convert.py`` carries its weights across unchanged.
+the groups takes the place of its ``lax.scan``. Pattern remainders are
+unstacked trailing layers. Params and caches are nested dicts of tensors
+in the reference's layout, so ``models/convert.py`` carries its weights
+across unchanged.
 
 Numerics are the reference's: the activations run in ``cfg.dtype`` (bf16
 by default) over f32 master weights cast to it at use. ``cast_params``
@@ -21,8 +21,15 @@ Attention runs through ``attend`` (``repro_torch.kernels.ops.
 flash_attention``, or its plain version: ``models/registry.py``). The
 RWKV-6 and RG-LRU blocks (``models/rwkv6.py``, ``models/griffin.py``) run
 in PyTorch: their scans have no kernel in the reference either.
-``forward_backbone``, ``fused_head_loss`` and ``loss_fn`` (training) wait
-for a later slice.
+
+Training: ``loss_fn`` is ``forward_backbone`` (each pattern group under
+``_remat``'s checkpoint) then ``fused_head_loss``, which projects and
+scores the sequence a chunk at a time, each chunk checkpointed, so that
+the (tokens, vocab) logits never exist whole. The gradient of every
+attention layer is ``FlashAttentionFn``'s backward; a group's recompute
+launches its attention kernels again. The reference's ``_sched_barrier``
+only orders its attention's q-chunks in the forward and passes the
+gradient through; the port's attention is one call and needs none.
 """
 from __future__ import annotations
 
@@ -31,15 +38,18 @@ from collections import namedtuple
 from typing import Callable
 
 import torch
+from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
+                                    create_selective_checkpoint_contexts)
 
 from repro_torch.configs.base import (ATTN_GLOBAL, ATTN_LOCAL, RGLRU, RWKV6,
                                       ModelConfig)
 from repro_torch.kernels.ops import flash_attention
 from repro_torch.models import attention as attn
 from repro_torch.models import griffin, moe, rwkv6
-from repro_torch.models.layers import (Spec, init_tree, mlp_apply, mlp_specs,
-                                       names_tree, rms_norm, rope_angles,
-                                       softcap, stack_specs, tree_map)
+from repro_torch.models.layers import (Spec, cross_entropy, init_tree,
+                                       mlp_apply, mlp_specs, names_tree,
+                                       rms_norm, rope_angles, softcap,
+                                       stack_specs, tree_map)
 from repro_torch.sharding import lshard
 
 # a cache leaf's shape and dtype (the reference's ShapeDtypeStruct)
@@ -245,6 +255,91 @@ def forward(params, batch, cfg: ModelConfig, *, want_cache: bool = False,
     x = rms_norm(x, params["final_norm"], cfg.norm_eps, cfg.norm_upcast)
     logits = lm_head(params, x, cfg)
     return logits, aux_total, (caches if want_cache else None)
+
+
+def _save_dots(ctx, op, *args, **kwargs):
+    """The selective checkpoint's policy for ``remat_policy="dots"``: keep
+    the outputs of matrix products without batch dims (``aten.mm``, what
+    a (B, S, d) @ (d, f) product runs as), recompute the rest, as
+    ``jax.checkpoint_policies.dots_with_no_batch_dims_saveable``."""
+    return CheckpointPolicy.MUST_SAVE if op is torch.ops.aten.mm.default \
+        else CheckpointPolicy.PREFER_RECOMPUTE
+
+
+def _remat(fn: Callable, cfg: ModelConfig) -> Callable:
+    """``fn`` checkpointed as the reference's ``_remat``: nothing for
+    ``cfg.remat`` false or ``remat_policy="none"``; the matrix products'
+    outputs kept and the rest recomputed for ``"dots"``; everything
+    recomputed in the backward otherwise (``"full"``)."""
+    if not cfg.remat or cfg.remat_policy == "none":
+        return fn
+    kw = {}
+    if cfg.remat_policy == "dots":
+        kw["context_fn"] = functools.partial(
+            create_selective_checkpoint_contexts, _save_dots)
+    return lambda *args: checkpoint(fn, *args, use_reentrant=False, **kw)
+
+
+def forward_backbone(params, batch, cfg: ModelConfig, *,
+                     attend: Callable = flash_attention):
+    """Forward through embed + blocks + final norm; no LM head. Returns
+    (x, aux). Each pattern group runs under ``_remat``, the trailing
+    layers as they are, as in the reference."""
+    x = embed(params, batch, cfg)
+    B, S, _ = x.shape
+    ctx = _make_ctx(cfg, batch, B, S, device=x.device, attend=attend)
+    body = _remat(lambda x, gp: _apply_group(gp, x, cfg, ctx)[:2], cfg)
+    aux_total = torch.zeros((), dtype=torch.float32, device=x.device)
+    if "scan" in params:
+        for g in range(cfg.n_groups):
+            x, a = body(x, _group(params["scan"], g))
+            aux_total = aux_total + a
+    if "rem" in params:
+        for j, kind in enumerate(_rem_kinds(cfg)):
+            x, a, _ = _apply_layer(params["rem"][f"l{j}"], x, kind, cfg, ctx)
+            aux_total = aux_total + a
+    x = rms_norm(x, params["final_norm"], cfg.norm_eps, cfg.norm_upcast)
+    return x, aux_total
+
+
+def fused_head_loss(params, x, labels, cfg: ModelConfig,
+                    n_chunks: int = 0):
+    """Mean cross-entropy of the LM head over ``x`` (B, S, d), a sequence
+    chunk at a time: ``n_chunks`` (``cfg.loss_chunks`` by default, cut
+    until it divides S) chunks, each projected and scored under a
+    checkpoint, so that a chunk's logits live only while it is computed,
+    in the forward and again in the backward."""
+    B, S, _ = x.shape
+    n_chunks = min(n_chunks or cfg.loss_chunks, S)
+    while S % n_chunks:
+        n_chunks -= 1
+    c = S // n_chunks
+
+    def chunk_loss(xc, lc):
+        logits = lm_head(params, xc, cfg)
+        # cross_entropy means over every label position; rescale to a sum
+        return cross_entropy(logits, lc, cfg.final_logit_softcap) \
+            * lc.numel()
+
+    total = torch.zeros((), dtype=torch.float32, device=x.device)
+    count = 0
+    for s0 in range(0, S, c):
+        lc = labels[:, s0:s0 + c]
+        total = total + checkpoint(chunk_loss, x[:, s0:s0 + c], lc,
+                                   use_reentrant=False)
+        count += lc.numel()
+    return total / count
+
+
+def loss_fn(params, batch, cfg: ModelConfig, aux_weight: float = 0.01, *,
+            attend: Callable = flash_attention):
+    """(loss, {"xent", "moe_aux"}): the head's cross-entropy plus
+    ``aux_weight`` times the MoE balance loss averaged over the layers."""
+    x, aux = forward_backbone(params, batch, cfg, attend=attend)
+    loss = fused_head_loss(params, x, batch["labels"], cfg)
+    n_aux_layers = len(cfg.layer_kinds) or 1
+    return loss + aux_weight * aux / n_aux_layers, \
+        {"xent": loss, "moe_aux": aux}
 
 
 # ---------------------------------------------------------------------------

@@ -1,0 +1,98 @@
+"""AdamW + schedules, the port of ``repro/train/optimizer.py``.
+
+The optimizer state mirrors the param tree. Every update runs in f32 in
+the reference's order of operations, and the leaves are visited in sorted
+key order, as ``jax.tree_util`` flattens dicts, so that ``global_norm``
+sums them as the reference does. ``adamw_update`` returns new tensors; it
+changes none of its arguments.
+"""
+from __future__ import annotations
+
+import math
+from dataclasses import dataclass
+
+import torch
+
+from repro_torch.utils.tree import tree_leaves, tree_map
+
+
+@dataclass(frozen=True)
+class AdamWConfig:
+    lr: float = 3e-4
+    b1: float = 0.9
+    b2: float = 0.95
+    eps: float = 1e-8
+    weight_decay: float = 0.1
+    grad_clip: float = 1.0
+    warmup_steps: int = 100
+    total_steps: int = 10000
+    min_lr_frac: float = 0.1
+
+
+def _f32(x, device=None) -> torch.Tensor:
+    return torch.as_tensor(x, dtype=torch.float32, device=device)
+
+
+def lr_schedule(cfg: AdamWConfig, step) -> torch.Tensor:
+    """Linear warmup + cosine decay to min_lr_frac, in f32. ``step``: an
+    integer tensor or a Python int."""
+    step = _f32(step)
+    warm = step / max(1.0, cfg.warmup_steps)
+    prog = (step - cfg.warmup_steps) / max(
+        1.0, cfg.total_steps - cfg.warmup_steps)
+    prog = torch.clamp(prog, 0.0, 1.0)
+    cos = cfg.min_lr_frac + (1 - cfg.min_lr_frac) * 0.5 * (
+        1 + torch.cos(math.pi * prog))
+    return cfg.lr * torch.where(step < cfg.warmup_steps, warm, cos)
+
+
+def init_opt_state(params) -> dict:
+    leaf = tree_leaves(params)[0]
+    return {
+        "step": torch.zeros((), dtype=torch.int32, device=leaf.device),
+        "mu": tree_map(torch.zeros_like, params),
+        "nu": tree_map(torch.zeros_like, params),
+    }
+
+
+def global_norm(tree) -> torch.Tensor:
+    """sqrt of the sum, leaf by leaf in sorted key order, of each leaf's
+    sum of squares in f32."""
+    total = 0
+    for leaf in tree_leaves(tree):
+        total = total + torch.sum(torch.square(leaf.to(torch.float32)))
+    return torch.sqrt(total)
+
+
+def adamw_update(cfg: AdamWConfig, params, grads, state):
+    """Returns (new_params, new_state, metrics)."""
+    step = state["step"] + 1
+    gnorm = global_norm(grads)
+    scale = torch.clamp(cfg.grad_clip / (gnorm + 1e-9), max=1.0)
+    lr = lr_schedule(cfg, step)
+    b1, b2 = cfg.b1, cfg.b2
+    bc1 = 1 - _f32(b1, step.device) ** step.to(torch.float32)
+    bc2 = 1 - _f32(b2, step.device) ** step.to(torch.float32)
+
+    def upd(p, g, mu, nu):
+        g = g.to(torch.float32) * scale
+        mu = b1 * mu + (1 - b1) * g
+        nu = b2 * nu + (1 - b2) * torch.square(g)
+        mhat = mu / bc1
+        nhat = nu / bc2
+        step_ = mhat / (torch.sqrt(nhat) + cfg.eps)
+        pf = p.to(torch.float32)
+        newp = pf - lr * (step_ + cfg.weight_decay * pf)
+        return newp.to(p.dtype), mu.to(p.dtype), nu.to(p.dtype)
+
+    outs = tree_map(upd, params, grads, state["mu"], state["nu"])
+    return _pick(outs, 0), {"step": step, "mu": _pick(outs, 1),
+                            "nu": _pick(outs, 2)}, \
+        {"grad_norm": gnorm, "lr": lr}
+
+
+def _pick(tree: dict, i: int):
+    """The ``i``-th item of every (p, mu, nu) leaf of a dict tree."""
+    if isinstance(tree, dict):
+        return {k: _pick(v, i) for k, v in tree.items()}
+    return tree[i]

@@ -79,6 +79,20 @@ def test_port_imports_neither_jax_nor_repro():
         "        device='cpu')\n"
         "    out = sess.generate(np.ones((2, 8), np.int32), n_steps=3)\n"
         "    assert tuple(out.shape) == (2, 3), out.shape\n"
+        "import contextlib, io, tempfile\n"
+        "import repro_torch.utils, repro_torch.utils.tree\n"
+        "import repro_torch.train.optimizer, repro_torch.train.step\n"
+        "import repro_torch.train.data, repro_torch.train.checkpoint\n"
+        "import repro_torch.train.fault_tolerance, repro_torch.train.loop\n"
+        "from repro_torch.train.loop import Trainer, TrainerConfig\n"
+        "from repro_torch.train.data import DataConfig\n"
+        "from repro_torch.train.optimizer import AdamWConfig\n"
+        "with tempfile.TemporaryDirectory() as d, \\\n"
+        "        contextlib.redirect_stdout(io.StringIO()):\n"
+        "    tr = Trainer(SMOKE_ARCHS['qwen3-0.6b'], DataConfig(batch=2,\n"
+        "        seq_len=16), AdamWConfig(), TrainerConfig(num_steps=2,\n"
+        "        ckpt_every=1, ckpt_dir=d), device='cpu')\n"
+        "    assert len(tr.run(2)[2]) == 2\n"
         "bad = sorted(k for k in sys.modules\n"
         "             if k.split('.')[0] in ('jax', 'jaxlib', 'repro'))\n"
         "assert not bad, bad\n"
@@ -88,6 +102,37 @@ def test_port_imports_neither_jax_nor_repro():
                        capture_output=True, text=True, timeout=300)
     assert r.returncode == 0, r.stderr
     assert r.stdout.strip() == "clean"
+
+
+@pytest.mark.parametrize("name,host", [
+    ("qwen3-0.6b", 0), ("qwen3-0.6b", 1), ("musicgen-large", 0),
+    ("qwen2-vl-2b", 0)])
+def test_train_data_copy_matches_the_original(name, host):
+    """``train/data.py`` is a copy: for the same seed, step and host,
+    ``make_batch`` gives the reference's arrays (tokens with document
+    boundaries, a codebook model's, the vlm stub's embeds and positions),
+    and the loader the same stream from a later start."""
+    from repro.configs import SMOKE_ARCHS as JS
+    from repro.train import data as jdata
+    from repro_torch.configs import SMOKE_ARCHS as TS
+    from repro_torch.train import data as tdata
+    kw = dict(seed=5, batch=4, seq_len=24, host_id=host, n_hosts=2)
+    for step in (0, 3):
+        a = jdata.make_batch(jdata.DataConfig(**kw), JS[name], step)
+        b = tdata.make_batch(tdata.DataConfig(**kw), TS[name], step)
+        assert sorted(a) == sorted(b)
+        for k in a:
+            assert a[k].dtype == b[k].dtype and np.array_equal(a[k], b[k])
+    jl = jdata.DataLoader(jdata.DataConfig(**kw), JS[name], start_step=2)
+    tl = tdata.DataLoader(tdata.DataConfig(**kw), TS[name], start_step=2)
+    try:
+        for _ in range(2):
+            a, b = next(jl), next(tl)
+            assert all(np.array_equal(a[k], b[k]) for k in a)
+        assert jl.state() == tl.state() == {"step": 4}
+    finally:
+        jl.close()
+        tl.close()
 
 
 def test_recurrent_constants_match_the_originals():

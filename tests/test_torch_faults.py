@@ -37,13 +37,15 @@ def test_planted_fault_text_occurs_once(fault):
 def test_every_fault_route_has_cases():
     """A route's fault is run against attention cases of that route, the
     phase-4 or phase-2 cases of its kernel, phase 3's checks of the
-    captured path, phase 6's checks of the worker pool or the ladder, or
-    phase 7's golden runs of the language-model session."""
+    captured path, phase 6's checks of the worker pool or the ladder,
+    phase 7's golden runs of the language-model session, or phase 8's
+    golden training runs."""
     attention = {"decode", "mma", "tf32x3"}
     for route, *_ in CS.PLANTED_FAULTS.values():
         assert route in attention | set(CS.LAYER_FAULT_KEYS) | set(
             CS.VTA_FAULT_KEYS) | set(CS.SERVE_FAULT_KEYS) | set(
-            CS.POOL_FAULT_KEYS) | set(CS.LM_FAULT_KEYS)
+            CS.POOL_FAULT_KEYS) | set(CS.LM_FAULT_KEYS) | set(
+            CS.TRAIN_FAULT_KEYS)
 
 
 def test_alu_edge_cases_reach_every_scalar_path():
