@@ -232,6 +232,32 @@ order; any failure raises and the script exits nonzero:
    ``torch.cuda.max_memory_allocated`` in a step, and from one profiled
    step the attention forward's share of device time, the backward's (the
    kernels inside FlashAttentionFn's profiler range) and the idle share.
+9. The design-space sweep (``dse_checks``), through ``run_sweep`` and
+   the CLI a user calls: ``DSE_GRID`` (ResNet-18 and MobileNet-1.0 at
+   published widths, log blocks 4 and 5, memory widths 8 and 32,
+   scratchpad scale 1, ``--tune full``, one worker, ``--profile``) swept
+   cold on the numpy FSim and then on the card, where every winning tile
+   is verified once on ``TorchBackend(capture=False)`` through the VTA
+   GEMM and sweep kernels. Launch counts, the capture log and the
+   uncaptured-run count are zeroed and ``memory_allocated`` noted just
+   before the card sweep. Checks, each a count of what failed: the two
+   reports byte-identical without ``wall_s``, ``cache`` and ``profile``;
+   the numpy report's sha256 ``DSE_DIGEST``, the JAX package's
+   (tests/test_torch_dse.py pins the same digest); the VTA GEMM and the
+   sweep kernel launched, and as many uncaptured runs as the tuner's
+   verifications; no capture; no executor memo on any trace the
+   ScheduleStore or the tuner holds (``device_memos``); memory back within
+   ``DSE_MEMORY_SLACK``; the card-fault drill (``dse_drill``: a CUDA
+   error on the card backend's ``DSE_DRILL_CALL``-th ``run_batched`` ends
+   the sweep in ``CardFault``, nothing of that point cached); and
+   ``python -m repro_torch.core.dse`` on MobileNet over
+   ``DSE_POOL_GRID`` with ``--backend torch --workers 2`` (two groups, so
+   its pool spawns two workers on the card) exiting 0 with the numpy
+   report of that grid. It prints each sweep's wall and stage seconds,
+   verifications and ms per verification, where ``run_batched``'s time
+   goes (lowering, device entries, the rest), programs scheduled, the
+   Pareto fronts (``analysis/dse_report.py``), each beside the card's name
+   and power limit.
 
 Output: one line per kernel (and per phase-4 case), ms per dispatch per
 bucket (median, min, max), then a JSON line of serving numbers (per bucket,
@@ -239,8 +265,9 @@ the capture cost per bucket and the ``profile:`` numbers), a JSON line of
 the pool's numbers (``{"pool": ...}``: per n, ms per round, images/s and per
 worker batches, busy ms and reserved MB; the speedup), a JSON line of the
 language-model runs (``{"lm": ...}``), one of the training runs
-(``{"train": ...}``), a JSON line of kernel numbers (the VTA rows also
-give ``launches_pool``, their launches in the 2-worker rounds; the
+(``{"train": ...}``), one of the sweep (``{"dse": ...}``), a JSON line of
+kernel numbers (the VTA rows also give ``launches_pool``, their launches
+in the 2-worker rounds, and ``launches_dse``, phase 9's card sweep; the
 attention rows' ``launches`` are phase 7's, ``launches_train`` phase 8's
 and ``launches_cases`` phase 5's), the ``nvidia-smi`` line, and last the
 device line. Kernel
@@ -263,7 +290,8 @@ boolean mask carries a window). The call is a yardstick here only: the port
 never makes it.
 
 ``--plant-faults`` runs none of the phases. It shows that the limits of
-phases 2-8 fail a wrong kernel, executor, pool or gradient: the checkout
+phases 2-9 fail a wrong kernel, executor, pool, gradient or sweep: the
+checkout
 is copied into a
 temporary directory once as it is and once per fault of ``PLANTED_FAULTS``
 (a text substitution: a key tile from 4096 skipped, or the window 64 keys
@@ -285,7 +313,10 @@ written one off, a prefill that drops the sliding window, a WKV chunk
 without its inter-sub-block term, an RG-LRU decode step that ignores its
 state, and a cast at load that rounds the RG-LRU gates to bf16; in
 training, an attention forward whose result has no ``grad_fn``, and a
-backward whose dK and dV keep one query head of each GQA group), the
+backward whose dK and dV keep one query head of each GQA group; in the
+sweep, ``CardFault`` caught at ``eval_job`` as an infeasible point, a
+verification on the captured route, and one that resolves the card to
+``"torch-cpu"``), the
 unchanged sources are built once into a build directory the copies share,
 and each copy builds its changed source and runs the cases of its route
 through their limit checks (``--case-errors``, three copies at a time): the
@@ -296,7 +327,8 @@ cases of the VTA GEMM or the ALU stage-program kernel, phase 3's checks
 (``serve_checks``, one line a check), or phase 6's (``pool_checks``: the
 scale-out, the cold race, the two pools and the drill for route
 ``pool``, the ladder drill for ``ladder``), or the golden runs of phase
-7 (``lm_errors``) or phase 8 (``train_errors``); the unchanged copy runs
+7 (``lm_errors``) or phase 8 (``train_errors``), or phase 9's checks
+(``dse_errors``); the unchanged copy runs
 all of them. One JSON line per (fault, case) gives the kernel's error
 and its limit (attention: the kernel's and the plain version's largest
 error against float64, the largest |out| and the elements over the limit).
@@ -3473,7 +3505,302 @@ def train_errors(fault: str) -> None:
 
 
 # ---------------------------------------------------------------------------
-# --plant-faults: the checks of phases 2-8 against wrong kernels and code
+# phase 9: the design-space sweep on the card
+# ---------------------------------------------------------------------------
+# sha256 of the JAX package's numpy-backend report.json on DSE_GRID (without
+# wall_s, cache and profile; JSON with sorted keys); tests/test_torch_dse.py
+# asserts the same digest
+DSE_DIGEST = \
+    "88321c259756792203249701f2542fe63c937255d931b2bb0fbcfae9a3a9a1e2"
+DSE_NETWORKS = ["resnet18", "mobilenet"]
+DSE_GRID = dict(log_blocks=(4, 5), mem_widths=(8, 32), spad_scales=(1,),
+                tune="full", workers=1, profile=True)
+# the CLI through its pool: two groups (log blocks 4 and 5; one group would
+# run serially), so the pool opens, its two workers spawned on the card
+DSE_POOL_GRID = dict(log_blocks=(4, 5), mem_widths=(8,), spad_scales=(1,))
+DSE_DRILL_CALL = 3           # the card backend's run_batched call that fails
+DSE_MEMORY_SLACK = 64 << 20  # bytes memory_allocated may stay above its start
+
+
+def card_line() -> str:
+    """The card's name and power limit, as nvidia-smi gives them."""
+    return subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        check=True).stdout.strip().splitlines()[0]
+
+
+def report_text(rep: dict) -> str:
+    """A sweep report as the backends are compared (the CI's
+    backend-equivalence rule): wall_s, cache and profile dropped, JSON with
+    sorted keys."""
+    rep = {k: v for k, v in rep.items()
+           if k not in ("wall_s", "cache", "profile")}
+    return json.dumps(rep, sort_keys=True)
+
+
+def report_file_text(out: str) -> str:
+    with open(os.path.join(out, "report.json")) as f:
+        return report_text(json.load(f))
+
+
+def reset_sweep_state() -> None:
+    """A cold sweep process: the per-process layer cache, schedule stores
+    and tuners of ``core/dse`` emptied (a warm layer cache would skip the
+    tuner, and with it every verification)."""
+    import gc
+    from repro_torch.core import dse
+    dse._LAYER_CACHE.clear()
+    dse._SCHEDULE_STORES.clear()
+    dse._TUNERS.clear()
+    gc.collect()
+
+
+def dse_sweep(backend: str, out: str) -> tuple:
+    """One sweep of ``DSE_GRID`` in this process, cold, into ``out``:
+    (SweepResult, wall seconds, its ScheduleStore, its tuner)."""
+    from repro_torch.core import dse
+    reset_sweep_state()
+    t0 = time.perf_counter()
+    res = dse.run_sweep(DSE_NETWORKS, out_dir=out, backend=backend,
+                        **DSE_GRID)
+    wall = time.perf_counter() - t0
+    sched = os.path.join(out, "schedules")
+    return (res, wall, dse._SCHEDULE_STORES[sched],
+            dse._TUNERS[("full", os.path.join(out, "autotune"), sched)])
+
+
+def device_memos(store, tuner) -> int:
+    """Executor memos the port keeps on a Trace (entries, chunks, plans,
+    capture keys) on the traces of every program the ScheduleStore and the
+    tuner's verification memo hold."""
+    progs = [getattr(e, "program", None) for e in store._lru.values()]
+    progs += [p for p, _ in tuner._verify_memo.values()]
+    n = 0
+    for prog in progs:
+        for trace in getattr(prog, "__dict__", {}).get("_lowered",
+                                                       {}).values():
+            n += sum(len(trace.__dict__.get(k, ()))
+                     for k in ("_torch_ops", "_torch_chunks", "_torch_plans"))
+            n += "_torch_key" in trace.__dict__
+    return n
+
+
+def dse_drill(tmp: str) -> int:
+    """The card-fault drill: the card backend's ``run_batched`` raises a
+    CUDA error on its ``DSE_DRILL_CALL``-th call during a sweep of
+    ``DSE_GRID``. The sweep must end in ``CardFault`` carrying the error,
+    and its result cache must hold no record of the point being evaluated
+    (the first job) and no infeasible record. Returns the count of what
+    failed."""
+    from repro_torch.core import dse
+    from repro_torch.vta.backend import CardFault
+    from repro_torch.vta.fsim_torch import TorchBackend
+    calls = [0]
+    run_batched = TorchBackend.run_batched
+
+    def planted(self, prog, hw, **kw):
+        calls[0] += 1
+        if calls[0] == DSE_DRILL_CALL:
+            raise RuntimeError("CUDA error: planted")
+        return run_batched(self, prog, hw, **kw)
+
+    out = os.path.join(tmp, "drill")
+    reset_sweep_state()
+    TorchBackend.run_batched = planted
+    try:
+        dse.run_sweep(DSE_NETWORKS, out_dir=out, backend="torch",
+                      **DSE_GRID)
+        raised = ""
+    except CardFault as e:
+        raised = str(e)
+    finally:
+        TorchBackend.run_batched = run_batched
+    first = dse.make_jobs(DSE_NETWORKS, backend="torch", **{
+        k: DSE_GRID[k] for k in ("log_blocks", "mem_widths", "spad_scales",
+                                 "tune")})[0]
+    cache = dse.ResultCache(os.path.join(out, "cache"))
+    recs = []
+    for name in sorted(os.listdir(cache.root)):
+        with open(os.path.join(cache.root, name)) as f:
+            recs.append(json.load(f))
+    errs = int("CUDA error: planted" not in raised) + \
+        int(os.path.exists(cache.path(first.key()))) + \
+        sum(not r.get("feasible") for r in recs)
+    log(f"card-fault drill: {calls[0]} run_batched calls, CardFault "
+        f"{'raised' if raised else 'NOT raised'} ({raised[:120]}), "
+        f"{len(recs)} cached records, {errs} failed")
+    return errs
+
+
+def dse_pool_cli(tmp: str, numpy_out: str) -> tuple:
+    """``python -m repro_torch.core.dse --networks mobilenet`` on
+    ``DSE_POOL_GRID`` with ``--tune full --backend torch --workers 2`` in
+    a subprocess (the pool spawned, its workers on the card), against the
+    numpy sweep's report of the same grid (read back from its cache).
+    Returns (count of what failed, wall seconds)."""
+    from repro_torch.core import dse
+    out = os.path.join(tmp, "pool")
+    args = ["--networks", "mobilenet", "--tune", "full", "--backend",
+            "torch", "--workers", "2", "--out", out]
+    for k, v in DSE_POOL_GRID.items():
+        args += ["--" + k.replace("_", "-"), ",".join(map(str, v))]
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-m", "repro_torch.core.dse", *args],
+        env=dict(os.environ, PYTHONPATH=SRC), capture_output=True,
+        text=True, timeout=600)
+    wall = time.perf_counter() - t0
+    for line in (proc.stdout + proc.stderr).strip().splitlines()[-6:]:
+        log(f"  dse cli: {line}")
+    want = dse.run_sweep(["mobilenet"], out_dir=numpy_out, backend="numpy",
+                         tune="full", workers=1, **DSE_POOL_GRID)
+    errs = int(proc.returncode != 0)
+    if not errs:
+        errs = int(report_file_text(out) != report_text(want.report()))
+    return errs, wall
+
+
+class timed_calls:
+    """Within the block, every call of ``owner.attr`` adds its wall time
+    (with the card synchronized at its end) to ``spent[key]``."""
+
+    def __init__(self, owner, attr: str, spent: dict, key: str):
+        self.owner, self.attr, self.spent, self.key = owner, attr, spent, key
+
+    def __enter__(self):
+        import torch
+        fn = self.fn = getattr(self.owner, self.attr)
+        spent, key = self.spent, self.key
+
+        def wrapper(*a, **kw):
+            t0 = time.perf_counter()
+            try:
+                return fn(*a, **kw)
+            finally:
+                torch.cuda.synchronize()
+                spent[key] = spent.get(key, 0.0) + time.perf_counter() - t0
+        setattr(self.owner, self.attr, wrapper)
+        return self
+
+    def __exit__(self, *exc):
+        setattr(self.owner, self.attr, self.fn)
+
+
+def dse_checks(tmp: str) -> tuple:
+    """Phase 9: ``DSE_GRID`` swept on the numpy FSim, then on the card,
+    the card-fault drill and the CLI through its spawned pool. Returns
+    (count of what failed per check, the numbers to print, the card
+    sweep's launches)."""
+    import gc
+    import torch
+    from repro_torch.analysis.dse_report import render
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.vta import fsim_torch
+    smi = card_line()
+    numpy_out = os.path.join(tmp, "numpy")
+    res_np, wall_np, _, tuner_np = dse_sweep("numpy", numpy_out)
+    torch.cuda.synchronize()
+    gc.collect()
+    mem0 = torch.cuda.memory_allocated()
+    reset_launch_counts()
+    fsim_torch.reset_capture_log()
+    fsim_torch.reset_uncaptured_runs()
+    # where a verification's time goes: lowering the Program to its trace,
+    # building the trace's device entries (index maps copied to the card)
+    # and the whole backend call, kernels and the copy back included
+    spent: dict = {}
+    with timed_calls(fsim_torch, "lowered", spent, "lower"), \
+            timed_calls(fsim_torch, "_build_ops", spent, "entries"), \
+            timed_calls(fsim_torch.TorchBackend, "run_batched", spent,
+                        "run_batched"):
+        res, wall, store, tuner = dse_sweep("torch",
+                                            os.path.join(tmp, "torch"))
+    torch.cuda.synchronize()
+    counts = launch_counts()
+    captures = fsim_torch.capture_log()
+    runs = fsim_torch.uncaptured_runs()
+    memos = device_memos(store, tuner)
+    verifications = tuner.verifications
+    del store, tuner
+    reset_sweep_state()
+    mem1 = torch.cuda.memory_allocated()
+    text_np = report_file_text(numpy_out)
+    text = report_file_text(os.path.join(tmp, "torch"))
+    errs = {
+        "reports_equal": int(text != text_np),
+        "digest": int(hashlib.sha256(text_np.encode()).hexdigest()
+                      != DSE_DIGEST),
+        "launches": sum(counts.get(k, 0) == 0 for k in ("gemm", "alu_sweep")),
+        "verifications": int(verifications == 0 or runs != verifications),
+        "captures": len(captures),
+        "device_memos": memos,
+        "memory": int(mem1 - mem0 > DSE_MEMORY_SLACK),
+    }
+    errs["drill"] = dse_drill(tmp)
+    errs["pool_cli"], wall_cli = dse_pool_cli(tmp, numpy_out)
+    st_np, st = res_np.profile["stages"], res.profile["stages"]
+    verify_s = st.get("fsim_verify", 0.0)
+    rows = {
+        "card": smi,
+        "numpy": {"wall_s": wall_np, "stages_s": st_np,
+                  "verifications": tuner_np.verifications},
+        "torch": {"wall_s": wall, "stages_s": st,
+                  "verifications": verifications,
+                  "ms_per_verification": 1e3 * verify_s / max(verifications,
+                                                               1),
+                  "uncaptured_runs": runs, "host_split_s": spent,
+                  "launches": {
+                      k: counts.get(k, 0)
+                      for k in ("gemm", "alu_chain", "alu_sweep")},
+                  "memory_allocated_delta": mem1 - mem0},
+        "programs_scheduled": res.profile["schedule_store"].get("misses", 0),
+        "cli_pool_wall_s": wall_cli,
+    }
+    for name, r in (("numpy", rows["numpy"]), ("torch", rows["torch"])):
+        log(f"dse sweep on {name}: wall {r['wall_s']:.3f} s, fsim_verify "
+            f"{r['stages_s'].get('fsim_verify', 0.0):.3f} s, "
+            f"{r['verifications']} verifications; stages {r['stages_s']} "
+            f"({smi})")
+    call_s, lower_s, entries_s = (spent.get(k, 0.0) for k in (
+        "run_batched", "lower", "entries"))
+    log(f"dse on the card: {verifications} verifications, "
+        f"{rows['torch']['ms_per_verification']:.3f} ms each; of "
+        f"fsim_verify {verify_s:.3f} s, run_batched {call_s:.3f} s: "
+        f"lowering {lower_s:.3f} s, device entries {entries_s:.3f} s, the "
+        f"rest (chunks, kernels, the copy back) "
+        f"{call_s - lower_s - entries_s:.3f} s; "
+        f"{runs} uncaptured runs, launches {rows['torch']['launches']}, "
+        f"{rows['programs_scheduled']} programs scheduled, "
+        f"{len(captures)} captures, {memos} device memos, memory_allocated "
+        f"{mem0} -> {mem1} bytes; CLI with 2 spawned workers "
+        f"{wall_cli:.1f} s ({smi})")
+    for line in render(res.report(), chart=False).splitlines():
+        log(f"  {line}")
+    log(f"dse checks (count of what failed, 0 passes): {errs}")
+    return errs, rows, {k: counts.get(k, 0)
+                        for k in ("gemm", "alu_chain", "alu_sweep")}
+
+
+def dse_errors(fault: str) -> None:
+    """Phase 9's checks, one line per check, limit 0; a phase that raises
+    (a fault may end it early) fails the check ``ran_to_end``."""
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_dse_")
+    try:
+        errs = dse_checks(tmp)[0]
+    except Exception:
+        traceback.print_exc()
+        errs = {"ran_to_end": 1}
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    for check, err in errs.items():
+        print(json.dumps({"fault": fault, "case": f"dse {check}",
+                          "err": err, "limit": 0, "over": err > 0}),
+              flush=True)
+
+
+# ---------------------------------------------------------------------------
+# --plant-faults: the checks of phases 2-9 against wrong kernels and code
 # ---------------------------------------------------------------------------
 PLANTED_FAULTS = {  # name: (route, file under src/repro_torch, text, stand-in)
     "mma.skip_tile_4096": (
@@ -3617,6 +3944,23 @@ PLANTED_FAULTS = {  # name: (route, file under src/repro_torch, text, stand-in)
         '        dk[:, :, k0:k1] += torch.einsum("bkcl,bkcd->bkld", ds[:, :, 0],'
         ' qc[:, :, 0])\n        dv[:, :, k0:k1] += torch.einsum('
         '"bkcl,bkcd->bkld", p[:, :, 0], doc[:, :, 0])'),
+    # the sweep records a fault of the card as an infeasible point (the
+    # reference's handler at eval_job, with CardFault put back into it)
+    "dse.card_fault_absorbed": (
+        "dse", "core/dse.py",
+        "    except (AssertionError, RuntimeError, ValueError) as e:",
+        "    except (AssertionError, RuntimeError, ValueError, CardFault) "
+        "as e:"),
+    # a verification on the captured route: a plan and CUDA graphs kept
+    # for every candidate
+    "dse.captured": (
+        "dse", "vta/autotune.py", "        be = be.uncaptured()\n",
+        "        be = be\n"),
+    # a verification that resolves the card to the CPU
+    "dse.verify_on_cpu": (
+        "dse", "vta/autotune.py", "    be = get_backend(backend)\n",
+        '    be = get_backend("torch-cpu" if backend == "torch" else '
+        'backend)\n'),
 }
 LAYER_FAULT_KEYS = ("gemm_float", "depthwise", "alu", "pool2d")
 VTA_FAULT_KEYS = ("gemm", "alu_sweep")
@@ -3624,6 +3968,7 @@ SERVE_FAULT_KEYS = ("serve",)
 POOL_FAULT_KEYS = ("pool", "ladder")
 LM_FAULT_KEYS = ("lm",)
 TRAIN_FAULT_KEYS = ("train",)
+DSE_FAULT_KEYS = ("dse",)
 # --plant-faults runs these besides ATTENTION_CASES: the only windowed
 # decode case there, g2.local.decode, sees its whole 4096-key cache, so a
 # window 64 too wide is invisible to it. Gemma-2 27B local layers decoding
@@ -3642,11 +3987,12 @@ def case_errors(fault: str, route: str) -> int:
     included, of the kernels of ``LAYER_FAULT_KEYS`` (``layer_errors``),
     phase 2's cases of the kernels of ``VTA_FAULT_KEYS`` (``vta_errors``),
     phase 3's checks of the captured path (``serve_errors``), phase 6's
-    checks of the worker pool or the ladder (``pool_errors``), and the
-    golden checks of phases 7 and 8 (``lm_errors``, ``train_errors``)."""
+    checks of the worker pool or the ladder (``pool_errors``), the
+    golden checks of phases 7 and 8 (``lm_errors``, ``train_errors``) and
+    phase 9's checks of the sweep (``dse_errors``)."""
     if route == "all" or route not in LAYER_FAULT_KEYS + VTA_FAULT_KEYS \
             + SERVE_FAULT_KEYS + POOL_FAULT_KEYS + LM_FAULT_KEYS \
-            + TRAIN_FAULT_KEYS:
+            + TRAIN_FAULT_KEYS + DSE_FAULT_KEYS:
         attention_errors(fault, route)
     if route == "all" or route in LAYER_FAULT_KEYS:
         layer_errors(fault, route)
@@ -3660,6 +4006,8 @@ def case_errors(fault: str, route: str) -> int:
         lm_errors(fault)
     if route == "all" or route in TRAIN_FAULT_KEYS:
         train_errors(fault)
+    if route == "all" or route in DSE_FAULT_KEYS:
+        dse_errors(fault)
     return 0
 
 
@@ -3878,9 +4226,7 @@ def main(argv: list) -> int:
         return case_errors(argv[2], argv[3])
 
     # -- phase 1 ----------------------------------------------------------
-    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
-                          "--format=csv,noheader"], capture_output=True,
-                         text=True, check=True).stdout.strip().splitlines()[0]
+    smi = card_line()
     log(f"card: {smi}")
     from repro_torch.kernels import _build
     t0 = time.perf_counter()
@@ -3998,21 +4344,35 @@ def main(argv: list) -> int:
         raise AssertionError(f"phase 8 failed: {errs8}")
     log(f"phase 8: {time.perf_counter() - t0:.1f} s")
 
+    # -- phase 9 ----------------------------------------------------------
+    t0 = time.perf_counter()
+    tmp9 = tempfile.mkdtemp(prefix="chip_smoke_dse_")
+    try:
+        errs9, dse_rows, dse_launches = dse_checks(tmp9)
+    finally:
+        shutil.rmtree(tmp9, ignore_errors=True)
+    if any(errs9.values()):
+        raise AssertionError(f"phase 9 failed: {errs9}")
+    log(f"phase 9: {time.perf_counter() - t0:.1f} s")
+
     src = "src/repro_torch/csrc/"
     kernels = [
         dict(name="gemm", route="cuda", source=src + "vta_gemm.cu",
              replaces="src/repro/kernels/vta_gemm.py:89",
              launches=counts["gemm"], **gemm_row,
              launches_pool=pool_rows[1]["launches"]["gemm"],
+             launches_dse=dse_launches["gemm"],
              per=f"resnet18-trunk forward, batch {n}"),
         dict(name="alu_chain", route="cuda", source=src + "alu_sweep.cu",
              replaces="src/repro/kernels/alu_sweep.py:300",
              launches=counts["alu_chain"], **chain_row,
+             launches_dse=dse_launches["alu_chain"],
              per=f"resnet18-small forward, batch {SMALL_BUCKET}"),
         dict(name="alu_sweep", route="cuda", source=src + "alu_sweep.cu",
              replaces="src/repro/kernels/alu_sweep.py:225",
              launches=counts["alu_sweep"], **sweep_row,
              launches_pool=pool_rows[1]["launches"]["alu_sweep"],
+             launches_dse=dse_launches["alu_sweep"],
              per=f"resnet18-trunk forward, batch {n}"),
     ]
     for key, (_, source, replaces, per) in LAYER_OPS.items():
@@ -4053,6 +4413,7 @@ def main(argv: list) -> int:
     log(json.dumps({"pool": pool_rows}))
     log(json.dumps({"lm": lm_rows}))
     log(json.dumps({"train": train_rows}))
+    log(json.dumps({"dse": dse_rows}))
     log(json.dumps({"kernels": kernels}))
     log(smi)
     log(json.dumps({"ok": True, "device": {

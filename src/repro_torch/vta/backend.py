@@ -96,6 +96,22 @@ class NumpyBackend:
         return {t: torch.from_numpy(np.stack(v)) for t, v in outs.items()}
 
 
+class CardFault(Exception):
+    """A fault of the card (a kernel that does not build or launch, a CUDA
+    error) met while a program ran there for a caller that would otherwise
+    read the failure as a result: the autotuner's verification
+    (vta/autotune.py) and the design-space sweep above it (core/dse.py).
+    Deliberately not a ``RuntimeError``, ``AssertionError`` or
+    ``ValueError``: the handlers that turn those into an infeasible design
+    point or an untuned layer cannot catch it."""
+
+
+def on_card(backend: Union[str, "Backend", None]) -> bool:
+    """Whether the resolved backend runs on a CUDA device."""
+    dev = getattr(get_backend(backend), "device", None)
+    return dev is not None and torch.device(dev).type == "cuda"
+
+
 _FACTORIES: Dict[str, Callable[[], Backend]] = {}
 _INSTANCES: Dict[str, Backend] = {}
 

@@ -37,7 +37,11 @@ which is what lets a chunk be captured.
 
 ``TorchBackend()`` runs on the card (``"cuda"`` kernels) and raises where
 there is none; ``TorchBackend(device="cpu")`` runs the plain versions, the
-same chunks eagerly through the same buffers.
+same chunks eagerly through the same buffers. ``capture=False`` (or
+``.uncaptured()``) is the route for a program that runs once, the
+autotuner's verification of a candidate: the same chunks and kernels,
+eagerly, with no plan, no graph and no device memo left on the Trace
+(``uncaptured_runs`` counts its calls).
 
 Serving workers (serve/workers.py) call one backend from several threads,
 each on a CUDA stream of its own. So every memo a captured graph reads
@@ -52,6 +56,7 @@ without waiting on the stream that built it.
 from __future__ import annotations
 
 import collections
+import copy
 import functools
 import itertools
 import threading
@@ -323,13 +328,17 @@ def _chunk_plan(trace: Trace, device: torch.device, cap: int,
         memo = trace.__dict__.setdefault("_torch_chunks", {})
         hit = memo.get(key)
         if hit is None:
-            ops = _device_ops(trace, device, alu_fusion)
-            if fuse_all and len(ops) <= SEGMENT_FUSION_MAX_OPS:
-                hit = [tuple(ops)] if ops else []
-            else:
-                hit = list(_chunks(ops, cap))
-            memo[key] = hit
+            hit = memo[key] = _split_chunks(
+                _device_ops(trace, device, alu_fusion), cap, fuse_all)
     return hit
+
+
+def _split_chunks(ops: list, cap: int, fuse_all: bool) -> list:
+    """``ops`` as dispatches: one chunk for a fused segment of at most
+    ``SEGMENT_FUSION_MAX_OPS`` entries, else ``_chunks``."""
+    if fuse_all and len(ops) <= SEGMENT_FUSION_MAX_OPS:
+        return [tuple(ops)] if ops else []
+    return list(_chunks(ops, cap))
 
 
 def _put(arr, tgt, lanes, val) -> None:
@@ -511,6 +520,22 @@ def _count_dispatch() -> None:
         _DISPATCHES += 1
 
 
+# Runs of the uncaptured route (``TorchBackend(capture=False)``): one per
+# ``run_batched``/``run`` call, however many chunks it dispatches
+_UNCAPTURED_RUNS = 0
+
+
+def reset_uncaptured_runs() -> None:
+    global _UNCAPTURED_RUNS
+    with _COUNT_LOCK:
+        _UNCAPTURED_RUNS = 0
+
+
+def uncaptured_runs() -> int:
+    """Calls of the uncaptured route since ``reset_uncaptured_runs``."""
+    return _UNCAPTURED_RUNS
+
+
 def _arg_shapes(x) -> tuple:
     """Shapes of the index tensors of a chunk's entries, in order."""
     if isinstance(x, torch.Tensor):
@@ -592,6 +617,25 @@ def _capture_stream(device: torch.device) -> torch.cuda.Stream:
 # ---------------------------------------------------------------------------
 # Static state of one (trace, batch, shared tensors) key
 # ---------------------------------------------------------------------------
+def _scratchpads(trace: Trace, hw: VTAConfig, n: int, shared: dict,
+                 device: torch.device) -> dict:
+    """Zeroed inp, wgt and acc scratchpads for ``n`` images: one wgt for
+    the batch when every tensor gathered into it is shared (weights)."""
+    wgt_src = trace.__dict__.get("_wgt_sources")
+    if wgt_src is None:             # tensors gathered into WGT, once
+        wgt_src = trace.__dict__["_wgt_sources"] = {
+            op.tensor for op in trace.ops if isinstance(op, GatherLoad)
+            and op.buffer == Buffer.WGT}
+    nw = 1 if wgt_src <= set(shared) else n
+    zeros = functools.partial(torch.zeros, device=device)
+    return {"inp": zeros((n, hw.inp_depth, hw.batch, hw.block_in),
+                         dtype=torch.int8),
+            "wgt": zeros((nw, hw.wgt_depth, hw.block_out, hw.block_in),
+                         dtype=torch.int8),
+            "acc": zeros((n, hw.acc_depth, hw.batch, hw.block_out),
+                         dtype=torch.int32)}
+
+
 class _Plan:
     """The buffers every dispatch of one key runs in: the scratchpads and
     one (N, L) tensor per batched tensor, allocated once (outside any graph
@@ -607,13 +651,6 @@ class _Plan:
 
     def __init__(self, trace: Trace, hw: VTAConfig, n: int, batched: dict,
                  shared: dict, in_place: set, device: torch.device):
-        wgt_src = trace.__dict__.get("_wgt_sources")
-        if wgt_src is None:             # tensors gathered into WGT, once
-            wgt_src = trace.__dict__["_wgt_sources"] = {
-                op.tensor for op in trace.ops if isinstance(op, GatherLoad)
-                and op.buffer == Buffer.WGT}
-        nw = 1 if wgt_src <= set(shared) else n
-        zeros = functools.partial(torch.zeros, device=device)
         self.inputs = {k: torch.empty((n, v[0].numel()), dtype=v.dtype,
                                       device=device)
                        for k, v in batched.items()}
@@ -621,12 +658,7 @@ class _Plan:
                                            device=device)
                             for k, v in shared.items() if k not in in_place})
         self.in_place = in_place
-        self.st = {"inp": zeros((n, hw.inp_depth, hw.batch, hw.block_in),
-                                dtype=torch.int8),
-                   "wgt": zeros((nw, hw.wgt_depth, hw.block_out,
-                                 hw.block_in), dtype=torch.int8),
-                   "acc": zeros((n, hw.acc_depth, hw.batch, hw.block_out),
-                                dtype=torch.int32),
+        self.st = {**_scratchpads(trace, hw, n, shared, device),
                    "tensors": dict(self.inputs)}
         self.warm = False               # the first dispatch has run
         self.graphs: Optional[list] = None   # [(graph, launches)], card
@@ -672,12 +704,20 @@ class TorchBackend:
     its inputs into the key's buffers and replays the graphs in order. A
     capture that fails raises: there is no eager fallback on the card. On
     the CPU the same chunks run eagerly through the same buffers.
+
+    ``capture=False`` is the uncaptured route, for programs that run once
+    (the autotuner's verification of a candidate): each call builds the
+    trace's entries and chunks anew and runs them eagerly, through the same
+    kernels, in scratchpads of its own. It makes no plan, captures no
+    graph and leaves nothing on the Trace that holds device memory, so
+    what a call put on the device is freed when it returns.
     """
 
     name = "torch"
 
     def __init__(self, device: Optional[str] = None, chunk_cap: int = 24,
-                 alu_fusion: bool = True, segment_fusion: bool = True):
+                 alu_fusion: bool = True, segment_fusion: bool = True,
+                 capture: bool = True):
         device = torch.device(device or "cuda")
         if device.type == "cuda":
             if not torch.cuda.is_available():
@@ -698,6 +738,16 @@ class TorchBackend:
         self.chunk_cap = chunk_cap
         self.alu_fusion = alu_fusion
         self.segment_fusion = segment_fusion
+        self.capture = capture
+
+    def uncaptured(self) -> "TorchBackend":
+        """This backend's knobs on the uncaptured route (``self`` when it
+        is on it already)."""
+        if not self.capture:
+            return self
+        be = copy.copy(self)
+        be.capture = False
+        return be
 
     def chunks(self, trace: Trace) -> list:
         """The trace's chunks under this backend's knobs: one dispatch
@@ -774,6 +824,32 @@ class TorchBackend:
         plan.chunks = chunks
         plan.graphs = graphs
 
+    def _run_once(self, trace: Trace, hw: VTAConfig, batched: dict,
+                  shared: dict) -> dict:
+        """The uncaptured route: the trace's entries and chunks built for
+        this call only (``_build_ops``, never ``_device_ops``' memo), run
+        eagerly in fresh scratchpads and fresh copies of the inputs, whose
+        stored tensors are returned."""
+        batched = {k: self._tensor(v) for k, v in batched.items()}
+        n = next(iter(batched.values())).shape[0]
+        dev = self.device
+        ops = _build_ops(trace, dev, self.alu_fusion)
+        chunks = _split_chunks(ops, self.chunk_cap,
+                               self.segment_fusion and trace.fused_segment)
+        st = _scratchpads(trace, hw, n, shared, dev)
+        st["tensors"] = {k: v.reshape(n, -1).to(dev, copy=True)
+                         for k, v in batched.items()}
+        st["tensors"].update({k: self._tensor(v).reshape(-1).to(dev)
+                              for k, v in shared.items()})
+        global _UNCAPTURED_RUNS
+        with _COUNT_LOCK:
+            _UNCAPTURED_RUNS += 1
+        for i in range(len(chunks)):
+            _count_dispatch()
+            self._run_chunk(st, chunks, i)
+        return {t: st["tensors"][t].reshape(batched[t].shape)
+                for t in trace.tensors_written}
+
     def _execute(self, trace: Trace, hw: VTAConfig, batched: dict,
                  shared: Optional[dict] = None) -> dict:
         """``batched``: tensors with a leading batch axis N; ``shared``:
@@ -783,6 +859,8 @@ class TorchBackend:
         shared = shared or {}
         assert not (set(trace.tensors_written) & set(shared)), \
             "programs must not store into shared tensors"
+        if not self.capture:
+            return self._run_once(trace, hw, batched, shared)
         # shared tensors the caller keeps on the device are read in place;
         # anything else is copied in, so a fresh host array per call still
         # meets the same plan

@@ -1,9 +1,11 @@
 """Guards against drift between the port's copies and the JAX package.
 
 The port keeps its own copies of the JAX-free VTA plane (tps, isa, runtime,
-graph, workloads, lowering, scheduler, compiler, the numpy FSim and the
-trace recorder): the Program and the Trace they build, the FSim's outputs
-and the recorder's digests must stay identical to the JAX package's.
+graph, workloads, lowering, scheduler, compiler, the numpy FSim, the trace
+recorder, and the sweep's area model, tile search and double-buffer
+analytics): the Program and the Trace they build, the FSim's outputs, the
+recorder's digests, the areas, candidate tiles and byte savings must stay
+identical to the JAX package's.
 Tolerance: 0 — the 128-bit instruction encodings, every index array and
 every output byte are compared exactly.
 """
@@ -93,11 +95,26 @@ def test_port_imports_neither_jax_nor_repro():
         "        seq_len=16), AdamWConfig(), TrainerConfig(num_steps=2,\n"
         "        ckpt_every=1, ckpt_dir=d), device='cpu')\n"
         "    assert len(tr.run(2)[2]) == 2\n"
+        "import repro_torch.core.stages, repro_torch.core.area_model\n"
+        "import repro_torch.core.tile_search, repro_torch.core.double_buffer\n"
+        "import repro_torch.vta.tsim, repro_torch.vta.schedule_cache\n"
+        "import repro_torch.vta.network, repro_torch.vta.autotune\n"
+        "import repro_torch.core.dse, repro_torch.analysis.dse_report\n"
+        "from repro_torch.core.dse import run_sweep\n"
+        "with tempfile.TemporaryDirectory() as d:\n"
+        "    res = run_sweep(['mobilenet'], out_dir=d, log_blocks=(4,),\n"
+        "        mem_widths=(8,), spad_scales=(1,), tune='full',\n"
+        "        backend='torch-cpu', per_layer=False)\n"
+        "    assert len(res.points['mobilenet1.0']) == 1\n"
         "bad = sorted(k for k in sys.modules\n"
         "             if k.split('.')[0] in ('jax', 'jaxlib', 'repro'))\n"
         "assert not bad, bad\n"
         "print('clean')\n")
-    env = dict(os.environ, PYTHONPATH=os.path.abspath(SRC))
+    # one intra-op thread: the child runs thousands of tiny PyTorch ops
+    # (the sweep's verifications), which several threads per process slow
+    # down where the suite's workers share the cores
+    env = dict(os.environ, PYTHONPATH=os.path.abspath(SRC),
+               OMP_NUM_THREADS="1")
     r = subprocess.run([sys.executable, "-c", code], env=env,
                        capture_output=True, text=True, timeout=300)
     assert r.returncode == 0, r.stderr
@@ -320,3 +337,98 @@ def test_trace_copy_digests_match_the_original():
     assert len(a) == len(b) == len(tprog.order)
     assert [(s.step, s.insn, s.digests) for s in a] == \
         [(s.step, s.insn, s.digests) for s in b]
+
+
+# ---------------------------------------------------------------------------
+# The design-space sweep's analytic copies
+# ---------------------------------------------------------------------------
+def _sweep_configs(dse):
+    return [dse.make_config(lb, mw, ss, 0, pl) for lb in (4, 5, 6)
+            for mw in (8, 16, 32, 64) for ss in (1, 2, 4)
+            for pl in (True, False)]
+
+
+def test_area_model_copy_matches_the_original():
+    """``scaled_area`` and ``area_breakdown`` over ``make_config``'s grid,
+    pipelined and not."""
+    from repro.core import area_model as jarea
+    from repro.core import dse as jdse
+    from repro_torch.core import area_model as tarea
+    from repro_torch.core import dse as tdse
+    jref, tref = jdse.make_config(), tdse.make_config()
+    pairs = list(zip(_sweep_configs(jdse), _sweep_configs(tdse)))
+    assert len(pairs) == 72
+    for jhw, thw in pairs:
+        assert dataclasses.asdict(jhw) == dataclasses.asdict(thw)
+        assert tarea.scaled_area(thw, tref) == jarea.scaled_area(jhw, jref)
+        assert tarea.area_breakdown(thw) == jarea.area_breakdown(jhw)
+
+
+def _padded_layers(workloads, hw):
+    """(kind, padded workload) of every VTA layer of ResNet-18 and
+    MobileNet-1.0."""
+    out = []
+    for net in ("resnet18", "mobilenet1.0"):
+        for layer in workloads.NETWORKS[net]():
+            if not layer.on_cpu:
+                out.append((layer.kind,
+                            workloads.pad_for_blocking(layer.wl, hw)))
+    return out
+
+
+@pytest.mark.parametrize("cfg", [(4, 8), (5, 32)], ids=["b16mw8", "b32mw32"])
+def test_tile_candidates_copy_matches_the_original(cfg):
+    """``vta_tile_candidates`` (conv and dense, every field of every
+    Tiling, in rank order) and ``vta_alu_tile_candidates`` (depthwise and
+    pool) on ResNet-18 and MobileNet-1.0 layers."""
+    from repro.core import dse as jdse
+    from repro.core import tile_search as jts
+    from repro.vta import workloads as jwl
+    from repro_torch.core import dse as tdse
+    from repro_torch.core import tile_search as tts
+    from repro_torch.vta import workloads as twl
+    jhw, thw = jdse.make_config(*cfg), tdse.make_config(*cfg)
+    jl, tl = _padded_layers(jwl, jhw), _padded_layers(twl, thw)
+    assert [k for k, _ in jl] == [k for k, _ in tl]
+    n_conv = n_alu = 0
+    for (kind, jw), (_, tw) in zip(jl, tl):
+        assert dataclasses.asdict(jw) == dataclasses.asdict(tw)
+        if kind in ("conv", "dense"):
+            got = tts.vta_tile_candidates(tw, thw)
+            want = jts.vta_tile_candidates(jw, jhw)
+            assert [dataclasses.astuple(t) for t in got] == \
+                [dataclasses.astuple(t) for t in want]
+            n_conv += 1
+        elif kind in ("depthwise", "maxpool", "avgpool"):
+            assert tts.vta_alu_tile_candidates(tw.oh, tw.ow) == \
+                jts.vta_alu_tile_candidates(jw.oh, jw.ow)
+            n_alu += 1
+    assert n_conv > 20 and n_alu > 10
+
+
+def test_double_buffer_copy_matches_the_original():
+    """``db_savings`` of every double-buffered candidate tiling of ResNet-18
+    and MobileNet-1.0's convs at the reference config."""
+    from repro.core import double_buffer as jdb
+    from repro.core import dse as jdse
+    from repro.core.tps import Tiling as JTiling
+    from repro.vta import workloads as jwl
+    from repro_torch.core import double_buffer as tdb
+    from repro_torch.core import dse as tdse
+    from repro_torch.core.tile_search import vta_tile_candidates
+    from repro_torch.vta import workloads as twl
+    jhw, thw = jdse.make_config(), tdse.make_config()
+    checked = 0
+    for (kind, jw), (_, tw) in zip(_padded_layers(jwl, jhw),
+                                   _padded_layers(twl, thw)):
+        if kind not in ("conv", "dense"):
+            continue
+        for t in vta_tile_candidates(tw, thw):
+            if not t.double_buffered:
+                continue
+            got = tdb.db_savings(tw, thw, t)
+            want = jdb.db_savings(jw, jhw, JTiling(*dataclasses.astuple(t)))
+            assert dataclasses.astuple(got) == dataclasses.astuple(want)
+            assert got.reduction == want.reduction
+            checked += 1
+    assert checked > 50
