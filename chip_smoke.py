@@ -203,7 +203,8 @@ order; any failure raises and the script exits nonzero:
    ``memory_reserved``.
 8. Training (``train_checks``), through the entry points a user calls:
    ``make_train_step`` and the ``Trainer`` on the card, every attention
-   layer's forward on the port's kernels (``FlashAttentionFn``), its
+   layer's forward on the port's kernels (the op
+   ``repro_torch::flash_attention``), its
    backward ``flash_attention_backward`` in PyTorch (the reference has no
    backward kernel either). The golden runs (``train_golden_errors``), in
    f32 against ``tests/golden/train_f32.json``, which
@@ -231,7 +232,8 @@ order; any failure raises and the script exits nonzero:
    median of steps 2-4), tokens/s, the peak of
    ``torch.cuda.max_memory_allocated`` in a step, and from one profiled
    step the attention forward's share of device time, the backward's (the
-   kernels inside FlashAttentionFn's profiler range) and the idle share.
+   kernels inside the attention backward's profiler range) and the idle
+   share.
 9. The design-space sweep (``dse_checks``), through ``run_sweep`` and
    the CLI a user calls: ``DSE_GRID`` (ResNet-18 and MobileNet-1.0 at
    published widths, log blocks 4 and 5, memory widths 8 and 32,
@@ -258,6 +260,30 @@ order; any failure raises and the script exits nonzero:
    goes (lowering, device entries, the rest), programs scheduled, the
    Pareto fronts (``analysis/dse_report.py``), each beside the card's name
    and power limit.
+10. The mesh layer (``mesh_checks``), on a one-rank ``nccl`` process group
+   it starts (after phase 6's spawned worker has exited) and destroys,
+   over the mesh ``make_mesh((1, 1), ("data", "model"))`` on the card,
+   where every placement is ``Replicate()``. 10a (``mesh_serve``): phase
+   7's Qwen3-0.6B run (4 x 1024, 32 steps, bf16, full width and depth)
+   twice on the same seeded params, as phase 7 runs it and with the params
+   distributed by the logical rules and ``generate`` under ``use_rules``:
+   tokens and every step's logits equal by bits, the attention launches
+   under the rules exactly phase 7's; prefill and decode ms of both, and
+   phase 7's, recorded. 10b (``mesh_train``): one train step at phase 8's
+   configuration from its starting params and first batch, plain and
+   under the rules: loss and grad_norm equal by bits, every updated param
+   and AdamW moment equal by bits and in its param's placements, every
+   gradient in its param's placements, 56 ``mma`` launches. 10c
+   (``mesh_restore``): 10b's starting params checkpointed and restored by
+   ``elastic_remesh`` onto ``surviving_mesh(0)``: every leaf a DTensor on
+   the card with the rules' placements, equal by bits. 10d
+   (``mesh_dryrun``): ``python -m repro_torch.launch.dryrun --arch
+   qwen3-0.6b --shape train_4k``, single-pod and ``--multi-pod``, each a
+   subprocess (a fake process group cannot share a process with the nccl
+   one): each ends, its ``peak_est_bytes`` below the card's memory, the
+   16x16 run counts collectives, per-device flops times the ranks over
+   ``model_flops`` within ``MESH_FLOP_BAND``; the per-device numbers,
+   roofline terms and wall time printed.
 
 Output: one line per kernel (and per phase-4 case), ms per dispatch per
 bucket (median, min, max), then a JSON line of serving numbers (per bucket,
@@ -265,7 +291,8 @@ the capture cost per bucket and the ``profile:`` numbers), a JSON line of
 the pool's numbers (``{"pool": ...}``: per n, ms per round, images/s and per
 worker batches, busy ms and reserved MB; the speedup), a JSON line of the
 language-model runs (``{"lm": ...}``), one of the training runs
-(``{"train": ...}``), one of the sweep (``{"dse": ...}``), a JSON line of
+(``{"train": ...}``), one of the sweep (``{"dse": ...}``), one of the
+mesh layer (``{"mesh": ...}``), a JSON line of
 kernel numbers (the VTA rows also give ``launches_pool``, their launches
 in the 2-worker rounds, and ``launches_dse``, phase 9's card sweep; the
 attention rows' ``launches`` are phase 7's, ``launches_train`` phase 8's
@@ -290,7 +317,8 @@ boolean mask carries a window). The call is a yardstick here only: the port
 never makes it.
 
 ``--plant-faults`` runs none of the phases. It shows that the limits of
-phases 2-9 fail a wrong kernel, executor, pool, gradient or sweep: the
+phases 2-10 fail a wrong kernel, executor, pool, gradient, sweep or mesh
+path: the
 checkout
 is copied into a
 temporary directory once as it is and once per fault of ``PLANTED_FAULTS``
@@ -316,7 +344,9 @@ training, an attention forward whose result has no ``grad_fn``, and a
 backward whose dK and dV keep one query head of each GQA group; in the
 sweep, ``CardFault`` caught at ``eval_job`` as an infeasible point, a
 verification on the captured route, and one that resolves the card to
-``"torch-cpu"``), the
+``"torch-cpu"``; in the mesh layer, a DTensor attention that takes the
+plain version on the card, a restore that ignores its sharding tree, and a
+dry-run that reports global flops as per-device), the
 unchanged sources are built once into a build directory the copies share,
 and each copy builds its changed source and runs the cases of its route
 through their limit checks (``--case-errors``, three copies at a time): the
@@ -328,7 +358,8 @@ cases of the VTA GEMM or the ALU stage-program kernel, phase 3's checks
 scale-out, the cold race, the two pools and the drill for route
 ``pool``, the ladder drill for ``ladder``), or the golden runs of phase
 7 (``lm_errors``) or phase 8 (``train_errors``), or phase 9's checks
-(``dse_errors``); the unchanged copy runs
+(``dse_errors``), or the part of phase 10 the fault lies in
+(``mesh_errors``: 10a, 10c or 10d); the unchanged copy runs
 all of them. One JSON line per (fault, case) gives the kernel's error
 and its limit (attention: the kernel's and the plain version's largest
 error against float64, the largest |out| and the elements over the limit).
@@ -2902,7 +2933,7 @@ def profiled_shares(fn) -> dict:
     wall and against the unprofiled one (the profiler slows the host), the
     five kernels that take the most time, and the attention backward's
     device time and share of the summed time: the kernels that start
-    inside the device spans of FlashAttentionFn's profiler range
+    inside the device spans of the attention backward's profiler range
     ``BACKWARD_RANGE`` (0 where no backward ran). None where the profiler
     saw no device kernel."""
     import torch
@@ -3802,6 +3833,348 @@ def dse_errors(fault: str) -> None:
 # ---------------------------------------------------------------------------
 # --plant-faults: the checks of phases 2-9 against wrong kernels and code
 # ---------------------------------------------------------------------------
+# ---------------------------------------------------------------------------
+# phase 10: the mesh layer
+# ---------------------------------------------------------------------------
+MESH_SERVE = LM_BF16_RUNS[0]     # Qwen3-0.6B, 4 x 1024, 32 steps, as phase 7
+MESH_DRYRUN = ("qwen3-0.6b", "train_4k")
+# per-device flops times the ranks over model_flops, in a train cell: the
+# band of the CPU tests' smoke cells (tests/test_torch_dryrun.py
+# TRAIN_FLOP_BAND). Remat "full" runs each group's forward twice (8 of
+# model_flops' 6 * N * tokens, 1.33), and the ops the rules leave
+# replicated over "model" count whole on each of its ranks: 1.698 measured
+# for qwen3-0.6b train_4k on both meshes. Every product counted twice
+# gives 3.4, a count on global shapes 256 or 512 times the per-device one
+MESH_FLOP_BAND = (1.2, 2.5)
+MESH_DRYRUN_TIMEOUT = 600
+
+
+def whole(t):
+    """A DTensor's full value; a plain tensor as it is."""
+    from torch.distributed.tensor import DTensor
+    return t.full_tensor() if isinstance(t, DTensor) else t
+
+
+def distributed(tree, names, mesh, rules):
+    """``tree``'s tensors as DTensors of the rules' placements for their
+    logical ``names`` (each rank keeps its own shard)."""
+    from torch.distributed.tensor import distribute_tensor
+    from repro_torch.utils.tree import tree_map
+    return tree_map(lambda t, n: distribute_tensor(
+        t, mesh, rules.sharding(n, t.shape).placements(),
+        src_data_rank=None), tree, names)
+
+
+def placement_errors(tree, names, rules) -> int:
+    """Leaves of ``tree`` that are not DTensors of the rules' placements
+    for their ``names``."""
+    from torch.distributed.tensor import DTensor
+    from repro_torch.utils.tree import flatten_dict
+    flat, want = flatten_dict(tree), flatten_dict(names)
+    return sum(not isinstance(t, DTensor) or list(t.placements) !=
+               rules.sharding(want[k], t.shape).placements()
+               for k, t in flat.items()) + int(sorted(flat) != sorted(want))
+
+
+def mesh_serve(device, mesh, rules, lm_row=None) -> tuple:
+    """10a: phase 7's Qwen3-0.6B run (``MESH_SERVE``) twice on the same
+    params, once as phase 7 runs it and once with the params distributed
+    by ``abstract_params``' shardings and ``generate`` under the rules.
+    Checks: the tokens, and every step's logits, equal by bits; the
+    attention launches of the run under rules exactly phase 7's
+    (``lm_launches_want``). Prefill and decode ms of both (and of phase 7,
+    given its row) are recorded, not gated: DTensor's host cost on a
+    host-bound decode."""
+    import torch
+    from repro_torch.configs import ARCHS
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.models import build_model
+    from repro_torch.serve.session import ServeSession
+    from repro_torch.sharding.logical import use_rules
+    spec = MESH_SERVE
+    cfg = ARCHS[spec["name"]]
+    B, S, steps = (spec[k] for k in ("batch", "prompt_len", "steps"))
+    model = build_model(cfg)
+    gen = torch.Generator(device=device).manual_seed(spec["seed"])
+    params = model.init(gen, device)
+    prompts = np.random.default_rng(spec["seed"]).integers(
+        0, cfg.vocab_size, (B, S), dtype=np.int32)
+    want = lm_launches_want(attention_layers(cfg), cfg.dtype, S, steps)
+    runs = {}
+    for tag, p, ctx in (
+            ("plain", params, None),
+            ("rules", distributed(params, model.logical_names(), mesh, rules),
+             rules)):
+        sess = ServeSession(model, p, device=device)
+        with use_rules(ctx):
+            sess.generate(prompts[:, :64], 2)           # warm-up, uncounted
+            times: list = []
+            seen = record_steps(sess, times)
+            reset_launch_counts()
+            toks = sess.generate(prompts, steps)
+            torch.cuda.synchronize()
+        runs[tag] = (whole(toks), [whole(x) for x in seen], times,
+                     launch_counts())
+        del sess, p
+    (ta, la, tma, _), (tb, lb, tmb, cb) = runs["plain"], runs["rules"]
+    errs = {"mesh.serve.tokens": int(not torch.equal(ta, tb)),
+            "mesh.serve.logits": sum(not torch.equal(a, b)
+                                     for a, b in zip(la, lb))
+            + int(len(la) != len(lb) or len(la) != steps + 1),
+            "mesh.serve.launches": sum(cb.get(k, 0) != v
+                                       for k, v in want.items())}
+    row = dict(config=cfg.name, batch=B, prompt_len=S, steps=steps,
+               mesh="1x1", launches={k: cb.get(k, 0) for k in want},
+               prefill_ms_plain=tma[0] * 1e3, prefill_ms_rules=tmb[0] * 1e3,
+               decode_ms_per_step_plain=statistics.median(tma[1:]) * 1e3,
+               decode_ms_per_step_rules=statistics.median(tmb[1:]) * 1e3)
+    if lm_row is not None:
+        row.update(prefill_ms_phase7=lm_row["prefill_ms"],
+                   decode_ms_per_step_phase7=lm_row[
+                       "decode_ms_per_step_median"])
+    return errs, row
+
+
+def mesh_train(device, mesh, rules) -> tuple:
+    """10b: one bf16 train step at phase 8's configuration (``TRAIN_BF16``)
+    from its starting params and first batch, once plain and once with
+    params and optimizer state distributed by the rules and the step under
+    them. Checks: loss and grad_norm equal by bits; every updated param
+    and AdamW moment equal by bits to the plain step's and in its param's
+    placements; every gradient (``loss_and_grads`` under the rules, after
+    the step) in its param's placements; the step's attention launches
+    exactly one step's (``train_launches_want``: 56 ``mma``)."""
+    import torch
+    from torch.distributed.tensor import Replicate, distribute_tensor
+    from repro_torch.configs import ARCHS
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.sharding.logical import use_rules
+    from repro_torch.train.data import DataConfig, DataLoader
+    from repro_torch.train.loop import Trainer, TrainerConfig
+    from repro_torch.train.optimizer import AdamWConfig
+    from repro_torch.train.step import compute_params, loss_and_grads
+    from repro_torch.utils.tree import flatten_dict
+    spec = TRAIN_BF16
+    cfg = ARCHS[spec["name"]].replace(remat=True, remat_policy="full",
+                                      loss_chunks=8)
+    tr = Trainer(cfg, DataConfig(seed=spec["seed"], batch=spec["batch"],
+                                 seq_len=spec["seq_len"]),
+                 AdamWConfig(**spec["opt"]), TrainerConfig(seed=spec["seed"]),
+                 device=device)
+    params, opt_state, _ = tr.init_or_resume()
+    loader = DataLoader(tr.data_cfg, cfg)
+    try:
+        batch = {k: torch.as_tensor(v, device=device)
+                 for k, v in next(loader).items()}
+    finally:
+        loader.close()
+    names = tr.model.logical_names()
+    p1, s1, m1 = tr.step_fn(params, opt_state, batch)
+    dparams = distributed(params, names, mesh, rules)
+    dopt = {"step": distribute_tensor(opt_state["step"], mesh,
+                                      [Replicate()] * 2, src_data_rank=None),
+            "mu": distributed(opt_state["mu"], names, mesh, rules),
+            "nu": distributed(opt_state["nu"], names, mesh, rules)}
+    want = train_launches_want(cfg, spec["seq_len"], 1)
+    torch.cuda.synchronize()
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    with use_rules(rules):
+        p2, s2, m2 = tr.step_fn(dparams, dopt, batch)
+    torch.cuda.synchronize()
+    step_s = time.perf_counter() - t0
+    counts = launch_counts()
+    errs = {f"mesh.train.{k}": int(not torch.equal(whole(m2[k]), m1[k]))
+            for k in ("loss", "grad_norm")}
+    errs["mesh.train.launches"] = sum(counts.get(k, 0) != v
+                                      for k, v in want.items())
+    errs["mesh.train.placements"] = sum(
+        placement_errors(t, names, rules) for t in (p2, s2["mu"], s2["nu"]))
+    errs["mesh.train.values"] = sum(
+        sum(not torch.equal(whole(t), flatten_dict(ref)[k])
+            for k, t in flatten_dict(got).items())
+        for got, ref in ((p2, p1), (s2["mu"], s1["mu"]), (s2["nu"], s1["nu"])))
+    del p1, s1, p2, s2, dopt
+    with use_rules(rules):
+        _, _, grads = loss_and_grads(
+            tr.model, compute_params(dparams, getattr(torch, cfg.dtype)),
+            batch)
+    errs["mesh.train.grad_placements"] = placement_errors(grads, names, rules)
+    row = dict(config=cfg.name, batch=spec["batch"], seq_len=spec["seq_len"],
+               mesh="1x1", loss=float(m1["loss"]),
+               grad_norm=float(m1["grad_norm"]), step_ms_rules=step_s * 1e3,
+               launches={k: counts.get(k, 0) for k in want})
+    return errs, row, (tr.model, params)
+
+
+def mesh_restore(device, rules, model, params) -> tuple:
+    """10c: ``params`` checkpointed, then restored through
+    ``elastic_remesh(mgr, abstract_params(model), surviving_mesh(0),
+    model.logical_names())``. Checks: every leaf a DTensor on the card
+    with the rules' placements, equal by bits to what was saved."""
+    import torch
+    from repro_torch.train.checkpoint import CheckpointManager
+    from repro_torch.train.fault_tolerance import elastic_remesh, surviving_mesh
+    from repro_torch.train.step import abstract_params
+    from repro_torch.utils.tree import flatten_dict
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_mesh_")
+    try:
+        mgr = CheckpointManager(tmp)
+        mgr.save(0, params)
+        t0 = time.perf_counter()
+        restored, step = elastic_remesh(
+            mgr, abstract_params(model), surviving_mesh(0), model.logical_names())
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    saved = flatten_dict(params)
+    got = flatten_dict(restored)
+    errs = {"mesh.restore.placements": placement_errors(
+                restored, model.logical_names(), rules),
+            "mesh.restore.device": sum(t.device.type != "cuda"
+                                       for t in got.values()),
+            "mesh.restore.values": int(step != 0) + sum(
+                not torch.equal(whole(t), saved[k]) for k, t in got.items())}
+    return errs, dict(leaves=len(got), restore_s=secs)
+
+
+def mesh_dryrun() -> tuple:
+    """10d: ``python -m repro_torch.launch.dryrun`` on ``MESH_DRYRUN``,
+    single-pod and ``--multi-pod``, each in a subprocess of its own (a fake
+    process group cannot share a process with the ``nccl`` one), both at
+    once. Checks: each runs to the end; ``peak_est_bytes`` below the
+    card's memory; the 16x16 run counts collectives; per-device flops
+    times the ranks over ``model_flops`` within ``MESH_FLOP_BAND``. Prints
+    flops, bytes and collective bytes per device, the roofline terms
+    (``core/roofline.py::h100_terms``, the H100 data sheet's rates) and
+    the wall time."""
+    import torch
+    from repro_torch.analysis.roofline import model_flops
+    from repro_torch.configs import ARCHS
+    from repro_torch.core.roofline import h100_terms
+    arch, shape = MESH_DRYRUN
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_dryrun_")
+    env = dict(os.environ, PYTHONPATH=SRC)
+    procs = {}
+    try:
+        for mp in (False, True):
+            out = os.path.join(tmp, f"{int(mp)}.json")
+            cmd = [sys.executable, "-m", "repro_torch.launch.dryrun",
+                   "--arch", arch, "--shape", shape, "--out", out] + (
+                       ["--multi-pod"] if mp else [])
+            procs[mp] = (subprocess.Popen(cmd, env=env, cwd=ROOT,
+                                          stdout=subprocess.PIPE,
+                                          stderr=subprocess.STDOUT,
+                                          text=True), out, time.perf_counter())
+        res, errs = {}, {}
+        for mp, (proc, out, t0) in procs.items():
+            text, _ = proc.communicate(timeout=MESH_DRYRUN_TIMEOUT)
+            wall = time.perf_counter() - t0
+            tag = f"mesh.dryrun.{'2x16x16' if mp else '16x16'}"
+            for line in text.splitlines():
+                log(f"  {line}")
+            r = json.load(open(out)) if os.path.exists(out) else {
+                "error": f"exit {proc.returncode}"}
+            errs[f"{tag}.ran"] = int(proc.returncode != 0 or "error" in r)
+            if "error" in r:
+                continue
+            ratio = r["flops_per_device"] * r["chips"] / model_flops(
+                ARCHS[arch], shape)
+            total = torch.cuda.get_device_properties(0).total_memory
+            errs[f"{tag}.memory"] = int(
+                not r["memory"]["peak_est_bytes"] < total)
+            errs[f"{tag}.flops"] = int(
+                not MESH_FLOP_BAND[0] <= ratio <= MESH_FLOP_BAND[1])
+            if not mp:
+                errs[f"{tag}.collectives"] = int(
+                    not r["collectives"]["total_bytes"] > 0)
+            t = h100_terms(r["flops_per_device"], r["hbm_bytes_per_device"],
+                           r["collectives"]["total_bytes"],
+                           n_devices=r["chips"])
+            res[r["mesh"]] = dict(
+                flops_per_device=r["flops_per_device"],
+                hbm_bytes_per_device=r["hbm_bytes_per_device"],
+                collective_bytes_per_device=r["collectives"]["total_bytes"],
+                collectives=r["collectives"], memory=r["memory"],
+                model_flops=model_flops(ARCHS[arch], shape),
+                flops_ratio=ratio, compute_s=t.compute_s,
+                memory_s=t.memory_s, collective_s=t.collective_s,
+                dominant=t.dominant, bound_s=t.bound_s, step_s=r["compile_s"],
+                wall_s=wall, card_memory_bytes=total)
+            log(f"dryrun {arch} x {shape} on {r['mesh']} ({r['chips']} "
+                f"ranks, the card's host): {json.dumps(res[r['mesh']])}")
+    finally:
+        for proc, _, _ in procs.values():
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+        shutil.rmtree(tmp, ignore_errors=True)
+    return errs, res
+
+
+MESH_PARTS = ("serve", "train", "restore", "dryrun")
+
+
+def mesh_checks(device, parts=MESH_PARTS, lm_row=None) -> tuple:
+    """Phase 10: the mesh layer on the card. Starts a one-rank ``nccl``
+    process group and the (1, 1) mesh over ("data", "model") and runs
+    ``parts`` in order: 10a ``mesh_serve``, 10b ``mesh_train``, 10c
+    ``mesh_restore`` (on 10b's model and starting params, or a fresh init
+    of Qwen3-0.6B without 10b), 10d ``mesh_dryrun``; destroys the group.
+    Returns (errors, rows)."""
+    import torch
+    from repro_torch.launch.mesh import (destroy_process_group,
+                                         init_process_group, make_mesh)
+    from repro_torch.sharding.logical import LogicalRules
+    errs, rows, kept = {}, {}, None
+    init_process_group("nccl")
+    try:
+        mesh = make_mesh((1, 1), ("data", "model"))
+        rules = LogicalRules(mesh)
+        for part in parts:
+            t0 = time.perf_counter()
+            if part == "serve":
+                e, rows[part] = mesh_serve(device, mesh, rules, lm_row)
+            elif part == "train":
+                e, rows[part], kept = mesh_train(device, mesh, rules)
+            elif part == "restore":
+                if kept is None:
+                    from repro_torch.configs import ARCHS
+                    from repro_torch.models import build_model
+                    model = build_model(ARCHS[TRAIN_BF16["name"]])
+                    kept = (model, model.init(torch.Generator(
+                        device=device).manual_seed(0), device))
+                e, rows[part] = mesh_restore(device, rules, *kept)
+            else:
+                e, rows[part] = mesh_dryrun()
+            errs.update(e)
+            log(f"phase 10{'abcd'[MESH_PARTS.index(part)]} ({part}): "
+                f"{time.perf_counter() - t0:.1f} s, errors {e}")
+            torch.cuda.empty_cache()
+    finally:
+        destroy_process_group()
+    return errs, rows
+
+
+def mesh_errors(fault: str, route: str) -> None:
+    """Phase 10's checks of ``route`` (``mesh_serve``, ``mesh_restore``,
+    ``mesh_dryrun``; "all": every part, each on a group of its own), one
+    line per check, limit 0; a part that raises (a fault may end it early)
+    fails the check ``mesh.<part>.raised``."""
+    import torch
+    errs = {}
+    for part in MESH_PARTS if route == "all" else (route[len("mesh_"):],):
+        try:
+            errs.update(mesh_checks(torch.device("cuda"), (part,))[0])
+        except Exception:
+            traceback.print_exc()
+            errs[f"mesh.{part}.raised"] = 1
+    for check, err in errs.items():
+        print(json.dumps({"fault": fault, "case": check, "err": err,
+                          "limit": 0, "over": err > 0}), flush=True)
+
+
 PLANTED_FAULTS = {  # name: (route, file under src/repro_torch, text, stand-in)
     "mma.skip_tile_4096": (
         "mma", "csrc/flash_attention_mma.cu", "|| j0 + BK <= wbeg) continue;",
@@ -3926,12 +4299,12 @@ PLANTED_FAULTS = {  # name: (route, file under src/repro_torch, text, stand-in)
         "        if path[-1].startswith(\"gate_\"):\n"
         "            return tree.to(torch.bfloat16)\n"
         "        return tree if _read_in_f32(path, cfg) else tree.to(dt)"),
-    # a forward whose result has no grad_fn (the wrapper before
-    # FlashAttentionFn): the attention projections get no gradient
+    # a forward whose result has no grad_fn (the wrapper before the op had
+    # an autograd formula): the attention projections get no gradient
     "train.no_grad_fn": (
         "train", "kernels/flash_attention.py",
-        "    return FlashAttentionFn.apply(q, k, v, causal, window, softcap, "
-        "scale,\n                                  block_q, block_k)",
+        "    return attention_op(q, k, v, causal, window, softcap, scale, "
+        "block_q,\n                        block_k)",
         "    return attention_forward(\n        q, k, v, causal=causal, "
         "window=window, softcap=softcap, scale=scale,\n        "
         "block_q=block_q, block_k=block_k).detach()"),
@@ -3961,6 +4334,33 @@ PLANTED_FAULTS = {  # name: (route, file under src/repro_torch, text, stand-in)
         "dse", "vta/autotune.py", "    be = get_backend(backend)\n",
         '    be = get_backend("torch-cpu" if backend == "torch" else '
         'backend)\n'),
+    # a DTensor attention that takes the plain version on the card
+    "mesh_serve.dtensor_plain_attention": (
+        "mesh_serve", "kernels/flash_attention.py",
+        "    return attention_op(q, k, v, causal, window, softcap, scale, "
+        "block_q,\n                        block_k)",
+        "    from torch.distributed.tensor import DTensor\n"
+        "    if isinstance(q, DTensor):\n"
+        "        return flash_attention_plain(q, k, v, causal=causal, "
+        "window=window,\n            softcap=softcap, scale=scale)\n"
+        "    return attention_op(q, k, v, causal, window, softcap, scale, "
+        "block_q,\n                        block_k)"),
+    # a restore that ignores its sharding tree
+    "mesh_restore.ignores_sharding_tree": (
+        "mesh_restore", "train/checkpoint.py",
+        "            if flat_s.get(k) is not None:\n",
+        "            if False:\n"),
+    # a dry-run that reports global flops as per-device
+    "mesh_dryrun.global_flops": (
+        "mesh_dryrun", "launch/dryrun.py",
+        "                self.flops += f(*args, **kwargs, out_val=out)\n",
+        "                self.flops += f(*args, **kwargs, out_val=out) * \\\n"
+        "                    torch.distributed.get_world_size()\n"),
+    # a dry-run that counts every product twice (2x, inside the old band)
+    "mesh_dryrun.flops_counted_twice": (
+        "mesh_dryrun", "launch/dryrun.py",
+        "                self.flops += f(*args, **kwargs, out_val=out)\n",
+        "                self.flops += 2 * f(*args, **kwargs, out_val=out)\n"),
 }
 LAYER_FAULT_KEYS = ("gemm_float", "depthwise", "alu", "pool2d")
 VTA_FAULT_KEYS = ("gemm", "alu_sweep")
@@ -3969,6 +4369,7 @@ POOL_FAULT_KEYS = ("pool", "ladder")
 LM_FAULT_KEYS = ("lm",)
 TRAIN_FAULT_KEYS = ("train",)
 DSE_FAULT_KEYS = ("dse",)
+MESH_FAULT_KEYS = ("mesh_serve", "mesh_restore", "mesh_dryrun")
 # --plant-faults runs these besides ATTENTION_CASES: the only windowed
 # decode case there, g2.local.decode, sees its whole 4096-key cache, so a
 # window 64 too wide is invisible to it. Gemma-2 27B local layers decoding
@@ -3988,11 +4389,12 @@ def case_errors(fault: str, route: str) -> int:
     phase 2's cases of the kernels of ``VTA_FAULT_KEYS`` (``vta_errors``),
     phase 3's checks of the captured path (``serve_errors``), phase 6's
     checks of the worker pool or the ladder (``pool_errors``), the
-    golden checks of phases 7 and 8 (``lm_errors``, ``train_errors``) and
-    phase 9's checks of the sweep (``dse_errors``)."""
+    golden checks of phases 7 and 8 (``lm_errors``, ``train_errors``),
+    phase 9's checks of the sweep (``dse_errors``) and phase 10's of the
+    mesh layer (``mesh_errors``)."""
     if route == "all" or route not in LAYER_FAULT_KEYS + VTA_FAULT_KEYS \
             + SERVE_FAULT_KEYS + POOL_FAULT_KEYS + LM_FAULT_KEYS \
-            + TRAIN_FAULT_KEYS + DSE_FAULT_KEYS:
+            + TRAIN_FAULT_KEYS + DSE_FAULT_KEYS + MESH_FAULT_KEYS:
         attention_errors(fault, route)
     if route == "all" or route in LAYER_FAULT_KEYS:
         layer_errors(fault, route)
@@ -4008,6 +4410,8 @@ def case_errors(fault: str, route: str) -> int:
         train_errors(fault)
     if route == "all" or route in DSE_FAULT_KEYS:
         dse_errors(fault)
+    if route == "all" or route in MESH_FAULT_KEYS:
+        mesh_errors(fault, route)
     return 0
 
 
@@ -4355,6 +4759,15 @@ def main(argv: list) -> int:
         raise AssertionError(f"phase 9 failed: {errs9}")
     log(f"phase 9: {time.perf_counter() - t0:.1f} s")
 
+    # -- phase 10 ---------------------------------------------------------
+    t0 = time.perf_counter()
+    lm_row = next(r for r in lm_rows if r.get("config") == MESH_SERVE["name"]
+                  and r.get("dtype") == "bfloat16")
+    errs10, mesh_rows = mesh_checks(dev, lm_row=lm_row)
+    if any(errs10.values()):
+        raise AssertionError(f"phase 10 failed: {errs10}")
+    log(f"phase 10: {time.perf_counter() - t0:.1f} s")
+
     src = "src/repro_torch/csrc/"
     kernels = [
         dict(name="gemm", route="cuda", source=src + "vta_gemm.cu",
@@ -4414,6 +4827,7 @@ def main(argv: list) -> int:
     log(json.dumps({"lm": lm_rows}))
     log(json.dumps({"train": train_rows}))
     log(json.dumps({"dse": dse_rows}))
+    log(json.dumps({"mesh": mesh_rows}))
     log(json.dumps({"kernels": kernels}))
     log(smi)
     log(json.dumps({"ok": True, "device": {

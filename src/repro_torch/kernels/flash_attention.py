@@ -41,14 +41,24 @@ launches: ``LAUNCHES["flash_attention.<route>"]`` for the route's kernel, and
 ``LAUNCHES["flash_attention_combine"]`` for the decode route's combine. For CPU tensors the
 wrapper takes ``flash_attention_plain``, which runs on either device.
 
-Gradient. ``flash_attention`` is ``FlashAttentionFn``, an autograd
-function: its forward is the wrapper above (``attention_forward``: the
+Gradient. ``flash_attention`` is the registered op
+``repro_torch::flash_attention`` (``attention_op``), with an autograd
+formula: its forward is the wrapper above (``attention_forward``: the
 kernels on CUDA tensors, the plain version on CPU tensors), and its
-backward ``flash_attention_backward`` is plain PyTorch on either device,
-so that the CPU tests run the backward the card runs. The reference has no
+backward, the op ``repro_torch::flash_attention_backward``, is
+``flash_attention_backward``, plain PyTorch on either device, so that the
+CPU tests run the backward the card runs. The reference has no
 backward kernel either: XLA differentiates its chunked softmax. Without a
 graph to build (``torch.inference_mode``, ``torch.no_grad``, or inputs
 that need no gradient) the forward is all that runs, with nothing saved.
+
+Registration. Both ops have a fake implementation (the output's shape
+only: the kernels hold no S x S scores, so a dry-run counts none), a flop
+formula (``attention_flops``) and a DTensor sharding rule
+(``attention_strategies``, through ``register_sharding``; all in
+``_register``):
+batch and heads shard, seq and head_dim stay whole. A DTensor runs each
+rank's shard through the same op, on the kernels on the card.
 
 Blocks. ``block_q``/``block_k`` have the reference's meaning for the plain
 version, halved until they divide Sq and Sk; without them it takes the
@@ -62,7 +72,9 @@ from __future__ import annotations
 import ctypes
 from typing import Optional
 
+import numpy as np
 import torch
+from torch.utils.flop_counter import register_flop_formula
 
 from repro_torch.kernels import _build, count_launch
 
@@ -525,27 +537,151 @@ def flash_attention_backward(q: torch.Tensor, k: torch.Tensor,
             dv.to(v.dtype))
 
 
-class FlashAttentionFn(torch.autograd.Function):
-    """``attention_forward`` with a gradient: the forward is the kernels'
-    wrapper, and saves q, k and v; the backward is
-    ``flash_attention_backward``. Arguments as ``attention_forward``'s,
-    positional."""
+def visible_pairs(sq: int, sk: int, causal: bool,
+                  window: Optional[int]) -> int:
+    """The (query, key) pairs the mask keeps for one (batch, head): row i
+    at position ``i + sk - sq`` sees keys ``kpos <= qpos`` (causal) and
+    ``kpos > qpos - window``."""
+    qpos = np.arange(sq, dtype=np.int64) + (sk - sq)
+    hi = np.clip(qpos + 1, 0, sk) if causal else np.full(sq, sk, np.int64)
+    lo = np.zeros(sq, np.int64) if window is None else \
+        np.clip(qpos - int(window) + 1, 0, sk)
+    return int(np.maximum(hi - lo, 0).sum())
 
-    @staticmethod
-    def forward(ctx, q, k, v, causal, window, softcap, scale, block_q,
-                block_k):
-        ctx.save_for_backward(q, k, v)
-        ctx.kw = dict(causal=causal, window=window, softcap=softcap,
-                      scale=scale)
-        return attention_forward(q, k, v, block_q=block_q, block_k=block_k,
-                                 **ctx.kw)
 
-    @staticmethod
-    def backward(ctx, dout):
-        q, k, v = ctx.saved_tensors
-        with torch.profiler.record_function(BACKWARD_RANGE):
-            grads = flash_attention_backward(q, k, v, dout, **ctx.kw)
-        return grads + (None,) * 6
+def attention_flops(q_shape, k_shape, causal: bool,
+                    window: Optional[int]) -> int:
+    """The forward's useful FLOPs: 2 * D for q.k and 2 * D for p.v per
+    visible pair and query head, ``4 * B * H * D * pairs``: for a causal
+    global layer 4 * (S + 1) / 2 * H * D per token, the attention term of
+    ``analysis/roofline.py::model_flops`` (S / 2 there)."""
+    b, h, sq, d = q_shape
+    return 4 * b * h * d * visible_pairs(sq, k_shape[2], causal, window)
+
+
+def _attention_impl(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                    causal: bool, window: Optional[int],
+                    softcap: Optional[float], scale: Optional[float],
+                    block_q: Optional[int],
+                    block_k: Optional[int]) -> torch.Tensor:
+    """``attention_forward`` as the op ``repro_torch::flash_attention``, so
+    that DTensor, meta and fake tensors see it."""
+    return attention_forward(q, k, v, causal=causal, window=window,
+                             softcap=softcap, scale=scale, block_q=block_q,
+                             block_k=block_k)
+
+
+def _attention_fake(q, k, v, causal, window, softcap, scale, block_q,
+                    block_k):
+    _check_fake(q, k, v)
+    return q.new_empty(q.shape)
+
+
+def _attention_backward_impl(q: torch.Tensor, k: torch.Tensor,
+                             v: torch.Tensor, dout: torch.Tensor,
+                             causal: bool, window: Optional[int],
+                             softcap: Optional[float], scale: Optional[float]
+                             ) -> tuple[torch.Tensor, torch.Tensor,
+                                        torch.Tensor]:
+    """``flash_attention_backward`` as the op
+    ``repro_torch::flash_attention_backward``, inside the profiler range
+    ``BACKWARD_RANGE``."""
+    with torch.profiler.record_function(BACKWARD_RANGE):
+        return flash_attention_backward(q, k, v, dout, causal=causal,
+                                        window=window, softcap=softcap,
+                                        scale=scale)
+
+
+def _attention_backward_fake(q, k, v, dout, causal, window, softcap, scale):
+    _check_fake(q, k, v)
+    return q.new_empty(q.shape), k.new_empty(k.shape), v.new_empty(v.shape)
+
+
+def _check_fake(q, k, v) -> None:
+    """The shape checks of the kernels' wrapper, and its refusal of
+    operands on more than one device."""
+    _check(q, k, v)
+    if len({q.device, k.device, v.device}) != 1:
+        raise ValueError(f"flash_attention: operands must lie on one CUDA "
+                         f"device or on the CPU, got "
+                         f"{sorted(str(t.device) for t in (q, k, v))}")
+
+
+def _setup_context(ctx, inputs, output):
+    q, k, v, causal, window, softcap, scale = inputs[:7]
+    ctx.save_for_backward(q, k, v)
+    ctx.kw = (causal, window, softcap, scale)
+
+
+def _backward(ctx, dout):
+    q, k, v = ctx.saved_tensors
+    return torch.ops.repro_torch.flash_attention_backward(
+        q, k, v, dout, *ctx.kw) + (None,) * 6
+
+
+def _attention_flop(q_shape, k_shape, v_shape, causal, window, *args,
+                    **kwargs) -> int:
+    return attention_flops(q_shape, k_shape, causal, window)
+
+
+def _attention_backward_flop(q_shape, k_shape, v_shape, dout_shape, causal,
+                             window, *args, **kwargs) -> int:
+    """The backward's 5 products per visible pair (the scores again, dP,
+    dQ, dK, dV): 2.5 forwards. ``model_flops`` counts 2, the gradient
+    alone; the half more is the scores' recompute."""
+    return attention_flops(q_shape, k_shape, causal, window) * 5 // 2
+
+
+def attention_strategies(q, k, n_tensors: int, n_outputs: int,
+                         n_other: int) -> list:
+    """The op's placements on one mesh dim, as ``register_sharding`` takes
+    them: everything replicated; batch (dim 0) sharded on every tensor; or
+    heads (dim 1) sharded on every tensor where every mesh dim's size
+    divides KV (and so H), so that each rank's q heads read its own KV
+    heads. Seq and head_dim stay whole."""
+    from torch.distributed.tensor import Replicate, Shard
+
+    def every(p):
+        return [p] * n_outputs, [p] * n_tensors + [None] * n_other
+    out = [every(Replicate()), every(Shard(0))]
+    if all(k.shape[1] % n == 0 for n in k.mesh.shape):
+        out.append(every(Shard(1)))
+    return out
+
+
+def _register() -> None:
+    """Register the two ops, their fake implementations, autograd formula,
+    flop formulas and (with ``torch.distributed``) DTensor sharding rules.
+    DTensor redistributes the inputs to the cheapest strategy itself; a
+    ``local_map`` would leave that to every caller."""
+    lib = torch.library
+    fwd = lib.custom_op("repro_torch::flash_attention",
+                        mutates_args=())(_attention_impl)
+    bwd = lib.custom_op("repro_torch::flash_attention_backward",
+                        mutates_args=())(_attention_backward_impl)
+    fwd.register_fake(_attention_fake)
+    bwd.register_fake(_attention_backward_fake)
+    fwd.register_autograd(_backward, setup_context=_setup_context)
+    register_flop_formula(torch.ops.repro_torch.flash_attention)(
+        _attention_flop)
+    register_flop_formula(torch.ops.repro_torch.flash_attention_backward)(
+        _attention_backward_flop)
+    if torch.distributed.is_available():
+        from torch.distributed.tensor.experimental import register_sharding
+        register_sharding(torch.ops.repro_torch.flash_attention.default)(
+            lambda q, k, v, *o: attention_strategies(q, k, 3, 1, len(o)))
+        register_sharding(
+            torch.ops.repro_torch.flash_attention_backward.default)(
+            lambda q, k, v, dout, *o: attention_strategies(q, k, 4, 3,
+                                                           len(o)))
+
+
+# once per process: a copy of this module executed from its source (the
+# tests plant faults so) keeps the first registration, whose functions
+# call through the module's names
+if not hasattr(torch.ops.repro_torch, "flash_attention"):
+    _register()
+attention_op = torch.ops.repro_torch.flash_attention.default
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
@@ -554,9 +690,11 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     scale: Optional[float] = None,
                     block_q: Optional[int] = None,
                     block_k: Optional[int] = None) -> torch.Tensor:
-    """Online-softmax attention with a gradient (``FlashAttentionFn``):
-    CUDA tensors launch the kernels of the route ``attention_route``
-    names, CPU tensors take ``flash_attention_plain``; either way the
-    backward is ``flash_attention_backward``."""
-    return FlashAttentionFn.apply(q, k, v, causal, window, softcap, scale,
-                                  block_q, block_k)
+    """Online-softmax attention with a gradient (the op
+    ``repro_torch::flash_attention``): CUDA tensors launch the kernels of
+    the route ``attention_route`` names, CPU tensors take
+    ``flash_attention_plain``; either way the backward is
+    ``flash_attention_backward``. DTensors run the same on each rank's
+    shard, by the ops' sharding rules."""
+    return attention_op(q, k, v, causal, window, softcap, scale, block_q,
+                        block_k)

@@ -8,7 +8,10 @@ its plain version ``flash_attention_plain``), which takes (B, H, S, D): q,
 k and v are transposed to it, contiguous, at the call and back after.
 
 - GQA goes to the kernel as it is: q-head ``h`` reads kv-head
-  ``h // (H // KV)``, so K and V are never repeated per q-head.
+  ``h // (H // KV)``, so K and V are never repeated per q-head; only under
+  logical rules whose mesh shards q's heads but cannot shard the KV heads
+  alike are they repeated (``_repeat_kv_for_mesh``), as the reference
+  always repeats them.
 - Prefill is one call with ``causal=True`` and, on local layers,
   ``window=sliding_window``. The kernel's mask (``kpos <= qpos``, ``kpos >
   qpos - window``) is the reference's, so the reference's q-chunk loop,
@@ -27,11 +30,15 @@ from __future__ import annotations
 from typing import Callable
 
 import torch
+from torch.distributed.tensor import DTensor, Replicate
+from torch.distributed.tensor._utils import \
+    compute_local_shape_and_global_offset
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels.ops import flash_attention
 from repro_torch.models.layers import Spec, apply_rope, rms_norm
-from repro_torch.sharding import lshard
+from repro_torch.sharding import get_rules, lshard
+from repro_torch.sharding.logical import linear, merge_dims, split_dim
 
 
 def attn_specs(cfg: ModelConfig) -> dict:
@@ -56,8 +63,7 @@ def attn_specs(cfg: ModelConfig) -> dict:
 def _heads(x, w):
     """x (B, S, d) @ w (d, H, hd) -> (B, S, H, hd)."""
     d, h, hd = w.shape
-    return torch.matmul(x, w.to(x.dtype).reshape(d, h * hd)).view(
-        *x.shape[:2], h, hd)
+    return split_dim(linear(x, merge_dims(w.to(x.dtype), 1)), -1, (h, hd))
 
 
 def _project_qkv(p, x, cfg: ModelConfig, sin, cos):
@@ -94,9 +100,32 @@ def _attend(attend: Callable, q, k, v, **kw):
 
 def _out_proj(p, out, dt):
     """out (B, S, H, hd) @ wo (H, hd, d) -> (B, S, d)."""
-    h, hd, d = p["wo"].shape
-    return torch.matmul(out.reshape(*out.shape[:2], h * hd),
-                        p["wo"].to(dt).reshape(h * hd, d))
+    return linear(merge_dims(out, 2), merge_dims(p["wo"].to(dt), 0))
+
+
+def _repeat_kv_for_mesh(cfg: ModelConfig, q, k, v) -> tuple:
+    """k and v for the attention call: as they are, or, under logical rules
+    that shard q's heads over an axis that does not divide the KV heads,
+    repeated to the q heads (``cfg.repeat_kv``, the reference's expansion,
+    head ``h`` taking kv head ``h // group``), so that each rank attends
+    its own heads. The values are the same either way; the caches keep
+    the compact k and v."""
+    r = get_rules()
+    h, kv = q.shape[2], k.shape[2]
+    if r is None or not cfg.repeat_kv or kv == h:
+        return k, v
+    qs = r.spec(("batch", "seq", "heads", "head_dim"), q.shape, is_act=True)
+    ks = r.spec(("batch", "seq", "kv_heads", "head_dim"), k.shape,
+                is_act=True)
+    if qs[2] is None or ks[2] == qs[2]:
+        return k, v
+    names = ("batch", "seq", "heads", "head_dim")
+    # t[:, :, g] to heads g * rep ... g * rep + rep - 1, as
+    # repeat_interleave; a merge, whose gradient is a split that takes
+    # heads sharded unevenly for the KV heads (repeat_interleave's is a view
+    # DTensor refuses there)
+    return tuple(lshard(merge_dims(t[:, :, :, None].expand(
+        -1, -1, -1, h // kv, -1), 2), *names) for t in (k, v))
 
 
 def attention_full(p, x, cfg: ModelConfig, sin, cos, *, local: bool,
@@ -104,7 +133,8 @@ def attention_full(p, x, cfg: ModelConfig, sin, cos, *, local: bool,
     """Train / prefill attention over the full sequence, one ``attend``
     call. Returns (y, (k, v)), k and v in (B, S, KV, hd)."""
     q, k, v = _project_qkv(p, x, cfg, sin, cos)
-    out = _attend(attend, q, k, v, causal=True,
+    ka, va = _repeat_kv_for_mesh(cfg, q, k, v)
+    out = _attend(attend, q, ka, va, causal=True,
                   window=cfg.sliding_window if local else None,
                   softcap=cfg.attn_logit_softcap, scale=_scale(cfg))
     out = lshard(out, "batch", "seq", "heads", "head_dim")
@@ -148,6 +178,24 @@ def init_kv_cache(cfg: ModelConfig, batch: int, seq_len: int, *, local: bool,
             "v": torch.zeros(shp, dtype=dtype, device=device)}
 
 
+def write_slot(buf, slot: int, x) -> None:
+    """``buf[:, slot:slot + 1] = x``, in place. For a DTensor ``buf``, each
+    rank writes into its own shard, where the slot falls in it: DTensor's
+    slice of a dim sharded over the mesh (``kv_seq``) is a gathered copy,
+    so the write would be lost."""
+    if not isinstance(buf, DTensor):
+        buf[:, slot:slot + 1] = x
+        return
+    mesh = buf.device_mesh
+    x = x.redistribute(mesh, [Replicate() if p.is_shard(1) else p
+                              for p in buf.placements])
+    shape, offset = compute_local_shape_and_global_offset(
+        buf.shape, mesh, buf.placements)
+    lo = slot - offset[1]
+    if 0 <= lo < shape[1]:
+        buf.to_local()[:, lo:lo + 1] = x.to_local()
+
+
 def attention_decode(p, x, cache: dict, pos: int, cfg: ModelConfig,
                      sin, cos, *, local: bool,
                      attend: Callable = flash_attention):
@@ -162,8 +210,8 @@ def attention_decode(p, x, cache: dict, pos: int, cfg: ModelConfig,
     q, k, v = _project_qkv(p, x, cfg, sin, cos)
     L = cache["k"].shape[1]
     slot = pos % L
-    cache["k"][:, slot:slot + 1] = quantize_kv(cfg, k)
-    cache["v"][:, slot:slot + 1] = quantize_kv(cfg, v)
+    write_slot(cache["k"], slot, quantize_kv(cfg, k))
+    write_slot(cache["v"], slot, quantize_kv(cfg, v))
     valid = min(pos + 1, L)
     out = _attend(attend, q,
                   dequantize_kv(cfg, cache["k"][:, :valid], q.dtype),

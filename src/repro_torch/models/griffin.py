@@ -23,6 +23,7 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.models.layers import (Spec, act_fn, associative_scan,
                                        sigmoid, softplus)
 from repro_torch.sharding import lshard
+from repro_torch.sharding.logical import linear
 
 RGLRU_C = 8.0
 
@@ -106,9 +107,9 @@ def rglru_scan(log_a, x, h0=None):
 def rglru_block(p, x, cfg: ModelConfig, *, conv_state=None, h0=None):
     """Full recurrent block. x (B,T,d). Returns (y, (conv_state, h_last))."""
     dt = x.dtype
-    u = torch.matmul(x, p["wx"].to(dt))
+    u = linear(x, p["wx"].to(dt))
     u = lshard(u, "batch", "seq", "lru")
-    gate = act_fn("gelu")(torch.matmul(x, p["wy"].to(dt)))
+    gate = act_fn("gelu")(linear(x, p["wy"].to(dt)))
     u, new_conv = _causal_conv1d(u, p["conv_w"].to(dt), p["conv_b"].to(dt),
                                  state=conv_state)
     log_a, gated = _gates(p, u, cfg)
@@ -116,20 +117,20 @@ def rglru_block(p, x, cfg: ModelConfig, *, conv_state=None, h0=None):
     # the last state leaves in the activation dtype, as the reference's
     # (its h is re-bound to the cast); rglru_decode's is f32
     h = lshard(h.to(dt), "batch", "seq", "lru")
-    y = torch.matmul(h * gate, p["wo"].to(dt))
+    y = linear(h * gate, p["wo"].to(dt))
     return y, (new_conv, h[:, -1])
 
 
 def rglru_decode(p, x, conv_state, h_prev, cfg: ModelConfig):
     """Single-step decode: x (B,1,d); h_prev (B,W) f32."""
     dt = x.dtype
-    u = torch.matmul(x, p["wx"].to(dt))
-    gate = act_fn("gelu")(torch.matmul(x, p["wy"].to(dt)))
+    u = linear(x, p["wx"].to(dt))
+    gate = act_fn("gelu")(linear(x, p["wy"].to(dt)))
     u, new_conv = _causal_conv1d(u, p["conv_w"].to(dt), p["conv_b"].to(dt),
                                  state=conv_state)
     log_a, gated = _gates(p, u, cfg)
     h = torch.exp(log_a[:, 0]) * h_prev + gated[:, 0]     # (B,W) f32
-    y = torch.matmul(h[:, None].to(dt) * gate, p["wo"].to(dt))
+    y = linear(h[:, None].to(dt) * gate, p["wo"].to(dt))
     return y, (new_conv, h)
 
 

@@ -17,9 +17,14 @@ from typing import Callable, Optional, Sequence
 import numpy as np
 import torch
 import torch.nn.functional as F
+from torch.distributed.tensor import (DTensor, Partial, Replicate,
+                                      distribute_tensor)
+from torch.distributed.tensor._utils import \
+    compute_local_shape_and_global_offset
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.sharding import lshard
+from repro_torch.sharding.logical import constrain, linear
 from repro_torch.utils.tree import tree_map
 
 
@@ -35,6 +40,29 @@ class Spec:
 
     def __post_init__(self):
         assert len(self.shape) == len(self.names), (self.shape, self.names)
+
+
+def is_spec(x) -> bool:
+    return isinstance(x, Spec)
+
+
+def abstract_leaf(shape, dtype, sharding=None) -> torch.Tensor:
+    """A tensor of ``shape`` and ``dtype`` on the meta device (no memory):
+    plain without ``sharding``, else a DTensor of the sharding's placements
+    over its mesh, its local shard the shape one rank holds."""
+    t = torch.empty(tuple(shape), dtype=dtype, device="meta")
+    if sharding is None:
+        return t
+    return distribute_tensor(t, sharding.mesh, sharding.placements(),
+                             src_data_rank=None)
+
+
+def abstract_tree(specs, dtype, sharding_fn=None):
+    """Spec tree -> tree of meta tensors (``abstract_leaf``), each
+    distributed by ``sharding_fn(names, shape)`` where one is given."""
+    return tree_map(lambda s: abstract_leaf(
+        s.shape, dtype, None if sharding_fn is None
+        else sharding_fn(s.names, s.shape)), specs)
 
 
 def _fan_in(shape) -> int:
@@ -262,10 +290,99 @@ def mlp_specs(cfg: ModelConfig) -> dict:
 
 def mlp_apply(p, x, cfg: ModelConfig):
     a = act_fn(cfg.mlp_act)
-    h = a(torch.matmul(x, p["wg"].to(x.dtype)))
-    h = h * torch.matmul(x, p["wi"].to(x.dtype))
+    h = a(linear(x, p["wg"].to(x.dtype)))
+    h = h * linear(x, p["wi"].to(x.dtype))
     h = lshard(h, "batch", "seq", "d_ff")
-    return torch.matmul(h, p["wo"].to(x.dtype))
+    return linear(h, p["wo"].to(x.dtype))
+
+
+def _vocab_sharded(w, dim: int) -> bool:
+    return isinstance(w, DTensor) and any(p.is_shard(dim)
+                                          for p in w.placements)
+
+
+def _vocab_local(t, idx, dim: int, pl: list):
+    """For DTensor ``t`` sharded on vocab dim ``dim`` and integer ``idx``
+    (redistributed to ``pl``, which replicates it over the mesh dims that
+    shard the vocab): (t's local shard, the local index into it clamped
+    into it, a mask of the indices it holds, the output placements:
+    ``Partial()`` where the vocab is sharded, ``pl``'s elsewhere, the
+    output's leading shape)."""
+    mesh = t.device_mesh
+    if not isinstance(idx, DTensor):
+        idx = distribute_tensor(idx, mesh, [Replicate()] * mesh.ndim,
+                                src_data_rank=None)
+    loc = t.to_local()
+    start = compute_local_shape_and_global_offset(
+        t.shape, mesh, t.placements)[1][dim]
+    i = idx.redistribute(mesh, pl).to_local().long() - start
+    inside = (i >= 0) & (i < loc.shape[dim])
+    out = [Partial() if p.is_shard(dim) else q
+           for p, q in zip(t.placements, pl)]
+    return loc, i.clamp(0, loc.shape[dim] - 1), inside, out, idx.shape
+
+
+def _from_local(x, t, placements, shape):
+    return DTensor.from_local(x, t.device_mesh, placements, run_check=False,
+                              shape=shape, stride=torch.empty(
+                                  shape, device="meta").stride())
+
+
+def embed_lookup(w, tokens):
+    """``w[tokens]``: the rows of table ``w`` (V, d) at integer
+    ``tokens``. For a DTensor table with its vocab dim sharded, each rank
+    looks up the tokens that fall in its slice of the vocab (zeros
+    elsewhere) on its table gathered over d_model, and the result is their
+    ``Partial(sum)``; the tokens are gathered over the vocab's mesh dims
+    and keep their sharding on the others: the vocab-parallel embedding. DTensor's own rule for the lookup keeps a
+    mask whose reduction compares tensors by value (meta tensors, the
+    dry-run's, cannot), and has no strategy on a 3-D mesh."""
+    if not _vocab_sharded(w, 0):
+        return w[tokens]
+    w = w.redistribute(w.device_mesh, [p if p.is_shard(0) else Replicate()
+                                       for p in w.placements])
+    tok_pl = tokens.placements if isinstance(tokens, DTensor) else \
+        [Replicate()] * w.device_mesh.ndim
+    pl = [Replicate() if p.is_shard(0) or not q.is_shard() else q
+          for p, q in zip(w.placements, tok_pl)]
+    loc, i, inside, out, shape = _vocab_local(w, tokens, 0, pl)
+    rows = torch.where(inside[..., None], loc[i], 0.0)
+    return _from_local(rows.to(w.dtype), w, out, tuple(shape) + (w.shape[1],))
+
+
+def gold_logit(logits, labels):
+    """``logits[..., labels]``: the logit of each label. For a DTensor with
+    its vocab dim sharded, each rank picks the labels that fall in its
+    slice of the vocab (0 elsewhere) and the result is their
+    ``Partial(sum)``: DTensor's own rule for a vocab-sharded gather keeps a
+    mask whose reduction compares tensors by value, which meta tensors (the
+    dry-run's) cannot."""
+    vd = logits.dim() - 1
+    if not _vocab_sharded(logits, vd):
+        return torch.gather(logits, -1, labels.long()[..., None])[..., 0]
+    pl = [p if p.is_shard() and p.dim < vd else Replicate()
+          for p in logits.placements]
+    loc, i, inside, out, shape = _vocab_local(logits, labels, vd, pl)
+    g = torch.gather(loc, -1, i[..., None])[..., 0]
+    return _from_local(torch.where(inside, g, 0.0), logits, out, shape)
+
+
+def vocab_logsumexp(logits):
+    """``torch.logsumexp(logits, -1)``. For a DTensor with its vocab dim
+    sharded, ``max + log(sum(exp(logits - max)))`` over each rank's slice,
+    the max and the sum reduced across the ranks (a ``Partial`` each):
+    DTensor's own rule gathers the whole vocab onto every rank first. The
+    max and the sum, and the sum's gradient, are held replicated over the
+    vocab's mesh dims (DTensor would reduce-scatter them over the batch),
+    so that the softmax's gradient is formed on each rank's slice."""
+    vd = logits.dim() - 1
+    if not _vocab_sharded(logits, vd):
+        return torch.logsumexp(logits, dim=-1)
+    pl = [p if p.is_shard() and p.dim < vd else Replicate()
+          for p in logits.placements]
+    m = constrain(logits.detach().amax(dim=-1, keepdim=True), pl)
+    s = constrain(torch.exp(logits - m).sum(dim=-1, keepdim=True), pl)
+    return (m + torch.log(s))[..., 0]
 
 
 def cross_entropy(logits, labels, final_cap: Optional[float] = None,
@@ -274,8 +391,8 @@ def cross_entropy(logits, labels, final_cap: Optional[float] = None,
     the softcapped f32 logits' logsumexp minus the gold logit, plus
     ``z_loss * lse^2``, averaged over every label position."""
     logits = softcap(logits.to(torch.float32), final_cap)
-    lse = torch.logsumexp(logits, dim=-1)
-    gold = torch.gather(logits, -1, labels.long()[..., None])[..., 0]
+    lse = vocab_logsumexp(logits)
+    gold = gold_logit(logits, labels)
     loss = lse - gold
     if z_loss:
         loss = loss + z_loss * torch.square(lse)

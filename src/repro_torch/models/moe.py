@@ -22,6 +22,7 @@ import torch.nn.functional as F
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models.layers import Spec, act_fn
 from repro_torch.sharding import lshard
+from repro_torch.sharding.logical import merge_dims
 
 
 def moe_specs(cfg: ModelConfig) -> dict:
@@ -54,7 +55,7 @@ def moe_apply(p, x, cfg: ModelConfig):
     E, K = cfg.n_experts, cfg.top_k
     C = capacity(cfg, T)
     dt, dev = x.dtype, x.device
-    xf = x.reshape(T, d)
+    xf = merge_dims(x, 0)
 
     # --- routing (f32 for numerics) ---
     logits = torch.matmul(xf.to(torch.float32),

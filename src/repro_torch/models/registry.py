@@ -5,9 +5,9 @@ attention=...)`` picks what every attention layer calls, in ``forward``,
 ``prefill``, ``decode`` and ``loss`` alike: ``"cuda"`` (the default),
 ``repro_torch.kernels.ops.flash_attention``, whose CUDA tensors launch the
 port's kernels or raise and whose CPU tensors take the plain version, with
-the gradient of ``FlashAttentionFn`` on both; ``"torch"``, the plain
-version ``flash_attention_plain`` on either device (autograd
-differentiates it), which only the tests and ``chip_smoke.py``'s
+the gradient of the op ``repro_torch::flash_attention`` on both;
+``"torch"``, the plain version ``flash_attention_plain`` on either device
+(autograd differentiates it), which only the tests and ``chip_smoke.py``'s
 comparison use.
 """
 from __future__ import annotations

@@ -33,6 +33,7 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.models.layers import (Spec, act_fn, associative_scan,
                                        group_norm, sigmoid)
 from repro_torch.sharding import lshard
+from repro_torch.sharding.logical import linear, split_dim
 
 LW_CLAMP = -5.0   # per-step log-decay floor (exp(-5) ~ 0.0067: effectively 0)
 SUB = 16          # intra-chunk sub-block size
@@ -87,9 +88,9 @@ def _ddlerp(p, x, xprev):
     xx = xprev - x
     mx = p["maa"].to(dt)
     xxx = x + xx * mx[0]
-    lora = torch.tanh(torch.matmul(xxx, p["maa_w1"].to(dt)))
+    lora = torch.tanh(linear(xxx, p["maa_w1"].to(dt)))
     B, T, L5 = lora.shape
-    lora = lora.reshape(B, T, 5, L5 // 5)
+    lora = split_dim(lora, -1, (5, L5 // 5))
     m = torch.einsum("btfl,flc->fbtc", lora, p["maa_w2"].to(dt))  # (5,B,T,C)
     return [x + xx * (mx[i + 1] + m[i]) for i in range(5)]
 
@@ -99,12 +100,12 @@ def _project(p, x, xprev, cfg: ModelConfig):
     dt = x.dtype
     f32 = torch.float32
     x_w, x_k, x_v, x_r, x_g = _ddlerp(p, x, xprev)
-    r = torch.matmul(x_r, p["wr"].to(dt))
-    k = torch.matmul(x_k, p["wk"].to(dt))
-    v = torch.matmul(x_v, p["wv"].to(dt))
-    g = act_fn("silu")(torch.matmul(x_g, p["wg"].to(dt)))
-    w = p["w0"].to(f32) + torch.matmul(
-        torch.matmul(x_w.to(f32), p["wd1"].to(f32)), p["wd2"].to(f32))
+    r = linear(x_r, p["wr"].to(dt))
+    k = linear(x_k, p["wk"].to(dt))
+    v = linear(x_v, p["wv"].to(dt))
+    g = act_fn("silu")(linear(x_g, p["wg"].to(dt)))
+    w = p["w0"].to(f32) + linear(
+        linear(x_w.to(f32), p["wd1"].to(f32)), p["wd2"].to(f32))
     lw = torch.clamp(-torch.exp(w), min=LW_CLAMP)      # (B,T,C) log decay <= 0
     B, T, C = x.shape
     n = cfg.rwkv_head_dim
@@ -216,7 +217,7 @@ def rwkv6_time_mix(p, x, cfg: ModelConfig, *, xprev=None, state=None):
     y = group_norm(y, p["ln_x_scale"], p["ln_x_bias"], h)
     y = y * g
     y = lshard(y, "batch", "seq", "d_ff")
-    out = torch.matmul(y, p["wo"].to(dt))
+    out = linear(y, p["wo"].to(dt))
     return out, (x[:, -1], S_out)
 
 
@@ -235,7 +236,7 @@ def rwkv6_decode(p, x, prev_x, S, cfg: ModelConfig):
     y = y.reshape(B, 1, C).to(x.dtype)
     y = group_norm(y, p["ln_x_scale"], p["ln_x_bias"], h)
     y = y * g
-    out = torch.matmul(y, p["wo"].to(x.dtype))
+    out = linear(y, p["wo"].to(x.dtype))
     return out, (x[:, -1], S_out)
 
 
@@ -247,8 +248,8 @@ def rwkv6_channel_mix(p, x, cfg: ModelConfig, *, xprev=None):
     xx = xprev - x
     xk = x + xx * p["mu_k"].to(dt)
     xr = x + xx * p["mu_r"].to(dt)
-    kk = F.relu(torch.matmul(xk, p["wk"].to(dt)))
+    kk = F.relu(linear(xk, p["wk"].to(dt)))
     kk = kk * kk
     kk = lshard(kk, "batch", "seq", "d_ff")
-    kv = torch.matmul(kk, p["wv"].to(dt))
-    return sigmoid(torch.matmul(xr, p["wr"].to(dt))) * kv, x[:, -1]
+    kv = linear(kk, p["wv"].to(dt))
+    return sigmoid(linear(xr, p["wr"].to(dt))) * kv, x[:, -1]

@@ -26,7 +26,7 @@ Training: ``loss_fn`` is ``forward_backbone`` (each pattern group under
 ``_remat``'s checkpoint) then ``fused_head_loss``, which projects and
 scores the sequence a chunk at a time, each chunk checkpointed, so that
 the (tokens, vocab) logits never exist whole. The gradient of every
-attention layer is ``FlashAttentionFn``'s backward; a group's recompute
+attention layer is the attention op's backward; a group's recompute
 launches its attention kernels again. The reference's ``_sched_barrier``
 only orders its attention's q-chunks in the forward and passes the
 gradient through; the port's attention is one call and needs none.
@@ -38,6 +38,7 @@ from collections import namedtuple
 from typing import Callable
 
 import torch
+from torch.distributed.tensor import DTensor
 from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
                                     create_selective_checkpoint_contexts)
 
@@ -46,11 +47,12 @@ from repro_torch.configs.base import (ATTN_GLOBAL, ATTN_LOCAL, RGLRU, RWKV6,
 from repro_torch.kernels.ops import flash_attention
 from repro_torch.models import attention as attn
 from repro_torch.models import griffin, moe, rwkv6
-from repro_torch.models.layers import (Spec, cross_entropy, init_tree,
-                                       mlp_apply, mlp_specs, names_tree,
-                                       rms_norm, rope_angles, softcap,
-                                       stack_specs, tree_map)
+from repro_torch.models.layers import (Spec, cross_entropy, embed_lookup,
+                                       init_tree, mlp_apply, mlp_specs,
+                                       names_tree, rms_norm, rope_angles,
+                                       softcap, stack_specs, tree_map)
 from repro_torch.sharding import lshard
+from repro_torch.sharding.logical import linear, merge_dims, split_dim
 
 # a cache leaf's shape and dtype (the reference's ShapeDtypeStruct)
 TensorSpec = namedtuple("TensorSpec", "shape dtype")
@@ -183,10 +185,11 @@ def embed(params, batch, cfg: ModelConfig):
         tok = batch["tokens"].long()
         w = params["embed"]
         if cfg.n_codebooks:                    # (B,K,S) -> sum_k E_k[tok_k]
-            xs = [w[k][tok[:, k]] for k in range(cfg.n_codebooks)]
+            xs = [embed_lookup(w[k], tok[:, k])
+                  for k in range(cfg.n_codebooks)]
             x = functools.reduce(torch.add, xs).to(dt)
         else:
-            x = w[tok].to(dt)
+            x = embed_lookup(w, tok).to(dt)
     if cfg.emb_scale:
         x = x * torch.tensor(cfg.d_model ** 0.5, dtype=dt)
     return lshard(x, "batch", "seq", "d_model")
@@ -194,11 +197,17 @@ def embed(params, batch, cfg: ModelConfig):
 
 def lm_head(params, x, cfg: ModelConfig):
     if cfg.tie_embeddings:
-        logits = torch.matmul(x, params["embed"].to(x.dtype).t())
+        logits = linear(x, params["embed"].to(x.dtype).t())
+    elif cfg.n_codebooks and isinstance(x, DTensor):
+        # the einsum's own reshapes merge a sharded sequence, which DTensor
+        # refuses: the same product by linear, (d, K * V) split to (K, V)
+        head = params["head"].to(x.dtype)
+        logits = split_dim(linear(x, merge_dims(head.permute(1, 0, 2), 1)),
+                           -1, tuple(head.shape[::2]))
     elif cfg.n_codebooks:
         logits = torch.einsum("bsd,kdv->bskv", x, params["head"].to(x.dtype))
     else:
-        logits = torch.matmul(x, params["head"].to(x.dtype))
+        logits = linear(x, params["head"].to(x.dtype))
     return lshard(logits, "batch", "seq", None, "vocab") \
         if cfg.n_codebooks else lshard(logits, "batch", "seq", "vocab")
 

@@ -12,8 +12,10 @@ import dataclasses
 from typing import Optional, Union
 
 import torch
+from torch.distributed.tensor import DTensor
 
 from repro_torch.models.layers import tree_map
+from repro_torch.utils.tree import tree_leaves
 from repro_torch.models.registry import Model
 
 
@@ -64,11 +66,19 @@ class ServeSession:
         self._prefill = make_prefill_step(self.model)
         self._decode = make_decode_step(self.model)
 
-    @torch.inference_mode()
     def generate(self, tokens, n_steps: int):
         """tokens: (B, S) prompt (or (B,K,S) for codebook models), a tensor
         or an array. Returns (B, n_steps) (or (B, K*n_steps)) int32 tokens
-        on the session's device."""
+        on the session's device. Runs under ``torch.inference_mode``, or
+        ``torch.no_grad`` where the params are DTensors (under logical
+        rules), which inference mode does not take (a view of a DTensor
+        made in it cannot keep a version counter)."""
+        dtensors = any(isinstance(t, DTensor)
+                       for t in tree_leaves(self.params))
+        with torch.no_grad() if dtensors else torch.inference_mode():
+            return self._generate(tokens, n_steps)
+
+    def _generate(self, tokens, n_steps: int):
         cfg = self.model.cfg
         tokens = torch.as_tensor(tokens, device=self.device)
         logits, caches = self._prefill(self.params, {"tokens": tokens})

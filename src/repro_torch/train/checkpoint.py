@@ -9,12 +9,13 @@ Layout:  <dir>/step_<N>/{meta.json, arrays/<flat-path>.npy}
     before the thread starts, so the caller may change its tensors, in
     place too, as soon as ``save`` returns;
   * restore() puts every array on an explicit ``device``, in the
-    template's dtypes.
+    template's dtypes; with a ``sharding_tree`` (the template's structure,
+    leaves ``sharding.logical.NamedSharding``), each leaf becomes a DTensor
+    of its sharding's placements on its mesh, each rank keeping its own
+    shard of the file's array (no collective): the elastic-remesh path.
 
 A checkpoint written by either package restores in the other, equal by
-bits: both write the same files. The reference's restore onto a sharding
-tree (``jax.device_put`` onto the current mesh) waits for the port of
-``sharding/`` and ``launch/``.
+bits: both write the same files.
 """
 from __future__ import annotations
 
@@ -68,6 +69,14 @@ def _unflatten_into(template, flat: dict):
             return type(node)(t)
         return flat[_SEP.join(path)]
     return walk([], template)
+
+
+def _distribute(t: torch.Tensor, sharding):
+    """``t`` (the whole array, on every rank) as a DTensor of ``sharding``:
+    each rank keeps its own shard, without communication."""
+    from torch.distributed.tensor import distribute_tensor
+    return distribute_tensor(t, sharding.mesh, sharding.placements(),
+                             src_data_rank=None)
 
 
 class CheckpointManager:
@@ -143,21 +152,27 @@ class CheckpointManager:
         return steps[-1] if steps else None
 
     def restore(self, template, step: Optional[int] = None, *,
-                device="cpu"):
+                device="cpu", sharding_tree=None):
         """Restore into the structure of ``template``: each leaf a tensor
         on ``device``, in the dtype of the template's leaf where it has
-        one (a tensor or an array), else in the file's."""
+        one (a tensor or an array), else in the file's. With a
+        ``sharding_tree`` of the same structure, each leaf that has a
+        sharding is a DTensor on that sharding's mesh, its placements, on
+        ``device``."""
         step = self.latest_step() if step is None else step
         assert step is not None, "no checkpoint found"
         arrays = os.path.join(self._step_dir(step), "arrays")
+        flat_s = _flatten(sharding_tree) if sharding_tree is not None else {}
         out = {}
         for k, ref in _flatten(template).items():
             v = np.load(os.path.join(arrays, k + ".npy"))
             if isinstance(ref, torch.Tensor):
-                out[k] = torch.from_numpy(v).to(device=device,
-                                                dtype=ref.dtype)
-                continue
-            if hasattr(ref, "dtype"):
-                v = v.astype(ref.dtype)
-            out[k] = torch.from_numpy(v).to(device)
+                t = torch.from_numpy(v).to(device=device, dtype=ref.dtype)
+            else:
+                if hasattr(ref, "dtype"):
+                    v = v.astype(ref.dtype)
+                t = torch.from_numpy(v).to(device)
+            if flat_s.get(k) is not None:
+                t = _distribute(t, flat_s[k])
+            out[k] = t
         return _unflatten_into(template, out), step

@@ -12,9 +12,15 @@ the port of ``sharding/`` and ``launch/``.
 """
 from __future__ import annotations
 
-import torch
+from typing import Optional
 
+import torch
+from torch.distributed.tensor import DTensor, Shard
+
+from repro_torch.models.layers import abstract_leaf, abstract_tree
 from repro_torch.models.registry import Model
+from repro_torch.sharding.logical import (LogicalRules, NamedSharding, P,
+                                          get_rules)
 from repro_torch.train.optimizer import AdamWConfig, adamw_update
 from repro_torch.utils.tree import tree_cast, tree_leaves, tree_map
 
@@ -26,17 +32,39 @@ def compute_params(params, dtype: torch.dtype):
                     tree_cast(params, dtype))
 
 
+def _placed_like(g, p):
+    """Gradient ``g`` in the placements of its param ``p`` (a DTensor's;
+    a plain tensor's gradient as it is)."""
+    if isinstance(p, DTensor) and tuple(g.placements) != tuple(p.placements):
+        return g.redistribute(p.device_mesh, p.placements)
+    return g
+
+
 def loss_and_grads(model: Model, params_c, batch) -> tuple:
     """(loss, metrics, grads) of ``model.loss`` at ``params_c``
-    (``compute_params``' tree), the gradients in its dtype; a leaf the
-    loss does not reach gets zeros, as ``jax.grad`` gives it."""
+    (``compute_params``' tree), the gradients in its dtype and its leaves'
+    placements; a leaf the loss does not reach gets zeros, as ``jax.grad``
+    gives it."""
     loss, metrics = model.loss(params_c, batch)
     loss.backward()
     grads = tree_map(lambda p: torch.zeros_like(p) if p.grad is None
-                     else p.grad, params_c)
+                     else _placed_like(p.grad, p), params_c)
     for p in tree_leaves(params_c):
         p.grad = None
     return loss.detach(), tree_map(torch.Tensor.detach, metrics), grads
+
+
+def microbatch(x, n: int, i: int):
+    """Microbatch ``i`` of ``n`` of ``x`` along its leading dim: the
+    reference's ``reshape((n, B // n) + rest)[i]``; for a DTensor sharded
+    on that dim, the same slice of each rank's shard (the module
+    docstring)."""
+    if isinstance(x, DTensor) and Shard(0) in x.placements:
+        loc = x.to_local()
+        loc = loc.reshape((n, loc.shape[0] // n) + tuple(loc.shape[1:]))[i]
+        return DTensor.from_local(loc, x.device_mesh, x.placements,
+                                  run_check=False)
+    return x.reshape((n, x.shape[0] // n) + tuple(x.shape[1:]))[i]
 
 
 def make_train_step(model: Model, opt_cfg: AdamWConfig,
@@ -58,11 +86,10 @@ def make_train_step(model: Model, opt_cfg: AdamWConfig,
         else:
             loss = torch.zeros((), dtype=torch.float32,
                                device=tree_leaves(params)[0].device)
-            grads = tree_map(lambda p: torch.zeros(
-                p.shape, dtype=torch.float32, device=p.device), params)
+            grads = tree_map(lambda p: torch.zeros_like(
+                p, dtype=torch.float32), params)
             for i in range(grad_accum):
-                mb = {k: x.reshape((grad_accum, x.shape[0] // grad_accum)
-                                   + tuple(x.shape[1:]))[i]
+                mb = {k: microbatch(x, grad_accum, i)
                       for k, x in batch.items()}
                 lo, metrics, g = loss_and_grads(model, params_c, mb)
                 loss = loss + lo
@@ -76,3 +103,19 @@ def make_train_step(model: Model, opt_cfg: AdamWConfig,
         return params, opt_state, {"loss": loss, **metrics, **opt_metrics}
 
     return train_step
+
+
+def abstract_params(model: Model, rules: Optional[LogicalRules] = None):
+    """Meta tensor tree of the params (DTensors of the rules' shardings
+    when rules are given or active)."""
+    rules = rules or get_rules()
+    fn = (lambda names, shape: rules.sharding(names, shape)) if rules else None
+    return abstract_tree(model.specs(), getattr(torch, model.cfg.param_dtype),
+                         fn)
+
+
+def abstract_opt_state(model: Model, rules: Optional[LogicalRules] = None):
+    p = abstract_params(model, rules)
+    rules = rules or get_rules()
+    rep = None if rules is None else NamedSharding(rules.mesh, P())
+    return {"step": abstract_leaf((), torch.int32, rep), "mu": p, "nu": p}

@@ -32,6 +32,15 @@ def tree_map(fn: Callable, tree, *rest):
     return fn(tree, *rest)
 
 
+def tree_map_with_path(fn: Callable, tree, path: tuple = ()):
+    """``fn(path, leaf)`` over the leaves of nested dicts, ``path`` the
+    tuple of keys down to the leaf."""
+    if isinstance(tree, dict):
+        return {k: tree_map_with_path(fn, v, path + (k,))
+                for k, v in tree.items()}
+    return fn(path, tree)
+
+
 def tree_param_count(tree) -> int:
     """Total number of scalar parameters in a tree of tensors."""
     return sum(x.numel() for x in tree_leaves(tree)

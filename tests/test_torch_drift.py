@@ -106,6 +106,21 @@ def test_port_imports_neither_jax_nor_repro():
         "        mem_widths=(8,), spad_scales=(1,), tune='full',\n"
         "        backend='torch-cpu', per_layer=False)\n"
         "    assert len(res.points['mobilenet1.0']) == 1\n"
+        "import repro_torch.sharding.logical, repro_torch.launch.mesh\n"
+        "import repro_torch.launch.specs, repro_torch.launch.dryrun\n"
+        "import repro_torch.core.roofline, repro_torch.core.sharding_search\n"
+        "import repro_torch.analysis.collectives\n"
+        "import repro_torch.analysis.roofline, repro_torch.analysis.sweep\n"
+        "import repro_torch.analysis.hillclimb\n"
+        "import repro_torch.launch.mesh as M\n"
+        "M.PRODUCTION_SHAPES[False] = ((2, 2), ('data', 'model'))\n"
+        "from repro_torch.configs import ARCHS, SMOKE_ARCHS\n"
+        "ARCHS['qwen3-0.6b'] = SMOKE_ARCHS['qwen3-0.6b']\n"
+        "from repro_torch.configs.base import SHAPES, ShapeConfig\n"
+        "SHAPES['train_4k'] = ShapeConfig('train_4k', 16, 4, 'train')\n"
+        "r = repro_torch.launch.dryrun.run_cell('qwen3-0.6b', 'train_4k',\n"
+        "                                       verbose=False)\n"
+        "assert r['collectives']['total_bytes'] > 0, r\n"
         "bad = sorted(k for k in sys.modules\n"
         "             if k.split('.')[0] in ('jax', 'jaxlib', 'repro'))\n"
         "assert not bad, bad\n"
@@ -432,3 +447,66 @@ def test_double_buffer_copy_matches_the_original():
             assert got.reduction == want.reduction
             checked += 1
     assert checked > 50
+
+
+def test_mesh_layer_copies_match_the_originals():
+    """The pure logic the mesh layer copies: the rule tables and dim
+    vocabulary, ``_rank`` over every name, SPS's candidates, the dry-run's
+    cells and override parsing, ``model_flops`` of every cell, and the VTA
+    roofline."""
+    import itertools
+    from repro.analysis.roofline import model_flops as jmf
+    from repro.configs import ARCHS as JARCHS
+    from repro.core import dse as jdse
+    from repro.core import roofline as jroof
+    from repro.core.sharding_search import candidate_tables as jcand
+    from repro.launch import specs as jspecs
+    from repro.sharding import logical as jlog
+    from repro_torch.analysis.roofline import model_flops as tmf
+    from repro_torch.configs import ARCHS as TARCHS
+    from repro_torch.core import dse as tdse
+    from repro_torch.core import roofline as troof
+    from repro_torch.core.sharding_search import candidate_tables as tcand
+    from repro_torch.launch import dryrun as tdry
+    from repro_torch.launch import specs as tspecs
+    from repro_torch.sharding import logical as tlog
+    jdry = _jax_dryrun_helpers()
+    for name in ("LOGICAL_DIMS", "DEFAULT_RULES", "PRIORITY_WEIGHTS",
+                 "PRIORITY_ACTS"):
+        assert getattr(tlog, name) == getattr(jlog, name), name
+    for n, act in itertools.product(tlog.LOGICAL_DIMS + (None, "x"),
+                                    (False, True)):
+        assert tlog._rank(n, is_act=act) == jlog._rank(n, is_act=act)
+    assert tspecs._CACHE_DIM_NAMES == jspecs._CACHE_DIM_NAMES
+    assert tcand() == jcand()
+    assert tdry.runnable_cells() == jdry["runnable_cells"]()
+    for pairs in (["a=1", "b=2.5", "c=true", "d=False", "e=dots"], [], None,
+                  ["x=1e3", "y=-4", "z=a=b"]):
+        assert tdry.parse_overrides(pairs) == jdry["parse_overrides"](pairs)
+    for arch, shape in tdry.runnable_cells():
+        assert tmf(TARCHS[arch], shape) == jmf(JARCHS[arch], shape)
+    for lb, mw in itertools.product((3, 4, 5, 6), (8, 16, 32, 64)):
+        thw, jhw = tdse.make_config(lb, mw, 1), jdse.make_config(lb, mw, 1)
+        assert troof.vta_bounds(thw) == jroof.vta_bounds(jhw)
+        for x in (0.0, 0.5, 3.0, 1e6):
+            assert troof.vta_attainable(thw, x) == jroof.vta_attainable(jhw, x)
+        assert troof.vta_roofline_point(lb * 100, mw, lb + mw) == \
+            jroof.vta_roofline_point(lb * 100, mw, lb + mw)
+
+
+def _jax_dryrun_helpers() -> dict:
+    """``runnable_cells`` and ``parse_overrides`` of the JAX package's
+    dry-run, whose import sets XLA_FLAGS for 512 host devices: its module
+    is loaded with ``os.environ`` restored afterwards, so that a later JAX
+    backend in this process keeps the real device count."""
+    import importlib
+    saved = os.environ.get("XLA_FLAGS")
+    try:
+        mod = importlib.import_module("repro.launch.dryrun")
+    finally:
+        if saved is None:
+            os.environ.pop("XLA_FLAGS", None)
+        else:
+            os.environ["XLA_FLAGS"] = saved
+    return {"runnable_cells": mod.runnable_cells,
+            "parse_overrides": mod.parse_overrides}

@@ -39,17 +39,24 @@ def test_every_fault_route_has_cases():
     phase-4 or phase-2 cases of its kernel, phase 3's checks of the
     captured path, phase 6's checks of the worker pool or the ladder,
     phase 7's golden runs of the language-model session, phase 8's
-    golden training runs, or phase 9's checks of the design-space
-    sweep."""
+    golden training runs, phase 9's checks of the design-space sweep, or
+    the part of phase 10 (the mesh layer) the fault lies in."""
     attention = {"decode", "mma", "tf32x3"}
     for route, *_ in CS.PLANTED_FAULTS.values():
         assert route in attention | set(CS.LAYER_FAULT_KEYS) | set(
             CS.VTA_FAULT_KEYS) | set(CS.SERVE_FAULT_KEYS) | set(
             CS.POOL_FAULT_KEYS) | set(CS.LM_FAULT_KEYS) | set(
-            CS.TRAIN_FAULT_KEYS) | set(CS.DSE_FAULT_KEYS)
+            CS.TRAIN_FAULT_KEYS) | set(CS.DSE_FAULT_KEYS) | set(
+            CS.MESH_FAULT_KEYS)
     assert {f for f, spec in CS.PLANTED_FAULTS.items()
             if spec[0] == "dse"} == {"dse.card_fault_absorbed",
                                      "dse.captured", "dse.verify_on_cpu"}
+    assert {(f, spec[0]) for f, spec in CS.PLANTED_FAULTS.items()
+            if spec[0] in CS.MESH_FAULT_KEYS} == {
+        ("mesh_serve.dtensor_plain_attention", "mesh_serve"),
+        ("mesh_restore.ignores_sharding_tree", "mesh_restore"),
+        ("mesh_dryrun.global_flops", "mesh_dryrun"),
+        ("mesh_dryrun.flops_counted_twice", "mesh_dryrun")}
 
 
 def test_alu_edge_cases_reach_every_scalar_path():
