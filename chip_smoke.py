@@ -168,31 +168,47 @@ order; any failure raises and the script exits nonzero:
    user calls: ``build_model``, ``ServeSession(model, params).generate``
    on the card, every attention layer on the port's kernels, the RWKV-6
    and RG-LRU blocks in PyTorch. The golden runs (``golden_errors``), in
-   f32 against ``tests/golden/lm_session_f32.json`` and
-   ``lm_session_recurrent_f32.json``, which ``tests/make_lm_golden.py``
-   writes from the JAX package's ``ServeSession`` on the CPU: Qwen3-0.6B
-   at full width (its depth cut to the file's 4 layers), Gemma-2 27B's
-   smoke config (local layers with a window of 8 against 32-token
-   prompts), RWKV-6 1.6B at full width cut to 2 layers (2048-token
-   prompts: two chunks of 1024, the state carried between) and its smoke
-   config (40 tokens: one padded chunk), RecurrentGemma-9B at full width
-   cut to one pattern group of 3 layers, and its smoke config (window 8,
-   32 tokens); weights from ``numpy_params`` and the file's seed (their
+   f32 against ``tests/golden/lm_session_f32.json``,
+   ``lm_session_recurrent_f32.json`` and ``lm_session_moe_f32.json``,
+   which ``tests/make_lm_golden.py`` writes from the JAX package's
+   ``ServeSession`` on the CPU: Qwen3-0.6B at full width (its depth cut
+   to the file's 4 layers), Gemma-2 27B's smoke config (local layers with
+   a window of 8 against 32-token prompts), RWKV-6 1.6B at full width cut
+   to 2 layers (2048-token prompts: two chunks of 1024, the state carried
+   between) and its smoke config (40 tokens: one padded chunk),
+   RecurrentGemma-9B at full width cut to one pattern group of 3 layers,
+   and its smoke config (window 8, 32 tokens), Moonshot-v1-16B-A3B at full
+   width (64 experts, top-6) cut to 1 layer, and the Moonshot and Mixtral
+   smoke configs (each row carries the golden's smallest router margin);
+   weights from ``numpy_params`` and the file's seed (their
    sha256 must be the file's, and every weight the reference reads in f32
    must stay f32), 2 prompts, 8 greedy steps: the tokens equal, the
    logits at the file's top 8 of every step within ``LM_F32_TOL``, and
    the attention launches exactly one prefill per attention layer and one
    decode and combine per attention layer and step
    (``lm_launches_want``). The bf16 runs (``lm_bf16``, ``LM_BF16_RUNS``),
-   each at full width and depth, weights from a seeded generator on the
-   card, launch counts zeroed just before and read just after: Qwen3-0.6B,
-   4 prompts of 1024 tokens, 32 steps (28 ``flash_attention.mma``, 28 x
-   32 ``flash_attention.decode`` and ``flash_attention_combine``);
-   RecurrentGemma-9B, 2 prompts of 2560 tokens (past its 2048 window),
-   32 steps (12 ``mma`` per prefill, 12 ``decode`` and 12 ``combine`` a
-   step), its f32 master weights freed once cast; each step's logits of
-   both against the same model on ``flash_attention_plain`` fed the
-   kernels' tokens, within ``LM_BF16_TOL``, every argmax equal. RWKV-6
+   each at full width and depth, weights drawn from a seeded generator on
+   the card straight in their serving dtypes (``ServeSession.from_seed``;
+   ``init_session``: init's peak within ``INIT_PEAK_SLACK`` of what it
+   holds, which is the params' size, and the weights the reference reads
+   in f32 kept f32), launch counts zeroed just before and read just
+   after: Qwen3-0.6B, 4 prompts of 1024 tokens, 32 steps (28
+   ``flash_attention.mma``, 28 x 32 ``flash_attention.decode`` and
+   ``flash_attention_combine``); RecurrentGemma-9B, 2 prompts of 2560
+   tokens (past its 2048 window), 32 steps (12 ``mma`` per prefill, 12
+   ``decode`` and 12 ``combine`` a step); Moonshot-v1-16B-A3B, 4 prompts
+   of 1024 tokens, 32 steps (48 ``mma``, 48 ``decode`` and 48 ``combine``
+   a step; 56.1 GB of params, freed before the next phase); each step's
+   logits of the three against the same model on
+   ``flash_attention_plain`` fed the kernels' tokens (Moonshot's also the
+   kernels' routing, each MoE layer's top-k indices recorded in the
+   kernels' run by ``routing``; the choices the plain run would have made
+   otherwise counted, not held), within ``LM_BF16_TOL``, every argmax
+   equal (Moonshot's but where one run's largest logit is held by two
+   tokens, the other run's choice one of them: ``exact_tie``, listed).
+   Each times its prefill after one uncounted generation at the timed
+   shape (``warm_prefill``: its prefill ms and ``cudaMalloc`` calls, and
+   the timed run's, recorded). RWKV-6
    1.6B, 4 prompts of 2048 tokens, 32 steps, no kernel: finite logits;
    then, in f32 at full width and depth, a decode step of its first token
    against its forward pass over the prompt and that token, within
@@ -263,9 +279,12 @@ order; any failure raises and the script exits nonzero:
 10. The mesh layer (``mesh_checks``), on a one-rank ``nccl`` process group
    it starts (after phase 6's spawned worker has exited) and destroys,
    over the mesh ``make_mesh((1, 1), ("data", "model"))`` on the card,
-   where every placement is ``Replicate()``. 10a (``mesh_serve``): phase
-   7's Qwen3-0.6B run (4 x 1024, 32 steps, bf16, full width and depth)
-   twice on the same seeded params, as phase 7 runs it and with the params
+   where every placement is ``Replicate()``. 10a (``mesh_serve``): each
+   run of ``MESH_SERVE_RUNS`` (phase 7's Qwen3-0.6B run, 4 x 1024, 32
+   steps; RWKV-6 1.6B at full width and depth, 4 x 2048, 8 steps; Moonshot
+   at full width cut to 4 layers, 4 x 1024, 8 steps, its params from the
+   init in the serving dtypes with that init's checks; all bf16) twice on
+   the same seeded params, as phase 7 runs it and with the params
    distributed by the logical rules and ``generate`` under ``use_rules``:
    tokens and every step's logits equal by bits, the attention launches
    under the rules exactly phase 7's; prefill and decode ms of both, and
@@ -277,13 +296,16 @@ order; any failure raises and the script exits nonzero:
    (``mesh_restore``): 10b's starting params checkpointed and restored by
    ``elastic_remesh`` onto ``surviving_mesh(0)``: every leaf a DTensor on
    the card with the rules' placements, equal by bits. 10d
-   (``mesh_dryrun``): ``python -m repro_torch.launch.dryrun --arch
-   qwen3-0.6b --shape train_4k``, single-pod and ``--multi-pod``, each a
-   subprocess (a fake process group cannot share a process with the nccl
-   one): each ends, its ``peak_est_bytes`` below the card's memory, the
-   16x16 run counts collectives, per-device flops times the ranks over
-   ``model_flops`` within ``MESH_FLOP_BAND``; the per-device numbers,
-   roofline terms and wall time printed.
+   (``mesh_dryrun``): ``python -m repro_torch.launch.dryrun --shape
+   train_4k`` for qwen3-0.6b, moonshot-v1-16b-a3b and rwkv6-1.6b
+   (``MESH_DRYRUN``), single-pod and ``--multi-pod``, each a subprocess
+   (a fake process group cannot share a process with the nccl one), all
+   six at once: each ends, its ``peak_est_bytes`` below the card's memory,
+   the 16x16 run counts collectives, per-device flops times the ranks over
+   ``model_flops`` within the arch's band on that mesh of
+   ``MESH_FLOP_BANDS`` (qwen3 and moonshot; recorded for all); the
+   per-device numbers, roofline terms
+   and wall time printed.
 
 Output: one line per kernel (and per phase-4 case), ms per dispatch per
 bucket (median, min, max), then a JSON line of serving numbers (per bucket,
@@ -345,8 +367,12 @@ backward whose dK and dV keep one query head of each GQA group; in the
 sweep, ``CardFault`` caught at ``eval_job`` as an infeasible point, a
 verification on the captured route, and one that resolves the card to
 ``"torch-cpu"``; in the mesh layer, a DTensor attention that takes the
-plain version on the card, a restore that ignores its sharding tree, and a
-dry-run that reports global flops as per-device), the
+plain version on the card, a restore that ignores its sharding tree, a
+dry-run that reports global flops as per-device, one that counts every
+product twice, a MoE capacity from a rank's own tokens and a token shift
+under the rules one position off; a MoE combine that drops expert 0's
+rows; an init in the serving dtypes that rounds the router to bf16, and
+one that keeps the f32 tree beside its cast), the
 unchanged sources are built once into a build directory the copies share,
 and each copy builds its changed source and runs the cases of its route
 through their limit checks (``--case-errors``, three copies at a time): the
@@ -357,7 +383,9 @@ cases of the VTA GEMM or the ALU stage-program kernel, phase 3's checks
 (``serve_checks``, one line a check), or phase 6's (``pool_checks``: the
 scale-out, the cold race, the two pools and the drill for route
 ``pool``, the ladder drill for ``ladder``), or the golden runs of phase
-7 (``lm_errors``) or phase 8 (``train_errors``), or phase 9's checks
+7 (``lm_errors``) or phase 8 (``train_errors``), or the init in the
+serving dtypes of Moonshot cut to 4 layers (``init_errors``: its peak,
+what it holds, its f32 leaves), or phase 9's checks
 (``dse_errors``), or the part of phase 10 the fault lies in
 (``mesh_errors``: 10a, 10c or 10d); the unchanged copy runs
 all of them. One JSON line per (fault, case) gives the kernel's error
@@ -368,6 +396,8 @@ fails at least one.
 """
 from __future__ import annotations
 
+import contextlib
+import gc
 import hashlib
 import json
 import math
@@ -2759,6 +2789,8 @@ def pool_checks(trunk, small, route: str = "all") -> tuple:
 LM_GOLDEN = os.path.join(ROOT, "tests", "golden", "lm_session_f32.json")
 LM_GOLDEN_RECURRENT = os.path.join(ROOT, "tests", "golden",
                                    "lm_session_recurrent_f32.json")
+LM_GOLDEN_MOE = os.path.join(ROOT, "tests", "golden",
+                             "lm_session_moe_f32.json")
 # f32 against the JAX package (CPU): |logit - golden| on the golden's 8
 # largest logits of every step. Both sides are f32 (TF32 off in the
 # matmuls, the prefill kernel at 3xTF32, ~2^-22 per product) summed in
@@ -2780,6 +2812,12 @@ LM_BF16_TOL = 2.0 ** -4
 # H100): rounding noise through 2048 steps of a data-dependent decay,
 # recorded, not held
 LM_FORWARD_TOL = 1e-3
+# init in the serving dtypes (``ServeSession.from_seed``): the peak of
+# allocated memory over the params it leaves may be one stacked leaf's
+# slice drawn in f32 (738 MB for a Moonshot expert slice), or one unsliced
+# leaf of up to ``transformer.SLICE_BYTES`` in f32, and its cast: under
+# 2.5 GB. Keeping the f32 tree beside its cast costs twice the params
+INIT_PEAK_SLACK = 2.5e9
 # bf16 at full width and depth, weights from a seeded generator on the card
 LM_BF16_RUNS = (
     dict(name="qwen3-0.6b", seed=0, batch=4, prompt_len=1024, steps=32),
@@ -2788,6 +2826,14 @@ LM_BF16_RUNS = (
     # every local layer wraps from the first decode step
     dict(name="recurrentgemma-9b", seed=0, batch=2, prompt_len=2560,
          steps=32),
+    # 28.06 B parameters, 56.1 GB in bf16: fits one card only through the
+    # init in the serving dtypes. ``exact_ties``: an argmax that differs
+    # from the plain run's where one run's largest logit is held by two
+    # tokens, the other run's choice one of them, is listed, not counted
+    # (this run's steps 6 and 9 on the card: the kernels' 3.78125 and
+    # 3.875, each held twice)
+    dict(name="moonshot-v1-16b-a3b", seed=0, batch=4, prompt_len=1024,
+         steps=32, exact_ties=True),
 )
 
 
@@ -2797,11 +2843,11 @@ def lm_golden(path: str = LM_GOLDEN) -> list:
 
 
 def lm_config(run: dict):
-    """The port's config of a golden run: its name, smoke or not, with the
-    run's overrides."""
+    """The port's config of a run: its name, smoke or not, with the run's
+    overrides (a golden run has both keys; a serving run may give either)."""
     from repro_torch.configs import ARCHS, SMOKE_ARCHS
-    return (SMOKE_ARCHS if run["smoke"] else ARCHS)[run["name"]].replace(
-        **run["overrides"])
+    return (SMOKE_ARCHS if run.get("smoke") else ARCHS)[run["name"]].replace(
+        **run.get("overrides", {}))
 
 
 def attention_layers(cfg) -> int:
@@ -2922,6 +2968,8 @@ def golden_errors(run: dict, device) -> tuple:
                steps=run["steps"], max_err=worst, limit=LM_F32_TOL,
                low_margin_steps=low, tokens_compared=upto, seconds=secs,
                launches={k: counts.get(k, 0) for k in want})
+    if "router_margin" in run:
+        row["router_margin"] = run["router_margin"]
     return errs, row
 
 
@@ -2979,6 +3027,40 @@ def profiled_shares(fn) -> dict:
                 attention_backward_share=backward / total)
 
 
+def exact_tie(g, r) -> bool:
+    """Whether two logits rows ``g`` and ``r`` whose first argmaxes differ
+    agree on a greedy choice all the same: one row's largest logit is held
+    by several tokens, the other row's argmax among them. ``argmax`` then
+    takes the lower index of an exact tie, a choice the numerics did not
+    make."""
+    i, j = int(g.argmax()), int(r.argmax())
+    return bool(g[j] == g[i]) or bool(r[i] == r[j])
+
+
+def segments() -> int:
+    """The caching allocator's ``cudaMalloc`` calls so far."""
+    import torch
+    return torch.cuda.memory_stats().get("segment.all.allocated", 0)
+
+
+def warm_prefill(sess, prompts) -> dict:
+    """One uncounted ``generate`` of ``prompts`` and one step through
+    ``sess``, at the shape the run then times, so that the caching
+    allocator's ``cudaMalloc`` calls for that shape fall here: its prefill
+    on the host clock between synchronizes and the ``cudaMalloc`` calls of
+    the generation."""
+    import torch
+    steps, times = (sess._prefill, sess._decode), []
+    record_steps(sess, times)
+    torch.cuda.synchronize()
+    before = segments()
+    sess.generate(prompts, 1)
+    torch.cuda.synchronize()
+    sess._prefill, sess._decode = steps
+    return dict(warmup_prefill_ms=times[0] * 1e3,
+                warmup_segments=segments() - before)
+
+
 def rel_err(got, ref) -> float:
     """The largest, over sequences, norm of got - ref over the norm of ref
     (logits (B, V))."""
@@ -3006,52 +3088,111 @@ def tree_bytes(tree) -> int:
     return tree.numel() * tree.element_size()
 
 
+def init_session(model, seed: int, device) -> tuple:
+    """``ServeSession.from_seed(model, seed)`` on ``device``: the params
+    drawn from a seeded generator on the card straight in their serving
+    dtypes. Returns (session, memory: the params' MB, the MB init leaves
+    allocated and the peak it allocated, both above what was allocated
+    before, errors: ``init_peak`` the peak above what init holds plus
+    ``INIT_PEAK_SLACK``, ``freed`` what it holds above the params plus 64
+    MB, ``cast`` the weights the reference reads in f32 held in another
+    dtype (``f32_cast_errors``))."""
+    import torch
+    from repro_torch.serve.session import ServeSession
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    sess = ServeSession.from_seed(model, seed, device=device)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    peak, held = torch.cuda.max_memory_allocated() - base, \
+        torch.cuda.memory_allocated() - base
+    weights = tree_bytes(sess.params)
+    errs = {"init_peak": int(peak > held + INIT_PEAK_SLACK),
+            "freed": int(held > weights + (64 << 20)),
+            "cast": f32_cast_errors(sess.params, model.cfg)}
+    return sess, dict(params_mb=weights / 1e6, held_mb=held / 1e6,
+                      peak_allocated_mb=peak / 1e6, init_s=secs), errs
+
+
+@contextlib.contextmanager
+def routing(kept: list, differ: list = None):
+    """``repro_torch.models.moe.top_k`` wrapped for the block: without
+    ``differ``, each call's expert indices appended to ``kept``; with it,
+    each call answers the next indices of ``kept`` (and the probabilities
+    at them) and appends to ``differ`` how many of its own top-k choices
+    are not among them (a tensor, summed over the tokens)."""
+    import torch
+    from repro_torch.models import moe
+    real = moe.top_k
+    nxt = iter(kept)
+
+    def top_k(x, k):
+        vals, idx = real(x, k)
+        if differ is None:
+            kept.append(idx)
+            return vals, idx
+        want = next(nxt)
+        differ.append((idx[..., :, None] != want[..., None, :]).all(-1)
+                      .sum())
+        return torch.gather(x, -1, want), want
+    moe.top_k = top_k
+    try:
+        yield
+    finally:
+        moe.top_k = real
+
+
 def lm_bf16(device, spec: dict) -> tuple:
     """One run of ``LM_BF16_RUNS``: the model at full width and depth in
-    its own dtype (bf16 activations over f32 master weights from a seeded
-    generator on the card, cast once by the session; the f32 leaves it
-    casts must be freed: the memory the session holds is its params'),
-    ``batch`` prompts of ``prompt_len`` seeded tokens, ``steps`` greedy
-    steps through ``ServeSession``, after one short warm-up generation.
+    its own dtype (bf16 activations; params drawn from a seeded generator
+    on the card straight in their serving dtypes, ``init_session``: the
+    peak of init within ``INIT_PEAK_SLACK`` of what it holds, and that the
+    params' size), ``batch`` prompts of ``prompt_len`` seeded tokens, ``steps`` greedy
+    steps through ``ServeSession``, after one short warm-up generation and
+    one at the timed shape (``warm_prefill``; the timed run's
+    ``cudaMalloc`` calls recorded).
     Launch counts are zeroed just before the run and read just after
     (``lm_launches_want``). Each step is timed (``record_steps``); then
     one prefill and 8 decode steps run under ``torch.profiler``
     (``profiled_shares``). A model with attention layers then runs again on
-    ``flash_attention_plain``, fed the kernels' tokens, and each step's
-    logits are held to ``LM_BF16_TOL``, every argmax equal. One without
+    ``flash_attention_plain``, fed the kernels' tokens (a MoE model also
+    the kernels' run's routing, ``routing``: a bf16 step apart can send a
+    token to another expert, a jump no tolerance bounds; the choices the
+    plain run would have made otherwise are counted, not held), and each
+    step's logits are held to ``LM_BF16_TOL``, every argmax equal; a run
+    with ``exact_ties`` lists, and does not count, an argmax that differs
+    at an exact tie (``exact_tie``). One without
     (RWKV-6) holds a decode step of its first token to its forward pass
     over the prompt and that token, in f32 at full width and depth (the
     same seed's weights), within ``LM_FORWARD_TOL``, the argmaxes equal;
     the bf16 pair's gap is recorded. Returns (errors, row)."""
     import torch
-    from repro_torch.configs import ARCHS
     from repro_torch.kernels import launch_counts, reset_launch_counts
     from repro_torch.models import build_model
-    from repro_torch.serve.session import ServeSession
-    cfg = ARCHS[spec["name"]]
+    cfg = lm_config(spec)
     B, S, steps = (spec[k] for k in ("batch", "prompt_len", "steps"))
     tag = f"bf16.{cfg.name}"
     n_attn = attention_layers(cfg)
+    moe = cfg.family == "moe"
     model = build_model(cfg)
-    torch.cuda.synchronize()
-    base = torch.cuda.memory_allocated()
-    torch.cuda.reset_peak_memory_stats()
-    gen = torch.Generator(device=device).manual_seed(spec["seed"])
-    sess = ServeSession(model, model.init(gen, device), device=device)
-    torch.cuda.synchronize()
-    peak, held = torch.cuda.max_memory_allocated() - base, \
-        torch.cuda.memory_allocated() - base
+    sess, mem, init_errs = init_session(model, spec["seed"], device)
     params = sess.params
-    weights = tree_bytes(params)
     prompts = np.random.default_rng(spec["seed"]).integers(
         0, cfg.vocab_size, (B, S), dtype=np.int32)
     sess.generate(prompts[:, :64], 2)                   # warm-up, uncounted
+    warm = warm_prefill(sess, prompts)
     times: list = []
     seen = record_steps(sess, times)
+    kept: list = []
+    before = segments()
     reset_launch_counts()
-    toks = sess.generate(prompts, steps)
+    with routing(kept) if moe else contextlib.nullcontext():
+        toks = sess.generate(prompts, steps)
     torch.cuda.synchronize()
     counts = launch_counts()
+    run_segments = segments() - before
     want = lm_launches_want(n_attn, cfg.dtype, S, steps)
     errs = {f"{tag}.launches": sum(counts.get(k, 0) != v
                                    for k, v in want.items()),
@@ -3059,9 +3200,7 @@ def lm_bf16(device, spec: dict) -> tuple:
                                 or len(seen) != steps + 1),
             f"{tag}.finite": sum(not bool(torch.isfinite(x).all())
                                  for x in seen),
-            f"{tag}.cast": f32_cast_errors(params, cfg),
-            # the f32 leaves the cast replaced are freed (64 MB of slack)
-            f"{tag}.freed": int(held > weights + (64 << 20))}
+            **{f"{tag}.{k}": v for k, v in init_errs.items()}}
     batch = {"tokens": torch.as_tensor(prompts, device=device)}
     with torch.inference_mode():
         def prefill():
@@ -3076,15 +3215,18 @@ def lm_bf16(device, spec: dict) -> tuple:
         prof = {"prefill": profiled_shares(prefill),
                 "decode_8_steps": profiled_shares(decode8)}
         del caches
+        differ: list = []
         if n_attn:
-            compared = "flash_attention_plain"
+            compared = "flash_attention_plain" + (
+                ", the kernels' routing" if moe else "")
             plain = build_model(cfg, attention="torch")
-            ref, caches = plain.prefill(params, batch, last_only=True)
-            refs = [ref.reshape(B, -1).float()]
-            for s in range(steps):
-                ref, caches = plain.decode(
-                    params, {"tokens": toks[:, s:s + 1]}, caches, S + s)
-                refs.append(ref.reshape(B, -1).float())
+            with routing(kept, differ) if moe else contextlib.nullcontext():
+                ref, caches = plain.prefill(params, batch, last_only=True)
+                refs = [ref.reshape(B, -1).float()]
+                for s in range(steps):
+                    ref, caches = plain.decode(
+                        params, {"tokens": toks[:, s:s + 1]}, caches, S + s)
+                    refs.append(ref.reshape(B, -1).float())
             del caches
             got = seen
         else:
@@ -3103,8 +3245,18 @@ def lm_bf16(device, spec: dict) -> tuple:
     rel = [rel_err(g, r) for g, r in zip(got, refs)]
     agree = sum(int((g.argmax(-1) == r.argmax(-1)).sum())
                 for g, r in zip(got, refs))
-    errs[f"{tag}.logits"] = sum(x > limit for x in rel) + int(
-        agree != B * len(refs))
+    differ_at = []
+    for step, (g, r) in enumerate(zip(got, refs)):
+        ga, ra = g.argmax(-1), r.argmax(-1)
+        for b in (ga != ra).nonzero().flatten().tolist():
+            i, j = int(ga[b]), int(ra[b])
+            differ_at.append(dict(
+                step=step, seq=b, tokens=[i, j],
+                kernels=(float(g[b, i]), float(g[b, j])),
+                plain=(float(r[b, i]), float(r[b, j])),
+                tie=spec.get("exact_ties", False) and exact_tie(g[b], r[b])))
+    errs[f"{tag}.logits"] = sum(x > limit for x in rel) + sum(
+        not d["tie"] for d in differ_at)
     decode_s = statistics.median(times[1:])
     row = dict(config=cfg.name, layers=cfg.n_layers, dtype=cfg.dtype,
                attention_layers=n_attn, batch=B, prompt_len=S, steps=steps,
@@ -3115,11 +3267,15 @@ def lm_bf16(device, spec: dict) -> tuple:
                decode_ms_per_step_max=max(times[1:]) * 1e3,
                decode_tokens_per_s=B / decode_s, compared_with=compared,
                rel_err_max=max(rel), rel_err_first=rel[0], limit=limit,
-               argmax_agree=f"{agree}/{B * len(refs)}", profile=prof,
-               params_mb=weights / 1e6, held_mb=held / 1e6,
-               peak_allocated_mb=peak / 1e6,
+               argmax_agree=f"{agree}/{B * len(refs)}",
+               argmax_differ_at=differ_at, profile=prof, **mem, **warm,
+               run_segments=run_segments,
                memory_reserved_mb=torch.cuda.memory_reserved() / 1e6,
                launches={k: counts.get(k, 0) for k in want})
+    if moe:
+        row.update(routing_calls=len(kept), routing_choices=sum(
+            k.numel() for k in kept), routing_choices_differ=int(sum(
+                int(d) for d in differ)))
     return errs, row
 
 
@@ -3130,7 +3286,7 @@ def lm_checks(device, route: str = "all") -> tuple:
     summed over the runs)."""
     import torch
     errs, rows, launches = {}, [], {}
-    for path in (LM_GOLDEN, LM_GOLDEN_RECURRENT):
+    for path in (LM_GOLDEN, LM_GOLDEN_RECURRENT, LM_GOLDEN_MOE):
         for run in lm_golden(path):
             e, row = golden_errors(run, device)
             errs.update({f"{run['name']}{'-smoke' if run['smoke'] else ''}"
@@ -3144,6 +3300,7 @@ def lm_checks(device, route: str = "all") -> tuple:
                 f"top-1 margin under the limit {row['low_margin_steps']}; "
                 f"launches {row['launches']}; checks {e}")
     for spec in LM_BF16_RUNS if route == "all" else ():
+        gc.collect()
         torch.cuda.empty_cache()
         e, row = lm_bf16(device, spec)
         errs.update(e)
@@ -3159,9 +3316,18 @@ def lm_checks(device, route: str = "all") -> tuple:
             f"{row['decode_tokens_per_s']:.1f} tokens/s; against "
             f"{row['compared_with']}, relative error of the logits max "
             f"{row['rel_err_max']:.4g} (limit {row['limit']}), argmax agrees "
-            f"{row['argmax_agree']}; params {row['params_mb']:.1f} MB after "
-            f"the cast, held {row['held_mb']:.1f} MB, peak allocated "
-            f"{row['peak_allocated_mb']:.1f} MB in init and cast; memory "
+            f"{row['argmax_agree']}, differs at {row['argmax_differ_at']}"
+            + (f", routing choices the plain run would have made otherwise "
+               f"{row['routing_choices_differ']} of "
+               f"{row['routing_choices']} in {row['routing_calls']} layer "
+               f"calls" if "routing_calls" in row else "")
+            + f"; first prefill at this shape (uncounted) "
+            f"{row['warmup_prefill_ms']:.2f} ms with "
+            f"{row['warmup_segments']} cudaMalloc calls, "
+            f"{row['run_segments']} in the timed run"
+            + f"; params {row['params_mb']:.1f} MB, init "
+            f"{row['init_s']:.2f} s, held {row['held_mb']:.1f} MB, peak "
+            f"allocated {row['peak_allocated_mb']:.1f} MB in init; memory "
             f"reserved {row['memory_reserved_mb']:.1f} MB; launches "
             f"{row['launches']}; checks {e}")
         for part, p in row["profile"].items():
@@ -3176,6 +3342,8 @@ def lm_checks(device, route: str = "all") -> tuple:
                 f"{p['idle_share_unprofiled']:.3f}; most time: " + "; ".join(
                     f"{k['kernel']} {k['ms']:.3f} ms in {k['count']}"
                     for k in p["top"])))
+    gc.collect()
+    torch.cuda.empty_cache()
     for row in rows:
         for k, v in row["launches"].items():
             launches[k] = launches.get(k, 0) + v
@@ -3837,7 +4005,21 @@ def dse_errors(fault: str) -> None:
 # phase 10: the mesh layer
 # ---------------------------------------------------------------------------
 MESH_SERVE = LM_BF16_RUNS[0]     # Qwen3-0.6B, 4 x 1024, 32 steps, as phase 7
-MESH_DRYRUN = ("qwen3-0.6b", "train_4k")
+# 10a: serving under the rules against without. RWKV-6 at full width and
+# depth: the token shift across shard edges, the WKV on (batch, head)
+# blocks, the group norm; Moonshot at full width cut to 4 layers (5.9 GB
+# in bf16, its params from the init in the serving dtypes): the MoE
+# dispatch on shards
+MESH_SERVE_RUNS = (
+    MESH_SERVE,
+    dict(name="rwkv6-1.6b", seed=0, batch=4, prompt_len=2048, steps=8),
+    dict(name="moonshot-v1-16b-a3b", seed=0, batch=4, prompt_len=1024,
+         steps=8, overrides=dict(n_layers=4)),
+)
+# 10d: the dry-run cells, each on both meshes
+MESH_DRYRUN = (("qwen3-0.6b", "train_4k"),
+               ("moonshot-v1-16b-a3b", "train_4k"),
+               ("rwkv6-1.6b", "train_4k"))
 # per-device flops times the ranks over model_flops, in a train cell: the
 # band of the CPU tests' smoke cells (tests/test_torch_dryrun.py
 # TRAIN_FLOP_BAND). Remat "full" runs each group's forward twice (8 of
@@ -3846,6 +4028,17 @@ MESH_DRYRUN = ("qwen3-0.6b", "train_4k")
 # for qwen3-0.6b train_4k on both meshes. Every product counted twice
 # gives 3.4, a count on global shapes 256 or 512 times the per-device one
 MESH_FLOP_BAND = (1.2, 2.5)
+# moonshot-v1-16b-a3b train_4k: 1.436 on 16x16 and 2.385 on 2x16x16 (the
+# card's host, torch 2.11; 1.436 also from 1 and 2 scanned layers on torch
+# 2.13, while ``--depth d1|d2`` unrolls the layers out of the remat groups
+# and gives 1.107): the rules shard the dispatch buffer over "model"
+# (experts) and "data" (d_model), not "pod", so each pod computes the
+# experts' products whole. A band for each mesh, between the sound reading
+# and the reading with every product counted twice (2.87, 4.77); a
+# capacity from a rank's own tokens gives 0.398 on 16x16
+MESH_FLOP_BANDS = {
+    "qwen3-0.6b": {"16x16": MESH_FLOP_BAND, "2x16x16": MESH_FLOP_BAND},
+    "moonshot-v1-16b-a3b": {"16x16": (1.2, 2.0), "2x16x16": (1.8, 3.2)}}
 MESH_DRYRUN_TIMEOUT = 600
 
 
@@ -3877,62 +4070,103 @@ def placement_errors(tree, names, rules) -> int:
 
 
 def mesh_serve(device, mesh, rules, lm_row=None) -> tuple:
-    """10a: phase 7's Qwen3-0.6B run (``MESH_SERVE``) twice on the same
-    params, once as phase 7 runs it and once with the params distributed
-    by ``abstract_params``' shardings and ``generate`` under the rules.
-    Checks: the tokens, and every step's logits, equal by bits; the
-    attention launches of the run under rules exactly phase 7's
-    (``lm_launches_want``). Prefill and decode ms of both (and of phase 7,
-    given its row) are recorded, not gated: DTensor's host cost on a
+    """10a: each run of ``MESH_SERVE_RUNS`` twice on the same params, once
+    as phase 7 runs it and once with the params distributed by the rules'
+    shardings of their logical names and ``generate`` under the rules.
+    Checks, per run: the tokens, and every step's logits, equal by bits;
+    the attention launches of the run under rules exactly phase 7's
+    (``lm_launches_want``); for the MoE run, its init in the serving
+    dtypes (``init_session``: peak, memory held, f32 leaves). Prefill and
+    decode ms of both (and of phase 7, given its row), each after an
+    uncounted generation at the timed shape (``warm_prefill``, its prefill
+    ms recorded), are recorded, not gated: DTensor's host cost on a
     host-bound decode."""
+    errs, rows = {}, []
+    for spec in MESH_SERVE_RUNS:
+        e, row = mesh_serve_run(device, mesh, rules, spec, lm_row)
+        errs.update(e)
+        rows.append(row)
+    return errs, rows
+
+
+def mesh_serve_run(device, mesh, rules, spec: dict, lm_row=None) -> tuple:
+    """One run of ``mesh_serve``."""
     import torch
-    from repro_torch.configs import ARCHS
     from repro_torch.kernels import launch_counts, reset_launch_counts
     from repro_torch.models import build_model
     from repro_torch.serve.session import ServeSession
     from repro_torch.sharding.logical import use_rules
-    spec = MESH_SERVE
-    cfg = ARCHS[spec["name"]]
+    cfg = lm_config(spec)
     B, S, steps = (spec[k] for k in ("batch", "prompt_len", "steps"))
+    tag = f"mesh.serve.{cfg.name}"
     model = build_model(cfg)
-    gen = torch.Generator(device=device).manual_seed(spec["seed"])
-    params = model.init(gen, device)
+    errs, mem = {}, {}
+    if cfg.family == "moe":
+        sess, mem, e = init_session(model, spec["seed"], device)
+        errs.update({f"{tag}.{k}": v for k, v in e.items()})
+        params = sess.params
+        del sess
+    else:
+        gen = torch.Generator(device=device).manual_seed(spec["seed"])
+        params = model.init(gen, device)
     prompts = np.random.default_rng(spec["seed"]).integers(
         0, cfg.vocab_size, (B, S), dtype=np.int32)
     want = lm_launches_want(attention_layers(cfg), cfg.dtype, S, steps)
-    runs = {}
-    for tag, p, ctx in (
+    runs, warm = {}, {}
+    for name, p, ctx in (
             ("plain", params, None),
             ("rules", distributed(params, model.logical_names(), mesh, rules),
              rules)):
         sess = ServeSession(model, p, device=device)
         with use_rules(ctx):
             sess.generate(prompts[:, :64], 2)           # warm-up, uncounted
+            warm[name] = warm_prefill(sess, prompts)["warmup_prefill_ms"]
             times: list = []
             seen = record_steps(sess, times)
             reset_launch_counts()
             toks = sess.generate(prompts, steps)
             torch.cuda.synchronize()
-        runs[tag] = (whole(toks), [whole(x) for x in seen], times,
-                     launch_counts())
+        runs[name] = (whole(toks), [whole(x) for x in seen], times,
+                      launch_counts())
         del sess, p
+    del params
     (ta, la, tma, _), (tb, lb, tmb, cb) = runs["plain"], runs["rules"]
-    errs = {"mesh.serve.tokens": int(not torch.equal(ta, tb)),
-            "mesh.serve.logits": sum(not torch.equal(a, b)
-                                     for a, b in zip(la, lb))
-            + int(len(la) != len(lb) or len(la) != steps + 1),
-            "mesh.serve.launches": sum(cb.get(k, 0) != v
-                                       for k, v in want.items())}
-    row = dict(config=cfg.name, batch=B, prompt_len=S, steps=steps,
-               mesh="1x1", launches={k: cb.get(k, 0) for k in want},
+    errs.update({
+        f"{tag}.tokens": int(not torch.equal(ta, tb)),
+        f"{tag}.logits": sum(not torch.equal(a, b) for a, b in zip(la, lb))
+        + int(len(la) != len(lb) or len(la) != steps + 1),
+        f"{tag}.launches": sum(cb.get(k, 0) != v for k, v in want.items())})
+    row = dict(config=cfg.name, layers=cfg.n_layers, batch=B, prompt_len=S,
+               steps=steps, mesh="1x1", **mem,
+               launches={k: cb.get(k, 0) for k in want},
                prefill_ms_plain=tma[0] * 1e3, prefill_ms_rules=tmb[0] * 1e3,
+               warmup_prefill_ms_plain=warm["plain"],
+               warmup_prefill_ms_rules=warm["rules"],
                decode_ms_per_step_plain=statistics.median(tma[1:]) * 1e3,
                decode_ms_per_step_rules=statistics.median(tmb[1:]) * 1e3)
-    if lm_row is not None:
+    if lm_row is not None and lm_row["config"] == cfg.name \
+            and spec is MESH_SERVE:
         row.update(prefill_ms_phase7=lm_row["prefill_ms"],
                    decode_ms_per_step_phase7=lm_row[
                        "decode_ms_per_step_median"])
     return errs, row
+
+
+def init_errors(fault: str) -> None:
+    """``init_session`` on the MoE run of ``MESH_SERVE_RUNS`` (Moonshot at
+    full width cut to 4 layers), one line per check, limit 0: init's peak,
+    the memory it holds, the weights it keeps in f32."""
+    import torch
+    from repro_torch.models import build_model
+    (spec,) = [r for r in MESH_SERVE_RUNS
+               if lm_config(r).family == "moe"]
+    model = build_model(lm_config(spec))
+    _, mem, errs = init_session(model, spec["seed"], torch.device("cuda"))
+    log(f"init {model.cfg.name} ({model.cfg.n_layers} layers): {mem}")
+    for check, err in errs.items():
+        print(json.dumps({"fault": fault, "case": f"init {check}",
+                          "err": err, "limit": 0, "over": err > 0}),
+              flush=True)
 
 
 def mesh_train(device, mesh, rules) -> tuple:
@@ -4040,38 +4274,42 @@ def mesh_restore(device, rules, model, params) -> tuple:
 
 
 def mesh_dryrun() -> tuple:
-    """10d: ``python -m repro_torch.launch.dryrun`` on ``MESH_DRYRUN``,
-    single-pod and ``--multi-pod``, each in a subprocess of its own (a fake
-    process group cannot share a process with the ``nccl`` one), both at
-    once. Checks: each runs to the end; ``peak_est_bytes`` below the
-    card's memory; the 16x16 run counts collectives; per-device flops
-    times the ranks over ``model_flops`` within ``MESH_FLOP_BAND``. Prints
-    flops, bytes and collective bytes per device, the roofline terms
-    (``core/roofline.py::h100_terms``, the H100 data sheet's rates) and
-    the wall time."""
+    """10d: ``python -m repro_torch.launch.dryrun`` on each cell of
+    ``MESH_DRYRUN``, single-pod and ``--multi-pod``, each in a subprocess
+    of its own (a fake process group cannot share a process with the
+    ``nccl`` one), all at once. Checks per cell and mesh: it runs to the
+    end; ``peak_est_bytes`` below the card's memory; on 16x16 it counts
+    collectives; per-device flops times the ranks over ``model_flops``
+    within ``MESH_FLOP_BANDS`` where the arch has a band on the mesh
+    (recorded for every cell). Prints flops, bytes and collective bytes
+    per device, the
+    roofline terms (``core/roofline.py::h100_terms``, the H100 data
+    sheet's rates) and the wall time."""
     import torch
     from repro_torch.analysis.roofline import model_flops
     from repro_torch.configs import ARCHS
     from repro_torch.core.roofline import h100_terms
-    arch, shape = MESH_DRYRUN
     tmp = tempfile.mkdtemp(prefix="chip_smoke_dryrun_")
     env = dict(os.environ, PYTHONPATH=SRC)
     procs = {}
     try:
-        for mp in (False, True):
-            out = os.path.join(tmp, f"{int(mp)}.json")
-            cmd = [sys.executable, "-m", "repro_torch.launch.dryrun",
-                   "--arch", arch, "--shape", shape, "--out", out] + (
-                       ["--multi-pod"] if mp else [])
-            procs[mp] = (subprocess.Popen(cmd, env=env, cwd=ROOT,
-                                          stdout=subprocess.PIPE,
-                                          stderr=subprocess.STDOUT,
-                                          text=True), out, time.perf_counter())
+        for arch, shape in MESH_DRYRUN:
+            for mp in (False, True):
+                out = os.path.join(tmp, f"{arch}.{shape}.{int(mp)}.json")
+                cmd = [sys.executable, "-m", "repro_torch.launch.dryrun",
+                       "--arch", arch, "--shape", shape, "--out", out] + (
+                           ["--multi-pod"] if mp else [])
+                procs[arch, shape, mp] = (subprocess.Popen(
+                    cmd, env=env, cwd=ROOT, stdout=subprocess.PIPE,
+                    stderr=subprocess.STDOUT, text=True), out,
+                    time.perf_counter())
         res, errs = {}, {}
-        for mp, (proc, out, t0) in procs.items():
+        total = torch.cuda.get_device_properties(0).total_memory
+        for (arch, shape, mp), (proc, out, t0) in procs.items():
             text, _ = proc.communicate(timeout=MESH_DRYRUN_TIMEOUT)
             wall = time.perf_counter() - t0
-            tag = f"mesh.dryrun.{'2x16x16' if mp else '16x16'}"
+            mesh = "2x16x16" if mp else "16x16"
+            tag = f"mesh.dryrun.{arch}.{shape}.{mesh}"
             for line in text.splitlines():
                 log(f"  {line}")
             r = json.load(open(out)) if os.path.exists(out) else {
@@ -4079,31 +4317,31 @@ def mesh_dryrun() -> tuple:
             errs[f"{tag}.ran"] = int(proc.returncode != 0 or "error" in r)
             if "error" in r:
                 continue
-            ratio = r["flops_per_device"] * r["chips"] / model_flops(
-                ARCHS[arch], shape)
-            total = torch.cuda.get_device_properties(0).total_memory
+            mf = model_flops(ARCHS[arch], shape)
+            ratio = r["flops_per_device"] * r["chips"] / mf
             errs[f"{tag}.memory"] = int(
                 not r["memory"]["peak_est_bytes"] < total)
-            errs[f"{tag}.flops"] = int(
-                not MESH_FLOP_BAND[0] <= ratio <= MESH_FLOP_BAND[1])
+            band = MESH_FLOP_BANDS.get(arch, {}).get(mesh)
+            if band is not None:
+                errs[f"{tag}.flops"] = int(not band[0] <= ratio <= band[1])
             if not mp:
                 errs[f"{tag}.collectives"] = int(
                     not r["collectives"]["total_bytes"] > 0)
             t = h100_terms(r["flops_per_device"], r["hbm_bytes_per_device"],
                            r["collectives"]["total_bytes"],
                            n_devices=r["chips"])
-            res[r["mesh"]] = dict(
+            row = res[f"{arch} {shape} {r['mesh']}"] = dict(
                 flops_per_device=r["flops_per_device"],
                 hbm_bytes_per_device=r["hbm_bytes_per_device"],
                 collective_bytes_per_device=r["collectives"]["total_bytes"],
                 collectives=r["collectives"], memory=r["memory"],
-                model_flops=model_flops(ARCHS[arch], shape),
-                flops_ratio=ratio, compute_s=t.compute_s,
-                memory_s=t.memory_s, collective_s=t.collective_s,
-                dominant=t.dominant, bound_s=t.bound_s, step_s=r["compile_s"],
-                wall_s=wall, card_memory_bytes=total)
+                model_flops=mf, flops_ratio=ratio, flops_band=band,
+                compute_s=t.compute_s, memory_s=t.memory_s,
+                collective_s=t.collective_s, dominant=t.dominant,
+                bound_s=t.bound_s, step_s=r["compile_s"], wall_s=wall,
+                card_memory_bytes=total)
             log(f"dryrun {arch} x {shape} on {r['mesh']} ({r['chips']} "
-                f"ranks, the card's host): {json.dumps(res[r['mesh']])}")
+                f"ranks, the card's host): {json.dumps(row)}")
     finally:
         for proc, _, _ in procs.values():
             if proc.poll() is None:
@@ -4151,6 +4389,7 @@ def mesh_checks(device, parts=MESH_PARTS, lm_row=None) -> tuple:
             errs.update(e)
             log(f"phase 10{'abcd'[MESH_PARTS.index(part)]} ({part}): "
                 f"{time.perf_counter() - t0:.1f} s, errors {e}")
+            gc.collect()
             torch.cuda.empty_cache()
     finally:
         destroy_process_group()
@@ -4361,12 +4600,46 @@ PLANTED_FAULTS = {  # name: (route, file under src/repro_torch, text, stand-in)
         "mesh_dryrun", "launch/dryrun.py",
         "                self.flops += f(*args, **kwargs, out_val=out)\n",
         "                self.flops += 2 * f(*args, **kwargs, out_val=out)\n"),
+    # a MoE dispatch whose capacity counts a rank's own tokens, not the
+    # step's (invisible on one rank: the 16x16 cell's expert flops fall)
+    "mesh_dryrun.moe_per_rank_capacity": (
+        "mesh_dryrun", "models/moe.py", "    C = capacity(cfg, T)\n",
+        "    C = capacity(cfg, x.to_local().shape[0] * x.to_local().shape[1]"
+        "\n                 if isinstance(x, DTensor) else T)\n"),
+    # a combine that drops expert 0's rows
+    "lm.moe_combine_drops_expert": (
+        "lm", "models/moe.py",
+        "        (ye * gate_ec[..., None].to(dt), tabs[0]),",
+        "        (ye * gate_ec[..., None].to(dt) * (torch.arange(\n"
+        "            E, device=ye.device) > 0)[:, None, None].to(dt),"
+        " tabs[0]),"),
+    # the init in the serving dtypes rounds the MoE router to bf16
+    "lm_init.router_cast_bf16": (
+        "lm_init", "models/transformer.py",
+        "        lambda path: None if _read_in_f32(path, cfg) else dt,",
+        "        lambda path: None if _read_in_f32(path, cfg)\n"
+        "        and path[-1] != \"router\" else dt,"),
+    # an init that draws the f32 tree and casts it whole
+    "lm_init.keeps_f32_tree": (
+        "lm_init", "models/transformer.py",
+        "    dt = getattr(torch, cfg.dtype)\n    return init_tree(",
+        "    dt = getattr(torch, cfg.dtype)\n    if dt:\n        return "
+        "cast_params(init_params(cfg, generator, device), cfg)\n"
+        "    return init_tree("),
+    # the token shift under the rules one position off (no shift)
+    "mesh_serve.shift_off_by_one": (
+        "mesh_serve", "sharding/logical.py",
+        "    out = on_shards(lambda t: F.pad(t, pad).narrow(dim, 0, "
+        "t.shape[dim]),",
+        "    out = on_shards(lambda t: F.pad(t, pad).narrow(dim, 1, "
+        "t.shape[dim]),"),
 }
 LAYER_FAULT_KEYS = ("gemm_float", "depthwise", "alu", "pool2d")
 VTA_FAULT_KEYS = ("gemm", "alu_sweep")
 SERVE_FAULT_KEYS = ("serve",)
 POOL_FAULT_KEYS = ("pool", "ladder")
 LM_FAULT_KEYS = ("lm",)
+INIT_FAULT_KEYS = ("lm_init",)
 TRAIN_FAULT_KEYS = ("train",)
 DSE_FAULT_KEYS = ("dse",)
 MESH_FAULT_KEYS = ("mesh_serve", "mesh_restore", "mesh_dryrun")
@@ -4390,11 +4663,13 @@ def case_errors(fault: str, route: str) -> int:
     phase 3's checks of the captured path (``serve_errors``), phase 6's
     checks of the worker pool or the ladder (``pool_errors``), the
     golden checks of phases 7 and 8 (``lm_errors``, ``train_errors``),
+    the init in the serving dtypes (``init_errors``),
     phase 9's checks of the sweep (``dse_errors``) and phase 10's of the
     mesh layer (``mesh_errors``)."""
     if route == "all" or route not in LAYER_FAULT_KEYS + VTA_FAULT_KEYS \
             + SERVE_FAULT_KEYS + POOL_FAULT_KEYS + LM_FAULT_KEYS \
-            + TRAIN_FAULT_KEYS + DSE_FAULT_KEYS + MESH_FAULT_KEYS:
+            + INIT_FAULT_KEYS + TRAIN_FAULT_KEYS + DSE_FAULT_KEYS \
+            + MESH_FAULT_KEYS:
         attention_errors(fault, route)
     if route == "all" or route in LAYER_FAULT_KEYS:
         layer_errors(fault, route)
@@ -4406,6 +4681,8 @@ def case_errors(fault: str, route: str) -> int:
         pool_errors(fault, route)
     if route == "all" or route in LM_FAULT_KEYS:
         lm_errors(fault)
+    if route == "all" or route in INIT_FAULT_KEYS:
+        init_errors(fault)
     if route == "all" or route in TRAIN_FAULT_KEYS:
         train_errors(fault)
     if route == "all" or route in DSE_FAULT_KEYS:
@@ -4816,8 +5093,9 @@ def main(argv: list) -> int:
                 + ("; the decode route's time includes its combine"
                    if key == "flash_attention.decode" else "")
                 + "; launches: phase 7's language-model runs (the golden "
-                  "f32 runs and the bf16 runs of Qwen3-0.6B and "
-                  "RecurrentGemma-9B), launches_train: phase 8's training "
+                  "f32 runs and the bf16 runs of Qwen3-0.6B, "
+                  "RecurrentGemma-9B and Moonshot-v1-16B-A3B), "
+                  "launches_train: phase 8's training "
                   "runs (the f32 golden runs and the bf16 Qwen3-0.6B "
                   "Trainer steps), "
                   "launches_cases: phase 5's"))

@@ -24,7 +24,8 @@ from torch.distributed.tensor._utils import \
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.sharding import lshard
-from repro_torch.sharding.logical import constrain, linear
+from repro_torch.sharding.logical import (constrain, like_channels, linear,
+                                          merge_dims, split_dim)
 from repro_torch.utils.tree import tree_map
 
 
@@ -80,18 +81,23 @@ def std_of(spec: Spec) -> float:
 
 
 def materialize(spec: Spec, generator: torch.Generator, dtype,
-                device) -> torch.Tensor:
+                device, shape=None) -> torch.Tensor:
     """Turn one Spec into an initialized tensor on ``device``, its random
-    draws from ``generator`` (which must live on ``device``)."""
-    shp = spec.shape
+    draws from ``generator`` (which must live on ``device``). ``shape``:
+    only a leading slice of the leaf, of that shape, drawn as the leaf's
+    own values are (the same scale) from the generator's next draws; on
+    the CPU the slices of a leaf drawn one after another are its whole
+    draw by bits where each slice holds a multiple of 16 elements (the
+    normal and uniform fills go 16 values at a time)."""
+    shp = spec.shape if shape is None else tuple(shape)
     f32 = dict(dtype=torch.float32, device=device)
     if spec.init == "zeros":
         return torch.zeros(shp, dtype=dtype, device=device)
     if spec.init == "ones":
         return torch.ones(shp, dtype=dtype, device=device)
     if spec.init == "normal":
-        return (torch.randn(shp, generator=generator, **f32)
-                * std_of(spec)).to(dtype)
+        return torch.randn(shp, generator=generator, **f32).mul_(
+            std_of(spec)).to(dtype)
     if spec.init == "decay":       # RWKV6 per-channel log-log decay base
         base = torch.linspace(-6.0, -0.5, shp[-1], **f32)
         return base.expand(shp).to(dtype).contiguous()
@@ -100,17 +106,34 @@ def materialize(spec: Spec, generator: torch.Generator, dtype,
         return torch.log(torch.expm1(sp)).expand(shp).to(dtype).contiguous()
     if spec.init == "uniform_small":
         u = torch.rand(shp, generator=generator, **f32)
-        return (u * 0.02 - 0.01).to(dtype)
+        return u.mul_(0.02).sub_(0.01).to(dtype)
     raise ValueError(f"unknown init {spec.init}")
 
 
-def init_tree(specs, generator: torch.Generator, dtype, device):
-    """Materialize a tree of Specs, leaf after leaf in sorted key order
-    from one generator."""
+def init_tree(specs, generator: torch.Generator, dtype, device,
+              cast_to: Callable = lambda path: None,
+              sliced: Callable = lambda path, spec: False, path: tuple = ()):
+    """Materialize a tree of Specs in ``dtype``, leaf after leaf in sorted
+    key order from one generator, each leaf cast to ``cast_to(path)``
+    (``None``: kept in ``dtype``) before the next leaf is drawn, so that no
+    more than one leaf is ever held in ``dtype``. A leaf for which
+    ``sliced(path, spec)`` holds is drawn one index of its leading dim at
+    a time, each slice cast into the leaf: the whole leaf's draw by bits
+    on the CPU, where every slice holds a multiple of 16 elements."""
     if isinstance(specs, dict):
-        return {k: init_tree(specs[k], generator, dtype, device)
+        return {k: init_tree(specs[k], generator, dtype, device, cast_to,
+                             sliced, path + (k,))
                 for k in sorted(specs)}
-    return materialize(specs, generator, dtype, device)
+    dt = cast_to(path) or dtype
+    if specs.init in ("zeros", "ones"):
+        return materialize(specs, generator, dt, device)
+    if not sliced(path, specs):
+        return materialize(specs, generator, dtype, device).to(dt)
+    out = torch.empty(specs.shape, dtype=dt, device=device)
+    for i in range(specs.shape[0]):
+        out[i:i + 1].copy_(materialize(specs, generator, dtype, device,
+                                       (1,) + tuple(specs.shape[1:])))
+    return out
 
 
 def names_tree(specs):
@@ -145,13 +168,17 @@ def group_norm(x, scale, bias, n_groups: int, eps: float = 1e-5):
     the variance the mean of squared deviations, as ``jnp.var``."""
     dt = x.dtype
     *lead, c = x.shape
-    xf = x.to(torch.float32).reshape(*lead, n_groups, c // n_groups)
+    if isinstance(x, DTensor):
+        # each group whole on its rank; the affine placed as the channels
+        xf = split_dim(x.to(torch.float32), -1, (n_groups, c // n_groups))
+    else:
+        xf = x.to(torch.float32).reshape(*lead, n_groups, c // n_groups)
     mu = torch.mean(xf, dim=-1, keepdim=True)
     centered = xf - mu
     var = torch.mean(centered * centered, dim=-1, keepdim=True)
-    y = (centered * torch.rsqrt(var + eps)).reshape(*lead, c)
-    return (y * scale.to(torch.float32)
-            + bias.to(torch.float32)).to(dt)
+    y = merge_dims(centered * torch.rsqrt(var + eps), -2)
+    return (y * like_channels(scale.to(torch.float32), y)
+            + like_channels(bias.to(torch.float32), y)).to(dt)
 
 
 def _along(x, dim: int, start: int, stop: Optional[int] = None,

@@ -13,16 +13,33 @@ tokens all land in row E of the slot tables, which is thrown away, so which
 of their duplicate writes wins does not matter. ``jax.lax.top_k`` breaks
 ties toward the lower expert index; ``torch.topk`` does not promise an
 order, so ``top_k`` takes the first K of a stable sort.
+
+Under logical rules (DTensors; ``sharding.logical.on_shards``), where the
+reference leaves the dispatch to GSPMD: each token is routed on the rank
+that holds it; the (T*K) expert choices and gates are gathered to every
+rank, which builds the whole (E, C) slot tables from them (capacity and
+positions over the step's T tokens, in token-major order, so the same
+tokens drop and the slots are ordered as on one device); each rank gathers
+the tokens of its block of the dispatch buffer, whose placements are the
+rules' for ("experts", cap, d), and adds its block's outputs into the
+tokens' rows, a ``Partial`` over the mesh dims that split the experts,
+which the rules' activation placements then reduce. The experts' products
+are ``torch.bmm`` on DTensors, as the reference's are einsums outside any
+kernel. Plain tensors take the same ops as before, by bits.
 """
 from __future__ import annotations
 
+import functools
+
 import torch
 import torch.nn.functional as F
+from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models.layers import Spec, act_fn
-from repro_torch.sharding import lshard
-from repro_torch.sharding.logical import merge_dims
+from repro_torch.sharding import get_rules, lshard
+from repro_torch.sharding.logical import (linear, merge_dims, on_shards,
+                                          replicated, split_dim)
 
 
 def moe_specs(cfg: ModelConfig) -> dict:
@@ -48,36 +65,27 @@ def top_k(x, k: int) -> tuple:
     return torch.gather(x, -1, idx), idx
 
 
-def moe_apply(p, x, cfg: ModelConfig):
-    """x: (B, S, d) -> (y, aux) with load-balance aux loss."""
-    B, S, d = x.shape
-    T = B * S
-    E, K = cfg.n_experts, cfg.top_k
-    C = capacity(cfg, T)
-    dt, dev = x.dtype, x.device
-    xf = merge_dims(x, 0)
-
-    # --- routing (f32 for numerics) ---
-    logits = torch.matmul(xf.to(torch.float32),
-                          p["router"].to(torch.float32))
+def _route(logits, k: int) -> tuple:
+    """Per token: the softmax over the experts, the top k with their gates
+    renormalized, and the top-1 choice one-hot. Rows are independent."""
     probs = torch.softmax(logits, dim=-1)                        # (T, E)
-    gate_vals, expert_idx = top_k(probs, K)                      # (T, K)
+    gate_vals, expert_idx = top_k(probs, k)                      # (T, K)
     gate_vals = gate_vals / (gate_vals.sum(-1, keepdim=True) + 1e-9)
+    top1 = F.one_hot(expert_idx[:, 0], logits.shape[-1]).to(torch.float32)
+    return probs, gate_vals, expert_idx, top1
 
-    # --- load-balancing aux loss (Switch eq. 4) ---
-    me = probs.mean(0)                                           # (E,)
-    ce = F.one_hot(expert_idx[:, 0], E).to(torch.float32).mean(0)
-    aux = E * torch.sum(me * ce)
 
-    # --- position within expert (capacity assignment) ---
-    flat_expert = expert_idx.reshape(T * K)                      # token-major
+def _slots(flat_expert, E: int, C: int, K: int) -> tuple:
+    """From each (token, choice)'s expert, token-major: kept or dropped
+    (position in expert from a cumsum, against the capacity C), the slot
+    index of each (dropped ones to row E), and the (E, C) tables of token
+    ids and of valid slots."""
+    T = flat_expert.shape[0] // K
+    dev = flat_expert.device
     sel = F.one_hot(flat_expert, E).to(torch.int32)              # (T*K, E)
     csum = torch.cumsum(sel, dim=0)
     pos = ((csum - sel) * sel).sum(-1)                           # (T*K,)
     keep = pos < C
-    gate_flat = gate_vals.reshape(T * K) * keep.to(torch.float32)
-
-    # --- dispatch: scatter token ids into (E, C) slot table ---
     token_id = torch.arange(T, device=dev).repeat_interleave(K)
     slot = (torch.where(keep, flat_expert, E),                   # drop -> row E
             torch.where(keep, pos, 0))
@@ -85,12 +93,74 @@ def moe_apply(p, x, cfg: ModelConfig):
                              device=dev).index_put_(slot, token_id)[:E]
     slot_valid = torch.zeros((E + 1, C), dtype=torch.bool,
                              device=dev).index_put_(slot, keep)[:E]
+    return keep, slot, slot_table, slot_valid
 
-    xe = xf[slot_table]                                          # (E, C, d)
-    xe = xe * slot_valid[..., None].to(dt)
+
+def _placements(x, names, shape) -> tuple:
+    """For DTensor ``x``: the rules' placements of an activation of
+    ``names`` and ``shape`` on ``x``'s mesh (all ``Replicate()`` without
+    rules), and a replicated DTensor maker on that mesh. For a plain
+    ``x``: no placements, and the identity."""
+    if not isinstance(x, DTensor):
+        return [], lambda t: t
+    mesh, r = x.device_mesh, get_rules()
+    pl = r.sharding(names, shape, is_act=True).placements() if r else \
+        [Replicate()] * mesh.ndim
+
+    def rep(t):
+        return DTensor.from_local(t, mesh, [Replicate()] * mesh.ndim,
+                                  run_check=False)
+    return pl, rep
+
+
+def moe_apply(p, x, cfg: ModelConfig):
+    """x: (B, S, d) -> (y, aux) with load-balance aux loss."""
+    B, S, d = x.shape
+    T = B * S
+    E, K = cfg.n_experts, cfg.top_k
+    C = capacity(cfg, T)
+    dt = x.dtype
+    f32 = torch.float32
+    xf = merge_dims(x, 0)
     cap_name = "batch" if cfg.moe_shard_tokens else "expert_cap"
     d_name = None if cfg.moe_shard_tokens else "d_model"
-    xe = lshard(xe, "experts", cap_name, d_name)
+    # under rules a rank gathers the tokens of its block of the (E, C, d)
+    # dispatch buffer (``pl``) from all T rows, its d slice (``xpl``), by
+    # its block of the slot tables (``tpl``), and adds its block's outputs
+    # into all T rows: its d slice, a ``Partial`` over the mesh dims that
+    # split E or C (``tok``), as is the rows' gradient of its gather
+    pl, rep = _placements(x, ("experts", cap_name, d_name), (E, C, d))
+    xpl = [Shard(1) if q.is_shard(2) else Replicate() for q in pl]
+    tpl = [q if q.is_shard() and q.dim < 2 else Replicate() for q in pl]
+    tok = [Shard(1) if q.is_shard(2) else Partial() if q.is_shard()
+           else Replicate() for q in pl]
+    full = [Replicate()] * len(pl)
+
+    # --- routing (f32 for numerics), each token where it is held ---
+    logits = linear(xf.to(f32), p["router"].to(f32))
+    rows = [q if q.is_shard(0) else Replicate()
+            for q in getattr(logits, "placements", ())]
+    probs, gate_vals, expert_idx, top1 = on_shards(
+        functools.partial(_route, k=K), (logits,), (rows,), (rows,) * 4)
+
+    # --- load-balancing aux loss (Switch eq. 4) ---
+    me = probs.mean(0)                                           # (E,)
+    ce = top1.mean(0)
+    aux = E * torch.sum(me * ce)
+
+    # --- position within expert (capacity assignment), over all T ---
+    flat_expert = replicated(merge_dims(expert_idx, 0))          # token-major
+    keep, slot, slot_table, slot_valid = _slots(flat_expert, E, C, K)
+    gate_ec = on_shards(
+        lambda g: torch.zeros((E + 1, C), dtype=f32, device=g.device)
+        .index_put_(slot, g * keep.to(f32))[:E],
+        (merge_dims(gate_vals, 0),), (full,), (full,))
+
+    # --- dispatch: gather the tokens of the (E, C) slots ---
+    tabs = (rep(slot_table), rep(slot_valid))
+    xe = on_shards(lambda t, tab, valid: t[tab] * valid[..., None].to(dt),
+                   (xf,) + tabs, (xpl, tpl, tpl), (pl,), (tok, None, None))
+    xe = lshard(xe, "experts", cap_name, d_name)                 # (E, C, d)
 
     # --- expert FFN ---
     a = act_fn(cfg.mlp_act)
@@ -101,11 +171,11 @@ def moe_apply(p, x, cfg: ModelConfig):
     ye = lshard(ye, "experts", cap_name, d_name)
 
     # --- combine: weighted scatter-add back to tokens ---
-    gate_ec = torch.zeros((E + 1, C), dtype=torch.float32,
-                          device=dev).index_put_(slot, gate_flat)[:E]
-    y = torch.zeros((T, d), dtype=torch.float32, device=dev)
-    y.index_add_(0, slot_table.reshape(-1),
-                 (ye * gate_ec[..., None].to(dt)).reshape(E * C, d)
-                 .to(torch.float32))
     # invalid slots all point at token 0 with gate 0 -> contribute nothing
-    return y.reshape(B, S, d).to(dt), aux
+    y = on_shards(
+        lambda c, tab: torch.zeros((T, c.shape[-1]), dtype=f32,
+                                   device=c.device).index_add_(
+            0, tab.reshape(-1), c.reshape(-1, c.shape[-1]).to(f32)),
+        (ye * gate_ec[..., None].to(dt), tabs[0]), (pl, tpl), (tok,))
+    y = lshard(split_dim(y, 0, (B, S)), "batch", "seq", "d_model")
+    return y.to(dt), aux

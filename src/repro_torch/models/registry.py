@@ -27,6 +27,7 @@ ATTENTION = {"cuda": flash_attention, "torch": flash_attention_plain}
 class Model:
     cfg: ModelConfig
     init: Callable            # (generator, device) -> params
+    init_cast: Callable       # (generator, device) -> params cast for serving
     specs: Callable           # () -> Spec tree
     logical_names: Callable   # () -> names tree
     forward: Callable         # (params, batch) -> (logits, aux, caches)
@@ -52,6 +53,8 @@ def build_model(cfg: ModelConfig, *, attention: str = "cuda") -> Model:
         cfg=cfg,
         init=lambda generator, device: tfm.init_params(cfg, generator,
                                                        device),
+        init_cast=lambda generator, device: tfm.init_cast_params(
+            cfg, generator, device),
         specs=lambda: tfm.model_specs(cfg),
         logical_names=lambda: tfm.param_logical_names(cfg),
         forward=lambda params, batch: tfm.forward(params, batch, cfg,

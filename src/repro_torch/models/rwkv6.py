@@ -28,12 +28,14 @@ from __future__ import annotations
 
 import torch
 import torch.nn.functional as F
+from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models.layers import (Spec, act_fn, associative_scan,
                                        group_norm, sigmoid)
 from repro_torch.sharding import lshard
-from repro_torch.sharding.logical import linear, split_dim
+from repro_torch.sharding.logical import (linear, merge_dims, on_shards,
+                                          shift_right, split_dim)
 
 LW_CLAMP = -5.0   # per-step log-decay floor (exp(-5) ~ 0.0067: effectively 0)
 SUB = 16          # intra-chunk sub-block size
@@ -75,8 +77,28 @@ def rwkv6_cm_specs(cfg: ModelConfig) -> dict:
 
 def _shift(x):
     """x delayed by one step along T, a zero first: the reference's
-    ``pad(x, 1 before)[:, :-1]``."""
-    return F.pad(x, (0, 0, 1, 0))[:, :-1]
+    ``pad(x, 1 before)[:, :-1]``, across shard edges under rules
+    (``shift_right``)."""
+    return shift_right(x, 1)
+
+
+def _on_heads(fn, r, k, v, lw, u, S):
+    """``fn(r, k, v, lw, u, S)`` on each rank's (batch, head) block: r, k,
+    v, lw (B, ..., H, N) and S (B, H, N, N) split as r splits B and H, the
+    steps and N whole; u (H, N) as r splits H. Its outputs (y like r, the
+    state like S). The recurrence is independent across batch and heads,
+    so the block's result is the whole one's, by bits on one rank."""
+    if not isinstance(r, DTensor):
+        return fn(r, k, v, lw, u, S)
+    hd = r.dim() - 2
+    rpl = [q if q.is_shard(0) or q.is_shard(hd) else Replicate()
+           for q in r.placements]
+    spl = [Shard(1) if q.is_shard(hd) else q for q in rpl]
+    upl = [Shard(0) if q.is_shard(hd) else Replicate() for q in rpl]
+    # u's gradient sums over the batch: a Partial where the batch is split
+    ugrad = [Partial() if q.is_shard(0) else p for q, p in zip(rpl, upl)]
+    return on_shards(fn, (r, k, v, lw, u, S), (rpl,) * 4 + (upl, spl),
+                     (rpl, spl), (None,) * 4 + (ugrad, None))
 
 
 # ---------------------------------------------------------------------------
@@ -91,7 +113,14 @@ def _ddlerp(p, x, xprev):
     lora = torch.tanh(linear(xxx, p["maa_w1"].to(dt)))
     B, T, L5 = lora.shape
     lora = split_dim(lora, -1, (5, L5 // 5))
-    m = torch.einsum("btfl,flc->fbtc", lora, p["maa_w2"].to(dt))  # (5,B,T,C)
+    w2 = p["maa_w2"].to(dt)
+    # each token's mixes from its own LoRA: a map over (B, T) under rules
+    pl = [q if q.is_shard() and q.dim < 2 else Replicate()
+          for q in getattr(lora, "placements", ())]
+    m = on_shards(lambda lo, w: torch.einsum("btfl,flc->fbtc", lo, w),
+                  (lora, w2), (pl, [Replicate()] * len(pl)),
+                  ([Shard(q.dim + 1) if q.is_shard() else q for q in pl],),
+                  (None, [Partial() if q.is_shard() else q for q in pl]))
     return [x + xx * (mx[i + 1] + m[i]) for i in range(5)]
 
 
@@ -112,7 +141,7 @@ def _project(p, x, xprev, cfg: ModelConfig):
     h = C // n
 
     def heads(z):
-        return z.reshape(B, T, h, n).to(f32)
+        return split_dim(z, -1, (h, n)).to(f32)
     return heads(r), heads(k), heads(v), g, heads(lw)
 
 
@@ -208,12 +237,15 @@ def rwkv6_time_mix(p, x, cfg: ModelConfig, *, xprev=None, state=None):
     if xprev is None:
         xprev = _shift(x)
     r, k, v, g, lw = _project(p, x, xprev, cfg)
-    if state is None:
-        state = torch.zeros((B, h, n, n), dtype=torch.float32,
-                            device=x.device)
     u = p["u"].to(torch.float32)
-    y, S_out = wkv6(r, k, v, lw, u, state, cfg.scan_chunk)
-    y = y.reshape(B, T, C).to(dt)
+
+    def run(r, k, v, lw, u, S):
+        if S is None:
+            S = torch.zeros((r.shape[0], r.shape[2], n, n),
+                            dtype=torch.float32, device=r.device)
+        return wkv6(r, k, v, lw, u, S, cfg.scan_chunk)
+    y, S_out = _on_heads(run, r, k, v, lw, u, state)
+    y = merge_dims(y, 2).to(dt)
     y = group_norm(y, p["ln_x_scale"], p["ln_x_bias"], h)
     y = y * g
     y = lshard(y, "batch", "seq", "d_ff")
@@ -227,13 +259,17 @@ def rwkv6_decode(p, x, prev_x, S, cfg: ModelConfig):
     r, k, v, g, lw = _project(p, x, xprev, cfg)   # (B,1,H,N)
     r1, k1, v1, lw1 = (z[:, 0] for z in (r, k, v, lw))
     u = p["u"].to(torch.float32)
-    # y = r^T (S + diag(u) k v^T)
-    y = torch.einsum("bhd,bhde->bhe", r1, S) + \
-        torch.einsum("bhd,hd,bhd,bhe->bhe", r1, u, k1, v1)
-    S_out = torch.exp(lw1)[..., None] * S + k1[..., None] * v1[..., None, :]
+
+    def step(r1, k1, v1, lw1, u, S):
+        # y = r^T (S + diag(u) k v^T)
+        y = torch.einsum("bhd,bhde->bhe", r1, S) + \
+            torch.einsum("bhd,hd,bhd,bhe->bhe", r1, u, k1, v1)
+        return y, torch.exp(lw1)[..., None] * S + \
+            k1[..., None] * v1[..., None, :]
+    y, S_out = _on_heads(step, r1, k1, v1, lw1, u, S)
     B, _, C = x.shape
     h = C // cfg.rwkv_head_dim
-    y = y.reshape(B, 1, C).to(x.dtype)
+    y = merge_dims(y, 1)[:, None].to(x.dtype)
     y = group_norm(y, p["ln_x_scale"], p["ln_x_bias"], h)
     y = y * g
     out = linear(y, p["wo"].to(x.dtype))

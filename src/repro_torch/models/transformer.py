@@ -34,6 +34,7 @@ gradient through; the port's attention is one call and needs none.
 from __future__ import annotations
 
 import functools
+import math
 from collections import namedtuple
 from typing import Callable
 
@@ -481,6 +482,30 @@ def init_caches(cfg: ModelConfig, batch: int, seq_len: int, device):
 def init_params(cfg: ModelConfig, generator: torch.Generator, device):
     return init_tree(model_specs(cfg), generator,
                      getattr(torch, cfg.param_dtype), device)
+
+
+# a stacked leaf whose f32 draw is larger is drawn a group at a time by
+# ``init_cast_params``: the draw and its cast then stay under 2.5 GB above
+# the cast tree (Moonshot-v1-16B-A3B's expert leaves, 35.4 GB each in f32,
+# draw 738 MB at a time)
+SLICE_BYTES = 3 << 29
+
+
+def init_cast_params(cfg: ModelConfig, generator: torch.Generator, device):
+    """The params in their serving dtypes: ``init_params``' draws, in its
+    order from the same generator, each leaf cast as ``cast_params`` casts
+    it before the next leaf is drawn, so that init holds the cast tree and
+    one leaf in f32, never the f32 tree. A stacked leaf (under ``"scan"``)
+    of more than ``SLICE_BYTES`` in f32 is drawn one group at a time into
+    its cast. On the CPU the result is ``cast_params(init_params(...))`` by
+    bits; on CUDA a sliced leaf draws other values (Philox draws a slice
+    from its own offset)."""
+    dt = getattr(torch, cfg.dtype)
+    return init_tree(
+        model_specs(cfg), generator, getattr(torch, cfg.param_dtype), device,
+        lambda path: None if _read_in_f32(path, cfg) else dt,
+        lambda path, spec: path[0] == "scan"
+        and 4 * math.prod(spec.shape) > SLICE_BYTES)
 
 
 def param_logical_names(cfg: ModelConfig):

@@ -40,6 +40,16 @@ def greedy_token(logits):
     return torch.argmax(logits, dim=-1).to(torch.int32)
 
 
+def _session_device(device) -> torch.device:
+    """The session's device: ``"cuda"`` unless given, raising where there
+    is no CUDA device to take it."""
+    device = torch.device("cuda" if device is None else device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError("ServeSession: no CUDA device; pass "
+                           "device='cpu' to run on the CPU")
+    return device
+
+
 @dataclasses.dataclass
 class ServeSession:
     """Minimal batched generation loop over the eager steps.
@@ -56,15 +66,22 @@ class ServeSession:
     device: Optional[Union[str, torch.device]] = None
 
     def __post_init__(self):
-        self.device = torch.device("cuda" if self.device is None
-                                   else self.device)
-        if self.device.type == "cuda" and not torch.cuda.is_available():
-            raise RuntimeError("ServeSession: no CUDA device; pass "
-                               "device='cpu' to run on the CPU")
+        self.device = _session_device(self.device)
         self.params = self.model.cast_params(
             tree_map(lambda t: t.to(self.device), self.params))
         self._prefill = make_prefill_step(self.model)
         self._decode = make_decode_step(self.model)
+
+    @classmethod
+    def from_seed(cls, model: Model, seed: int, device=None, **kw):
+        """A session whose params are drawn on ``device`` from a generator
+        seeded with ``seed``, straight in their serving dtypes
+        (``Model.init_cast``): init holds the cast params and one leaf in
+        f32, where ``Model.init`` then ``cast_params`` would hold the f32
+        tree beside its cast."""
+        device = _session_device(device)
+        gen = torch.Generator(device=device).manual_seed(seed)
+        return cls(model, model.init_cast(gen, device), device=device, **kw)
 
     def generate(self, tokens, n_steps: int):
         """tokens: (B, S) prompt (or (B,K,S) for codebook models), a tensor

@@ -36,6 +36,7 @@ from dataclasses import dataclass, field
 from typing import Optional, Sequence
 
 import torch
+import torch.nn.functional as F
 from torch.distributed.tensor import DTensor, Replicate, Shard
 from torch.distributed.tensor.experimental import implicit_replication
 
@@ -377,6 +378,73 @@ class _MergeDims(torch.autograd.Function):
     @staticmethod
     def backward(ctx, g):
         return split_dim(g, ctx.dim, ctx.sizes), None, None
+
+
+def replicated(x):
+    """A DTensor's whole value on every rank, as a plain tensor (its
+    mesh dims replicated: the step's few routing values, not activations);
+    a plain tensor as it is."""
+    if not isinstance(x, DTensor):
+        return x
+    return _placed(x, (Replicate(),) * x.device_mesh.ndim).to_local()
+
+
+def on_shards(fn, args, placements, out_placements, grad_placements=None):
+    """``fn`` on each rank's shards: every DTensor of ``args`` redistributed
+    to its entry of ``placements`` and given to ``fn`` as the rank's local
+    shard, its gradient taken in its entry of ``grad_placements`` where one
+    is given (``Partial()`` on a mesh dim over which the rank used only a
+    part of what it holds); other args passed as they are. ``fn``'s outputs
+    (a tensor or a tuple of them) become DTensors of their entries of
+    ``out_placements``, evenly sharded. ``fn`` must compute the rank's
+    output shards from its input shards alone: a map over the dims the
+    placements shard, or over replicated values. Without a DTensor among
+    ``args``, ``fn(*args)``: the plain path."""
+    mesh = next((a.device_mesh for a in args if isinstance(a, DTensor)),
+                None)
+    if mesh is None:
+        return fn(*args)
+    loc = []
+    for i, a in enumerate(args):
+        if isinstance(a, DTensor):
+            g = None if grad_placements is None else grad_placements[i]
+            a = _placed(a, tuple(placements[i])).to_local(
+                grad_placements=None if g is None else tuple(g))
+        loc.append(a)
+    outs = fn(*loc)
+    one = not isinstance(outs, tuple)
+    outs = tuple(None if o is None else DTensor.from_local(
+        o, mesh, tuple(pl), run_check=False)
+        for o, pl in zip((outs,) if one else outs, out_placements))
+    return outs[0] if one else outs
+
+
+def shift_right(x, dim: int = 1):
+    """``x`` delayed by one step along ``dim``, a zero first: ``pad(x, 1
+    before)`` then the last step dropped. A DTensor has the mesh dims that
+    shard ``dim`` gathered for the shift and its placements restored
+    after (each shard's first step is its left neighbour's last)."""
+    dim %= x.dim()
+    pad = [0, 0] * (x.dim() - 1 - dim) + [1, 0]
+    if not isinstance(x, DTensor):
+        return F.pad(x, pad).narrow(dim, 0, x.shape[dim])
+    pl = tuple(x.placements)
+    whole = _replicated(x, lambda p, n: p.dim != dim)
+    out = on_shards(lambda t: F.pad(t, pad).narrow(dim, 0, t.shape[dim]),
+                    (whole,), (whole.placements,), (whole.placements,))
+    return constrain(out, pl)
+
+
+def like_channels(w, x):
+    """DTensor ``w`` (``x``'s last dim, 1-D) placed as DTensor ``x`` places
+    its last dim, replicated over every other mesh dim: a per-channel
+    affine that DTensor would otherwise meet with ``x``'s sharding of
+    another dim on the same mesh dim. Plain tensors as they are."""
+    if not isinstance(w, DTensor) or not isinstance(x, DTensor):
+        return w
+    last = x.dim() - 1
+    return _placed(w, tuple(Shard(0) if q.is_shard(last) else Replicate()
+                            for q in x.placements))
 
 
 def _gathered(w, x):

@@ -4,6 +4,7 @@ prompts that numpy makes from a seed.
 
     PYTHONPATH=src JAX_PLATFORMS=cpu python tests/make_lm_golden.py
     PYTHONPATH=src JAX_PLATFORMS=cpu python tests/make_lm_golden.py --recurrent
+    PYTHONPATH=src JAX_PLATFORMS=cpu python tests/make_lm_golden.py --moe
 
 Not a test (pytest collects ``test_*.py`` only). The first writes
 ``golden/lm_session_f32.json``, runs each in f32:
@@ -28,6 +29,19 @@ Not a test (pytest collects ``test_*.py`` only). The first writes
 - ``recurrentgemma-9b``'s smoke config (window 8), 32-token prompts: the
   window and the ring wrapping on a local layer.
 
+``--moe`` writes ``golden/lm_session_moe_f32.json`` (~1 min, ~10 GB at
+its peak), runs each in f32:
+
+- ``moonshot-v1-16b-a3b`` at full width (d_model 2048, 16 heads of 128, 64
+  experts of moe_d_ff 1408, top-6, vocab 163840) cut to ``MOE_LAYERS`` of
+  48 (1.24 B parameters, 5.0 GB), 2 prompts of 64 tokens;
+- ``moonshot-v1-16b-a3b``'s and ``mixtral-8x22b``'s smoke configs (4
+  experts, top-2), 32-token prompts.
+
+A MoE run also keeps ``router_margin``: the smallest gap between the K-th
+and the (K+1)-th largest router probability over every token, layer and
+step, where a routing choice would flip first.
+
 Per run the file keeps the config's name and overrides, the seeds, the
 prompts, a sha256 of the weights (``convert.tree_sha256``: whether numpy
 made the same ones on the card's host), the generated tokens and, at each
@@ -35,10 +49,12 @@ step (the prefill's last position, then every decode step), the 8 largest
 logits of each sequence with their indices. ``chip_smoke.py`` reads only
 this JSON.
 """
+import contextlib
 import json
 import os
 import sys
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 
@@ -52,9 +68,11 @@ from repro_torch.models.convert import numpy_params, tree_sha256
 GOLDEN = os.path.join(os.path.dirname(os.path.abspath(__file__)), "golden")
 OUT = os.path.join(GOLDEN, "lm_session_f32.json")
 OUT_RECURRENT = os.path.join(GOLDEN, "lm_session_recurrent_f32.json")
+OUT_MOE = os.path.join(GOLDEN, "lm_session_moe_f32.json")
 QWEN3_LAYERS = 4
 RWKV_LAYERS = 2
 GRIFFIN_LAYERS = 3
+MOE_LAYERS = 1
 TOP = 8
 RUNS = [
     dict(name="qwen3-0.6b", smoke=False,
@@ -78,6 +96,38 @@ RECURRENT_RUNS = [
          overrides=dict(dtype="float32"),
          seed=0, prompt_seed=1, batch=2, prompt_len=32, steps=8),
 ]
+MOE_RUNS = [
+    dict(name="moonshot-v1-16b-a3b", smoke=False,
+         overrides=dict(dtype="float32", n_layers=MOE_LAYERS),
+         seed=0, prompt_seed=1, batch=2, prompt_len=64, steps=8),
+    dict(name="moonshot-v1-16b-a3b", smoke=True,
+         overrides=dict(dtype="float32"),
+         seed=0, prompt_seed=1, batch=2, prompt_len=32, steps=8),
+    dict(name="mixtral-8x22b", smoke=True, overrides=dict(dtype="float32"),
+         seed=0, prompt_seed=1, batch=2, prompt_len=32, steps=8),
+]
+MODES = {(): (RUNS, OUT), ("--recurrent",): (RECURRENT_RUNS, OUT_RECURRENT),
+         ("--moe",): (MOE_RUNS, OUT_MOE)}
+
+
+@contextlib.contextmanager
+def router_margins(margins: list):
+    """``jax.lax.top_k`` (which only the MoE router calls) taking k + 1
+    values, the (k+1)-th only to append the smallest K-th minus (K+1)-th
+    gap of each call to ``margins`` (a host callback under ``jit``); the
+    top k it returns are ``top_k``'s own."""
+    real = jax.lax.top_k
+
+    def top_k(x, k):
+        vals, idx = real(x, k + 1)
+        jax.debug.callback(lambda v: margins.append(float(np.min(
+            v[..., k - 1] - v[..., k]))), vals)
+        return vals[..., :k], idx[..., :k]
+    jax.lax.top_k = top_k
+    try:
+        yield
+    finally:
+        jax.lax.top_k = real
 
 
 def _to_jax(tree):
@@ -111,29 +161,32 @@ def golden_run(run: dict) -> dict:
     sess._prefill, sess._decode = keep(prefill), keep(decode)
     toks = np.random.default_rng(run["prompt_seed"]).integers(
         0, cfg.vocab_size, (run["batch"], run["prompt_len"]), dtype=np.int32)
-    out = np.asarray(sess.generate(jnp.asarray(toks), run["steps"]))
+    margins: list = []
+    with router_margins(margins):
+        out = np.asarray(sess.generate(jnp.asarray(toks), run["steps"]))
     top = []
     for logits in seen:
         idx = np.argsort(-logits, axis=-1, kind="stable")[:, :TOP]
         top.append({"index": idx.tolist(),
                     "value": np.take_along_axis(logits, idx, -1).tolist()})
+    extra = {"router_margin": min(margins)} if margins else {}
     return dict(run, weights_sha256=sha, prompts=toks.tolist(),
-                tokens=out.tolist(), top=top)
+                tokens=out.tolist(), top=top, **extra)
 
 
 def main(argv: list) -> None:
-    recurrent = argv[1:] == ["--recurrent"]
-    if argv[1:] and not recurrent:
-        raise SystemExit(f"usage: {argv[0]} [--recurrent]")
-    out_path = OUT_RECURRENT if recurrent else OUT
-    runs = [golden_run(r) for r in (RECURRENT_RUNS if recurrent else RUNS)]
+    if tuple(argv[1:]) not in MODES:
+        raise SystemExit(f"usage: {argv[0]} [--recurrent | --moe]")
+    specs, out_path = MODES[tuple(argv[1:])]
+    runs = [golden_run(r) for r in specs]
     os.makedirs(GOLDEN, exist_ok=True)
     with open(out_path, "w") as f:
         json.dump({"made_by": "tests/make_lm_golden.py", "top": TOP,
                    "runs": runs}, f, indent=1)
         f.write("\n")
     for r in runs:
-        print(r["name"], "tokens", r["tokens"])
+        print(r["name"], "tokens", r["tokens"],
+              "router margin", r.get("router_margin"))
 
 
 if __name__ == "__main__":

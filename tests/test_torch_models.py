@@ -436,6 +436,30 @@ def test_init_params_has_the_reference_tree(name):
                                "lam"}}.get(cfg.family, set())
 
 
+@pytest.mark.parametrize("sliced", [False, True])
+@pytest.mark.parametrize("name", sorted(T_SMOKE))
+def test_init_cast_params_is_the_cast_of_init(name, sliced, monkeypatch):
+    """``Model.init_cast`` (init leaf by leaf, each cast before the next is
+    drawn) equals ``cast_params(init(...))`` by bits and dtypes, from the
+    same seed: with no leaf sliced, and with every stacked leaf drawn one
+    group at a time (``SLICE_BYTES`` 0): on the CPU the slices' draws are
+    the whole leaf's."""
+    from repro_torch.models import build_model
+    from repro_torch.models import transformer as tfm
+    from repro_torch.utils.tree import flatten_dict
+    cfg = T_SMOKE[name]
+    model = build_model(cfg)
+    want = flatten_dict(model.cast_params(
+        model.init(torch.Generator().manual_seed(3), "cpu")))
+    if sliced:
+        monkeypatch.setattr(tfm, "SLICE_BYTES", 0)
+    got = flatten_dict(model.init_cast(torch.Generator().manual_seed(3),
+                                       "cpu"))
+    assert sorted(got) == sorted(want)
+    for k, w in want.items():
+        assert got[k].dtype == w.dtype and torch.equal(got[k], w), k
+
+
 def test_init_kv_cache_matches_jax():
     jcfg, tcfg = _attn_cfg(sliding_window=8)
     for local in (False, True):

@@ -402,6 +402,68 @@ def test_recurrent_golden_check_fails_planted_faults(monkeypatch, fault,
     assert errs[check] > 0, errs
 
 
+@pytest.mark.parametrize("name", ["moonshot-v1-16b-a3b", "mixtral-8x22b"])
+def test_moe_golden_file_holds_on_the_cpu(name):
+    """The MoE golden file's smoke run of ``name`` (4 experts, top-2)
+    through phase 7's check on the CPU: the weights hash to the file's,
+    tokens and logits agree with the JAX package's run, every step
+    compared; the row carries the run's smallest router margin. The
+    full-width Moonshot run's config is the port's at the file's depth."""
+    cs = _chip_smoke()
+    runs = [r for r in cs.lm_golden(cs.LM_GOLDEN_MOE) if r["name"] == name]
+    (run,) = [r for r in runs if r["smoke"]]
+    errs, row = cs.golden_errors(run, torch.device("cpu"))
+    assert errs == {"weights": 0, "tokens": 0, "logits": 0}, (errs, row)
+    assert row["tokens_compared"] == row["steps"] and row["max_err"] < 1e-4
+    assert row["router_margin"] == run["router_margin"] > 0
+    for full in (r for r in runs if not r["smoke"]):
+        cfg = cs.lm_config(full)
+        assert (cfg.d_model, cfg.n_layers, cfg.n_experts, cfg.top_k,
+                cfg.moe_d_ff, cfg.vocab_size, cfg.dtype) == (
+            2048, 1, 64, 6, 1408, 163840, "float32")
+
+
+def test_moe_golden_check_fails_a_combine_without_an_expert(monkeypatch):
+    """``--plant-faults``' ``lm.moe_combine_drops_expert`` (the combine
+    drops expert 0's rows), planted here, fails the logits of phase 7's
+    golden check on Moonshot's smoke run."""
+    cs = _chip_smoke()
+    (run,) = [r for r in cs.lm_golden(cs.LM_GOLDEN_MOE)
+              if r["name"] == "moonshot-v1-16b-a3b" and r["smoke"]]
+    _plant(monkeypatch, cs, "lm.moe_combine_drops_expert")
+    errs, _ = cs.golden_errors(run, torch.device("cpu"))
+    assert errs["logits"] > 0, errs
+
+
+def test_init_check_fails_a_router_cast_to_bf16(monkeypatch):
+    """``--plant-faults``' ``lm_init.router_cast_bf16``, planted here: the
+    init in the serving dtypes leaves the MoE router in bf16, which
+    ``f32_cast_errors`` counts (one a layer group)."""
+    from repro_torch.models import build_model
+    cs = _chip_smoke()
+    cfg = T_SMOKE["moonshot-v1-16b-a3b"]
+    model = build_model(cfg)
+    gen = torch.Generator().manual_seed(0)
+    assert cs.f32_cast_errors(model.init_cast(gen, "cpu"), cfg) == 0
+    _plant(monkeypatch, cs, "lm_init.router_cast_bf16")
+    assert cs.f32_cast_errors(model.init_cast(gen, "cpu"), cfg) == 1
+
+
+def test_exact_tie_needs_the_largest_logit_held_twice():
+    """Phase 7's Moonshot argmax at an exact tie: the kernels' largest
+    logit held by two tokens (3.78125 and 3.78125 on the card), the plain
+    run's choice the second of them (3.765625 and 3.78125) agree on a
+    greedy choice; the same pair one bf16 step apart on both runs, or a
+    plain choice outside the tie, does not."""
+    cs = _chip_smoke()
+    g = torch.tensor([3.78125, 1.0, 3.78125, 0.5])
+    assert cs.exact_tie(g, torch.tensor([3.765625, 1.0, 3.78125, 0.5]))
+    assert cs.exact_tie(torch.tensor([3.765625, 1.0, 3.78125, 0.5]), g)
+    assert not cs.exact_tie(torch.tensor([3.78125, 1.0, 3.765625, 0.5]),
+                            torch.tensor([3.765625, 1.0, 3.78125, 0.5]))
+    assert not cs.exact_tie(g, torch.tensor([3.765625, 1.0, 3.75, 3.78125]))
+
+
 def _shapes(tree, path=()) -> dict:
     """{key path: (shape, dtype name)} of a cache tree of either package
     (ShapeDtypeStructs, TensorSpecs or tensors)."""

@@ -400,7 +400,8 @@ dist.destroy_process_group()
 
 
 @pytest.mark.parametrize("arch", ["qwen3-0.6b", "gemma2-27b",
-                                  "recurrentgemma-9b"])
+                                  "recurrentgemma-9b", "moonshot-v1-16b-a3b",
+                                  "mixtral-8x22b", "rwkv6-1.6b"])
 def test_sharded_loss_and_grads_on_four_gloo_ranks(tmp_path, arch):
     """Smoke configs in f32 on a (2, 2) mesh of four ``gloo`` processes:
     the loss and every gradient under the rules (weights gathered for
