@@ -14,7 +14,8 @@ order; any failure raises and the script exits nonzero:
 2. Kernels against their plain versions on the card, tolerance 0
    (``torch.equal``). The VTA GEMM (gather, product and add into acc in one
    launch) on every GEMM entry the main path launches, at the batch it
-   launches it (trunk at 2 and 8, resnet18-small at 4), with random int8
+   launches it (both trunks at 2 and 8, resnet18-small and mobilenet-small
+   at 4: ``SERVE_RUNS``), with random int8
    scratchpads and an acc within 2^24 of +-2^31 so that the add wraps, the
    whole acc compared; besides, at N = 3, an entry with prime g and R, one
    with K = 4608, the int8 extremes, per-image weights (Nw = N), the
@@ -24,16 +25,22 @@ order; any failure raises and the script exits nonzero:
    entries as one CUDA graph, against the fused function's bound
    (``gemm_bound_s``) and ``torch._int_mm`` on pre-gathered operands (the
    product only). The ALU stage-program kernel on every chain and sweep the
-   main path launches, and on the real chains and sweeps of a depthwise and
+   main path launches (MobileNet's: its 13 depthwise layers' MAC sweeps,
+   the fused ``mbn.dw11`` -> ``mbn.pw11`` segment and the global average
+   pool; slab tensors drawn once per model and batch), and on the real
+   chains and sweeps of a depthwise and
    two pool programs, forced scatter stores, a store with duplicate and
    masked lanes, and integer edge cases at N = 3 (``sweep_cases``), each at
    its planned tap split (``kernels/alu_sweep.py::sweep_plan``), at 1 and
    at its largest; the time per launch of each program kind (the trunk's
    pool1 tile and global average pool) at every split.
 3. The main path: ``VTAServeEngine(backend="torch")`` serves the full-width
-   ResNet-18 trunk (``SERVE_REPS`` full dispatches each of buckets 2 and 8)
-   and the resnet18-small served model (``SERVE_REPS`` full dispatches of
-   bucket 4) through the captured path: each trace runs as chunks
+   ResNet-18 and MobileNet-1.0 trunks (``serve/model.py``'s
+   ``resnet18_trunk_graph`` and ``mobilenet_trunk_graph``, both under
+   ``live_weights``; ``SERVE_REPS`` full dispatches each of buckets 2 and
+   8) and the resnet18-small and mobilenet-small served models
+   (``SERVE_REPS`` full dispatches of bucket 4), each a tenant of its own,
+   through the captured path: each trace runs as chunks
    (``TorchBackend.chunks``), each chunk one CUDA graph captured on the
    first dispatch of its (trace, bucket) and replayed after. That first
    dispatch of each (model, bucket) runs before the serve run, uncounted,
@@ -44,14 +51,22 @@ order; any failure raises and the script exits nonzero:
    forward, each forward must have taken as many dispatches as its chunk
    plan has chunks, each capture-log key must hold 1 and the serve run must
    capture nothing. Every output must equal the same image on
-   ``"torch-cpu"``, and request 0's output must hash to ``TRUNK_DIGEST``,
-   the JAX package's numpy-backend result (tests/test_torch_serve.py pins
-   the same digest). ``accumulate_program``, whose ADD reads acc rows no
+   ``"torch-cpu"``, and request 0 of each trunk must hash to its digest
+   (``TRUNK_DIGEST``, ``MBN_DIGEST``), the JAX package's numpy-backend
+   result under the same weights (tests/test_torch_serve.py and
+   tests/test_torch_mobilenet_serve.py pin the same digests). The
+   ``live:`` lines: each trunk's least nonzero share and greatest share at
+   the int8 limits over its segments' outputs on images 0-1, read from the
+   ``"torch-cpu"`` reference run segment by segment (``segment_shares``;
+   the card's outputs equal it by bits), each segment held to
+   ``LIVE_NONZERO`` and ``LIVE_SATURATED``: ``ServedModel.compile``'s own
+   weights zero MobileNet from ``mbn.pw0`` on and saturate the ResNet
+   trunk, which a bit-exact check cannot see. ``accumulate_program``, whose ADD reads acc rows no
    instruction of it wrote, runs three times in a row on the card against
    the port's numpy backend, which a dispatch that skips zeroing the
-   scratchpads fails. The ``profile:`` line gives one trunk forward at batch
-   8 on the captured path under ``torch.profiler``: host wall (profiled and
-   not), device busy, idle share, device kernels and
+   scratchpads fails. The ``profile:`` lines give one forward of each trunk
+   at batch 8 on the captured path under ``torch.profiler``: host wall
+   (profiled and not), device busy, idle share, device kernels and
    ``torch.cuda.memory_reserved``.
 4. The float layer ops at full width, through ``repro_torch.kernels.ops``
    at batch ``LAYER_BATCH`` (NHWC), shapes from the port's layer tables:
@@ -163,7 +178,14 @@ order; any failure raises and the script exits nonzero:
    pool (a worker's capture scope is ``pool<k>.worker<id>``), and the four
    workers' streams distinct (the process's stream registry,
    ``fsim_torch.claim_stream``); then the first pool shuts down and the
-   second's next round replays with no new capture.
+   second's next round replays with no new capture. Two tenants
+   (``two_tenants``): both trunks on one 2-worker pool, each (model,
+   bucket)'s first dispatch alone, then ``TENANT_ROUNDS`` rounds of 8 then
+   2 images of each: affinity sticky by (model, bucket) (both bucket 8s
+   on worker 0, both bucket 2s on worker 1), each model's keys captured
+   once in its owner's scope, every answer equal to ``"torch-cpu"``, each
+   tenant's request 0 to its digest, launches and dispatches those of
+   the forwards served. Every trunk here runs under ``live_weights``.
 7. The language-model session (``lm_checks``), through the entry points a
    user calls: ``build_model``, ``ServeSession(model, params).generate``
    on the card, every attention layer on the port's kernels, the RWKV-6
@@ -308,15 +330,18 @@ order; any failure raises and the script exits nonzero:
    and wall time printed.
 
 Output: one line per kernel (and per phase-4 case), ms per dispatch per
-bucket (median, min, max), then a JSON line of serving numbers (per bucket,
-the capture cost per bucket and the ``profile:`` numbers), a JSON line of
+bucket (median, min, max), then a JSON line of serving numbers (per model
+and bucket, the capture cost per model and bucket, the ``live:`` numbers
+and the ``profile:`` numbers by trunk), a JSON line of
 the pool's numbers (``{"pool": ...}``: per n, ms per round, images/s and per
 worker batches, busy ms and reserved MB; the speedup), a JSON line of the
 language-model runs (``{"lm": ...}``), one of the training runs
 (``{"train": ...}``), one of the sweep (``{"dse": ...}``), one of the
 mesh layer (``{"mesh": ...}``), a JSON line of
 kernel numbers (the VTA rows also give ``launches_pool``, their launches
-in the 2-worker rounds, and ``launches_dse``, phase 9's card sweep; the
+in the 2-worker rounds, ``launches_tenants``, the two-tenant rounds',
+``launches_per_forward_by_model``, one forward of each served model, and
+``launches_dse``, phase 9's card sweep; the
 attention rows' ``launches`` are phase 7's, ``launches_train`` phase 8's
 and ``launches_cases`` phase 5's), the ``nvidia-smi`` line, and last the
 device line. Kernel
@@ -354,7 +379,11 @@ the last tap of every compiled pooling window not taken; the last
 reduction row of every VTA GEMM group
 dropped; one thread's partial of a split tap reduction dropped; a captured
 dispatch that does not zero the scratchpads, and one that replays every
-chunk of a trace but the last; plans shared by every worker,
+chunk of a trace but the last; MobileNet served under
+``ServedModel.compile``'s weights (``load_params`` installing nothing for
+it), the last tap of each depthwise MAC dropped from the sweep kernel
+where a sweep has 112 rows (MobileNet's 112 x 112 and 56 x 56 layers),
+and the fused ``mbn.dw11`` -> ``mbn.pw11`` chunk not replayed; plans shared by every worker,
 ``pool.shared_plans``, a card rung that steps down for a fault of the
 card, ``ladder.card_error_steps_down``, a step down the ladder left
 uncounted, ``ladder.uncounted_step_down``, and in the language model a
@@ -410,16 +439,53 @@ import sys
 import tempfile
 import time
 import traceback
+import zlib
 
 import numpy as np
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 SRC = os.path.join(ROOT, "src")
 
-# sha256 of the trunk's output for image 0 of random_images(8, seed=0), from
-# the JAX package's numpy backend (tests/test_torch_serve.py asserts it)
+TRUNK = "resnet18-trunk"
+SMALL = "resnet18-small"
+MBN = "mobilenet1.0-trunk"
+MBN_SMALL = "mobilenet-small"
+
+# sha256 of each trunk's output for image 0 of random_images(8, seed=0) under
+# live_weights(model, LIVE_SEED), from the JAX package's numpy backend
+# (tests/test_torch_serve.py and tests/test_torch_mobilenet_serve.py assert
+# the same digests)
 TRUNK_DIGEST = \
-    "93a27c05b40128f109a1f863874468b3e9137bfb386ecd58fa59a5e5b7191b3e"
+    "6686d447b6462e98295895df574545f567ad7c023acafb6972bc3de923d1dbf1"
+MBN_DIGEST = \
+    "b926952d3de5609b1cb1a733bf7817fd1656544bf665a6046dee0058af096e0d"
+DIGESTS = {TRUNK: TRUNK_DIGEST, MBN: MBN_DIGEST}
+
+# ServedModel.compile draws int8 weights in [-8, 8) and every post-op shifts
+# right by 8: under them MobileNet-1.0 is zero from mbn.pw0 on and the
+# ResNet-18 trunk's deep layers sit at +-127, so a bit-exact check of either
+# sees little. ``live_weights`` draws each layer's weights from [-r, r], r
+# from LIVE_RANGES: on images 0-1 of random_images(8, seed=0) every segment's
+# output is then at least LIVE_NONZERO nonzero and at most LIVE_SATURATED at
+# the int8 limits (|v| >= 127). The ranges were picked layer by layer in
+# segment order, r stepping through 1, 2, 3, 4, 6, 8, 12, ..., 96, 127: the
+# largest that left its segment at most 10% saturated; then the layers that
+# feed the fc (ResNet-18's stage 3, MobileNet's pw12) cut until the fc,
+# whose output is not shifted, sat inside the band with r = 1.
+LIVE_SEED = 0
+LIVE_NONZERO = 0.10
+LIVE_SATURATED = 0.25
+LIVE_RANGES = {
+    TRUNK: {f"resnet18.{k}": r for k, r in (
+        ("s0b0.a", 48), ("s0b0.b", 24), ("s0b1.a", 16), ("s0b1.b", 8),
+        ("s1b0.a", 16), ("s1b0.b", 16), ("s1b0.ds", 24), ("s1b1.a", 12),
+        ("s1b1.b", 4), ("s2b0.a", 12), ("s2b0.b", 8), ("s2b0.ds", 24),
+        ("s2b1.a", 8), ("s2b1.b", 4), ("s3b0.a", 1), ("s3b0.b", 1),
+        ("s3b0.ds", 1), ("s3b1.a", 1), ("s3b1.b", 1), ("fc", 1))},
+    MBN: {**{f"mbn.dw{i}": 127 for i in range(13)},
+          **{f"mbn.pw{i}": 127 if i < 6 else 64 for i in range(12)},
+          "mbn.pw12": 2, "mbn.fc": 1},
+}
 
 HBM_BYTES_PER_S = 3.35e12        # H100 SXM, NVIDIA data sheet
 INT8_TENSOR_OPS_PER_S = 1979e12  # dense int8 tensor-core rate
@@ -428,6 +494,9 @@ BF16_TENSOR_OPS_PER_S = 989e12   # dense bf16 tensor-core rate
 TF32_TENSOR_OPS_PER_S = 495e12   # dense TF32 tensor-core rate
 TRUNK_BUCKETS = (2, 8)
 SMALL_BUCKET = 4
+# (model, bucket) of each batch size the serve run dispatches
+SERVE_RUNS = tuple((m, b) for m in (TRUNK, MBN) for b in TRUNK_BUCKETS) + (
+    (SMALL, SMALL_BUCKET), (MBN_SMALL, SMALL_BUCKET))
 SERVE_REPS = 5           # full dispatches timed per bucket
 LAYER_BATCH = 8          # batch of the phase-4 layer-op cases
 # phase-4 kernels: launch key -> (op, CUDA source, the TPU kernel it
@@ -565,18 +634,94 @@ def graph_ms(fn, reps: int = 20, trials: int = 3) -> float:
 
 
 # ---------------------------------------------------------------------------
+# the served models and their weights
+# ---------------------------------------------------------------------------
+def live_weights(model, seed: int = LIVE_SEED) -> dict:
+    """New weights for a full-width trunk (``model.name`` a key of
+    ``LIVE_RANGES``), by name as ``model.weights`` holds them: each weight
+    tensor int8 in [-r, r] with its layer's r, each bias int32 in [-100,
+    100), every tensor from a generator of its own, seeded by ``seed`` and
+    its name. Install them with ``serve.model.load_params``."""
+    ranges = LIVE_RANGES[model.name]
+    layers = {k.rsplit(".", 1)[0] for k in model.weights if k.endswith(".wgt")}
+    if layers != set(ranges):
+        raise KeyError(f"{model.name}: LIVE_RANGES names "
+                       f"{sorted(set(ranges) ^ layers)} wrongly")
+    out = {}
+    for name, w in model.weights.items():
+        rng = np.random.default_rng([seed, zlib.crc32(name.encode())])
+        layer, role = name.rsplit(".", 1)
+        if role == "wgt":
+            r = ranges[layer]
+            out[name] = rng.integers(-r, r + 1, w.shape, dtype=np.int8)
+        else:
+            out[name] = rng.integers(-100, 100, w.shape, dtype=w.dtype)
+    return out
+
+
+def shares(a) -> tuple:
+    """(nonzero share, share at the int8 limits) of an int8 array."""
+    a = np.asarray(a).astype(np.int32)
+    return float(np.mean(a != 0)), float(np.mean(np.abs(a) >= 127))
+
+
+def segment_shares(model, imgs, backend: str = "torch-cpu",
+                   first: int = 2) -> tuple:
+    """One ``run_batch`` of ``imgs`` on ``backend``: (its output, {tensor:
+    ``shares`` over the first ``first`` images} of every tensor a segment
+    of ``model`` stores)."""
+    out = {}
+
+    def note(seg, outs):
+        out.update({t: shares(v[:first].cpu().numpy())
+                    for t, v in outs.items()})
+    return model.run_batch(imgs, backend, on_segment=note), out
+
+
+def live_line(name: str, seg: dict) -> tuple:
+    """The ``live:`` line of one trunk from its ``segment_shares``, and the
+    segments outside the bands (0 passes)."""
+    nz = min(seg, key=lambda t: seg[t][0])
+    sat = max(seg, key=lambda t: seg[t][1])
+    bad = sum(a < LIVE_NONZERO or b > LIVE_SATURATED for a, b in seg.values())
+    log(f"live: {name} on images 0-1, {len(seg)} segment outputs: least "
+        f"nonzero share {seg[nz][0]:.4f} ({nz}, band >= {LIVE_NONZERO}), "
+        f"greatest saturated share {seg[sat][1]:.4f} ({sat}, band <= "
+        f"{LIVE_SATURATED}); {bad} outside the bands")
+    return bad, dict(model=name, segments=len(seg), least_nonzero=seg[nz][0],
+                     least_nonzero_at=nz, most_saturated=seg[sat][1],
+                     most_saturated_at=sat)
+
+
+# ---------------------------------------------------------------------------
 # what the main path launches
 # ---------------------------------------------------------------------------
-def vta_main_path(trunk, small, device) -> list:
+def vta_main_path(models: dict, device) -> list:
     """(model, batch, device entries, tensor shapes, {shared tensor: dtype})
-    for each model and batch the serve run launches: the trunk at each of
-    ``TRUNK_BUCKETS``, then resnet18-small at ``SMALL_BUCKET``."""
+    for each model and batch the serve run launches (``SERVE_RUNS``)."""
     out = []
-    for name, model, batches in (("resnet18-trunk", trunk, TRUNK_BUCKETS),
-                                 ("resnet18-small", small, (SMALL_BUCKET,))):
+    for name, model in models.items():
         ops, shapes = model_ops(model, device)
         shared = {k: v.dtype.type for k, v in model.weights.items()}
-        out += [(name, b, ops, shapes, shared) for b in batches]
+        out += [(name, b, ops, shapes, shared)
+                for key, b in SERVE_RUNS if key == name]
+    return out
+
+
+def serve_models(hw) -> dict:
+    """The models of the serve run, compiled for ``hw``: both full-width
+    trunks with ``live_weights`` installed, and the two serving-scale
+    models of the registry."""
+    from repro_torch.serve.model import (ServedModel, load_params,
+                                         mobilenet_trunk_graph,
+                                         resnet18_trunk_graph, served_model)
+    out = {}
+    for name, graph in ((TRUNK, resnet18_trunk_graph()),
+                        (MBN, mobilenet_trunk_graph())):
+        m = ServedModel.compile(name, graph, hw)
+        out[name] = load_params(m, live_weights(m))
+    out[SMALL] = served_model("resnet18", "small", hw)
+    out[MBN_SMALL] = served_model("mobilenet", "small", hw)
     return out
 
 
@@ -800,21 +945,29 @@ def check_gemm(dev, rng, hw, main_path: list, timed: tuple) -> dict:
                        "operands"}
 
 
-def sweep_inputs(prog, shapes, shared: dict, n: int, dev, rng, hw):
+def sweep_inputs(prog, shapes, shared: dict, n: int, dev, rng, hw,
+                 slabs: dict = None):
     """Random full-range inputs for one program at batch ``n``; ``shared``
-    maps the tensors the batch shares to their dtype."""
+    maps the tensors the batch shares to their dtype. ``slabs``, if given,
+    keeps each slab tensor drawn, by (name, n), for the next program that
+    reads it (the kernel never writes a slab)."""
     import torch
     acc = torch.from_numpy(rng.integers(
         -2**31, 2**31, (n, hw.acc_depth, hw.batch, hw.block_out),
         dtype=np.int32)).to(dev)
     flats = []
     for t in prog.slab_tensors:
+        if slabs is not None and (t, n) in slabs:
+            flats.append(slabs[(t, n)])
+            continue
         size = int(np.prod(shapes[t]))
         shp = (size,) if t in shared else (n, size)
         dtype = shared.get(t, np.int8)
         info = np.iinfo(dtype)
         flats.append(torch.from_numpy(rng.integers(
             info.min, int(info.max) + 1, shp, dtype=dtype)).to(dev))
+        if slabs is not None:
+            slabs[(t, n)] = flats[-1]
     out = None
     if prog.store is not None:
         size = int(np.prod(shapes[prog.store_tensor]))
@@ -986,13 +1139,14 @@ def sweep_cases(dev, rng, hw, main_path: list) -> list:
         if any(p is e[0] for e in edges):
             shift_rows(acc, rng)
         cases.append(("coverage", p, 3, (acc, flats, out), splits_of(p, 3)))
+    slabs: dict = {}        # {model: its slab tensors drawn}
     for model, nb, ops, shapes, shared in main_path:
         for e in ops:
             if e[0] in ("aluchain", "alusweep"):
                 p = e[1]
-                cases.append((f"{model}.b{nb}", p, nb,
-                              sweep_inputs(p, shapes, shared, nb, dev, rng,
-                                           hw), splits_of(p, nb)))
+                cases.append((f"{model}.b{nb}", p, nb, sweep_inputs(
+                    p, shapes, shared, nb, dev, rng, hw,
+                    slabs.setdefault(model, {})), splits_of(p, nb)))
     return cases
 
 
@@ -1098,14 +1252,14 @@ def check_sweeps(dev, rng, hw, main_path: list, timed: dict) -> tuple:
 # ---------------------------------------------------------------------------
 # phase 3: serve
 # ---------------------------------------------------------------------------
-def serve(models: dict, trunk_imgs, small_imgs):
-    """The main path: ``SERVE_REPS`` full dispatches of each trunk bucket and
-    of the small model's bucket. Returns (outputs with the image index each
-    answers, launch counts, per-dispatch timings)."""
+def serve(models: dict, imgs: dict):
+    """The main path: ``SERVE_REPS`` full dispatches of each (model, bucket)
+    of ``SERVE_RUNS``, each model a tenant of its own, ``imgs[model]`` its
+    images. Returns (outputs with the model and image index each answers,
+    launch counts, per-dispatch timings)."""
     import torch
     from repro_torch.kernels import launch_counts, reset_launch_counts
     from repro_torch.serve.engine import BackendExecutor, VTAServeEngine
-    from repro_torch.serve.model import ServedModel
 
     inner = BackendExecutor(models, "torch")
     timings = []
@@ -1118,23 +1272,24 @@ def serve(models: dict, trunk_imgs, small_imgs):
         return out
 
     eng = VTAServeEngine(models, executor=timed)
-    assert isinstance(models["resnet18-trunk"], ServedModel)
+    tenant = {k: f"t{i}" for i, k in enumerate(models)}
     tickets = []                                # (model, image index, ticket)
 
-    def submit(key, imgs, idx):
-        tickets.extend((key, i, eng.submit("t0" if key == "resnet18-trunk"
-                                           else "t1", key, imgs[i]))
+    def submit(key, idx):
+        tickets.extend((key, i, eng.submit(tenant[key], key, imgs[key][i]))
                        for i in idx)
 
     reset_launch_counts()
-    small, big = TRUNK_BUCKETS
-    for r in range(SERVE_REPS):
-        submit("resnet18-trunk", trunk_imgs,
-               [(small * r + j) % len(trunk_imgs) for j in range(small)])
+    small = min(TRUNK_BUCKETS)
+    for r in range(SERVE_REPS):         # the smallest trunk bucket alone
+        for key, b in SERVE_RUNS:
+            if b == small:
+                submit(key, [(b * r + j) % len(imgs[key]) for j in range(b)])
         eng.drain()
     for r in range(SERVE_REPS):
-        submit("resnet18-trunk", trunk_imgs, range(big))
-        submit("resnet18-small", small_imgs, range(SMALL_BUCKET))
+        for key, b in SERVE_RUNS:
+            if b != small:
+                submit(key, range(b))
         eng.drain()
     counts = dict(launch_counts())
     outs = [(key, i, t.result(timeout=0)) for key, i, t in tickets]
@@ -1142,7 +1297,7 @@ def serve(models: dict, trunk_imgs, small_imgs):
 
 
 def profile_forward(model, imgs) -> dict:
-    """Where one trunk forward's time goes on the captured path: device
+    """Where one forward of ``model`` goes on the captured path: device
     time by kernel name (``torch.profiler``, which attributes the kernels
     inside CUDA-graph replays), device busy time against host wall time,
     profiled and not (the profiler slows the host), and
@@ -1183,13 +1338,15 @@ def profile_forward(model, imgs) -> dict:
     if not rows:
         busy = start.elapsed_time(end) / 1e3
         source = "CUDA events around the forward (the profiler saw no kernel)"
-    out = dict(batch=len(imgs), wall_ms=wall * 1e3, busy_ms=busy * 1e3,
+    out = dict(model=model.name, batch=len(imgs), wall_ms=wall * 1e3,
+               busy_ms=busy * 1e3,
                idle_share=1 - busy / wall,
                wall_unprofiled_ms=plain_wall * 1e3,
                idle_share_unprofiled=1 - busy / plain_wall,
                device_kernels=sum(r[1] for r in rows), busy_from=source,
                memory_reserved_mb=torch.cuda.memory_reserved() / 1e6)
-    log(f"profile: trunk forward at batch {len(imgs)} on the captured path: "
+    log(f"profile: {model.name} forward at batch {len(imgs)} on the "
+        f"captured path: "
         f"wall {out['wall_ms']:.1f} ms (profiled), device busy "
         f"{out['busy_ms']:.2f} ms ({source}), device idle share "
         f"{out['idle_share']:.3f}; unprofiled wall "
@@ -1250,58 +1407,85 @@ def zeroing_errors(hw) -> int:
     return bad
 
 
-def serve_checks(trunk, small) -> tuple:
-    """Phase 3 on the captured path. The first dispatch of each (model,
-    bucket) runs apart, uncounted: it runs each trace eagerly and captures
-    its chunks (timed as capture cost). Then ``serve``, then the checks,
-    each a count of what failed: every capture-log key once and none during
-    the serve run (``captures``), dispatches equal to the chunk plan per
-    forward (``dispatches``), each kernel once per entry per forward
+def trace_keys(model) -> set:
+    """The capture-log trace keys of ``model``'s segments: of the Traces
+    ``run_batch`` dispatches, each keyed at its first dispatch."""
+    from repro_torch.vta.backend import lowered
+    keys = set()
+    for seg in model.segments:
+        shapes = {t: model.shapes[t] for t in set(seg.reads) | set(seg.writes)
+                  if t not in model.weights}
+        shapes.update({t: model.weights[t].shape for t in seg.reads
+                       if t in model.weights})
+        key = lowered(seg.program, model.hw, shapes).__dict__.get(
+            "_torch_key")
+        if key is not None:
+            keys.add(key)
+    return keys
+
+
+def per_forward(models: dict, device) -> dict:
+    """{model: {kernel: launches in one forward}}: each VTA entry launches
+    its kernel once."""
+    out = {}
+    for key, m in models.items():
+        ops = model_ops(m, device)[0]
+        out[key] = {k: sum(e[0] == kind for e in ops) for k, kind in (
+            ("gemm", "gemm"), ("alu_chain", "aluchain"),
+            ("alu_sweep", "alusweep"))}
+    return out
+
+
+def serve_checks(models: dict) -> tuple:
+    """Phase 3 on the captured path, over the models of ``serve_models``.
+    The first dispatch of each (model, bucket) runs apart, uncounted: it
+    runs each trace eagerly and captures its chunks (timed as capture
+    cost). Then ``serve``, then the checks, each a count of what failed:
+    every capture-log key once and none during the serve run
+    (``captures``), dispatches equal to the chunk plan per forward
+    (``dispatches``), each kernel once per entry per forward
     (``launches``), full dispatches of every bucket (``buckets``), requests
-    that differ from ``"torch-cpu"`` (``outputs``), request 0's digest
-    (``digest``), and ``zeroing_errors`` (``zeroing``). Returns (errors,
-    serve rows, capture rows, launch counts)."""
+    that differ from ``"torch-cpu"`` (``outputs``), request 0 of each trunk
+    against its digest (``digest``), the trunks' segment outputs outside
+    the live bands (``live``, from ``segment_shares`` on ``"torch-cpu"``:
+    the card's outputs equal those by bits) and ``zeroing_errors``
+    (``zeroing``). Returns (errors, serve rows, capture rows, launch
+    counts, live rows, launches per forward)."""
     import torch
     from repro_torch.vta import fsim_torch
     from repro_torch.vta.backend import get_backend
     be = get_backend("torch")
-    trunk_imgs = trunk.random_images(8, seed=0)
-    small_imgs = small.random_images(SMALL_BUCKET, seed=0)
-    models = {"resnet18-trunk": trunk, "resnet18-small": small}
+    imgs = {k: m.random_images(8 if k in DIGESTS else SMALL_BUCKET, seed=0)
+            for k, m in models.items()}
     plans = {k: plan_length(m, be) for k, m in models.items()}
-    runs = [("resnet18-trunk", b) for b in TRUNK_BUCKETS] + \
-        [("resnet18-small", SMALL_BUCKET)]
     fsim_torch.reset_capture_log()
     capture_rows = []
-    for key, b in runs:
-        imgs = trunk_imgs if key == "resnet18-trunk" else small_imgs
+    for key, b in SERVE_RUNS:
+        m = models[key]
         torch.cuda.synchronize()
         held = torch.cuda.memory_reserved()
         t0 = time.perf_counter()
-        models[key].run_batch(imgs[:b], "torch")
+        m.run_batch(imgs[key][:b], "torch")
         torch.cuda.synchronize()
         capture_rows.append(dict(
-            model=key, bucket=b, graphs=plans[key],
-            traces=len(models[key].segments),
+            model=key, bucket=b, graphs=plans[key], traces=len(m.segments),
             ms=(time.perf_counter() - t0) * 1e3,
             reserved_mb=(torch.cuda.memory_reserved() - held) / 1e6))
         log(f"capture {key} bucket {b}: first dispatch of its "
-            f"{len(models[key].segments)} traces (eager run plus the capture "
-            f"of {plans[key]} graphs) {capture_rows[-1]['ms']:.1f} ms; "
-            f"memory reserved +{capture_rows[-1]['reserved_mb']:.1f} MB")
+            f"{len(m.segments)} traces (eager run plus the capture of "
+            f"{plans[key]} graphs) {capture_rows[-1]['ms']:.1f} ms; memory "
+            f"reserved +{capture_rows[-1]['reserved_mb']:.1f} MB")
     captured = fsim_torch.capture_log()
     fsim_torch.reset_kernel_launch_log()
-    outs, counts, timings = serve(models, trunk_imgs, small_imgs)
+    outs, counts, timings = serve(models, imgs)
     dispatches = fsim_torch.kernel_launch_log()
     errs = {}
     errs["captures"] = sum(v != 1 for v in captured.values()) + abs(
-        len(captured) - sum(plans[k] for k, _ in runs)) + \
+        len(captured) - sum(plans[k] for k, _ in SERVE_RUNS)) + \
         (fsim_torch.capture_log() != captured)
-    fwd = SERVE_REPS * (len(TRUNK_BUCKETS) * plans["resnet18-trunk"]
-                        + plans["resnet18-small"])
+    fwd = SERVE_REPS * sum(plans[k] for k, _ in SERVE_RUNS)
     log(f"dispatches: {dispatches} in the serve run; chunk plan per forward "
-        f"{plans}, {fwd} for its {SERVE_REPS * (len(TRUNK_BUCKETS) + 1)} "
-        f"forwards")
+        f"{plans}, {fwd} for its {SERVE_REPS * len(SERVE_RUNS)} forwards")
     errs["dispatches"] = abs(dispatches - fwd)
     serve_rows = []
     for key, bucket in sorted({(k, b) for k, b, _, _ in timings}):
@@ -1317,36 +1501,37 @@ def serve_checks(trunk, small) -> tuple:
             f"batch median {med:.1f} (min {min(ms, default=med):.1f}, max "
             f"{max(ms, default=med):.1f}), {bucket * 1e3 / med:.2f} images/s")
     errs["buckets"] = int({(r["model"], r["bucket"]) for r in serve_rows}
-                          != set(runs)) + sum(
+                          != set(SERVE_RUNS)) + sum(
         r["dispatches"] != SERVE_REPS for r in serve_rows)
     log(f"launches on the main path: {counts}")
-    # each entry of a forward launches its kernel once: SERVE_REPS forwards
-    # of each trunk bucket and of the small model's
-    per_fwd = {k: {"gemm": sum(e[0] == "gemm" for e in ops),
-                   "alu_chain": sum(e[0] == "aluchain" for e in ops),
-                   "alu_sweep": sum(e[0] == "alusweep" for e in ops)}
-               for k, ops in (("trunk", model_ops(trunk, be.device)[0]),
-                              ("small", model_ops(small, be.device)[0]))}
+    per_fwd = per_forward(models, be.device)
     log(f"launches per forward: {per_fwd}")
     errs["launches"] = 0
     for k in ("gemm", "alu_chain", "alu_sweep"):
-        want = SERVE_REPS * (len(TRUNK_BUCKETS) * per_fwd["trunk"][k]
-                             + per_fwd["small"][k])
+        want = SERVE_REPS * sum(per_fwd[m][k] for m, _ in SERVE_RUNS)
         errs["launches"] += not want or counts.get(k, 0) != want
     t0 = time.perf_counter()
-    ref = {"resnet18-trunk": trunk.run_batch(trunk_imgs, "torch-cpu"),
-           "resnet18-small": small.run_batch(small_imgs, "torch-cpu")}
+    ref, seg = {}, {}
+    for k, m in models.items():
+        ref[k], seg[k] = segment_shares(m, imgs[k])
     log(f"torch-cpu reference: {time.perf_counter() - t0:.1f} s")
     errs["outputs"] = sum(
         o.shape != models[key].output_shape or o.dtype != np.int8
         or not np.array_equal(o, ref[key][i]) for key, i, o in outs)
-    digest = hashlib.sha256(outs[0][2].tobytes()).hexdigest()
-    errs["digest"] = int(outs[0][:2] != ("resnet18-trunk", 0)
-                         or digest != TRUNK_DIGEST)
-    errs["zeroing"] = zeroing_errors(trunk.hw)
+    firsts = {}
+    for key, i, o in outs:
+        firsts.setdefault(key, (i, hashlib.sha256(o.tobytes()).hexdigest()))
+    errs["digest"] = sum(firsts.get(k) != (0, d) for k, d in DIGESTS.items())
+    errs["live"], live_rows = 0, []
+    for key in DIGESTS:
+        bad, row = live_line(key, seg[key])
+        errs["live"] += bad
+        live_rows.append(row)
+    errs["zeroing"] = zeroing_errors(models[TRUNK].hw)
     log(f"serve checks (count of what failed, 0 passes): {errs}; "
-        f"{len(outs)} outputs against torch-cpu, trunk digest {digest}")
-    return errs, serve_rows, capture_rows, counts
+        f"{len(outs)} outputs against torch-cpu, digests of request 0 "
+        f"{ {k: firsts.get(k) for k in DIGESTS} }")
+    return errs, serve_rows, capture_rows, counts, live_rows, per_fwd
 
 
 # ---------------------------------------------------------------------------
@@ -2183,13 +2368,12 @@ def check_attention(cases, outs: dict) -> dict:
 # ---------------------------------------------------------------------------
 # phase 6: the worker pool, its ladder and its transports
 # ---------------------------------------------------------------------------
-TRUNK = "resnet18-trunk"
-SMALL = "resnet18-small"
 POOL_ROUNDS = 10         # rounds of the scale-out burst, each 8 then 2 images
 DRILL_ROUNDS = 6         # rounds of the worker-death drill
 DEATH_AFTER = 3          # worker 1's dispatches before the drill kills it
 LADDER_DISPATCHES = 8    # batches of the ladder drill
 LADDER_SERVED = ("torch-cpu",) * 5 + ("torch",) * 3   # rung of each batch
+TENANT_ROUNDS = 3        # rounds of the two-tenant pool, 8 + 2 images a tenant
 
 
 def round_images(r: int) -> list:
@@ -2746,21 +2930,112 @@ def process_check(small) -> dict:
     return errs
 
 
-def pool_checks(trunk, small, route: str = "all") -> tuple:
-    """Phase 6 (``route`` "pool": the scale-out and the drill; "ladder":
-    the ladder drill; "all": both and the process transport). Returns
-    (errors, rows)."""
+def two_tenants(models: dict, imgs: dict, refs: dict, per_fwd: dict,
+                graphs: dict) -> tuple:
+    """The two full-width trunks, each a tenant of its own, on one pool of
+    two thread workers (the JAX package's ``bench_serve`` scale-out with
+    its two tenants): each (model, bucket)'s first dispatch alone, bucket 8
+    then 2 of the ResNet trunk and then of MobileNet (cold placement gives
+    both bucket 8s to worker 0 and both bucket 2s to worker 1), then
+    ``TENANT_ROUNDS`` rounds of ``round_images`` of both tenants, drained
+    together, with launch counts, dispatches and metrics zeroed just before
+    and read just after. Checks, each a count of what failed: every answer
+    equal to ``"torch-cpu"`` and each tenant's request 0 to its digest;
+    the affinity map sticky by (model, bucket), hit rate 1.0, nothing
+    reassigned; each model's capture-log keys once, in the scope of its
+    bucket's owner, none during the rounds; launches and dispatches those
+    of two forwards of each model a round. Returns (row, errors)."""
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.serve.engine import VTAServeEngine
+    from repro_torch.serve.workers import WorkerPool
+    from repro_torch.vta import fsim_torch
+    pool = WorkerPool(models, 2, transport="thread")
+    eng = VTAServeEngine(models, buckets=(2, 8), workers=pool)
+
+    def answers(idx: dict) -> list:
+        tks = [(k, i, eng.submit(k, k, imgs[k][i]))
+               for k in models for i in idx[k]]
+        eng.drain()
+        return [(k, i, t.result(timeout=0)) for k, i, t in tks]
+    try:
+        fsim_torch.reset_capture_log()
+        warm = []
+        for key in models:
+            for b in (8, 2):
+                warm += answers({k: range(b) if k == key else ()
+                                 for k in models})
+        warm_log = fsim_torch.capture_log()
+        metrics = eng.reset_metrics()
+        reset_launch_counts()
+        fsim_torch.reset_kernel_launch_log()
+        results, secs = [], []
+        for r in range(TENANT_ROUNDS):
+            t0 = time.perf_counter()
+            results += answers({k: round_images(r) for k in models})
+            secs.append(time.perf_counter() - t0)
+        counts = launch_counts()
+        dispatches = fsim_torch.kernel_launch_log()
+        snap = metrics.snapshot()
+        captured = fsim_torch.capture_log()
+        owners = dict(pool.affinity)
+    finally:
+        eng.close()
+    want = {(k, b): w for k in models for b, w in ((8, 0), (2, 1))}
+    keys = {k: trace_keys(m) for k, m in models.items()}
+    firsts = {}
+    for k, i, o in results:
+        firsts.setdefault(k, (i, hashlib.sha256(o.tobytes()).hexdigest()))
+    fwd = 2 * TENANT_ROUNDS
+    errs = {"tenants.outputs": sum(
+                o.dtype != np.int8 or not np.array_equal(o, refs[k][i])
+                for k, i, o in warm + results) + abs(
+                len(results) - 10 * TENANT_ROUNDS * len(models)),
+            "tenants.digest": sum(firsts.get(k) != (0, DIGESTS[k])
+                                  for k in models),
+            "tenants.affinity": int(owners != want) + int(
+                snap["workers"]["affinity"]["hit_rate"] != 1.0)
+            + snap["workers"]["affinity"]["reassigned"],
+            "tenants.captures": sum(capture_errors(
+                {s: v for s, v in warm_log.items() if s[0] in keys[key]},
+                {(b, pool.workers[w].scope) for (k, b), w in want.items()
+                 if k == key}, graphs[key]) for key, m in models.items())
+            + int(captured != warm_log),
+            "tenants.launches": sum(
+                counts.get(k, 0) != fwd * sum(per_fwd[m][k] for m in models)
+                for k in ("gemm", "alu_chain", "alu_sweep")) + abs(
+                dispatches - fwd * sum(graphs[m] for m in models))}
+    ms = [t * 1e3 for t in secs]
+    row = dict(tenants=list(models), workers=2, rounds=TENANT_ROUNDS,
+               images_per_round=10 * len(models),
+               ms_per_round_median=statistics.median(ms),
+               images_per_s=10 * len(models) * TENANT_ROUNDS * 1e3 / sum(ms),
+               owners={f"{k}/{b}": w for (k, b), w in owners.items()},
+               per_worker={w: dict(batches=v["dispatches"],
+                                   busy_ms=v["busy_s"] * 1e3)
+                           for w, v in snap["workers"]["per_worker"].items()},
+               launches=counts, dispatches=dispatches)
+    log(f"two tenants: {' and '.join(models)} on 2 thread workers, owners "
+        f"{row['owners']}; {TENANT_ROUNDS} rounds of 8 + 2 images a tenant, "
+        f"ms per round {', '.join(f'{x:.1f}' for x in ms)}, "
+        f"{row['images_per_s']:.2f} images/s; per worker "
+        f"{row['per_worker']}; launches {counts}; checks {errs}")
+    return row, errs
+
+
+def pool_checks(models: dict, route: str = "all") -> tuple:
+    """Phase 6 over the models of ``serve_models`` (``route`` "pool": the
+    scale-out, the cold race, the two pools, the drill and the two
+    tenants; "ladder": the ladder drill; "all": both and the process
+    transport). Returns (errors, rows)."""
     from repro_torch.vta.backend import get_backend
+    trunk, small = models[TRUNK], models[SMALL]
     errs, rows = {}, []
     if route in ("all", "pool"):
         be = get_backend("torch")
         imgs = trunk.random_images(8, seed=0)
         ref = trunk.run_batch(imgs, "torch-cpu")
         graphs = plan_length(trunk, be)
-        ops = model_ops(trunk, be.device)[0]
-        per_fwd = {k: sum(e[0] == kind for e in ops) for k, kind in (
-            ("gemm", "gemm"), ("alu_chain", "aluchain"),
-            ("alu_sweep", "alusweep"))}
+        per_fwd = per_forward({TRUNK: trunk}, be.device)[TRUNK]
         for n in (1, 2):
             row, e = scale_out(trunk, n, imgs, ref, per_fwd, graphs)
             rows.append(row)
@@ -2775,6 +3050,15 @@ def pool_checks(trunk, small, route: str = "all") -> tuple:
         errs.update(cold_race(trunk, imgs, ref, per_fwd, graphs))
         errs.update(two_pools(trunk, imgs, ref, per_fwd, graphs))
         errs.update(death_drill(trunk, imgs, ref, graphs))
+        pair = {k: models[k] for k in (TRUNK, MBN)}
+        t_imgs = {k: m.random_images(8, seed=0) for k, m in pair.items()}
+        t_refs = {TRUNK: ref, MBN: pair[MBN].run_batch(t_imgs[MBN],
+                                                       "torch-cpu")}
+        row, e = two_tenants(pair, t_imgs, t_refs,
+                             per_forward(pair, be.device),
+                             {k: plan_length(m, be) for k, m in pair.items()})
+        rows.append(row)
+        errs.update(e)
     if route in ("all", "ladder"):
         errs.update(ladder_drill(small))
     if route == "all":
@@ -4495,6 +4779,25 @@ PLANTED_FAULTS = {  # name: (route, file under src/repro_torch, text, stand-in)
         "serve", "vta/fsim_torch.py",
         "for g, launches in plan.graphs:",
         "for g, launches in plan.graphs[:-1]:"),
+    # MobileNet served under ServedModel.compile's weights: load_params
+    # installs nothing for it
+    "serve.mbn_model_rng_weights": (
+        "serve", "serve/model.py",
+        "    for k, v in params.items():\n        v = np.asarray(v)",
+        "    for k, v in (() if model.name.startswith(\"mobilenet\")\n"
+        "                 else params.items()):\n        v = np.asarray(v)"),
+    # the last tap of each depthwise MAC dropped where a sweep has 112 rows
+    # (MobileNet-1.0's 112 x 112 and 56 x 56 layers, on the captured path)
+    "serve.mbn_dw_tap_dropped": (
+        "serve", "csrc/alu_sweep.cu",
+        "            if (u < cnt)\n              part = mac ?",
+        "            if (u < cnt && !(mac && g == 112 && t0 + u * S == t_n - 1))"
+        "\n              part = mac ?"),
+    # the chunk of the fused mbn.dw11 -> mbn.pw11 segment not replayed
+    "serve.mbn_fused_chunk_skipped": (
+        "serve", "vta/fsim_torch.py", "                    g.replay()\n",
+        "                    if \"mbn.pw11\" not in trace.tensors_written:\n"
+        "                        g.replay()\n"),
     # plans no longer per capture scope: every worker shares one
     "pool.shared_plans": (
         "pool", "vta/fsim_torch.py",
@@ -4695,11 +4998,8 @@ def case_errors(fault: str, route: str) -> int:
 def pool_errors(fault: str, route: str) -> None:
     """Phase 6's checks (``pool_checks`` of ``route``), one line per check,
     limit 0."""
-    from repro_torch.serve.model import (ServedModel, resnet18_trunk_graph,
-                                         served_model)
     from repro_torch.vta.isa import DEFAULT_VTA
-    trunk = ServedModel.compile(TRUNK, resnet18_trunk_graph(), DEFAULT_VTA)
-    errs = pool_checks(trunk, served_model("resnet18", "small"), route)[0]
+    errs = pool_checks(serve_models(DEFAULT_VTA), route)[0]
     for check, err in errs.items():
         print(json.dumps({"fault": fault, "case": f"pool {check}",
                           "err": err, "limit": 0, "over": err > 0}),
@@ -4709,12 +5009,8 @@ def pool_errors(fault: str, route: str) -> None:
 def serve_errors(fault: str) -> None:
     """Phase 3's checks (``serve_checks``) on the captured path, one line
     per check, limit 0."""
-    from repro_torch.serve.model import (ServedModel, resnet18_trunk_graph,
-                                         served_model)
     from repro_torch.vta.isa import DEFAULT_VTA
-    trunk = ServedModel.compile("resnet18-trunk", resnet18_trunk_graph(),
-                                DEFAULT_VTA)
-    errs = serve_checks(trunk, served_model("resnet18", "small"))[0]
+    errs = serve_checks(serve_models(DEFAULT_VTA))[0]
     for check, err in errs.items():
         print(json.dumps({"fault": fault, "case": f"serve {check}",
                           "err": err, "limit": 0, "over": err > 0}),
@@ -4728,15 +5024,11 @@ def vta_errors(fault: str, route: str) -> None:
     program of ``sweep_cases`` at each of its tap splits (one line per
     group and split)."""
     import torch
-    from repro_torch.serve.model import (ServedModel, resnet18_trunk_graph,
-                                         served_model)
     from repro_torch.vta.isa import DEFAULT_VTA
     dev = torch.device("cuda")
     rng = np.random.default_rng(0)
     hw = DEFAULT_VTA
-    main_path = vta_main_path(
-        ServedModel.compile("resnet18-trunk", resnet18_trunk_graph(), hw),
-        served_model("resnet18", "small"), dev)
+    main_path = vta_main_path(serve_models(hw), dev)
 
     def emit(case, err):
         print(json.dumps({"fault": fault, "case": case, "err": err,
@@ -4925,20 +5217,21 @@ def main(argv: list) -> int:
                 f"{max(regs)}, spill stores {spill} bytes in all")
 
     # -- phase 2 ----------------------------------------------------------
-    from repro_torch.serve.model import (ServedModel, resnet18_trunk_graph,
-                                         served_model)
     from repro_torch.vta.isa import DEFAULT_VTA
     dev = torch.device("cuda")
     rng = np.random.default_rng(0)
     hw = DEFAULT_VTA
     t0 = time.perf_counter()
-    trunk = ServedModel.compile("resnet18-trunk", resnet18_trunk_graph(), hw)
-    small = served_model("resnet18", "small")
-    log(f"compile: trunk {len(trunk.segments)} segments in "
-        f"{time.perf_counter() - t0:.2f} s")
-    main_path = vta_main_path(trunk, small, dev)
-    trunk_ops = main_path[0][2]
+    models = serve_models(hw)
+    log(f"compile: " + ", ".join(f"{k} {len(m.segments)} segments"
+                                 for k, m in models.items())
+        + f" in {time.perf_counter() - t0:.2f} s (live_weights drawn for "
+          f"both trunks)")
+    t0 = time.perf_counter()
+    main_path = vta_main_path(models, dev)
+    where = {(m, b): i for i, (m, b, *_) in enumerate(main_path)}
     n = max(TRUNK_BUCKETS)
+    trunk_ops = main_path[where[(TRUNK, n)]][2]
     trunk_entries = gemm_entries(trunk_ops)
     gemm_row = check_gemm(
         dev, rng, hw, [(m, b, gemm_entries(ops))
@@ -4946,16 +5239,20 @@ def main(argv: list) -> int:
         (n, trunk_entries, gemm_shapes(trunk_ops, hw)))
     chain_row, sweep_row = check_sweeps(
         dev, rng, hw, main_path,
-        {"alu_sweep": TRUNK_BUCKETS.index(n), "alu_chain": len(main_path) - 1})
+        {"alu_sweep": where[(TRUNK, n)],
+         "alu_chain": where[(SMALL, SMALL_BUCKET)]})
+    log(f"phase 2: {time.perf_counter() - t0:.1f} s")
 
     # -- phase 3 ----------------------------------------------------------
     t0 = time.perf_counter()
-    errs, serve_rows, capture_rows, counts = serve_checks(trunk, small)
+    errs, serve_rows, capture_rows, counts, live_rows, per_fwd = \
+        serve_checks(models)
     if any(errs.values()):
         raise AssertionError(f"phase 3 failed: {errs}")
-    log("serve: every output equals torch-cpu; trunk digest matches the JAX "
-        "numpy backend")
-    prof = profile_forward(trunk, trunk.random_images(8, seed=0))
+    log("serve: every output equals torch-cpu; both trunks' digests match "
+        "the JAX numpy backend; every trunk segment inside the live bands")
+    prof = {k: profile_forward(models[k], models[k].random_images(8, seed=0))
+            for k in (TRUNK, MBN)}
     log(f"phase 3: {time.perf_counter() - t0:.1f} s")
 
     # -- phase 4 ----------------------------------------------------------
@@ -5006,7 +5303,7 @@ def main(argv: list) -> int:
 
     # -- phase 6 ----------------------------------------------------------
     t0 = time.perf_counter()
-    errs6, pool_rows = pool_checks(trunk, small)
+    errs6, pool_rows = pool_checks(models)
     if any(errs6.values()):
         raise AssertionError(f"phase 6 failed: {errs6}")
     log(f"phase 6: {time.perf_counter() - t0:.1f} s")
@@ -5051,6 +5348,7 @@ def main(argv: list) -> int:
              replaces="src/repro/kernels/vta_gemm.py:89",
              launches=counts["gemm"], **gemm_row,
              launches_pool=pool_rows[1]["launches"]["gemm"],
+             launches_tenants=pool_rows[-1]["launches"]["gemm"],
              launches_dse=dse_launches["gemm"],
              per=f"resnet18-trunk forward, batch {n}"),
         dict(name="alu_chain", route="cuda", source=src + "alu_sweep.cu",
@@ -5062,9 +5360,13 @@ def main(argv: list) -> int:
              replaces="src/repro/kernels/alu_sweep.py:225",
              launches=counts["alu_sweep"], **sweep_row,
              launches_pool=pool_rows[1]["launches"]["alu_sweep"],
+             launches_tenants=pool_rows[-1]["launches"]["alu_sweep"],
              launches_dse=dse_launches["alu_sweep"],
              per=f"resnet18-trunk forward, batch {n}"),
     ]
+    for row, key in zip(kernels, ("gemm", "alu_chain", "alu_sweep")):
+        row["launches_per_forward_by_model"] = {
+            m: v[key] for m, v in per_fwd.items()}
     for key, (_, source, replaces, per) in LAYER_OPS.items():
         kernels.append(dict(
             name=key, route="cuda", source=src + source, replaces=replaces,
@@ -5100,7 +5402,7 @@ def main(argv: list) -> int:
                   "Trainer steps), "
                   "launches_cases: phase 5's"))
     log(json.dumps({"serve": serve_rows, "capture": capture_rows,
-                    "profile": prof}))
+                    "live": live_rows, "profile": prof}))
     log(json.dumps({"pool": pool_rows}))
     log(json.dumps({"lm": lm_rows}))
     log(json.dumps({"train": train_rows}))

@@ -14,7 +14,8 @@ families — a resnet18-flavored residual stack (fused conv→add→clip
 segments) and a mobilenet-flavored depthwise-separable chain (resident
 dw→pw edges) — at ``tiny`` (unit tests / CI smoke) and ``small`` (default
 benchmark) scales. Full 224×224 graphs run through exactly the same code
-path; ``resnet18_trunk_graph`` is the full-width ResNet-18 VTA trunk.
+path; ``resnet18_trunk_graph`` and ``mobilenet_trunk_graph`` are the
+full-width ResNet-18 and MobileNet-1.0 VTA trunks.
 """
 from __future__ import annotations
 
@@ -37,8 +38,8 @@ from repro_torch.vta.lowering import lower_cached
 from repro_torch.vta.runtime import Program
 from repro_torch.vta.scheduler import (schedule_add, schedule_conv,
                                  schedule_depthwise, schedule_pool)
-from repro_torch.vta.workloads import (Layer, _add, _conv, pad_for_blocking,
-                                      resnet_graph)
+from repro_torch.vta.workloads import (Layer, _add, _conv, mobilenet_graph,
+                                      pad_for_blocking, resnet_graph)
 
 
 @dataclass
@@ -184,13 +185,15 @@ class ServedModel:
         return hit
 
     def run_batch(self, images: np.ndarray,
-                  backend: Union[str, Backend, None] = None) -> np.ndarray:
+                  backend: Union[str, Backend, None] = None,
+                  on_segment=None) -> np.ndarray:
         """Execute a (N,) + image_shape stack; returns (N,) + output_shape.
 
         Segments chain through a per-image state dict of tensors on the
         backend's device; each dispatch passes only the tensors that
         segment touches, so the backend's lowering caches key on stable
-        small shape sets.
+        small shape sets. ``on_segment(segment, outputs)``, if given, sees
+        each segment's stored tensors as it finishes.
         """
         be = get_backend(backend)
         device = getattr(be, "device", torch.device("cpu"))
@@ -212,6 +215,8 @@ class ServedModel:
             shared = {t: weights[t] for t in seg.reads if t in self.weights}
             outs = be.run_batched(seg.program, self.hw, shared=shared,
                                   batched=batched)
+            if on_segment is not None:
+                on_segment(seg, outs)
             state.update(outs)
         return state[self.output_name].cpu().numpy()
 
@@ -298,17 +303,13 @@ SERVE_GRAPHS = {
 }
 
 
-def resnet18_trunk_graph() -> Graph:
-    """The ResNet-18 VTA trunk at the paper's published widths:
-    ``resnet_graph(18)`` without the CPU-resident ``conv1`` (served models
-    take no CPU layers), fed by the (1, 64, 112, 112) tensor that enters
-    ``pool1`` — pool1, 8 basic blocks of 64-512 channels with downsample
-    convs and residual adds, the 7x7 global average pool and the 512->1008
-    fc."""
-    full = resnet_graph(18)
+def _trunk_graph(full: Graph, name: str, image: tuple) -> Graph:
+    """``full`` without its CPU-resident nodes (served models take no CPU
+    layers): their consumers read the graph's input ``"image"``, of
+    per-image shape ``image``, instead."""
     cpu = {n.name for n in full.topo() if n.on_cpu}
-    g = Graph(name="resnet18-trunk")
-    g.input("image", (1, 64, 112, 112))
+    g = Graph(name=name)
+    g.input("image", image)
     for node in full.topo():
         if node.kind == "input" or node.on_cpu:
             continue
@@ -316,6 +317,25 @@ def resnet18_trunk_graph() -> Graph:
             "image" if s in cpu else s for s in node.inputs)))
     g.validate()
     return g
+
+
+def resnet18_trunk_graph() -> Graph:
+    """The ResNet-18 VTA trunk at the paper's published widths:
+    ``resnet_graph(18)`` without the CPU-resident ``conv1``, fed by the
+    (1, 64, 112, 112) tensor that enters ``pool1`` — pool1, 8 basic blocks
+    of 64-512 channels with downsample convs and residual adds, the 7x7
+    global average pool and the 512->1008 fc."""
+    return _trunk_graph(resnet_graph(18), "resnet18-trunk", (1, 64, 112, 112))
+
+
+def mobilenet_trunk_graph() -> Graph:
+    """The MobileNet-1.0 VTA trunk at the paper's published widths:
+    ``mobilenet_graph(1)`` without the CPU-resident ``mbn.conv1``, fed by
+    the (1, 32, 112, 112) tensor that enters ``mbn.dw0`` — 13 depthwise
+    3x3 / pointwise pairs of 32-1024 channels, the 7x7 global average pool
+    and the 1024->1008 fc."""
+    return _trunk_graph(mobilenet_graph(1), "mobilenet1.0-trunk",
+                        (1, 32, 112, 112))
 
 
 def list_served_models() -> list:

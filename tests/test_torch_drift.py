@@ -294,6 +294,17 @@ def test_full_width_trunk_compiles_identically():
     _assert_same_model(a, b)
 
 
+def test_mobilenet_trunk_compiles_identically():
+    a = jmodel.ServedModel.compile(
+        "mobilenet1.0-trunk", _j_trunk_graph("mobilenet1.0-trunk"),
+        jisa.DEFAULT_VTA)
+    b = tmodel.ServedModel.compile("mobilenet1.0-trunk",
+                                   tmodel.mobilenet_trunk_graph(),
+                                   tisa.DEFAULT_VTA)
+    assert a.graph.describe() == b.graph.describe()
+    _assert_same_model(a, b)
+
+
 @pytest.mark.parametrize("name", ["resnet18", "mobilenet"])
 def test_numpy_fsim_copy_matches_the_original(name):
     """The port's ``vta/fsim.py`` gives the JAX package's numpy backend's

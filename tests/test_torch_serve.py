@@ -16,6 +16,7 @@ import pytest
 from repro.serve import model as jmodel
 from repro.vta.graph import Graph as JGraph
 from repro.vta.isa import DEFAULT_VTA as J_DEFAULT_VTA
+from repro.vta.workloads import mobilenet_graph as j_mobilenet_graph
 from repro.vta.workloads import resnet_graph as j_resnet_graph
 from repro_torch.serve.engine import VTAServeEngine
 from repro_torch.serve.model import (SERVE_GRAPHS, ServedModel, load_params,
@@ -23,18 +24,32 @@ from repro_torch.serve.model import (SERVE_GRAPHS, ServedModel, load_params,
 from repro_torch.vta.isa import DEFAULT_VTA
 
 # sha256 of the full-width trunk's output for image 0 of
-# random_images(8, seed=0) on the JAX package's numpy backend; chip_smoke.py
-# holds the same digest for the card run
-TRUNK_DIGEST = \
+# random_images(8, seed=0) on the JAX package's numpy backend, under the
+# weights ServedModel.compile draws: a drift check of the CPU path (those
+# weights saturate the trunk's deep layers, so the card runs use
+# chip_smoke.py's live_weights instead)
+DEFAULT_WEIGHTS_TRUNK_DIGEST = \
     "93a27c05b40128f109a1f863874468b3e9137bfb386ecd58fa59a5e5b7191b3e"
+# the same under chip_smoke.live_weights, for both full-width trunks;
+# chip_smoke.py holds the same digests for the card run, and
+# tests/test_torch_mobilenet_serve.py derives them from the JAX package
+TRUNK_DIGEST = \
+    "6686d447b6462e98295895df574545f567ad7c023acafb6972bc3de923d1dbf1"
+MBN_DIGEST = \
+    "b926952d3de5609b1cb1a733bf7817fd1656544bf665a6046dee0058af096e0d"
 
 
-def _j_trunk_graph():
-    """The trunk built with the JAX package's own graph API."""
-    full = j_resnet_graph(18)
+def _j_trunk_graph(name: str = "resnet18-trunk"):
+    """A full-width trunk built with the JAX package's own graph API: the
+    full graph without its CPU-resident first conv, whose consumers read
+    ``"image"``."""
+    full, image = {
+        "resnet18-trunk": (j_resnet_graph(18), (1, 64, 112, 112)),
+        "mobilenet1.0-trunk": (j_mobilenet_graph(1), (1, 32, 112, 112)),
+    }[name]
     cpu = {n.name for n in full.topo() if n.on_cpu}
-    g = JGraph(name="resnet18-trunk")
-    g.input("image", (1, 64, 112, 112))
+    g = JGraph(name=name)
+    g.input("image", image)
     for node in full.topo():
         if node.kind == "input" or node.on_cpu:
             continue
@@ -110,9 +125,9 @@ def test_engine_serves_bit_exact_on_torch_cpu():
 
 
 def test_full_width_trunk_matches_numpy_digest():
-    """The full-width ResNet-18 trunk, image 0 of random_images(8, seed=0):
-    the JAX numpy backend's output has the pinned digest, and torch-cpu
-    equals it."""
+    """The full-width ResNet-18 trunk under ServedModel.compile's weights,
+    image 0 of random_images(8, seed=0): the JAX numpy backend's output has
+    the pinned digest, and torch-cpu equals it."""
     a = jmodel.ServedModel.compile("resnet18-trunk", _j_trunk_graph(),
                                    J_DEFAULT_VTA)
     b = ServedModel.compile("resnet18-trunk", resnet18_trunk_graph(),
@@ -122,7 +137,8 @@ def test_full_width_trunk_matches_numpy_digest():
     img = a.random_images(8, seed=0)[:1]
     np.testing.assert_array_equal(img, b.random_images(8, seed=0)[:1])
     ref = a.run_batch(img, "numpy")
-    assert hashlib.sha256(ref[0].tobytes()).hexdigest() == TRUNK_DIGEST
+    assert hashlib.sha256(ref[0].tobytes()).hexdigest() == \
+        DEFAULT_WEIGHTS_TRUNK_DIGEST
     np.testing.assert_array_equal(b.run_batch(img, "torch-cpu"), ref)
 
 
@@ -131,5 +147,7 @@ def test_chip_smoke_pins_the_same_digest():
                         "chip_smoke.py")
     with open(path) as f:
         text = f.read()
-    m = re.search(r'TRUNK_DIGEST = \\\s*"([0-9a-f]{64})"', text)
-    assert m and m.group(1) == TRUNK_DIGEST
+    for name, digest in (("TRUNK_DIGEST", TRUNK_DIGEST),
+                         ("MBN_DIGEST", MBN_DIGEST)):
+        m = re.search(name + r' = \\\s*"([0-9a-f]{64})"', text)
+        assert m and m.group(1) == digest
