@@ -113,7 +113,10 @@ order; any failure raises and the script exits nonzero:
    layers at prefill (8192 x 8192) and decode (one row against a 32768-key
    cache, or the 4096-key window), Qwen3-0.6B prefill and decode, Mixtral
    8x22B's windowed prefill and RecurrentGemma-9B's MQA at head_dim 256, in
-   bf16 and some in f32; besides, the shapes of tests/test_kernels.py's
+   bf16 and some in f32; MusicGen-Large's 32 heads of 64 (prefill in bf16
+   and f32, decode) and Qwen2-VL-2B's GQA group of 6 (prefill, decode),
+   whose earlier cases' kernel time is also printed on a line of its own
+   (``VLM_AUDIO_ATTENTION``); besides, the shapes of tests/test_kernels.py's
    attention tests, a case with tails in both tiles, causal rows that see
    no key (``edge.empty_rows``), and the f32 prefill at head_dim 8 (Sq 9)
    and 256 (ragged tiles, window, softcap). A case takes one of three
@@ -191,7 +194,8 @@ order; any failure raises and the script exits nonzero:
    on the card, every attention layer on the port's kernels, the RWKV-6
    and RG-LRU blocks in PyTorch. The golden runs (``golden_errors``), in
    f32 against ``tests/golden/lm_session_f32.json``,
-   ``lm_session_recurrent_f32.json`` and ``lm_session_moe_f32.json``,
+   ``lm_session_recurrent_f32.json``, ``lm_session_moe_f32.json`` and
+   ``lm_session_vlm_audio_f32.json``,
    which ``tests/make_lm_golden.py`` writes from the JAX package's
    ``ServeSession`` on the CPU: Qwen3-0.6B at full width (its depth cut
    to the file's 4 layers), Gemma-2 27B's smoke config (local layers with
@@ -201,7 +205,13 @@ order; any failure raises and the script exits nonzero:
    RecurrentGemma-9B at full width cut to one pattern group of 3 layers,
    and its smoke config (window 8, 32 tokens), Moonshot-v1-16B-A3B at full
    width (64 experts, top-6) cut to 1 layer, and the Moonshot and Mixtral
-   smoke configs (each row carries the golden's smallest router margin);
+   smoke configs (each row carries the golden's smallest router margin),
+   Qwen2-VL-2B at full width cut to 4 layers and its smoke config (fed
+   seeded embeddings at the M-RoPE positions of one image then text, and
+   teacher-forced in decode: ``vlm_generate``, since ``generate`` takes
+   tokens; held to ``LM_MROPE_TOL``), MusicGen-Large at full width cut to
+   4 layers and its smoke config (4 and 2 codebooks: the top 8 held per
+   sequence and codebook, ``logit_rows``);
    weights from ``numpy_params`` and the file's seed (their
    sha256 must be the file's, and every weight the reference reads in f32
    must stay f32), 2 prompts, 8 greedy steps: the tokens equal, the
@@ -220,13 +230,18 @@ order; any failure raises and the script exits nonzero:
    tokens (past its 2048 window), 32 steps (12 ``mma`` per prefill, 12
    ``decode`` and 12 ``combine`` a step); Moonshot-v1-16B-A3B, 4 prompts
    of 1024 tokens, 32 steps (48 ``mma``, 48 ``decode`` and 48 ``combine``
-   a step; 56.1 GB of params, freed before the next phase); each step's
-   logits of the three against the same model on
+   a step; 56.1 GB of params, freed before the next phase); Qwen2-VL-2B,
+   4 sequences of one 32 x 32 image and 1024 text positions, 32
+   teacher-forced steps (28 ``mma``, 28 ``decode`` and 28 ``combine`` a
+   step); MusicGen-Large, 4 x 4 codebooks x 1024 prompt tokens, 32 steps
+   (48 ``mma``, 48 ``decode`` and 48 ``combine`` a step); each step's
+   logits of the five against the same model on
    ``flash_attention_plain`` fed the kernels' tokens (Moonshot's also the
    kernels' routing, each MoE layer's top-k indices recorded in the
    kernels' run by ``routing``; the choices the plain run would have made
    otherwise counted, not held), within ``LM_BF16_TOL``, every argmax
-   equal (Moonshot's but where one run's largest logit is held by two
+   equal, per codebook for MusicGen (Moonshot's but where one run's
+   largest logit is held by two
    tokens, the other run's choice one of them: ``exact_tie``, listed).
    Each times its prefill after one uncounted generation at the timed
    shape (``warm_prefill``: its prefill ms and ``cudaMalloc`` calls, and
@@ -249,14 +264,21 @@ order; any failure raises and the script exits nonzero:
    ``tests/make_train_golden.py`` writes from the JAX package's
    ``make_train_step`` on the CPU: Qwen3-0.6B at full width cut to 4
    layers, 2 x 256 tokens, and Gemma-2 27B's smoke config (window 8, both
-   softcaps, its query scale), 2 x 32; weights from ``numpy_params`` (the
+   softcaps, its query scale), 2 x 32; and against
+   ``tests/golden/train_families_f32.json`` (``--families``): the smoke
+   configs of Mixtral 8x22B (the MoE dispatch and aux loss), RWKV-6 (64
+   tokens: two WKV chunks), RecurrentGemma-9B (RG-LRU and local
+   attention), Qwen2-VL-2B (embeddings and positions) and MusicGen-Large
+   (codebooks), and Qwen3-0.6B at full width cut to 4 layers with
+   ``grad_accum`` 2, 4 x 256 (two microbatches a step, the reference's
+   ``lax.scan`` against the port's loop); weights from ``numpy_params`` (the
    file's sha256), the file's batches, three AdamW steps: each step's
    loss within ``TRAIN_LOSS_RTOL`` and grad_norm within
    ``TRAIN_GNORM_RTOL`` (1e-4 on the first step, 5e-3 after: AdamW
    carries rounding into the weights) of the golden's, and the attention
    launches exactly ``train_launches_want`` (``tf32x3``: one per
    attention layer in the forward and one more in its group's
-   recompute). The bf16 run
+   recompute, per microbatch). The bf16 run
    (``train_bf16``, ``TRAIN_BF16``): Qwen3-0.6B at full width and depth
    (28 layers, f32 master weights from a seeded generator on the card,
    bf16 compute, remat ``"full"``, the loss in 8 chunks), the ``Trainer``
@@ -390,9 +412,11 @@ uncounted, ``ladder.uncounted_step_down``, and in the language model a
 decode that attends to one slot fewer than are valid, a cache slot
 written one off, a prefill that drops the sliding window, a WKV chunk
 without its inter-sub-block term, an RG-LRU decode step that ignores its
-state, and a cast at load that rounds the RG-LRU gates to bf16; in
-training, an attention forward whose result has no ``grad_fn``, and a
-backward whose dK and dV keep one query head of each GQA group; in the
+state, a cast at load that rounds the RG-LRU gates to bf16, M-RoPE
+reading row 0 for every section, and a codebook head that reads the next
+codebook's weights; in training, an attention forward whose result has
+no ``grad_fn``, a backward whose dK and dV keep one query head of each
+GQA group, and a ``grad_accum`` loop that drops its last microbatch; in the
 sweep, ``CardFault`` caught at ``eval_job`` as an infeasible point, a
 verification on the captured route, and one that resolves the card to
 ``"torch-cpu"``; in the mesh layer, a DTensor attention that takes the
@@ -421,7 +445,8 @@ all of them. One JSON line per (fault, case) gives the kernel's error
 and its limit (attention: the kernel's and the plain version's largest
 error against float64, the largest |out| and the elements over the limit).
 It exits 0 only if the unchanged kernels pass every case and each fault
-fails at least one.
+fails at least one, and prints how many faults were caught of how many
+were planted.
 """
 from __future__ import annotations
 
@@ -582,6 +607,22 @@ ATTENTION_CASES += [
     ("edge.f32.d256", 1, 8, 2, 256, 200, 333, True, 100, 30.0, None, (F32,),
      None),
 ]
+# musicgen-large (:87-91: 32 heads of 64, no GQA) and qwen2-vl-2b (:50-55:
+# 12 query heads over 2 KV heads, a GQA group of 6): head_dim 64 at full
+# length in both prefill kernels, and the decode kernel's row and lane
+# split for D = 64 and for a group of 6. Phase 5 prints the earlier cases'
+# total apart from these
+VLM_AUDIO_ATTENTION = [
+    ("mgen.prefill", 1, 32, 32, 64, 8192, 8192, True, None, None, None,
+     (BF, F32), "causal"),
+    ("mgen.decode", 8, 32, 32, 64, 1, 32768, True, None, None, None, (BF,),
+     "none"),
+    ("qwen2vl.prefill", 1, 12, 2, 128, 8192, 8192, True, None, None, None,
+     (BF,), "causal"),
+    ("qwen2vl.decode", 8, 12, 2, 128, 1, 32768, True, None, None, None,
+     (BF,), "none"),
+]
+ATTENTION_CASES += VLM_AUDIO_ATTENTION
 ATTENTION_ROWS = 256     # query rows per case held against float64
 
 
@@ -2240,6 +2281,8 @@ def check_attention(cases, outs: dict) -> dict:
     for key in ATTENTION_KEYS[:3]:      # the routes, held to float64
         rows[key].update(max_err_vs_f64=0.0, plain_max_err_vs_f64=0.0)
     cuda_cores_ms = 0.0   # the f32 prefill's bound at the CUDA cores' rate
+    newer = {spec[0] for spec in VLM_AUDIO_ATTENTION}
+    earlier = {"cases": 0, "ms": 0.0}    # the cases before VLM_AUDIO_ATTENTION
     for c in cases:
         name, q, k, v, kw = c["name"], c["q"], c["k"], c["v"], c["kw"]
         got = outs[name]
@@ -2293,6 +2336,9 @@ def check_attention(cases, outs: dict) -> dict:
         tb = nbytes / HBM_BYTES_PER_S
         row = rows[f"flash_attention.{route}"]
         row["cases"] += 1
+        if name.split("/")[0] not in newer:
+            earlier["cases"] += 1
+            earlier["ms"] += ms
         row["max_abs_err"] = max(row["max_abs_err"], err)
         row["max_err_vs_f64"] = max(row["max_err_vs_f64"], ek)
         row["plain_max_err_vs_f64"] = max(row["plain_max_err_vs_f64"], ep)
@@ -2362,6 +2408,9 @@ def check_attention(cases, outs: dict) -> dict:
         f"cases (its row's bound_ms takes the TF32 tensor cores' rate)")
     log(f"flash_attention: {len(cases)} cases, kernels "
         f"{sum(rows[k]['ms'] for k in ATTENTION_KEYS[:3]):.3f} ms in all")
+    log(f"flash_attention: the {earlier['cases']} cases before the "
+        f"musicgen-large and qwen2-vl-2b ones, kernels "
+        f"{earlier['ms']:.3f} ms in all")
     return rows
 
 
@@ -3075,12 +3124,23 @@ LM_GOLDEN_RECURRENT = os.path.join(ROOT, "tests", "golden",
                                    "lm_session_recurrent_f32.json")
 LM_GOLDEN_MOE = os.path.join(ROOT, "tests", "golden",
                              "lm_session_moe_f32.json")
+LM_GOLDEN_VLM_AUDIO = os.path.join(ROOT, "tests", "golden",
+                                   "lm_session_vlm_audio_f32.json")
+LM_GOLDENS = (LM_GOLDEN, LM_GOLDEN_RECURRENT, LM_GOLDEN_MOE,
+              LM_GOLDEN_VLM_AUDIO)
 # f32 against the JAX package (CPU): |logit - golden| on the golden's 8
 # largest logits of every step. Both sides are f32 (TF32 off in the
 # matmuls, the prefill kernel at 3xTF32, ~2^-22 per product) summed in
 # other orders, a few 1e-6 over four layers; one key missed of 64, or one
 # slot written off, moves a logit by ~1e-2
 LM_F32_TOL = 1e-3
+# f32, the vlm runs (M-RoPE), by the same derivation: M-RoPE's height and
+# width rows rotate only the slow half of each head (rope_theta 1e6), by
+# at most 0.16 rad over the golden's 6 x 8 image, so M-RoPE reading row 0
+# for every section moves the top logits by 7.9e-5 at full width (8.2e-5
+# on the smoke config), under LM_F32_TOL, where the port lies 1.9e-6 from
+# the JAX package on the CPU. Their limit is 2e-5, between the two
+LM_MROPE_TOL = 2e-5
 # bf16: the kernels' run against the same model on flash_attention_plain,
 # teacher-forced with the kernels' tokens: per step and sequence, the norm
 # of the logits' difference over the norm of the plain run's. The two
@@ -3118,12 +3178,36 @@ LM_BF16_RUNS = (
     # 3.875, each held twice)
     dict(name="moonshot-v1-16b-a3b", seed=0, batch=4, prompt_len=1024,
          steps=32, exact_ties=True),
+    # 1.77 B parameters, 3.5 GB: one image of 32 x 32 patches (1024
+    # positions), then 1024 positions of text; each decode step fed the
+    # next seeded embedding (``vlm_generate``)
+    dict(name="qwen2-vl-2b", seed=0, batch=4, image=(1, 32, 32),
+         prompt_len=2048, steps=32),
+    # 3.3 B parameters, 6.6 GB: 4 codebooks of 1024 prompt tokens each
+    # (about 20 s of audio at 50 frames a second). Its argmaxes are held in
+    # 528 rows of 2048 logits near 3 in bf16, where a step is 2^-6: on the
+    # card 12 rows differed from the plain run's, at an exact tie in one run
+    # (8) or with the two tokens one bf16 step apart in both runs, in
+    # opposite order (4), the relative error 0.0092. LM_BF16_TOL's
+    # derivation takes the two runs to differ by one bf16 step on some
+    # elements, so ``step_ties``: such a row is listed, not counted
+    # (``step_tie``)
+    dict(name="musicgen-large", seed=0, batch=4, prompt_len=1024, steps=32,
+         exact_ties=True, step_ties=True),
 )
 
 
 def lm_golden(path: str = LM_GOLDEN) -> list:
     with open(path) as f:
         return json.load(f)["runs"]
+
+
+def run_tag(run: dict) -> str:
+    """A golden run's name in the checks: its config's, with ``-smoke``
+    for a smoke config and ``-grad_accum<n>`` where it overrides that."""
+    n = run.get("overrides", {}).get("grad_accum")
+    return run["name"] + ("-smoke" if run["smoke"] else "") + (
+        f"-grad_accum{n}" if n else "")
 
 
 def lm_config(run: dict):
@@ -3155,10 +3239,17 @@ def f32_cast_errors(params, cfg) -> int:
     return walk(params, ())
 
 
+def logit_rows(logits):
+    """A step's logits as rows of the vocabulary, in f32: (B, V), or (B *
+    K, V) for a model of K codebooks, one row per sequence and codebook
+    (as ``tests/make_lm_golden.py`` keeps them)."""
+    return logits.reshape(-1, logits.shape[-1]).float()
+
+
 def record_steps(sess, times: list = None) -> list:
-    """Wrap ``sess``'s prefill and decode steps: each step's logits, (B,
-    V) in f32, go into the returned list; with ``times``, each step is
-    also timed on the host clock, from a synchronize before it to one
+    """Wrap ``sess``'s prefill and decode steps: each step's logits
+    (``logit_rows``) go into the returned list; with ``times``, each step
+    is also timed on the host clock, from a synchronize before it to one
     after it (seconds)."""
     import torch
     seen = []
@@ -3172,11 +3263,50 @@ def record_steps(sess, times: list = None) -> list:
             if times is not None:
                 torch.cuda.synchronize()
                 times.append(time.perf_counter() - t0)
-            seen.append(out[0].reshape(out[0].shape[0], -1).float())
+            seen.append(logit_rows(out[0]))
             return out
         return wrapped
     sess._prefill, sess._decode = keep(sess._prefill), keep(sess._decode)
     return seen
+
+
+def image_text_positions(batch: int, image: tuple, length: int):
+    """M-RoPE positions (3, batch, length), int32, as Qwen2-VL lays out one
+    image of ``image`` = (t, h, w) patches followed by text: patch (i, j,
+    k) at (i, j, k), then the text on all three rows from the largest
+    image position + 1 (``tests/make_lm_golden.py`` lays out its vlm runs
+    the same way and records the result)."""
+    grid = np.stack([g.ravel() for g in np.meshgrid(
+        *(np.arange(n) for n in image), indexing="ij")])
+    start = int(grid.max()) + 1
+    text = np.arange(start, start + length - grid.shape[1])
+    pos = np.concatenate([grid, np.broadcast_to(text, (3, text.size))], 1)
+    return np.ascontiguousarray(np.broadcast_to(
+        pos[:, None], (3, batch, length)), dtype=np.int32)
+
+
+def vlm_generate(sess, embeds, positions, steps: int):
+    """The vlm family's generation on ``sess``'s prefill and decode steps
+    (``make_prefill_step``, ``make_decode_step``; ``generate`` takes
+    tokens only), teacher-forced: the prefill of the first S of
+    ``embeds`` (B, S + steps, d) at ``positions`` (3, B, S), then
+    ``steps`` decode steps, each fed the next embedding at position S +
+    step (the reference's ``decode_step`` gives it all three M-RoPE
+    rows). Returns the greedy token of each step's logits but the last,
+    (B, steps), as ``tests/make_lm_golden.py::vlm_generate``."""
+    import torch
+    from repro_torch.serve.session import greedy_token
+    S = positions.shape[-1]
+    with torch.inference_mode():
+        logits, caches = sess._prefill(sess.params, {
+            "embeds": embeds[:, :S], "positions": positions})
+        out = []
+        for step in range(steps):
+            out.append(greedy_token(logits).reshape(logits.shape[0], -1))
+            logits, caches = sess._decode(
+                sess.params, {"embeds": embeds[:, S + step:S + step + 1]},
+                caches, S + step)
+    return torch.cat(out, dim=-1)
 
 
 def lm_launches_want(n_layers: int, dtype: str, prompt_len: int,
@@ -3200,14 +3330,19 @@ def golden_errors(run: dict, device) -> tuple:
     package's ``ServeSession`` in f32 on the CPU) through the port's
     ``ServeSession`` on ``device``, its attention on the port's kernels
     (on the card; the plain version on the CPU), weights from
-    ``numpy_params`` with the golden's seed. Counts, each 0 to pass:
-    weights whose sha256 is not the golden's, tokens that differ, logits
-    at the golden's top 8 more than ``LM_F32_TOL`` away, and on the card
-    attention launches other than ``lm_launches_want``. A step whose
-    golden top-1 margin is under ``LM_F32_TOL`` is reported; its token and
-    all after it are not compared (a tie may break either way), nor are
-    the logits after it. ``weights`` also counts the weights the reference
-    reads in f32 that the session holds in another dtype
+    ``numpy_params`` with the golden's seed. A vlm run is fed the
+    golden's embeddings (numpy's draws from its ``embed_seed``) and
+    positions through ``vlm_generate``; the others their prompts through
+    ``generate``. Counts, each 0 to pass: weights (and a vlm run's
+    embeddings) whose sha256 is not the golden's, tokens that differ,
+    logits at the golden's top 8 of every row (a sequence, or a sequence
+    and codebook: ``logit_rows``) more than ``LM_F32_TOL`` away
+    (``LM_MROPE_TOL`` for a model with M-RoPE), and on the
+    card attention launches other than ``lm_launches_want``. A step whose
+    golden top-1 margin is under that limit in some row is reported;
+    its token and all after it are not compared (a tie may break either
+    way), nor are the logits after it. ``weights`` also counts the weights
+    the reference reads in f32 that the session holds in another dtype
     (``f32_cast_errors``). Returns (errors, row)."""
     import torch
     from repro_torch.kernels import launch_counts, reset_launch_counts
@@ -3222,15 +3357,27 @@ def golden_errors(run: dict, device) -> tuple:
                         device=device)
     del weights
     errs["weights"] += f32_cast_errors(sess.params, cfg)
+    if cfg.family == "vlm":
+        embeds = np.random.default_rng(run["embed_seed"]).standard_normal(
+            (run["batch"], run["prompt_len"] + run["steps"], cfg.d_model),
+            dtype=np.float32)
+        errs["weights"] += int(tree_sha256(embeds) != run["embeds_sha256"])
+        embeds = torch.as_tensor(embeds, device=device)
+        positions = torch.as_tensor(np.array(run["positions"], np.int32),
+                                    device=device)
     seen = record_steps(sess)
     reset_launch_counts()
     t0 = time.perf_counter()
-    got = sess.generate(np.array(run["prompts"], np.int32), run["steps"])
+    if cfg.family == "vlm":
+        got = vlm_generate(sess, embeds, positions, run["steps"])
+    else:
+        got = sess.generate(np.array(run["prompts"], np.int32), run["steps"])
     got = got.cpu().numpy()
     secs = time.perf_counter() - t0
     counts = launch_counts()
+    limit = LM_MROPE_TOL if cfg.mrope_sections else LM_F32_TOL
     low = [s for s, top in enumerate(run["top"])
-           if min(v[0] - v[1] for v in top["value"]) < LM_F32_TOL]
+           if min(v[0] - v[1] for v in top["value"]) < limit]
     upto = min(low, default=len(run["top"]) - 1)
     worst, over = 0.0, 0
     for logits, top in list(zip(seen, run["top"]))[:upto + 1]:
@@ -3238,10 +3385,11 @@ def golden_errors(run: dict, device) -> tuple:
         err = np.abs(logits.gather(1, idx).cpu().numpy()
                      - np.array(top["value"], np.float32))
         worst, over = max(worst, float(err.max())), over + int(
-            (err > LM_F32_TOL).sum())
+            (err > limit).sum())
     want_tokens = np.array(run["tokens"])
+    cols = upto * max(1, cfg.n_codebooks)      # a step's tokens, step-major
     errs["tokens"] = int(got.shape != want_tokens.shape) or int(
-        (got[:, :upto] != want_tokens[:, :upto]).sum())
+        (got[:, :cols] != want_tokens[:, :cols]).sum())
     errs["logits"] = over + int(len(seen) != len(run["top"]))
     want = lm_launches_want(attention_layers(cfg), cfg.dtype,
                             run["prompt_len"], run["steps"])
@@ -3249,7 +3397,7 @@ def golden_errors(run: dict, device) -> tuple:
         errs["launches"] = sum(counts.get(k, 0) != v for k, v in want.items())
     row = dict(config=cfg.name, layers=cfg.n_layers, d_model=cfg.d_model,
                batch=run["batch"], prompt_len=run["prompt_len"],
-               steps=run["steps"], max_err=worst, limit=LM_F32_TOL,
+               steps=run["steps"], max_err=worst, limit=limit,
                low_margin_steps=low, tokens_compared=upto, seconds=secs,
                launches={k: counts.get(k, 0) for k in want})
     if "router_margin" in run:
@@ -3321,15 +3469,31 @@ def exact_tie(g, r) -> bool:
     return bool(g[j] == g[i]) or bool(r[i] == r[j])
 
 
+def bf16_step(x: float) -> float:
+    """The distance between bf16 values at the magnitude of ``x`` (8
+    significant bits)."""
+    return 2.0 ** (math.frexp(abs(x))[1] - 8) if x else 0.0
+
+
+def step_tie(g, r) -> bool:
+    """Whether two logits rows ``g`` and ``r`` whose first argmaxes i and
+    j differ hold the two tokens at most one bf16 step apart in each row:
+    an order one bf16 step of difference between the runs can reverse."""
+    i, j = int(g.argmax()), int(r.argmax())
+    return all(abs(float(x[i]) - float(x[j]))
+               <= bf16_step(max(abs(float(x[i])), abs(float(x[j]))))
+               for x in (g, r))
+
+
 def segments() -> int:
     """The caching allocator's ``cudaMalloc`` calls so far."""
     import torch
     return torch.cuda.memory_stats().get("segment.all.allocated", 0)
 
 
-def warm_prefill(sess, prompts) -> dict:
-    """One uncounted ``generate`` of ``prompts`` and one step through
-    ``sess``, at the shape the run then times, so that the caching
+def warm_prefill(sess, generate) -> dict:
+    """One uncounted ``generate(1)``, a generation of one step through
+    ``sess`` at the shape the run then times, so that the caching
     allocator's ``cudaMalloc`` calls for that shape fall here: its prefill
     on the host clock between synchronizes and the ``cudaMalloc`` calls of
     the generation."""
@@ -3338,7 +3502,7 @@ def warm_prefill(sess, prompts) -> dict:
     record_steps(sess, times)
     torch.cuda.synchronize()
     before = segments()
-    sess.generate(prompts, 1)
+    generate(1)
     torch.cuda.synchronize()
     sess._prefill, sess._decode = steps
     return dict(warmup_prefill_ms=times[0] * 1e3,
@@ -3433,10 +3597,14 @@ def lm_bf16(device, spec: dict) -> tuple:
     its own dtype (bf16 activations; params drawn from a seeded generator
     on the card straight in their serving dtypes, ``init_session``: the
     peak of init within ``INIT_PEAK_SLACK`` of what it holds, and that the
-    params' size), ``batch`` prompts of ``prompt_len`` seeded tokens, ``steps`` greedy
-    steps through ``ServeSession``, after one short warm-up generation and
-    one at the timed shape (``warm_prefill``; the timed run's
-    ``cudaMalloc`` calls recorded).
+    params' size), ``batch`` prompts of ``prompt_len`` seeded tokens (of
+    each of a codebook model's K codebooks), ``steps`` greedy steps
+    through ``ServeSession``, after one short warm-up generation and one
+    at the timed shape (``warm_prefill``; the timed run's ``cudaMalloc``
+    calls recorded). A vlm run takes embeddings drawn on the card from
+    the seed, at the positions of one image of ``image`` patches then
+    text (``image_text_positions``), through ``vlm_generate``,
+    teacher-forced.
     Launch counts are zeroed just before the run and read just after
     (``lm_launches_want``). Each step is timed (``record_steps``); then
     one prefill and 8 decode steps run under ``torch.profiler``
@@ -3445,9 +3613,12 @@ def lm_bf16(device, spec: dict) -> tuple:
     the kernels' run's routing, ``routing``: a bf16 step apart can send a
     token to another expert, a jump no tolerance bounds; the choices the
     plain run would have made otherwise are counted, not held), and each
-    step's logits are held to ``LM_BF16_TOL``, every argmax equal; a run
+    step's logits are held to ``LM_BF16_TOL``, every argmax equal (each
+    row of ``logit_rows``: per codebook for a codebook model); a run
     with ``exact_ties`` lists, and does not count, an argmax that differs
-    at an exact tie (``exact_tie``). One without
+    at an exact tie (``exact_tie``), one with ``step_ties`` one that
+    differs where both runs hold the two tokens within one bf16 step
+    (``step_tie``). One without
     (RWKV-6) holds a decode step of its first token to its forward pass
     over the prompt and that token, in f32 at full width and depth (the
     same seed's weights), within ``LM_FORWARD_TOL``, the argmaxes equal;
@@ -3460,32 +3631,55 @@ def lm_bf16(device, spec: dict) -> tuple:
     tag = f"bf16.{cfg.name}"
     n_attn = attention_layers(cfg)
     moe = cfg.family == "moe"
+    K = max(1, cfg.n_codebooks)
     model = build_model(cfg)
     sess, mem, init_errs = init_session(model, spec["seed"], device)
     params = sess.params
-    prompts = np.random.default_rng(spec["seed"]).integers(
-        0, cfg.vocab_size, (B, S), dtype=np.int32)
-    sess.generate(prompts[:, :64], 2)                   # warm-up, uncounted
-    warm = warm_prefill(sess, prompts)
+    if cfg.family == "vlm":
+        gen = torch.Generator(device=device).manual_seed(spec["seed"])
+        embeds = torch.randn((B, S + steps, cfg.d_model), generator=gen,
+                             device=device)
+        positions = torch.as_tensor(image_text_positions(
+            B, spec["image"], S), device=device)
+        batch = {"embeds": embeds[:, :S], "positions": positions}
+
+        def generate(n, upto=S):
+            return vlm_generate(sess, embeds, positions[..., :upto], n)
+
+        def step_batch(s):
+            return {"embeds": embeds[:, S + s:S + s + 1]}
+    else:
+        prompts = np.random.default_rng(spec["seed"]).integers(
+            0, cfg.vocab_size, (B, cfg.n_codebooks, S) if cfg.n_codebooks
+            else (B, S), dtype=np.int32)
+        batch = {"tokens": torch.as_tensor(prompts, device=device)}
+
+        def generate(n, upto=S):
+            return sess.generate(prompts[..., :upto], n)
+
+        def step_batch(s):      # step s's tokens, (B, 1) or (B, K, 1)
+            return {"tokens": toks[:, s * K:(s + 1) * K].reshape(
+                (B, K, 1) if cfg.n_codebooks else (B, 1))}
+    generate(2, 64)                                     # warm-up, uncounted
+    warm = warm_prefill(sess, generate)
     times: list = []
     seen = record_steps(sess, times)
     kept: list = []
     before = segments()
     reset_launch_counts()
     with routing(kept) if moe else contextlib.nullcontext():
-        toks = sess.generate(prompts, steps)
+        toks = generate(steps)
     torch.cuda.synchronize()
     counts = launch_counts()
     run_segments = segments() - before
     want = lm_launches_want(n_attn, cfg.dtype, S, steps)
     errs = {f"{tag}.launches": sum(counts.get(k, 0) != v
                                    for k, v in want.items()),
-            f"{tag}.shape": int(tuple(toks.shape) != (B, steps)
+            f"{tag}.shape": int(tuple(toks.shape) != (B, steps * K)
                                 or len(seen) != steps + 1),
             f"{tag}.finite": sum(not bool(torch.isfinite(x).all())
                                  for x in seen),
             **{f"{tag}.{k}": v for k, v in init_errs.items()}}
-    batch = {"tokens": torch.as_tensor(prompts, device=device)}
     with torch.inference_mode():
         def prefill():
             return model.prefill(params, batch, last_only=True)
@@ -3494,8 +3688,7 @@ def lm_bf16(device, spec: dict) -> tuple:
         def decode8():
             c = caches
             for s in range(min(8, steps)):
-                c = model.decode(params, {"tokens": toks[:, s:s + 1]}, c,
-                                 S + s)[1]
+                c = model.decode(params, step_batch(s), c, S + s)[1]
         prof = {"prefill": profiled_shares(prefill),
                 "decode_8_steps": profiled_shares(decode8)}
         del caches
@@ -3506,11 +3699,11 @@ def lm_bf16(device, spec: dict) -> tuple:
             plain = build_model(cfg, attention="torch")
             with routing(kept, differ) if moe else contextlib.nullcontext():
                 ref, caches = plain.prefill(params, batch, last_only=True)
-                refs = [ref.reshape(B, -1).float()]
+                refs = [logit_rows(ref)]
                 for s in range(steps):
-                    ref, caches = plain.decode(
-                        params, {"tokens": toks[:, s:s + 1]}, caches, S + s)
-                    refs.append(ref.reshape(B, -1).float())
+                    ref, caches = plain.decode(params, step_batch(s), caches,
+                                               S + s)
+                    refs.append(logit_rows(ref))
             del caches
             got = seen
         else:
@@ -3535,10 +3728,11 @@ def lm_bf16(device, spec: dict) -> tuple:
         for b in (ga != ra).nonzero().flatten().tolist():
             i, j = int(ga[b]), int(ra[b])
             differ_at.append(dict(
-                step=step, seq=b, tokens=[i, j],
+                step=step, seq=b // K, codebook=b % K, tokens=[i, j],
                 kernels=(float(g[b, i]), float(g[b, j])),
                 plain=(float(r[b, i]), float(r[b, j])),
-                tie=spec.get("exact_ties", False) and exact_tie(g[b], r[b])))
+                tie=bool(spec.get("exact_ties") and exact_tie(g[b], r[b])
+                         or spec.get("step_ties") and step_tie(g[b], r[b]))))
     errs[f"{tag}.logits"] = sum(x > limit for x in rel) + sum(
         not d["tie"] for d in differ_at)
     decode_s = statistics.median(times[1:])
@@ -3551,7 +3745,7 @@ def lm_bf16(device, spec: dict) -> tuple:
                decode_ms_per_step_max=max(times[1:]) * 1e3,
                decode_tokens_per_s=B / decode_s, compared_with=compared,
                rel_err_max=max(rel), rel_err_first=rel[0], limit=limit,
-               argmax_agree=f"{agree}/{B * len(refs)}",
+               argmax_agree=f"{agree}/{sum(r.shape[0] for r in refs)}",
                argmax_differ_at=differ_at, profile=prof, **mem, **warm,
                run_segments=run_segments,
                memory_reserved_mb=torch.cuda.memory_reserved() / 1e6,
@@ -3570,17 +3764,16 @@ def lm_checks(device, route: str = "all") -> tuple:
     summed over the runs)."""
     import torch
     errs, rows, launches = {}, [], {}
-    for path in (LM_GOLDEN, LM_GOLDEN_RECURRENT, LM_GOLDEN_MOE):
+    for path in LM_GOLDENS:
         for run in lm_golden(path):
             e, row = golden_errors(run, device)
-            errs.update({f"{run['name']}{'-smoke' if run['smoke'] else ''}"
-                         f".{k}": v for k, v in e.items()})
+            errs.update({f"{run_tag(run)}.{k}": v for k, v in e.items()})
             rows.append(row)
             log(f"lm golden {row['config']} ({row['layers']} layers, d_model "
                 f"{row['d_model']}, f32): {row['batch']} prompts of "
                 f"{row['prompt_len']} tokens, {row['steps']} steps in "
                 f"{row['seconds']:.2f} s; largest |logit - JAX| "
-                f"{row['max_err']:.3g} (limit {LM_F32_TOL}); steps with a "
+                f"{row['max_err']:.3g} (limit {row['limit']}); steps with a "
                 f"top-1 margin under the limit {row['low_margin_steps']}; "
                 f"launches {row['launches']}; checks {e}")
     for spec in LM_BF16_RUNS if route == "all" else ():
@@ -3649,6 +3842,13 @@ def lm_errors(fault: str) -> None:
 # phase 8: training at full width
 # ---------------------------------------------------------------------------
 TRAIN_GOLDEN = os.path.join(ROOT, "tests", "golden", "train_f32.json")
+TRAIN_GOLDEN_FAMILIES = os.path.join(ROOT, "tests", "golden",
+                                     "train_families_f32.json")
+TRAIN_GOLDENS = (TRAIN_GOLDEN, TRAIN_GOLDEN_FAMILIES)
+# a batch's keys and dtypes in the golden files (a vlm's embeddings,
+# positions and labels; the others' tokens and labels)
+BATCH_DTYPES = {"tokens": np.int32, "labels": np.int32,
+                "positions": np.int32, "embeds": np.float32}
 # f32 against the JAX package's make_train_step (CPU), per step, relative.
 # The loss at the reference's own limit for grad_accum (tests/
 # test_train.py), 1e-5: the port lies within 1.9e-7 of the golden on the
@@ -3700,7 +3900,11 @@ def train_attention_launches(cfg) -> int:
     recompute in the backward runs its forward again (remat ``"full"``
     or ``"dots"``; the trailing layers are not checkpointed). The backward
     itself launches none. Qwen3-0.6B, 28 attention layers under remat
-    ``"full"``: 28 x (1 + 1) = 56 a step."""
+    ``"full"``: 28 x (1 + 1) = 56 a step. Every smoke config trains
+    under remat ``"full"`` too, so the golden runs' remat doubles their
+    launches: 4 a step for the Mixtral, RecurrentGemma (two local layers,
+    both in pattern groups), Qwen2-VL and MusicGen smoke configs, 0 for
+    RWKV-6's."""
     from repro_torch.configs.base import ATTN_GLOBAL, ATTN_LOCAL
     attn = [k in (ATTN_GLOBAL, ATTN_LOCAL) for k in cfg.layer_kinds]
     grouped = sum(attn[:cfg.n_groups * len(cfg.pattern)])
@@ -3710,10 +3914,11 @@ def train_attention_launches(cfg) -> int:
 
 def train_launches_want(cfg, seq_len: int, steps: int) -> dict:
     """The attention launches of ``steps`` train steps of ``cfg`` at
-    ``seq_len``: all on the prefill route of ``cfg.dtype``."""
+    ``seq_len``, each step ``cfg.grad_accum`` forward and backward passes
+    (one a microbatch): all on the prefill route of ``cfg.dtype``."""
     import torch
     from repro_torch.kernels.flash_attention import ROUTES, attention_route
-    n = steps * train_attention_launches(cfg)
+    n = steps * cfg.grad_accum * train_attention_launches(cfg)
     want = {f"flash_attention.{r}": 0 for r in ROUTES}
     want[f"flash_attention.{attention_route(getattr(torch, cfg.dtype), seq_len)}"] = n
     want["flash_attention_combine"] = 0
@@ -3724,7 +3929,9 @@ def train_launches_want(cfg, seq_len: int, steps: int) -> dict:
 def train_golden_errors(run: dict, device) -> tuple:
     """One run of the golden file (``tests/make_train_golden.py``: the JAX
     package's ``make_train_step`` in f32 on the CPU) through the port's
-    ``make_train_step`` on ``device``, its attention on the port's kernels
+    ``make_train_step`` on ``device`` (``grad_accum`` from the run's
+    config: the reference's ``lax.scan`` over microbatches against the
+    port's loop), its attention on the port's kernels
     (on the card; the plain version's forward on the CPU), weights from
     ``numpy_params`` with the golden's seed, the batches the golden
     recorded (``make_batch``'s on the machine that wrote it: numpy's
@@ -3752,8 +3959,8 @@ def train_golden_errors(run: dict, device) -> tuple:
     opt_state = init_opt_state(params)
     step = make_train_step(build_model(cfg), AdamWConfig(**run["opt"]))
     dcfg = DataConfig(**run["data"])
-    batches = [{k: np.array(g[k], np.int32) for k in ("tokens", "labels")}
-               for g in run["per_step"]]
+    batches = [{k: np.array(g[k], dt) for k, dt in BATCH_DTYPES.items()
+                if k in g} for g in run["per_step"]]
     same_data = all(all(np.array_equal(v, b[k]) for k, v in make_batch(
         dcfg, cfg, s).items()) for s, b in enumerate(batches))
     batches = [{k: torch.as_tensor(v, device=device) for k, v in b.items()}
@@ -3779,7 +3986,7 @@ def train_golden_errors(run: dict, device) -> tuple:
         errs["launches"] = sum(counts.get(k, 0) != v for k, v in want.items())
     row = dict(config=cfg.name, layers=cfg.n_layers, d_model=cfg.d_model,
                vocab=cfg.vocab_size, batch=dcfg.batch, seq_len=dcfg.seq_len,
-               steps=run["steps"], loss=[g["loss"] for g in got],
+               grad_accum=cfg.grad_accum, steps=run["steps"], loss=[g["loss"] for g in got],
                grad_norm=[g["grad_norm"] for g in got],
                loss_rel_err=rel["loss"], grad_norm_rel_err=rel["grad_norm"],
                limits=dict(loss=TRAIN_LOSS_RTOL,
@@ -3915,19 +4122,20 @@ def train_bf16(device, spec: dict = TRAIN_BF16) -> tuple:
 
 
 def train_checks(device, route: str = "all") -> tuple:
-    """Phase 8: every golden run (``train_golden_errors``) then, for
-    route "all", the bf16 run (``train_bf16``). Returns (errors, rows,
-    launches: the attention launches summed over the runs)."""
+    """Phase 8: every golden run of both golden files
+    (``train_golden_errors``) then, for route "all", the bf16 run
+    (``train_bf16``). Returns (errors, rows, launches: the attention
+    launches summed over the runs)."""
     import torch
     errs, rows, launches = {}, [], {}
-    for run in train_golden():
+    for run in (r for path in TRAIN_GOLDENS for r in train_golden(path)):
         e, row = train_golden_errors(run, device)
-        errs.update({f"{run['name']}{'-smoke' if run['smoke'] else ''}"
-                     f".{k}": v for k, v in e.items()})
+        errs.update({f"{run_tag(run)}.{k}": v for k, v in e.items()})
         rows.append(row)
         log(f"train golden {row['config']} ({row['layers']} layers, d_model "
             f"{row['d_model']}, vocab {row['vocab']}, f32): {row['steps']} "
             f"steps of {row['batch']} x {row['seq_len']} tokens in "
+            f"{row['grad_accum']} microbatches, in "
             f"{row['seconds']:.2f} s; loss {row['loss']}, relative error "
             f"{max(row['loss_rel_err']):.3g} (limit {TRAIN_LOSS_RTOL}); "
             f"grad_norm {row['grad_norm']}, relative error by step "
@@ -4404,7 +4612,9 @@ def mesh_serve_run(device, mesh, rules, spec: dict, lm_row=None) -> tuple:
         sess = ServeSession(model, p, device=device)
         with use_rules(ctx):
             sess.generate(prompts[:, :64], 2)           # warm-up, uncounted
-            warm[name] = warm_prefill(sess, prompts)["warmup_prefill_ms"]
+            warm[name] = warm_prefill(
+                sess, lambda n: sess.generate(prompts, n))[
+                    "warmup_prefill_ms"]
             times: list = []
             seen = record_steps(sess, times)
             reset_launch_counts()
@@ -4929,6 +5139,24 @@ PLANTED_FAULTS = {  # name: (route, file under src/repro_torch, text, stand-in)
         "    dt = getattr(torch, cfg.dtype)\n    if dt:\n        return "
         "cast_params(init_params(cfg, generator, device), cfg)\n"
         "    return init_tree("),
+    # M-RoPE taking row 0 (time) for every section
+    "lm.mrope_row0": (
+        "lm", "models/layers.py",
+        "pos_per_band = pos[torch.as_tensor(sec_id, device=pos.device)]",
+        "pos_per_band = pos[torch.zeros(len(sec_id), dtype=torch.long,\n"
+        "                                        device=pos.device)]"),
+    # each codebook's head reads the next codebook's weights
+    "lm.codebook_head_next": (
+        "lm", "models/transformer.py",
+        'logits = torch.einsum("bsd,kdv->bskv", x, params["head"].to('
+        'x.dtype))',
+        'logits = torch.einsum("bsd,kdv->bskv", x,\n'
+        '                              params["head"].roll(-1, 0).to('
+        'x.dtype))'),
+    # a grad_accum loop that drops its last microbatch
+    "train.grad_accum_drops_last": (
+        "train", "train/step.py", "            for i in range(grad_accum):\n",
+        "            for i in range(grad_accum - 1):\n"),
     # the token shift under the rules one position off (no shift)
     "mesh_serve.shift_off_by_one": (
         "mesh_serve", "sharding/logical.py",
@@ -5174,6 +5402,9 @@ def plant_faults() -> int:
                 proc.kill()
                 proc.wait()
         shutil.rmtree(tmp, ignore_errors=True)
+    caught = sum(bool(failed[f]) for f in PLANTED_FAULTS)
+    log(f"planted faults caught: {caught} of {len(PLANTED_FAULTS)}; the "
+        f"unchanged copy over the limit in {len(failed['none'])} cases")
     if failed["none"] or not all(failed[f] for f in PLANTED_FAULTS):
         raise AssertionError("the unchanged kernels failed, or a fault "
                              "passed")
@@ -5388,18 +5619,28 @@ def main(argv: list) -> int:
             replaces="src/repro/kernels/flash_attention.py:77",
             launches=lm_launches[key], launches_cases=counts5[key],
             launches_train=train_launches.get(key, 0), **row5[key],
+            launches_by_lm_run={
+                f"{r['config']} {r.get('dtype', 'float32')}":
+                    r["launches"][key] for r in lm_rows},
+            launches_by_train_run={
+                f"{r['config']} {r.get('dtype', 'float32')}"
+                + (f" grad_accum {r['grad_accum']}"
+                   if r.get("grad_accum", 1) > 1 else ""):
+                    r["launches"][key] for r in train_rows},
             per=f"one pass over the phase-5 cases of its route "
                 f"({row5[key]['cases']}): Gemma-2 27B, Qwen3-0.6B, Mixtral "
-                f"8x22B and RecurrentGemma-9B attention at prefill 8192 and "
-                f"decode 1 x 32768 / 4096, and the edge cases"
+                f"8x22B, RecurrentGemma-9B, MusicGen-Large and Qwen2-VL-2B "
+                f"attention at prefill 8192 and decode 1 x 32768 / 4096, "
+                f"and the edge cases"
                 + ("; the decode route's time includes its combine"
                    if key == "flash_attention.decode" else "")
                 + "; launches: phase 7's language-model runs (the golden "
                   "f32 runs and the bf16 runs of Qwen3-0.6B, "
-                  "RecurrentGemma-9B and Moonshot-v1-16B-A3B), "
+                  "RecurrentGemma-9B, Moonshot-v1-16B-A3B, Qwen2-VL-2B and "
+                  "MusicGen-Large; by run in launches_by_lm_run), "
                   "launches_train: phase 8's training "
                   "runs (the f32 golden runs and the bf16 Qwen3-0.6B "
-                  "Trainer steps), "
+                  "Trainer steps; by run in launches_by_train_run), "
                   "launches_cases: phase 5's"))
     log(json.dumps({"serve": serve_rows, "capture": capture_rows,
                     "live": live_rows, "profile": prof}))

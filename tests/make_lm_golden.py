@@ -5,6 +5,7 @@ prompts that numpy makes from a seed.
     PYTHONPATH=src JAX_PLATFORMS=cpu python tests/make_lm_golden.py
     PYTHONPATH=src JAX_PLATFORMS=cpu python tests/make_lm_golden.py --recurrent
     PYTHONPATH=src JAX_PLATFORMS=cpu python tests/make_lm_golden.py --moe
+    PYTHONPATH=src JAX_PLATFORMS=cpu python tests/make_lm_golden.py --vlm-audio
 
 Not a test (pytest collects ``test_*.py`` only). The first writes
 ``golden/lm_session_f32.json``, runs each in f32:
@@ -38,6 +39,34 @@ its peak), runs each in f32:
 - ``moonshot-v1-16b-a3b``'s and ``mixtral-8x22b``'s smoke configs (4
   experts, top-2), 32-token prompts.
 
+``--vlm-audio`` writes ``golden/lm_session_vlm_audio_f32.json``, runs
+each in f32:
+
+- ``qwen2-vl-2b`` at full width (d_model 1536, 12/2 heads of 128, d_ff
+  8960, vocab 151936, qkv bias, M-RoPE sections (16, 24, 24)) cut to
+  ``VLM_LAYERS`` of 28 (0.65 B parameters), 2 sequences of 64 positions;
+- ``qwen2-vl-2b``'s smoke config, 2 sequences of 32 positions;
+- ``musicgen-large`` at full width (d_model 2048, 32 heads of 64, d_ff
+  8192, vocab 2048, 4 codebooks) cut to ``AUDIO_LAYERS`` of 48 (0.3 B
+  parameters), prompts (2, 4, 64);
+- ``musicgen-large``'s smoke config (2 codebooks), prompts (2, 2, 32).
+
+A vlm run feeds embeddings, not tokens, which ``ServeSession.generate``
+does not pass: it drives ``make_prefill_step`` and ``make_decode_step``
+itself (``vlm_generate``). The embeddings are numpy's standard normal
+draws from ``embed_seed``, (B, S + steps, d_model): the prefill takes the
+first S at the positions of one image of ``image`` = (t, h, w) patches
+followed by text (``chip_smoke.image_text_positions``), and each decode
+step the next one, teacher-forced, at position S + step on all three
+M-RoPE rows (the reference's ``decode_step``). The run keeps the positions and a sha256 of
+the embeddings; its ``tokens`` are the greedy choices of each step's
+logits, which no step feeds back.
+
+Each step's logits are kept as rows of the vocabulary: (B, V), or (B * K,
+V) for a model of K codebooks, one row per sequence and codebook, so that
+each codebook has its own top 8 (the earlier files' models have no
+codebooks, and their rows are the same either way).
+
 A MoE run also keeps ``router_margin``: the smallest gap between the K-th
 and the (K+1)-th largest router probability over every token, layer and
 step, where a routing choice would flip first.
@@ -50,6 +79,7 @@ logits of each sequence with their indices. ``chip_smoke.py`` reads only
 this JSON.
 """
 import contextlib
+import importlib.util
 import json
 import os
 import sys
@@ -61,18 +91,27 @@ import numpy as np
 from repro.configs import ARCHS, SMOKE_ARCHS
 from repro.models import build_model
 from repro.serve.engine import ServeSession
+from repro.serve.session import greedy_token
 from repro_torch.configs import ARCHS as T_ARCHS
 from repro_torch.configs import SMOKE_ARCHS as T_SMOKE
 from repro_torch.models.convert import numpy_params, tree_sha256
 
 GOLDEN = os.path.join(os.path.dirname(os.path.abspath(__file__)), "golden")
+# the vlm runs lay out their positions as chip_smoke.py's bf16 run does
+_spec = importlib.util.spec_from_file_location("chip_smoke", os.path.join(
+    os.path.dirname(GOLDEN), os.pardir, "chip_smoke.py"))
+chip_smoke = importlib.util.module_from_spec(_spec)
+_spec.loader.exec_module(chip_smoke)
 OUT = os.path.join(GOLDEN, "lm_session_f32.json")
 OUT_RECURRENT = os.path.join(GOLDEN, "lm_session_recurrent_f32.json")
 OUT_MOE = os.path.join(GOLDEN, "lm_session_moe_f32.json")
+OUT_VLM_AUDIO = os.path.join(GOLDEN, "lm_session_vlm_audio_f32.json")
 QWEN3_LAYERS = 4
 RWKV_LAYERS = 2
 GRIFFIN_LAYERS = 3
 MOE_LAYERS = 1
+VLM_LAYERS = 4
+AUDIO_LAYERS = 4
 TOP = 8
 RUNS = [
     dict(name="qwen3-0.6b", smoke=False,
@@ -106,8 +145,28 @@ MOE_RUNS = [
     dict(name="mixtral-8x22b", smoke=True, overrides=dict(dtype="float32"),
          seed=0, prompt_seed=1, batch=2, prompt_len=32, steps=8),
 ]
+# a vlm run's prompt: one image of ``image`` (t, h, w) patches, then text
+# up to ``prompt_len`` positions
+VLM_AUDIO_RUNS = [
+    dict(name="qwen2-vl-2b", smoke=False,
+         overrides=dict(dtype="float32", n_layers=VLM_LAYERS),
+         seed=0, embed_seed=1, batch=2, image=(1, 6, 8), prompt_len=64,
+         steps=8),
+    dict(name="qwen2-vl-2b", smoke=True, overrides=dict(dtype="float32"),
+         seed=0, embed_seed=1, batch=2, image=(1, 4, 4), prompt_len=32,
+         steps=8),
+    dict(name="musicgen-large", smoke=False,
+         overrides=dict(dtype="float32", n_layers=AUDIO_LAYERS),
+         seed=0, prompt_seed=1, batch=2, prompt_len=64, steps=8),
+    # prompt seed 2: seed 1's prompts leave a top-1 margin under
+    # chip_smoke's LM_F32_TOL at step 6, after which no token would be
+    # compared
+    dict(name="musicgen-large", smoke=True, overrides=dict(dtype="float32"),
+         seed=0, prompt_seed=2, batch=2, prompt_len=32, steps=8),
+]
 MODES = {(): (RUNS, OUT), ("--recurrent",): (RECURRENT_RUNS, OUT_RECURRENT),
-         ("--moe",): (MOE_RUNS, OUT_MOE)}
+         ("--moe",): (MOE_RUNS, OUT_MOE),
+         ("--vlm-audio",): (VLM_AUDIO_RUNS, OUT_VLM_AUDIO)}
 
 
 @contextlib.contextmanager
@@ -140,6 +199,23 @@ def _to_jax(tree):
     return out
 
 
+def vlm_generate(prefill, decode, params, embeds, positions, steps: int):
+    """A vlm's generation, teacher-forced: the prefill of the first S
+    embeddings at ``positions`` (3, B, S), then ``steps`` decode steps,
+    each fed the next embedding at position S + step. Returns the greedy
+    token of each step's logits but the last, (B, steps)."""
+    S = positions.shape[-1]
+    logits, caches = prefill(params, {"embeds": embeds[:, :S],
+                                      "positions": positions})
+    out = []
+    for step in range(steps):
+        out.append(greedy_token(logits).reshape(logits.shape[0], -1))
+        nxt = embeds[:, S + step:S + step + 1]
+        logits, caches = decode(params, {"embeds": nxt}, caches,
+                                jnp.asarray(S + step, jnp.int32))
+    return jnp.concatenate(out, axis=-1)
+
+
 def golden_run(run: dict) -> dict:
     cfg = (SMOKE_ARCHS if run["smoke"] else ARCHS)[run["name"]].replace(
         **run["overrides"])
@@ -154,29 +230,44 @@ def golden_run(run: dict) -> dict:
     def keep(step):
         def wrapped(*args):
             out = step(*args)
-            seen.append(np.asarray(out[0], np.float32).reshape(
-                run["batch"], -1))
+            logits = np.asarray(out[0], np.float32)
+            seen.append(logits.reshape(-1, logits.shape[-1]))
             return out
         return wrapped
     sess._prefill, sess._decode = keep(prefill), keep(decode)
-    toks = np.random.default_rng(run["prompt_seed"]).integers(
-        0, cfg.vocab_size, (run["batch"], run["prompt_len"]), dtype=np.int32)
+    B, S = run["batch"], run["prompt_len"]
     margins: list = []
-    with router_margins(margins):
-        out = np.asarray(sess.generate(jnp.asarray(toks), run["steps"]))
+    inputs: dict = {}
+    if cfg.family == "vlm":
+        embeds = np.random.default_rng(run["embed_seed"]).standard_normal(
+            (B, S + run["steps"], cfg.d_model), dtype=np.float32)
+        pos = chip_smoke.image_text_positions(B, run["image"], S)
+        out = np.asarray(vlm_generate(
+            sess._prefill, sess._decode, sess.params, jnp.asarray(embeds),
+            jnp.asarray(pos), run["steps"]))
+        inputs.update(embeds_sha256=tree_sha256(embeds),
+                      positions=pos.tolist())
+    else:
+        shape = (B, cfg.n_codebooks, S) if cfg.n_codebooks else (B, S)
+        toks = np.random.default_rng(run["prompt_seed"]).integers(
+            0, cfg.vocab_size, shape, dtype=np.int32)
+        with router_margins(margins):
+            out = np.asarray(sess.generate(jnp.asarray(toks), run["steps"]))
+        inputs["prompts"] = toks.tolist()
     top = []
     for logits in seen:
         idx = np.argsort(-logits, axis=-1, kind="stable")[:, :TOP]
         top.append({"index": idx.tolist(),
                     "value": np.take_along_axis(logits, idx, -1).tolist()})
     extra = {"router_margin": min(margins)} if margins else {}
-    return dict(run, weights_sha256=sha, prompts=toks.tolist(),
-                tokens=out.tolist(), top=top, **extra)
+    return dict(run, weights_sha256=sha, **inputs, tokens=out.tolist(),
+                top=top, **extra)
 
 
 def main(argv: list) -> None:
     if tuple(argv[1:]) not in MODES:
-        raise SystemExit(f"usage: {argv[0]} [--recurrent | --moe]")
+        raise SystemExit(f"usage: {argv[0]} [--recurrent | --moe | "
+                         f"--vlm-audio]")
     specs, out_path = MODES[tuple(argv[1:])]
     runs = [golden_run(r) for r in specs]
     os.makedirs(GOLDEN, exist_ok=True)

@@ -3,8 +3,9 @@
 batches that numpy makes from a seed.
 
     PYTHONPATH=src JAX_PLATFORMS=cpu python tests/make_train_golden.py
+    PYTHONPATH=src JAX_PLATFORMS=cpu python tests/make_train_golden.py --families
 
-Not a test (pytest collects ``test_*.py`` only). Writes
+Not a test (pytest collects ``test_*.py`` only). The first writes
 ``golden/train_f32.json`` (~1 min, ~6 GB at its peak), runs each in f32:
 
 - ``qwen3-0.6b`` at full width (d_model 1024, 16/8 heads of 128, d_ff 3072,
@@ -13,11 +14,24 @@ Not a test (pytest collects ``test_*.py`` only). Writes
 - ``gemma2-27b``'s smoke config (local layers with a window of 8, the
   attention and final logit softcaps, its query scale), batch 2 x 32.
 
+``--families`` writes ``golden/train_families_f32.json``, runs each in
+f32:
+
+- the smoke configs of ``mixtral-8x22b`` (the MoE dispatch and its aux
+  loss), ``rwkv6-1.6b`` (the chunked WKV: 64 tokens, two chunks of 32),
+  ``recurrentgemma-9b`` (the RG-LRU scan and local attention),
+  ``qwen2-vl-2b`` (embeddings for tokens, at ``make_batch``'s M-RoPE
+  positions: the sequence index on all three rows) and
+  ``musicgen-large`` (codebooks), batch 2 x 32 unless said;
+- ``qwen3-0.6b`` at full width cut to ``QWEN3_LAYERS`` with ``grad_accum``
+  2, batch 4 x 256: the reference's ``lax.scan`` over two microbatches.
+
 Per run the file keeps the config's name and overrides, the weights' seed
 and sha256 (``convert.tree_sha256``: whether numpy made the same ones on
 the card's host), the data and AdamW settings, and per step the batch
-(its ``tokens`` and ``labels``: ``Generator.zipf`` draws other tokens
-under other numpy versions, so the card's host reads them from here),
+(its ``tokens`` and ``labels``, a vlm's ``embeds``, ``positions`` and
+``labels``: ``Generator.zipf`` draws other tokens under other numpy
+versions, so the card's host reads them from here),
 the loss, xent, moe_aux, grad_norm and lr. ``chip_smoke.py`` reads only
 this JSON.
 """
@@ -40,6 +54,7 @@ from repro_torch.train.data import DataConfig, make_batch
 
 GOLDEN = os.path.join(os.path.dirname(os.path.abspath(__file__)), "golden")
 OUT = os.path.join(GOLDEN, "train_f32.json")
+OUT_FAMILIES = os.path.join(GOLDEN, "train_families_f32.json")
 QWEN3_LAYERS = 4
 OPT = dict(lr=1e-3, warmup_steps=0, total_steps=10)
 RUNS = [
@@ -49,6 +64,17 @@ RUNS = [
     dict(name="gemma2-27b", smoke=True, overrides=dict(dtype="float32"),
          seed=0, data=dict(seed=1, batch=2, seq_len=32), opt=OPT, steps=3),
 ]
+FAMILY_RUNS = [
+    dict(name=name, smoke=True, overrides=dict(dtype="float32"), seed=0,
+         data=dict(seed=1, batch=2, seq_len=seq_len), opt=OPT, steps=3)
+    for name, seq_len in (("mixtral-8x22b", 32), ("rwkv6-1.6b", 64),
+                          ("recurrentgemma-9b", 32), ("qwen2-vl-2b", 32),
+                          ("musicgen-large", 32))] + [
+    dict(name="qwen3-0.6b", smoke=False,
+         overrides=dict(dtype="float32", n_layers=QWEN3_LAYERS, grad_accum=2),
+         seed=0, data=dict(seed=1, batch=4, seq_len=256), opt=OPT, steps=3),
+]
+MODES = {(): (RUNS, OUT), ("--families",): (FAMILY_RUNS, OUT_FAMILIES)}
 METRICS = ("loss", "xent", "moe_aux", "grad_norm", "lr")
 
 
@@ -76,11 +102,12 @@ def golden_run(run: dict) -> dict:
 
 
 def main(argv: list) -> None:
-    if argv[1:]:
-        raise SystemExit(f"usage: {argv[0]}")
-    runs = [golden_run(r) for r in RUNS]
+    if tuple(argv[1:]) not in MODES:
+        raise SystemExit(f"usage: {argv[0]} [--families]")
+    specs, out_path = MODES[tuple(argv[1:])]
+    runs = [golden_run(r) for r in specs]
     os.makedirs(GOLDEN, exist_ok=True)
-    with open(OUT, "w") as f:
+    with open(out_path, "w") as f:
         json.dump({"made_by": "tests/make_train_golden.py", "runs": runs}, f,
                   indent=1)
         f.write("\n")

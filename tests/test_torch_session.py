@@ -365,10 +365,12 @@ def test_recurrent_golden_file_holds_on_the_cpu(name):
 
 def _plant(monkeypatch, cs, fault: str) -> None:
     """``chip_smoke.PLANTED_FAULTS[fault]`` in this process: its module's
-    source with the fault's text replaced, executed, and its functions set
-    on the real module for the test."""
+    source with the fault's text replaced, executed, and each of its
+    functions set, for the test, on the real module and on every
+    ``repro_torch`` module that imported it by name."""
     import importlib
     import inspect
+    import sys
     import types
     _, rel, text, stand_in = cs.PLANTED_FAULTS[fault]
     mod = importlib.import_module(
@@ -378,9 +380,14 @@ def _plant(monkeypatch, cs, fault: str) -> None:
     fake = types.ModuleType(mod.__name__)
     exec(compile(src.replace(text, stand_in), mod.__file__, "exec"),
          fake.__dict__)
+    users = [m for n, m in sys.modules.items() if n.startswith("repro_torch")]
     for key, value in vars(fake).items():
-        if inspect.isfunction(value) and hasattr(mod, key):
-            monkeypatch.setattr(mod, key, value)
+        real = getattr(mod, key, None)
+        if not inspect.isfunction(value) or not inspect.isfunction(real):
+            continue
+        for user in users:
+            if getattr(user, key, None) is real:
+                monkeypatch.setattr(user, key, value)
 
 
 @pytest.mark.parametrize("fault,name,check", [
