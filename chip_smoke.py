@@ -114,9 +114,10 @@ order; any failure raises and the script exits nonzero:
    cache, or the 4096-key window), Qwen3-0.6B prefill and decode, Mixtral
    8x22B's windowed prefill and RecurrentGemma-9B's MQA at head_dim 256, in
    bf16 and some in f32; MusicGen-Large's 32 heads of 64 (prefill in bf16
-   and f32, decode) and Qwen2-VL-2B's GQA group of 6 (prefill, decode),
-   whose earlier cases' kernel time is also printed on a line of its own
-   (``VLM_AUDIO_ATTENTION``); besides, the shapes of tests/test_kernels.py's
+   and f32, decode), Qwen2-VL-2B's GQA group of 6 (prefill, decode) and
+   Qwen2.5-32B's group of 5 (prefill in bf16 and f32, decode), whose
+   earlier cases' kernel time is also printed on a line of its own
+   (``QWEN25_ATTENTION``); besides, the shapes of tests/test_kernels.py's
    attention tests, a case with tails in both tiles, causal rows that see
    no key (``edge.empty_rows``), and the f32 prefill at head_dim 8 (Sq 9)
    and 256 (ragged tiles, window, softcap). A case takes one of three
@@ -194,8 +195,8 @@ order; any failure raises and the script exits nonzero:
    on the card, every attention layer on the port's kernels, the RWKV-6
    and RG-LRU blocks in PyTorch. The golden runs (``golden_errors``), in
    f32 against ``tests/golden/lm_session_f32.json``,
-   ``lm_session_recurrent_f32.json``, ``lm_session_moe_f32.json`` and
-   ``lm_session_vlm_audio_f32.json``,
+   ``lm_session_recurrent_f32.json``, ``lm_session_moe_f32.json``,
+   ``lm_session_vlm_audio_f32.json`` and ``lm_session_dense_large_f32.json``,
    which ``tests/make_lm_golden.py`` writes from the JAX package's
    ``ServeSession`` on the CPU: Qwen3-0.6B at full width (its depth cut
    to the file's 4 layers), Gemma-2 27B's smoke config (local layers with
@@ -211,7 +212,13 @@ order; any failure raises and the script exits nonzero:
    teacher-forced in decode: ``vlm_generate``, since ``generate`` takes
    tokens; held to ``LM_MROPE_TOL``), MusicGen-Large at full width cut to
    4 layers and its smoke config (4 and 2 codebooks: the top 8 held per
-   sequence and codebook, ``logit_rows``);
+   sequence and codebook, ``logit_rows``), Gemma-2 27B at full width cut
+   to one local and one global layer (2.31 B numpy draws: softcaps 50 and
+   30, query scale 1/12, post norms, GELU, the embedding scale, the tied
+   256,000-row head), its smoke config with query scale 12 ** -0.5 (not
+   ``head_dim ** -0.5``, which the older smoke run's scale is) and
+   Qwen2.5-32B's smoke config at 10 query heads over 2 KV heads (its
+   published GQA group of 5);
    weights from ``numpy_params`` and the file's seed (their
    sha256 must be the file's, and every weight the reference reads in f32
    must stay f32), 2 prompts, 8 greedy steps: the tokens equal, the
@@ -234,8 +241,13 @@ order; any failure raises and the script exits nonzero:
    4 sequences of one 32 x 32 image and 1024 text positions, 32
    teacher-forced steps (28 ``mma``, 28 ``decode`` and 28 ``combine`` a
    step); MusicGen-Large, 4 x 4 codebooks x 1024 prompt tokens, 32 steps
-   (48 ``mma``, 48 ``decode`` and 48 ``combine`` a step); each step's
-   logits of the five against the same model on
+   (48 ``mma``, 48 ``decode`` and 48 ``combine`` a step); Gemma-2 27B,
+   2 prompts of 5120 tokens (past its 4096 window: every local ring wraps
+   from the first decode step), 32 steps (46 ``mma``, 46 ``decode`` and 46
+   ``combine`` a step; 54.45 GB of params, its embedding drawn in row
+   blocks); Qwen2.5-32B, 4 prompts of 1024 tokens, 32 steps (64 of each;
+   65.53 GB of params, a GQA group of 5); each step's
+   logits of the seven against the same model on
    ``flash_attention_plain`` fed the kernels' tokens (Moonshot's also the
    kernels' routing, each MoE layer's top-k indices recorded in the
    kernels' run by ``routing``; the choices the plain run would have made
@@ -253,7 +265,14 @@ order; any failure raises and the script exits nonzero:
    and decode times (host clock between synchronizes), tokens/s,
    attention's share of device time and the idle share under
    ``torch.profiler``, the params' size, the peak of init and cast,
-   ``memory_reserved``.
+   ``memory_reserved``. Each run's wall is logged on a line of its own
+   (``lm wall``): a golden run's numpy draw, sha256, session and
+   generation; a bf16 run's init, warm-up, timed generation, profile and
+   plain rerun. The goldens' numpy draws and their sha256 (2.3 B values
+   for Gemma-2 alone) run on a thread of their own beside the bf16 runs,
+   whose work is the card's and the dispatching thread's (numpy's fill and
+   hashlib release the GIL); each golden is checked after the bf16 run
+   during which it was drawn.
 8. Training (``train_checks``), through the entry points a user calls:
    ``make_train_step`` and the ``Trainer`` on the card, every attention
    layer's forward on the port's kernels (the op
@@ -425,7 +444,9 @@ dry-run that reports global flops as per-device, one that counts every
 product twice, a MoE capacity from a rank's own tokens and a token shift
 under the rules one position off; a MoE combine that drops expert 0's
 rows; an init in the serving dtypes that rounds the router to bf16, and
-one that keeps the f32 tree beside its cast), the
+one that keeps the f32 tree beside its cast; a query scale of
+``head_dim ** -0.5`` whatever the config says, and a bf16 prefill whose
+GQA head map is off for a group of 5), the
 unchanged sources are built once into a build directory the copies share,
 and each copy builds its changed source and runs the cases of its route
 through their limit checks (``--case-errors``, three copies at a time): the
@@ -450,6 +471,7 @@ were planted.
 """
 from __future__ import annotations
 
+import concurrent.futures
 import contextlib
 import gc
 import hashlib
@@ -623,6 +645,16 @@ VLM_AUDIO_ATTENTION = [
      (BF,), "none"),
 ]
 ATTENTION_CASES += VLM_AUDIO_ATTENTION
+# qwen2.5-32b (:27-31): 40 query heads over 8 KV heads, a GQA group of 5,
+# which no case above has; phase 7 serves it whole. Phase 5 prints the
+# earlier cases' total apart from these
+QWEN25_ATTENTION = [
+    ("qwen25.prefill", 1, 40, 8, 128, 8192, 8192, True, None, None, None,
+     (BF, F32), "causal"),
+    ("qwen25.decode", 8, 40, 8, 128, 1, 32768, True, None, None, None, (BF,),
+     "none"),
+]
+ATTENTION_CASES += QWEN25_ATTENTION
 ATTENTION_ROWS = 256     # query rows per case held against float64
 
 
@@ -2281,8 +2313,8 @@ def check_attention(cases, outs: dict) -> dict:
     for key in ATTENTION_KEYS[:3]:      # the routes, held to float64
         rows[key].update(max_err_vs_f64=0.0, plain_max_err_vs_f64=0.0)
     cuda_cores_ms = 0.0   # the f32 prefill's bound at the CUDA cores' rate
-    newer = {spec[0] for spec in VLM_AUDIO_ATTENTION}
-    earlier = {"cases": 0, "ms": 0.0}    # the cases before VLM_AUDIO_ATTENTION
+    newer = {spec[0] for spec in QWEN25_ATTENTION}
+    earlier = {"cases": 0, "ms": 0.0}    # the cases before QWEN25_ATTENTION
     for c in cases:
         name, q, k, v, kw = c["name"], c["q"], c["k"], c["v"], c["kw"]
         got = outs[name]
@@ -2409,8 +2441,7 @@ def check_attention(cases, outs: dict) -> dict:
     log(f"flash_attention: {len(cases)} cases, kernels "
         f"{sum(rows[k]['ms'] for k in ATTENTION_KEYS[:3]):.3f} ms in all")
     log(f"flash_attention: the {earlier['cases']} cases before the "
-        f"musicgen-large and qwen2-vl-2b ones, kernels "
-        f"{earlier['ms']:.3f} ms in all")
+        f"qwen2.5-32b ones, kernels {earlier['ms']:.3f} ms in all")
     return rows
 
 
@@ -2525,12 +2556,20 @@ def burst(eng, imgs, rounds: int) -> tuple:
 
 
 def kernel_spans(prof) -> list:
-    """(start, end, name) of every device kernel a profile saw, in order."""
+    """(start, end, name) of every event a profile saw on the card (its
+    kernels and copies, and the device spans of annotated ranges), in
+    order, in microseconds from the first one's start. Read from the
+    profiler's raw events, as ``prof.events()`` reads them less the host
+    events: that call builds every host event first, which takes tens of
+    seconds for a few decode steps of a 46-layer model."""
     from torch.autograd import DeviceType
-    return sorted((e.time_range.start, e.time_range.end, e.name)
-                  for e in prof.events()
-                  if e.device_type == DeviceType.CUDA
-                  and e.time_range.end > e.time_range.start)
+    raw = sorted((e.start_ns(), e.end_ns(), e.name())
+                 for e in prof.profiler.kineto_results.events()
+                 if e.device_type() == DeviceType.CUDA
+                 and e.end_ns() > e.start_ns()
+                 and not getattr(e, "is_hidden_event", lambda: False)())
+    t0 = raw[0][0] if raw else 0
+    return [((a - t0) / 1e3, (b - t0) / 1e3, n) for a, b, n in raw]
 
 
 def spans_union(spans: list) -> float:
@@ -3126,8 +3165,10 @@ LM_GOLDEN_MOE = os.path.join(ROOT, "tests", "golden",
                              "lm_session_moe_f32.json")
 LM_GOLDEN_VLM_AUDIO = os.path.join(ROOT, "tests", "golden",
                                    "lm_session_vlm_audio_f32.json")
+LM_GOLDEN_DENSE_LARGE = os.path.join(ROOT, "tests", "golden",
+                                     "lm_session_dense_large_f32.json")
 LM_GOLDENS = (LM_GOLDEN, LM_GOLDEN_RECURRENT, LM_GOLDEN_MOE,
-              LM_GOLDEN_VLM_AUDIO)
+              LM_GOLDEN_VLM_AUDIO, LM_GOLDEN_DENSE_LARGE)
 # f32 against the JAX package (CPU): |logit - golden| on the golden's 8
 # largest logits of every step. Both sides are f32 (TF32 off in the
 # matmuls, the prefill kernel at 3xTF32, ~2^-22 per product) summed in
@@ -3146,7 +3187,9 @@ LM_MROPE_TOL = 2e-5
 # of the logits' difference over the norm of the plain run's. The two
 # differ in each attention output's summation order, so by one bf16 step
 # (2^-8) on some elements per layer; 28 layers summed in quadrature give
-# sqrt(28) * 2^-8 = 0.021 (38 layers: 0.024); the limit is 3x that
+# sqrt(28) * 2^-8 = 0.021 (38 layers: 0.024); the limit is 3x that. For
+# Qwen2.5-32B's 64 layers the same derivation gives sqrt(64) * 2^-8 =
+# 0.031, half the limit (Gemma-2-27B's 46: 0.026)
 LM_BF16_TOL = 2.0 ** -4
 # a model with no attention layer (RWKV-6) holds one decode step to its
 # forward pass over the prompt and that token, at full width and depth in
@@ -3158,9 +3201,11 @@ LM_BF16_TOL = 2.0 ** -4
 LM_FORWARD_TOL = 1e-3
 # init in the serving dtypes (``ServeSession.from_seed``): the peak of
 # allocated memory over the params it leaves may be one stacked leaf's
-# slice drawn in f32 (738 MB for a Moonshot expert slice), or one unsliced
-# leaf of up to ``transformer.SLICE_BYTES`` in f32, and its cast: under
-# 2.5 GB. Keeping the f32 tree beside its cast costs twice the params
+# slice drawn in f32 (738 MB for a Moonshot expert slice), one row block
+# of an unstacked leaf (``transformer.block_rows``: at most 1.61 GB of
+# Gemma-2's embedding), or one whole leaf of up to
+# ``transformer.SLICE_BYTES`` in f32 and its cast: under 2.5 GB. Keeping
+# the f32 tree beside its cast costs twice the params
 INIT_PEAK_SLACK = 2.5e9
 # bf16 at full width and depth, weights from a seeded generator on the card
 LM_BF16_RUNS = (
@@ -3194,6 +3239,20 @@ LM_BF16_RUNS = (
     # (``step_tie``)
     dict(name="musicgen-large", seed=0, batch=4, prompt_len=1024, steps=32,
          exact_ties=True, step_ties=True),
+    # 27.2 B parameters, 54.45 GB in bf16 (its 256,000 x 4608 embedding
+    # drawn in row blocks, ``transformer.block_rows``). 5120 > the 4096
+    # window: the window bites in prefill, and the ring of every local
+    # layer wraps from the first decode step. KV cache 1.94 GB (23 global
+    # layers) + 1.54 GB (23 local)
+    dict(name="gemma2-27b", seed=0, batch=2, prompt_len=5120, steps=32),
+    # 32.8 B parameters, 65.53 GB in bf16, a GQA group of 5 (40 query heads
+    # over 8); KV cache 1.11 GB; about 70 GB at the peak. Its top logits sit
+    # near 6, where a bf16 step is 2^-5: on an H100 3 of 132 rows differed
+    # from the plain run's, two at an exact tie in the kernels' run (6.25
+    # twice, 5.90625 twice) and one with the two tokens one step apart in
+    # both runs, in opposite order (5.96875 and 5.9375): listed, not counted
+    dict(name="qwen2.5-32b", seed=0, batch=4, prompt_len=1024, steps=32,
+         exact_ties=True, step_ties=True),
 )
 
 
@@ -3204,10 +3263,15 @@ def lm_golden(path: str = LM_GOLDEN) -> list:
 
 def run_tag(run: dict) -> str:
     """A golden run's name in the checks: its config's, with ``-smoke``
-    for a smoke config and ``-grad_accum<n>`` where it overrides that."""
-    n = run.get("overrides", {}).get("grad_accum")
+    for a smoke config, ``-grad_accum<n>`` where it overrides that, and
+    ``-<key>`` for each other override but the dtype and the depth (two
+    runs of one config and file apart: ``-query_scale``)."""
+    over = run.get("overrides", {})
+    n = over.get("grad_accum")
     return run["name"] + ("-smoke" if run["smoke"] else "") + (
-        f"-grad_accum{n}" if n else "")
+        f"-grad_accum{n}" if n else "") + "".join(
+        f"-{k}" for k in sorted(over)
+        if k not in ("dtype", "n_layers", "grad_accum"))
 
 
 def lm_config(run: dict):
@@ -3325,12 +3389,27 @@ def lm_launches_want(n_layers: int, dtype: str, prompt_len: int,
     return want
 
 
-def golden_errors(run: dict, device) -> tuple:
+def golden_weights(run: dict) -> tuple:
+    """A golden run's weights from ``numpy_params`` and its seed: (weights,
+    whether their sha256 is the file's, seconds of the draw and of the
+    hash). numpy's fill and hashlib's update release the GIL, so phase 7
+    draws these beside its bf16 runs (``lm_checks``)."""
+    from repro_torch.models.convert import numpy_params, tree_sha256
+    t0 = time.perf_counter()
+    weights = numpy_params(lm_config(run), run["seed"])
+    t1 = time.perf_counter()
+    ok = tree_sha256(weights) == run["weights_sha256"]
+    return weights, ok, {"draw": t1 - t0,
+                         "sha256": time.perf_counter() - t1}
+
+
+def golden_errors(run: dict, device, drawn: tuple = None) -> tuple:
     """One run of the golden file (``tests/make_lm_golden.py``: the JAX
     package's ``ServeSession`` in f32 on the CPU) through the port's
     ``ServeSession`` on ``device``, its attention on the port's kernels
     (on the card; the plain version on the CPU), weights from
-    ``numpy_params`` with the golden's seed. A vlm run is fed the
+    ``numpy_params`` with the golden's seed (``golden_weights``, or
+    ``drawn``, its result made earlier). A vlm run is fed the
     golden's embeddings (numpy's draws from its ``embed_seed``) and
     positions through ``vlm_generate``; the others their prompts through
     ``generate``. Counts, each 0 to pass: weights (and a vlm run's
@@ -3347,12 +3426,12 @@ def golden_errors(run: dict, device) -> tuple:
     import torch
     from repro_torch.kernels import launch_counts, reset_launch_counts
     from repro_torch.models import build_model
-    from repro_torch.models.convert import (numpy_params, params_from_numpy,
-                                            tree_sha256)
+    from repro_torch.models.convert import params_from_numpy, tree_sha256
     from repro_torch.serve.session import ServeSession
     cfg = lm_config(run)
-    weights = numpy_params(cfg, run["seed"])
-    errs = {"weights": int(tree_sha256(weights) != run["weights_sha256"])}
+    weights, ok, walls = drawn or golden_weights(run)
+    errs = {"weights": int(not ok)}
+    t0 = time.perf_counter()
     sess = ServeSession(build_model(cfg), params_from_numpy(weights, device),
                         device=device)
     del weights
@@ -3366,14 +3445,14 @@ def golden_errors(run: dict, device) -> tuple:
         positions = torch.as_tensor(np.array(run["positions"], np.int32),
                                     device=device)
     seen = record_steps(sess)
+    walls["session"], t0 = time.perf_counter() - t0, time.perf_counter()
     reset_launch_counts()
-    t0 = time.perf_counter()
     if cfg.family == "vlm":
         got = vlm_generate(sess, embeds, positions, run["steps"])
     else:
         got = sess.generate(np.array(run["prompts"], np.int32), run["steps"])
     got = got.cpu().numpy()
-    secs = time.perf_counter() - t0
+    secs = walls["generate"] = time.perf_counter() - t0
     counts = launch_counts()
     limit = LM_MROPE_TOL if cfg.mrope_sections else LM_F32_TOL
     low = [s for s, top in enumerate(run["top"])
@@ -3399,7 +3478,7 @@ def golden_errors(run: dict, device) -> tuple:
                batch=run["batch"], prompt_len=run["prompt_len"],
                steps=run["steps"], max_err=worst, limit=limit,
                low_margin_steps=low, tokens_compared=upto, seconds=secs,
-               launches={k: counts.get(k, 0) for k in want})
+               walls=walls, launches={k: counts.get(k, 0) for k in want})
     if "router_margin" in run:
         row["router_margin"] = run["router_margin"]
     return errs, row
@@ -3417,7 +3496,6 @@ def profiled_shares(fn) -> dict:
     ``BACKWARD_RANGE`` (0 where no backward ran). None where the profiler
     saw no device kernel."""
     import torch
-    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     from repro_torch.kernels.flash_attention import BACKWARD_RANGE
     torch.cuda.synchronize()
@@ -3432,15 +3510,14 @@ def profiled_shares(fn) -> dict:
         torch.cuda.synchronize()
         wall = (time.perf_counter() - t0) * 1e6
     # the range's own device spans are annotations, not kernels
-    spans = [x for x in kernel_spans(prof) if x[2] != BACKWARD_RANGE]
+    events = kernel_spans(prof)
+    spans = [x for x in events if x[2] != BACKWARD_RANGE]
     if not spans:
         return None
     union = spans_union(spans)
     total = sum(b - a for a, b, _ in spans)
     attn = sum(b - a for a, b, n in spans if "flash_" in n)
-    ranges = [(e.time_range.start, e.time_range.end) for e in prof.events()
-              if e.name == BACKWARD_RANGE
-              and e.device_type == DeviceType.CUDA]
+    ranges = [(a, b) for a, b, n in events if n == BACKWARD_RANGE]
     backward = sum(b - a for a, b, _ in spans
                    if any(lo <= a <= hi for lo, hi in ranges))
     by_name: dict = {}
@@ -3599,9 +3676,9 @@ def lm_bf16(device, spec: dict) -> tuple:
     peak of init within ``INIT_PEAK_SLACK`` of what it holds, and that the
     params' size), ``batch`` prompts of ``prompt_len`` seeded tokens (of
     each of a codebook model's K codebooks), ``steps`` greedy steps
-    through ``ServeSession``, after one short warm-up generation and one
-    at the timed shape (``warm_prefill``; the timed run's ``cudaMalloc``
-    calls recorded). A vlm run takes embeddings drawn on the card from
+    through ``ServeSession``, after one uncounted generation at the timed
+    shape (``warm_prefill``, the only warm-up; the timed run's
+    ``cudaMalloc`` calls recorded). A vlm run takes embeddings drawn on the card from
     the seed, at the positions of one image of ``image`` patches then
     text (``image_text_positions``), through ``vlm_generate``,
     teacher-forced.
@@ -3633,6 +3710,7 @@ def lm_bf16(device, spec: dict) -> tuple:
     moe = cfg.family == "moe"
     K = max(1, cfg.n_codebooks)
     model = build_model(cfg)
+    walls, t0 = {}, time.perf_counter()
     sess, mem, init_errs = init_session(model, spec["seed"], device)
     params = sess.params
     if cfg.family == "vlm":
@@ -3643,8 +3721,8 @@ def lm_bf16(device, spec: dict) -> tuple:
             B, spec["image"], S), device=device)
         batch = {"embeds": embeds[:, :S], "positions": positions}
 
-        def generate(n, upto=S):
-            return vlm_generate(sess, embeds, positions[..., :upto], n)
+        def generate(n):
+            return vlm_generate(sess, embeds, positions, n)
 
         def step_batch(s):
             return {"embeds": embeds[:, S + s:S + s + 1]}
@@ -3654,14 +3732,15 @@ def lm_bf16(device, spec: dict) -> tuple:
             else (B, S), dtype=np.int32)
         batch = {"tokens": torch.as_tensor(prompts, device=device)}
 
-        def generate(n, upto=S):
-            return sess.generate(prompts[..., :upto], n)
+        def generate(n):
+            return sess.generate(prompts, n)
 
         def step_batch(s):      # step s's tokens, (B, 1) or (B, K, 1)
             return {"tokens": toks[:, s * K:(s + 1) * K].reshape(
                 (B, K, 1) if cfg.n_codebooks else (B, 1))}
-    generate(2, 64)                                     # warm-up, uncounted
-    warm = warm_prefill(sess, generate)
+    walls["init"], t0 = time.perf_counter() - t0, time.perf_counter()
+    warm = warm_prefill(sess, generate)                 # uncounted
+    walls["warmup"], t0 = time.perf_counter() - t0, time.perf_counter()
     times: list = []
     seen = record_steps(sess, times)
     kept: list = []
@@ -3671,6 +3750,7 @@ def lm_bf16(device, spec: dict) -> tuple:
         toks = generate(steps)
     torch.cuda.synchronize()
     counts = launch_counts()
+    walls["generate"], t0 = time.perf_counter() - t0, time.perf_counter()
     run_segments = segments() - before
     want = lm_launches_want(n_attn, cfg.dtype, S, steps)
     errs = {f"{tag}.launches": sum(counts.get(k, 0) != v
@@ -3692,6 +3772,7 @@ def lm_bf16(device, spec: dict) -> tuple:
         prof = {"prefill": profiled_shares(prefill),
                 "decode_8_steps": profiled_shares(decode8)}
         del caches
+        walls["profile"], t0 = time.perf_counter() - t0, time.perf_counter()
         differ: list = []
         if n_attn:
             compared = "flash_attention_plain" + (
@@ -3718,6 +3799,8 @@ def lm_bf16(device, spec: dict) -> tuple:
             compared = ("forward over the prompt and the first token, in "
                         f"f32 (in bf16: {bf16_rel:.4f})")
             got, refs = [got], [ref]
+    torch.cuda.synchronize()
+    walls["plain"] = time.perf_counter() - t0
     limit = LM_BF16_TOL if n_attn else LM_FORWARD_TOL
     rel = [rel_err(g, r) for g, r in zip(got, refs)]
     agree = sum(int((g.argmax(-1) == r.argmax(-1)).sum())
@@ -3747,7 +3830,7 @@ def lm_bf16(device, spec: dict) -> tuple:
                rel_err_max=max(rel), rel_err_first=rel[0], limit=limit,
                argmax_agree=f"{agree}/{sum(r.shape[0] for r in refs)}",
                argmax_differ_at=differ_at, profile=prof, **mem, **warm,
-               run_segments=run_segments,
+               run_segments=run_segments, walls=walls,
                memory_reserved_mb=torch.cuda.memory_reserved() / 1e6,
                launches={k: counts.get(k, 0) for k in want})
     if moe:
@@ -3757,68 +3840,107 @@ def lm_bf16(device, spec: dict) -> tuple:
     return errs, row
 
 
+def wall_line(tag: str, t0: float, walls: dict) -> None:
+    """One phase-7 run's wall on a line of its own: from ``t0`` to now on
+    the host clock, and its parts (seconds)."""
+    log(f"lm wall {tag}: {time.perf_counter() - t0:.2f} s (" + ", ".join(
+        f"{k} {v:.2f}" for k, v in walls.items()) + ")")
+
+
+def golden_check(run: dict, device, drawn, errs: dict, rows: list) -> None:
+    """``golden_errors`` of one golden run (its weights ``drawn`` by
+    ``golden_weights``), its checks into ``errs`` and its row into
+    ``rows``, with its line and its wall line."""
+    t0 = time.perf_counter()
+    e, row = golden_errors(run, device, drawn)
+    row["run"] = f"golden {run_tag(run)}"
+    wall_line(row["run"], t0, row["walls"])
+    errs.update({f"{run_tag(run)}.{k}": v for k, v in e.items()})
+    rows.append(row)
+    log(f"lm golden {row['config']} ({row['layers']} layers, d_model "
+        f"{row['d_model']}, f32): {row['batch']} prompts of "
+        f"{row['prompt_len']} tokens, {row['steps']} steps in "
+        f"{row['seconds']:.2f} s; largest |logit - JAX| "
+        f"{row['max_err']:.3g} (limit {row['limit']}); steps with a "
+        f"top-1 margin under the limit {row['low_margin_steps']}; "
+        f"launches {row['launches']}; checks {e}")
+
+
+def bf16_line(row: dict, e: dict) -> None:
+    """The lines of one bf16 run of ``lm_bf16``: its numbers, then its
+    profile's, one line a part."""
+    log(f"lm bf16 {row['config']} ({row['layers']} layers, "
+        f"{row['attention_layers']} of attention): {row['batch']} x "
+        f"{row['prompt_len']} prompt tokens, prefill "
+        f"{row['prefill_ms']:.2f} ms ({row['prefill_tokens_per_s']:.0f} "
+        f"tokens/s); decode {row['steps']} steps, ms per step median "
+        f"{row['decode_ms_per_step_median']:.2f} (min "
+        f"{row['decode_ms_per_step_min']:.2f}, max "
+        f"{row['decode_ms_per_step_max']:.2f}), "
+        f"{row['decode_tokens_per_s']:.1f} tokens/s; against "
+        f"{row['compared_with']}, relative error of the logits max "
+        f"{row['rel_err_max']:.4g} (limit {row['limit']}), argmax agrees "
+        f"{row['argmax_agree']}, differs at {row['argmax_differ_at']}"
+        + (f", routing choices the plain run would have made otherwise "
+           f"{row['routing_choices_differ']} of "
+           f"{row['routing_choices']} in {row['routing_calls']} layer "
+           f"calls" if "routing_calls" in row else "")
+        + f"; first prefill at this shape (uncounted) "
+        f"{row['warmup_prefill_ms']:.2f} ms with "
+        f"{row['warmup_segments']} cudaMalloc calls, "
+        f"{row['run_segments']} in the timed run"
+        + f"; params {row['params_mb']:.1f} MB, init "
+        f"{row['init_s']:.2f} s, held {row['held_mb']:.1f} MB, peak "
+        f"allocated {row['peak_allocated_mb']:.1f} MB in init; memory "
+        f"reserved {row['memory_reserved_mb']:.1f} MB; launches "
+        f"{row['launches']}; checks {e}")
+    for part, p in row["profile"].items():
+        log(f"lm bf16 {row['config']} profile, {part}: " + (
+            "the profiler saw no device kernel" if p is None else
+            f"wall {p['wall_ms']:.2f} ms, {p['kernels']} device kernels "
+            f"summing {p['kernel_sum_ms']:.3f} ms (busy "
+            f"{p['busy_ms']:.3f}), attention {p['attention_ms']:.3f} ms "
+            f"= share {p['attention_share']:.3f}, idle share "
+            f"{p['idle_share']:.3f}; unprofiled wall "
+            f"{p['wall_unprofiled_ms']:.2f} ms, idle share against it "
+            f"{p['idle_share_unprofiled']:.3f}; most time: " + "; ".join(
+                f"{k['kernel']} {k['ms']:.3f} ms in {k['count']}"
+                for k in p["top"])))
+
+
 def lm_checks(device, route: str = "all") -> tuple:
-    """Phase 7: every golden run of both golden files (``golden_errors``)
-    then, for route "all", each bf16 run of ``LM_BF16_RUNS``
-    (``lm_bf16``). Returns (errors, rows, launches: the attention launches
-    summed over the runs)."""
+    """Phase 7: every golden run of the golden files (``golden_errors``)
+    and, for route "all", each bf16 run of ``LM_BF16_RUNS`` (``lm_bf16``).
+    The goldens' numpy weights are drawn and hashed on a thread of their
+    own, in file order, while the bf16 runs hold the card (numpy and
+    hashlib release the GIL): after each bf16 run the goldens drawn so far
+    are checked, and the rest after the last. Returns (errors, rows,
+    launches: the attention launches summed over the runs)."""
     import torch
     errs, rows, launches = {}, [], {}
-    for path in LM_GOLDENS:
-        for run in lm_golden(path):
-            e, row = golden_errors(run, device)
-            errs.update({f"{run_tag(run)}.{k}": v for k, v in e.items()})
+    goldens = [run for path in LM_GOLDENS for run in lm_golden(path)]
+    with concurrent.futures.ThreadPoolExecutor(1) as pool:
+        drawn = [pool.submit(golden_weights, run) for run in goldens]
+        done = 0
+
+        def check_goldens(wait: bool) -> None:
+            nonlocal done
+            while done < len(goldens) and (wait or drawn[done].done()):
+                golden_check(goldens[done], device, drawn[done].result(),
+                             errs, rows)
+                drawn[done] = None          # its weights go
+                done += 1
+        for spec in LM_BF16_RUNS if route == "all" else ():
+            gc.collect()
+            torch.cuda.empty_cache()
+            t0 = time.perf_counter()
+            e, row = lm_bf16(device, spec)
+            wall_line(f"bf16 {spec['name']}", t0, row["walls"])
+            errs.update(e)
             rows.append(row)
-            log(f"lm golden {row['config']} ({row['layers']} layers, d_model "
-                f"{row['d_model']}, f32): {row['batch']} prompts of "
-                f"{row['prompt_len']} tokens, {row['steps']} steps in "
-                f"{row['seconds']:.2f} s; largest |logit - JAX| "
-                f"{row['max_err']:.3g} (limit {row['limit']}); steps with a "
-                f"top-1 margin under the limit {row['low_margin_steps']}; "
-                f"launches {row['launches']}; checks {e}")
-    for spec in LM_BF16_RUNS if route == "all" else ():
-        gc.collect()
-        torch.cuda.empty_cache()
-        e, row = lm_bf16(device, spec)
-        errs.update(e)
-        rows.append(row)
-        log(f"lm bf16 {row['config']} ({row['layers']} layers, "
-            f"{row['attention_layers']} of attention): {row['batch']} x "
-            f"{row['prompt_len']} prompt tokens, prefill "
-            f"{row['prefill_ms']:.2f} ms ({row['prefill_tokens_per_s']:.0f} "
-            f"tokens/s); decode {row['steps']} steps, ms per step median "
-            f"{row['decode_ms_per_step_median']:.2f} (min "
-            f"{row['decode_ms_per_step_min']:.2f}, max "
-            f"{row['decode_ms_per_step_max']:.2f}), "
-            f"{row['decode_tokens_per_s']:.1f} tokens/s; against "
-            f"{row['compared_with']}, relative error of the logits max "
-            f"{row['rel_err_max']:.4g} (limit {row['limit']}), argmax agrees "
-            f"{row['argmax_agree']}, differs at {row['argmax_differ_at']}"
-            + (f", routing choices the plain run would have made otherwise "
-               f"{row['routing_choices_differ']} of "
-               f"{row['routing_choices']} in {row['routing_calls']} layer "
-               f"calls" if "routing_calls" in row else "")
-            + f"; first prefill at this shape (uncounted) "
-            f"{row['warmup_prefill_ms']:.2f} ms with "
-            f"{row['warmup_segments']} cudaMalloc calls, "
-            f"{row['run_segments']} in the timed run"
-            + f"; params {row['params_mb']:.1f} MB, init "
-            f"{row['init_s']:.2f} s, held {row['held_mb']:.1f} MB, peak "
-            f"allocated {row['peak_allocated_mb']:.1f} MB in init; memory "
-            f"reserved {row['memory_reserved_mb']:.1f} MB; launches "
-            f"{row['launches']}; checks {e}")
-        for part, p in row["profile"].items():
-            log(f"lm bf16 {row['config']} profile, {part}: " + (
-                "the profiler saw no device kernel" if p is None else
-                f"wall {p['wall_ms']:.2f} ms, {p['kernels']} device kernels "
-                f"summing {p['kernel_sum_ms']:.3f} ms (busy "
-                f"{p['busy_ms']:.3f}), attention {p['attention_ms']:.3f} ms "
-                f"= share {p['attention_share']:.3f}, idle share "
-                f"{p['idle_share']:.3f}; unprofiled wall "
-                f"{p['wall_unprofiled_ms']:.2f} ms, idle share against it "
-                f"{p['idle_share_unprofiled']:.3f}; most time: " + "; ".join(
-                    f"{k['kernel']} {k['ms']:.3f} ms in {k['count']}"
-                    for k in p["top"])))
+            bf16_line(row, e)
+            check_goldens(wait=False)
+        check_goldens(wait=True)
     gc.collect()
     torch.cuda.empty_cache()
     for row in rows:
@@ -4916,6 +5038,13 @@ PLANTED_FAULTS = {  # name: (route, file under src/repro_torch, text, stand-in)
         "mma", "csrc/flash_attention_mma.cu",
         "           (int)window, softcap, scale};",
         "           (int)window + 64, softcap, scale};"),
+    # a GQA group of 5 whose last q-head reads the next KV head (the last
+    # group's, KV head 0): only Qwen2.5-32B's cases have that group
+    "mma.gqa5_head_map": (
+        "mma", "csrc/flash_attention_mma.cu",
+        "const int kvh = h / (p.H / p.KV);",
+        "const int kvh = p.H / p.KV == 5 ? (h + 1) % p.H / 5\n"
+        "                                     : h / (p.H / p.KV);"),
     "decode.skip_tile_4096": (
         "decode", "csrc/flash_decode.cu", "gr < rows && key < bend &&",
         "gr < rows && key < bend && (key < 4096 || key >= 4096 + BK) &&"),
@@ -5034,6 +5163,14 @@ PLANTED_FAULTS = {  # name: (route, file under src/repro_torch, text, stand-in)
     "lm.prefill_drops_window": (
         "lm", "models/attention.py",
         "window=cfg.sliding_window if local else None,", "window=None,"),
+    # a query scale of head_dim ** -0.5 whatever the config says (Gemma-2's
+    # query_pre_attn_scalar dropped): the smoke configs' goldens cannot see
+    # it, their scale is head_dim ** -0.5
+    "lm.query_scale_dropped": (
+        "lm", "models/attention.py",
+        "    return cfg.query_scale if cfg.query_scale is not None \\\n"
+        "        else cfg.head_dim ** -0.5",
+        "    return cfg.head_dim ** -0.5"),
     # a WKV chunk whose sub-blocks do not see the state before them
     "lm.wkv_drops_inter_block": (
         "lm", "models/rwkv6.py",
@@ -5620,7 +5757,7 @@ def main(argv: list) -> int:
             launches=lm_launches[key], launches_cases=counts5[key],
             launches_train=train_launches.get(key, 0), **row5[key],
             launches_by_lm_run={
-                f"{r['config']} {r.get('dtype', 'float32')}":
+                r.get("run", f"{r['config']} {r.get('dtype')}"):
                     r["launches"][key] for r in lm_rows},
             launches_by_train_run={
                 f"{r['config']} {r.get('dtype', 'float32')}"
@@ -5629,15 +5766,16 @@ def main(argv: list) -> int:
                     r["launches"][key] for r in train_rows},
             per=f"one pass over the phase-5 cases of its route "
                 f"({row5[key]['cases']}): Gemma-2 27B, Qwen3-0.6B, Mixtral "
-                f"8x22B, RecurrentGemma-9B, MusicGen-Large and Qwen2-VL-2B "
-                f"attention at prefill 8192 and decode 1 x 32768 / 4096, "
+                f"8x22B, RecurrentGemma-9B, MusicGen-Large, Qwen2-VL-2B and "
+                f"Qwen2.5-32B attention at prefill 8192 and decode 1 x 32768 / 4096, "
                 f"and the edge cases"
                 + ("; the decode route's time includes its combine"
                    if key == "flash_attention.decode" else "")
                 + "; launches: phase 7's language-model runs (the golden "
                   "f32 runs and the bf16 runs of Qwen3-0.6B, "
-                  "RecurrentGemma-9B, Moonshot-v1-16B-A3B, Qwen2-VL-2B and "
-                  "MusicGen-Large; by run in launches_by_lm_run), "
+                  "RecurrentGemma-9B, Moonshot-v1-16B-A3B, Qwen2-VL-2B, "
+                  "MusicGen-Large, Gemma-2-27B and Qwen2.5-32B; by run in "
+                  "launches_by_lm_run), "
                   "launches_train: phase 8's training "
                   "runs (the f32 golden runs and the bf16 Qwen3-0.6B "
                   "Trainer steps; by run in launches_by_train_run), "

@@ -68,6 +68,6 @@ def tree_sha256(tree) -> str:
             for k in sorted(t):
                 walk(t[k])
         else:
-            h.update(np.ascontiguousarray(t).tobytes())
+            h.update(np.ascontiguousarray(t))     # its buffer, no copy
     walk(tree)
     return h.hexdigest()

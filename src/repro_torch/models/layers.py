@@ -112,27 +112,33 @@ def materialize(spec: Spec, generator: torch.Generator, dtype,
 
 def init_tree(specs, generator: torch.Generator, dtype, device,
               cast_to: Callable = lambda path: None,
-              sliced: Callable = lambda path, spec: False, path: tuple = ()):
+              block_rows: Callable = lambda path, spec: 0,
+              path: tuple = ()):
     """Materialize a tree of Specs in ``dtype``, leaf after leaf in sorted
     key order from one generator, each leaf cast to ``cast_to(path)``
     (``None``: kept in ``dtype``) before the next leaf is drawn, so that no
     more than one leaf is ever held in ``dtype``. A leaf for which
-    ``sliced(path, spec)`` holds is drawn one index of its leading dim at
-    a time, each slice cast into the leaf: the whole leaf's draw by bits
-    on the CPU, where every slice holds a multiple of 16 elements."""
+    ``block_rows(path, spec)`` is n > 0 is drawn n rows of its leading dim
+    at a time, each block cast into the leaf: the whole leaf's draw by bits
+    on the CPU, where every block but the last holds a multiple of 16
+    elements and the last at least 16 (the normal fill goes 16 values at a
+    time)."""
     if isinstance(specs, dict):
         return {k: init_tree(specs[k], generator, dtype, device, cast_to,
-                             sliced, path + (k,))
+                             block_rows, path + (k,))
                 for k in sorted(specs)}
     dt = cast_to(path) or dtype
     if specs.init in ("zeros", "ones"):
         return materialize(specs, generator, dt, device)
-    if not sliced(path, specs):
+    rows = block_rows(path, specs)
+    if not rows:
         return materialize(specs, generator, dtype, device).to(dt)
     out = torch.empty(specs.shape, dtype=dt, device=device)
-    for i in range(specs.shape[0]):
-        out[i:i + 1].copy_(materialize(specs, generator, dtype, device,
-                                       (1,) + tuple(specs.shape[1:])))
+    n, rest = specs.shape[0], tuple(specs.shape[1:])
+    for i in range(0, n, rows):
+        m = min(rows, n - i)
+        out[i:i + m].copy_(materialize(specs, generator, dtype, device,
+                                       (m,) + rest))
     return out
 
 

@@ -484,28 +484,47 @@ def init_params(cfg: ModelConfig, generator: torch.Generator, device):
                      getattr(torch, cfg.param_dtype), device)
 
 
-# a stacked leaf whose f32 draw is larger is drawn a group at a time by
+# a leaf whose f32 draw is larger is drawn in blocks of its leading dim by
 # ``init_cast_params``: the draw and its cast then stay under 2.5 GB above
-# the cast tree (Moonshot-v1-16B-A3B's expert leaves, 35.4 GB each in f32,
-# draw 738 MB at a time)
+# the cast tree. A stacked leaf goes a group at a time (Moonshot-v1-16B-A3B's
+# expert leaves, 35.4 GB each in f32, draw 738 MB at a time), an unstacked
+# one in blocks of rows of at most this size (Gemma-2-27B's embedding, 4.72
+# GB in f32, in three draws)
 SLICE_BYTES = 3 << 29
+
+
+def block_rows(path: tuple, shape: tuple) -> int:
+    """The leading-dim rows of each draw of the leaf at ``path`` (its keys)
+    of ``shape``: 0 (drawn whole) where its f32 draw is at most
+    ``SLICE_BYTES`` or it has one dim (the "decay" and "lambda" fills span
+    the last dim); else 1 for a stacked leaf (under ``"scan"``: a group);
+    else the most rows whose f32 draw is at most ``SLICE_BYTES`` and holds a
+    multiple of 16 elements (``layers.init_tree``: the whole draw by bits
+    on the CPU), at least the fewest rows that hold such a multiple."""
+    if len(shape) < 2 or 4 * math.prod(shape) <= SLICE_BYTES:
+        return 0
+    if path[0] == "scan":
+        return 1
+    row = math.prod(shape[1:])
+    step = 16 // math.gcd(16, row)
+    return max(step, SLICE_BYTES // (4 * row) // step * step)
 
 
 def init_cast_params(cfg: ModelConfig, generator: torch.Generator, device):
     """The params in their serving dtypes: ``init_params``' draws, in its
     order from the same generator, each leaf cast as ``cast_params`` casts
     it before the next leaf is drawn, so that init holds the cast tree and
-    one leaf in f32, never the f32 tree. A stacked leaf (under ``"scan"``)
-    of more than ``SLICE_BYTES`` in f32 is drawn one group at a time into
-    its cast. On the CPU the result is ``cast_params(init_params(...))`` by
-    bits; on CUDA a sliced leaf draws other values (Philox draws a slice
-    from its own offset)."""
+    at most ``SLICE_BYTES`` in f32, never the f32 tree. A leaf of more than
+    ``SLICE_BYTES`` in f32 is drawn in blocks of its leading dim into its
+    cast (``block_rows``: a stacked leaf one group at a time, an unstacked
+    one in blocks of rows). On the CPU the result is
+    ``cast_params(init_params(...))`` by bits; on CUDA a leaf drawn in blocks
+    draws other values (Philox draws a block from its own offset)."""
     dt = getattr(torch, cfg.dtype)
     return init_tree(
         model_specs(cfg), generator, getattr(torch, cfg.param_dtype), device,
         lambda path: None if _read_in_f32(path, cfg) else dt,
-        lambda path, spec: path[0] == "scan"
-        and 4 * math.prod(spec.shape) > SLICE_BYTES)
+        lambda path, spec: block_rows(path, spec.shape))
 
 
 def param_logical_names(cfg: ModelConfig):

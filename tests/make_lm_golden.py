@@ -6,6 +6,7 @@ prompts that numpy makes from a seed.
     PYTHONPATH=src JAX_PLATFORMS=cpu python tests/make_lm_golden.py --recurrent
     PYTHONPATH=src JAX_PLATFORMS=cpu python tests/make_lm_golden.py --moe
     PYTHONPATH=src JAX_PLATFORMS=cpu python tests/make_lm_golden.py --vlm-audio
+    PYTHONPATH=src JAX_PLATFORMS=cpu python tests/make_lm_golden.py --dense-large
 
 Not a test (pytest collects ``test_*.py`` only). The first writes
 ``golden/lm_session_f32.json``, runs each in f32:
@@ -50,6 +51,19 @@ each in f32:
   8192, vocab 2048, 4 codebooks) cut to ``AUDIO_LAYERS`` of 48 (0.3 B
   parameters), prompts (2, 4, 64);
 - ``musicgen-large``'s smoke config (2 codebooks), prompts (2, 2, 32).
+
+``--dense-large`` writes ``golden/lm_session_dense_large_f32.json``, runs
+each in f32:
+
+- ``gemma2-27b`` at full width (d_model 4608, 32/16 heads of 128, d_ff
+  36864, vocab 256000, tied head; softcaps 50 and 30, query scale (4608 /
+  32) ** -0.5 = 1/12, post norms, GELU, the embedding scale) cut to
+  ``GEMMA_LAYERS`` of 46, one local layer (window 4096) and one global
+  (2.31 B parameters, 9.2 GB), 2 prompts of 64 tokens: on the card only;
+- ``gemma2-27b``'s smoke config with ``query_scale`` 12 ** -0.5, which is
+  not ``head_dim ** -0.5`` (the smoke config's own 16 ** -0.5 is);
+- ``qwen2.5-32b``'s smoke config with 10 query heads over 2 KV heads, the
+  published GQA group of 5 (40 over 8).
 
 A vlm run feeds embeddings, not tokens, which ``ServeSession.generate``
 does not pass: it drives ``make_prefill_step`` and ``make_decode_step``
@@ -106,12 +120,14 @@ OUT = os.path.join(GOLDEN, "lm_session_f32.json")
 OUT_RECURRENT = os.path.join(GOLDEN, "lm_session_recurrent_f32.json")
 OUT_MOE = os.path.join(GOLDEN, "lm_session_moe_f32.json")
 OUT_VLM_AUDIO = os.path.join(GOLDEN, "lm_session_vlm_audio_f32.json")
+OUT_DENSE_LARGE = os.path.join(GOLDEN, "lm_session_dense_large_f32.json")
 QWEN3_LAYERS = 4
 RWKV_LAYERS = 2
 GRIFFIN_LAYERS = 3
 MOE_LAYERS = 1
 VLM_LAYERS = 4
 AUDIO_LAYERS = 4
+GEMMA_LAYERS = 2
 TOP = 8
 RUNS = [
     dict(name="qwen3-0.6b", smoke=False,
@@ -164,9 +180,21 @@ VLM_AUDIO_RUNS = [
     dict(name="musicgen-large", smoke=True, overrides=dict(dtype="float32"),
          seed=0, prompt_seed=2, batch=2, prompt_len=32, steps=8),
 ]
+DENSE_LARGE_RUNS = [
+    dict(name="gemma2-27b", smoke=False,
+         overrides=dict(dtype="float32", n_layers=GEMMA_LAYERS),
+         seed=0, prompt_seed=1, batch=2, prompt_len=64, steps=8),
+    dict(name="gemma2-27b", smoke=True,
+         overrides=dict(dtype="float32", query_scale=12.0 ** -0.5),
+         seed=0, prompt_seed=1, batch=2, prompt_len=32, steps=8),
+    dict(name="qwen2.5-32b", smoke=True,
+         overrides=dict(dtype="float32", n_heads=10, n_kv_heads=2),
+         seed=0, prompt_seed=1, batch=2, prompt_len=32, steps=8),
+]
 MODES = {(): (RUNS, OUT), ("--recurrent",): (RECURRENT_RUNS, OUT_RECURRENT),
          ("--moe",): (MOE_RUNS, OUT_MOE),
-         ("--vlm-audio",): (VLM_AUDIO_RUNS, OUT_VLM_AUDIO)}
+         ("--vlm-audio",): (VLM_AUDIO_RUNS, OUT_VLM_AUDIO),
+         ("--dense-large",): (DENSE_LARGE_RUNS, OUT_DENSE_LARGE)}
 
 
 @contextlib.contextmanager
@@ -267,7 +295,7 @@ def golden_run(run: dict) -> dict:
 def main(argv: list) -> None:
     if tuple(argv[1:]) not in MODES:
         raise SystemExit(f"usage: {argv[0]} [--recurrent | --moe | "
-                         f"--vlm-audio]")
+                         f"--vlm-audio | --dense-large]")
     specs, out_path = MODES[tuple(argv[1:])]
     runs = [golden_run(r) for r in specs]
     os.makedirs(GOLDEN, exist_ok=True)

@@ -14,6 +14,8 @@ the same f32 arithmetic, in another order of summation. bf16 ``BF16``
 forward). The activations are held by bits: the port repeats the
 reference's bf16 rounding steps (``models/layers.py``).
 """
+import math
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -25,6 +27,7 @@ from repro.configs.base import ModelConfig
 from repro.models import attention as jattn
 from repro.models import layers as jlayers
 from repro.models import moe as jmoe
+from repro_torch.configs import ARCHS as T_ARCHS
 from repro_torch.configs import SMOKE_ARCHS as T_SMOKE
 from repro_torch.configs.base import ModelConfig as TModelConfig
 from repro_torch.kernels.ref import attention_ref
@@ -458,6 +461,73 @@ def test_init_cast_params_is_the_cast_of_init(name, sliced, monkeypatch):
     assert sorted(got) == sorted(want)
     for k, w in want.items():
         assert got[k].dtype == w.dtype and torch.equal(got[k], w), k
+
+
+@pytest.mark.parametrize("shape,slice_bytes,rows", [
+    ((256, 64), 4 * 64 * 20 + 3, 20),      # 13 draws, the last of 16 rows
+    ((100, 24), 4 * 24 * 7, 6),            # rows of 24: pairs of rows
+    ((40, 3, 5), 4 * 15 * 40 - 4, 32),     # rows of 15: 16 rows a draw
+])
+def test_unstacked_leaf_in_row_blocks_is_the_whole_draw(shape, slice_bytes,
+                                                        rows, monkeypatch):
+    """With ``SLICE_BYTES`` lowered, an unstacked leaf over it is drawn in
+    blocks of ``block_rows`` rows (each a multiple of 16 elements, at most
+    ``SLICE_BYTES`` in f32) cast into the leaf, and equals the whole
+    draw's cast by bits on the CPU."""
+    from repro_torch.models import transformer as tfm
+    from repro_torch.models.layers import Spec, init_tree
+    monkeypatch.setattr(tfm, "SLICE_BYTES", slice_bytes)
+    assert tfm.block_rows(("embed",), shape) == rows
+    row = math.prod(shape[1:])
+    assert rows * row % 16 == 0 and 4 * rows * row <= slice_bytes
+    spec = {"embed": Spec(shape, ("vocab",) + ("d",) * (len(shape) - 1),
+                          scale=0.02)}
+    draws = []
+    real = tlayers.materialize
+
+    def counted(*a, **kw):
+        out = real(*a, **kw)
+        draws.append(tuple(out.shape))
+        return out
+    monkeypatch.setattr(tlayers, "materialize", counted)
+    got = init_tree(spec, torch.Generator().manual_seed(5), torch.float32,
+                    "cpu", lambda path: torch.bfloat16,
+                    lambda path, s: tfm.block_rows(path, s.shape))["embed"]
+    assert len(draws) == -(-shape[0] // rows)
+    want = torch.randn(shape, generator=torch.Generator().manual_seed(5)).mul_(
+        0.02).to(torch.bfloat16)
+    assert got.dtype == torch.bfloat16 and torch.equal(got, want)
+
+
+@pytest.mark.parametrize("name", sorted(T_ARCHS))
+def test_init_draws_at_most_slice_bytes_in_f32(name, monkeypatch):
+    """The init in the serving dtypes of every config at full width and
+    depth (on the meta device: shapes only) draws no f32 block over
+    ``SLICE_BYTES``, which is under ``chip_smoke.INIT_PEAK_SLACK``: init's
+    peak above what it holds. Gemma-2-27B's 256,000 x 4608 embedding takes
+    three draws, Qwen2.5-32B's embedding and head two each. A stacked leaf
+    is drawn a group at a time, and Mixtral-8x22B's expert groups (3.2 GB
+    in f32; 281 GB in bf16, no one card holds it) are over: there only its
+    unstacked leaves are held to the limit."""
+    from repro_torch.models import transformer as tfm
+    from test_torch_session import _chip_smoke
+    draws = []
+
+    def meta(spec, generator, dtype, device, shape=None):
+        shp = spec.shape if shape is None else tuple(shape)
+        if spec.init not in ("zeros", "ones"):
+            draws.append((spec.names, 4 * math.prod(shp)))
+        return torch.empty(shp, dtype=dtype, device="meta")
+    monkeypatch.setattr(tlayers, "materialize", meta)
+    tfm.init_cast_params(T_ARCHS[name], torch.Generator(), "meta")
+    held = [b for n, b in draws
+            if name != "mixtral-8x22b" or n[0] != "layers"]
+    assert max(held) <= tfm.SLICE_BYTES < _chip_smoke().INIT_PEAK_SLACK
+    heads = [n for n, _ in draws if n in (("vocab", "d_model"),
+                                           ("d_model", "vocab"))]
+    want = {"gemma2-27b": 3, "qwen2.5-32b": 4}
+    if name in want:
+        assert len(heads) == want[name]
 
 
 def test_init_kv_cache_matches_jax():
