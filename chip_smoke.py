@@ -21,7 +21,11 @@ order; any failure raises and the script exits nonzero:
    with K = 4608, the int8 extremes, per-image weights (Nw = N), the
    per-group fc form (w_d = g), duplicate acc targets (the atomic path),
    and the entries of ResNet-18's C8 3x3 conv lowered at block 32 and 64
-   and at batch 2 (``gemm_cases``). Its row times one trunk forward's 609
+   and at batch 2 (``gemm_cases``); besides, the first entry of each
+   distinct (w_d, M, K) of the ResNet-34, -50 and -101 trunks at batch 8
+   (``family_path``: the bottlenecks' 1x1 reduce and expand convs, the
+   stride-2 1x1 downsample, the 2048-channel stage, the 2048 -> 1008 fc on
+   the per-group-weights branch), held and not timed. Its row times one trunk forward's 609
    entries as one CUDA graph, against the fused function's bound
    (``gemm_bound_s``) and ``torch._int_mm`` on pre-gathered operands (the
    product only). The ALU stage-program kernel on every chain and sweep the
@@ -29,7 +33,8 @@ order; any failure raises and the script exits nonzero:
    the fused ``mbn.dw11`` -> ``mbn.pw11`` segment and the global average
    pool; slab tensors drawn once per model and batch), and on the real
    chains and sweeps of a depthwise and
-   two pool programs, forced scatter stores, a store with duplicate and
+   two pool programs, the first program of each kind of the ResNet-34,
+   -50 and -101 trunks, forced scatter stores, a store with duplicate and
    masked lanes, and integer edge cases at N = 3 (``sweep_cases``), each at
    its planned tap split (``kernels/alu_sweep.py::sweep_plan``), at 1 and
    at its largest; the time per launch of each program kind (the trunk's
@@ -68,6 +73,25 @@ order; any failure raises and the script exits nonzero:
    at batch 8 on the captured path under ``torch.profiler``: host wall
    (profiled and not), device busy, idle share, device kernels and
    ``torch.cuda.memory_reserved``.
+3b. The ResNet family (``resnet_family_checks``): the ResNet-34, -50 and
+   -101 trunks (``serve/model.py::resnet_trunk_graph``, compiled for the
+   default config under ``live_weights``: 37, 51 and 102 segments, chunk
+   plans of 180, 759 and 1,269 graphs a forward) served at bucket
+   ``RESNET_BUCKET`` through ``VTAServeEngine`` on the captured path,
+   each a tenant. Each trunk's first dispatch runs apart, uncounted, and
+   captures (its ms, graphs and the ``memory_reserved`` it adds); then
+   ``SERVE_REPS`` dispatches of each, launch counts, dispatches and the
+   capture log zeroed just before and read just after. Checks, each a
+   count of what failed: every capture-log key once, none during the
+   serve run; dispatches a forward equal to the chunk plan; each kernel
+   once per entry a forward; image 0 against ``RESNET_DIGESTS``, pinned
+   from the JAX package's numpy backend (tests/test_torch_resnet_family.py
+   pins the same); the first ``RESNET_REF_IMAGES`` images of each against
+   ``"torch-cpu"``, from the ``segment_shares`` run that gives the trunk's
+   ``live:`` line (every segment inside the bands on images 0-1); each
+   image's answer equal across the dispatches. One profiled forward of
+   each (``profile:`` lines) and the phase's parts' walls. The trunks and
+   their graphs are freed before phase 4.
 4. The float layer ops at full width, through ``repro_torch.kernels.ops``
    at batch ``LAYER_BATCH`` (NHWC), shapes from the port's layer tables:
    the 13 MobileNet-1.0 depthwise layers, each followed by its relu_shift
@@ -334,7 +358,14 @@ order; any failure raises and the script exits nonzero:
    ``python -m repro_torch.core.dse`` on MobileNet over
    ``DSE_POOL_GRID`` with ``--backend torch --workers 2`` (two groups, so
    its pool spawns two workers on the card) exiting 0 with the numpy
-   report of that grid. It prints each sweep's wall and stage seconds,
+   report of that grid. While that CLI runs, ResNet-50 at one point
+   (``DSE50_GRID``: log block 4, memory width 8, scratchpad scale 1,
+   ``--tune full``, one worker, ``--profile``) is swept cold on the card
+   only (``dse50_checks``): its report against ``DSE50_DIGEST``, the JAX
+   package's numpy report of that point (tests/test_torch_dse_resnet50.py
+   pins it), as many uncaptured runs as verifications, no capture, no
+   device memo, memory back within ``DSE_MEMORY_SLACK``. It prints each
+   sweep's wall and stage seconds,
    verifications and ms per verification, where ``run_batched``'s time
    goes (lowering, device entries, the rest), programs scheduled, the
    Pareto fronts (``analysis/dse_report.py``), each beside the card's name
@@ -373,7 +404,8 @@ order; any failure raises and the script exits nonzero:
 Output: one line per kernel (and per phase-4 case), ms per dispatch per
 bucket (median, min, max), then a JSON line of serving numbers (per model
 and bucket, the capture cost per model and bucket, the ``live:`` numbers
-and the ``profile:`` numbers by trunk), a JSON line of
+and the ``profile:`` numbers by trunk), one of phase 3b's
+(``{"resnet_family": ...}``), a JSON line of
 the pool's numbers (``{"pool": ...}``: per n, ms per round, images/s and per
 worker batches, busy ms and reserved MB; the speedup), a JSON line of the
 language-model runs (``{"lm": ...}``), one of the training runs
@@ -382,7 +414,8 @@ mesh layer (``{"mesh": ...}``), a JSON line of
 kernel numbers (the VTA rows also give ``launches_pool``, their launches
 in the 2-worker rounds, ``launches_tenants``, the two-tenant rounds',
 ``launches_per_forward_by_model``, one forward of each served model, and
-``launches_dse``, phase 9's card sweep; the
+``launches_dse``, phase 9's card sweep, and ``launches_resnet_family``,
+phase 3b's serve run; the
 attention rows' ``launches`` are phase 7's, ``launches_train`` phase 8's
 and ``launches_cases`` phase 5's), the ``nvidia-smi`` line, and last the
 device line. Kernel
@@ -445,8 +478,10 @@ product twice, a MoE capacity from a rank's own tokens and a token shift
 under the rules one position off; a MoE combine that drops expert 0's
 rows; an init in the serving dtypes that rounds the router to bf16, and
 one that keeps the f32 tree beside its cast; a query scale of
-``head_dim ** -0.5`` whatever the config says, and a bf16 prefill whose
-GQA head map is off for a group of 5), the
+``head_dim ** -0.5`` whatever the config says, a bf16 prefill whose
+GQA head map is off for a group of 5, and the last reduction row of a
+per-group-weights VTA GEMM entry with R >= 128 dropped, which only
+ResNet-50's and -101's 2048-wide fc has), the
 unchanged sources are built once into a build directory the copies share,
 and each copy builds its changed source and runs the cases of its route
 through their limit checks (``--case-errors``, three copies at a time): the
@@ -454,7 +489,8 @@ phase-5 cases and those of ``FAULT_CASES`` through ``attention_error``, the
 phase-4 and edge cases of the float GEMM, depthwise, ALU or pooling kernel
 (the exact ones by value and by bits), phase 2's
 cases of the VTA GEMM or the ALU stage-program kernel, phase 3's checks
-(``serve_checks``, one line a check), or phase 6's (``pool_checks``: the
+(``serve_checks``, one line a check), phase 3's and 3b's
+(``resnet_family_checks``) for route ``resnet``, or phase 6's (``pool_checks``: the
 scale-out, the cold race, the two pools and the drill for route
 ``pool``, the ladder drill for ``ladder``), or the golden runs of phase
 7 (``lm_errors``) or phase 8 (``train_errors``), or the init in the
@@ -497,6 +533,13 @@ TRUNK = "resnet18-trunk"
 SMALL = "resnet18-small"
 MBN = "mobilenet1.0-trunk"
 MBN_SMALL = "mobilenet-small"
+# the ResNet family's phase: the deeper trunks, served at bucket 8 apart
+# from phase 3 (resnet_family_checks)
+R34, R50, R101 = (f"resnet{d}-trunk" for d in (34, 50, 101))
+RESNET_TRUNKS = (R34, R50, R101)
+RESNET_BUCKET = 8
+# images of each trunk's bucket held against "torch-cpu" (0-1 at least)
+RESNET_REF_IMAGES = {R34: 4, R50: 2, R101: 2}
 
 # sha256 of each trunk's output for image 0 of random_images(8, seed=0) under
 # live_weights(model, LIVE_SEED), from the JAX package's numpy backend
@@ -507,6 +550,13 @@ TRUNK_DIGEST = \
 MBN_DIGEST = \
     "b926952d3de5609b1cb1a733bf7817fd1656544bf665a6046dee0058af096e0d"
 DIGESTS = {TRUNK: TRUNK_DIGEST, MBN: MBN_DIGEST}
+# the same for the ResNet family's trunks (tests/test_torch_resnet_family.py
+# asserts the same digests)
+RESNET_DIGESTS = {
+    R34: "5ed433faf78124ba107e3cbf56422cd3641ee39e15583fa6115de16c54191fc1",
+    R50: "114f55151cabb4b33cb0262d678d04b1a4c613b5e1536ce857a3aadb6487675b",
+    R101: "a679541ccbe520b0ec5e46261fa8d0cc148053bedef0b8642da8df0785aa11aa",
+}
 
 # ServedModel.compile draws int8 weights in [-8, 8) and every post-op shifts
 # right by 8: under them MobileNet-1.0 is zero from mbn.pw0 on and the
@@ -518,7 +568,12 @@ DIGESTS = {TRUNK: TRUNK_DIGEST, MBN: MBN_DIGEST}
 # segment order, r stepping through 1, 2, 3, 4, 6, 8, 12, ..., 96, 127: the
 # largest that left its segment at most 10% saturated; then the layers that
 # feed the fc (ResNet-18's stage 3, MobileNet's pw12) cut until the fc,
-# whose output is not shifted, sat inside the band with r = 1.
+# whose output is not shifted, sat inside the band with r = 1. The ResNet-34,
+# -50 and -101 tables come from ``tools/live_ranges.py --depth D`` (the same
+# rule, at most 10% saturated; a fused chain one r; the segments feeding the
+# fc then cut to a root mean square of 6, 2 and 2, from stage 3 on for
+# ResNet-34 and from s2b0.3 on for the bottleneck trunks, whose 2048-wide
+# fc sits outside the band under a stage-3 cut alone).
 LIVE_SEED = 0
 LIVE_NONZERO = 0.10
 LIVE_SATURATED = 0.25
@@ -532,6 +587,58 @@ LIVE_RANGES = {
     MBN: {**{f"mbn.dw{i}": 127 for i in range(13)},
           **{f"mbn.pw{i}": 127 if i < 6 else 64 for i in range(12)},
           "mbn.pw12": 2, "mbn.fc": 1},
+    R34: {f"resnet34.{k}": r for k, r in (
+        ("s0b0.a", 48), ("s0b0.b", 24), ("s0b1.a", 16), ("s0b1.b", 8),
+        ("s0b2.a", 16), ("s0b2.b", 6), ("s1b0.a", 16), ("s1b0.b", 16),
+        ("s1b0.ds", 16), ("s1b1.a", 12), ("s1b1.b", 4), ("s1b2.a", 12),
+        ("s1b2.b", 4), ("s1b3.a", 12), ("s1b3.b", 4), ("s2b0.a", 12),
+        ("s2b0.b", 8), ("s2b0.ds", 32), ("s2b1.a", 8), ("s2b1.b", 4),
+        ("s2b2.a", 8), ("s2b2.b", 4), ("s2b3.a", 8), ("s2b3.b", 3),
+        ("s2b4.a", 8), ("s2b4.b", 4), ("s2b5.a", 8), ("s2b5.b", 3),
+        ("s3b0.a", 1), ("s3b0.b", 3), ("s3b0.ds", 1), ("s3b1.a", 6),
+        ("s3b1.b", 1), ("s3b2.a", 4), ("s3b2.b", 1), ("fc", 1))},
+    R50: {f"resnet50.{k}": r for k, r in (
+        ("s0b0.1", 127), ("s0b0.2", 16), ("s0b0.3", 64), ("s0b0.ds", 64),
+        ("s0b1.1", 24), ("s0b1.2", 24), ("s0b1.3", 32), ("s0b2.1", 24),
+        ("s0b2.2", 24), ("s0b2.3", 24), ("s1b0.1", 24), ("s1b0.2", 12),
+        ("s1b0.3", 48), ("s1b0.ds", 12), ("s1b1.1", 16), ("s1b1.2", 16),
+        ("s1b1.3", 16), ("s1b2.1", 16), ("s1b2.2", 16), ("s1b2.3", 16),
+        ("s1b3.1", 16), ("s1b3.2", 16), ("s1b3.3", 16), ("s2b0.1", 16),
+        ("s2b0.2", 8), ("s2b0.3", 1), ("s2b0.ds", 1), ("s2b1.1", 3),
+        ("s2b1.2", 8), ("s2b1.3", 1), ("s2b2.1", 3), ("s2b2.2", 8),
+        ("s2b2.3", 1), ("s2b3.1", 4), ("s2b3.2", 8), ("s2b3.3", 1),
+        ("s2b4.1", 3), ("s2b4.2", 8), ("s2b4.3", 1), ("s2b5.1", 3),
+        ("s2b5.2", 8), ("s2b5.3", 1), ("s3b0.1", 3), ("s3b0.2", 8),
+        ("s3b0.3", 8), ("s3b0.ds", 2), ("s3b1.1", 8), ("s3b1.2", 1),
+        ("s3b1.3", 1), ("s3b2.1", 6), ("s3b2.2", 1), ("s3b2.3", 1),
+        ("fc", 1))},
+    R101: {f"resnet101.{k}": r for k, r in (
+        ("s0b0.1", 127), ("s0b0.2", 24), ("s0b0.3", 64), ("s0b0.ds", 96),
+        ("s0b1.1", 32), ("s0b1.2", 24), ("s0b1.3", 16), ("s0b2.1", 24),
+        ("s0b2.2", 24), ("s0b2.3", 24), ("s1b0.1", 24), ("s1b0.2", 16),
+        ("s1b0.3", 32), ("s1b0.ds", 24), ("s1b1.1", 16), ("s1b1.2", 16),
+        ("s1b1.3", 12), ("s1b2.1", 16), ("s1b2.2", 16), ("s1b2.3", 16),
+        ("s1b3.1", 16), ("s1b3.2", 16), ("s1b3.3", 12), ("s2b0.1", 16),
+        ("s2b0.2", 12), ("s2b0.3", 1), ("s2b0.ds", 1), ("s2b1.1", 3),
+        ("s2b1.2", 8), ("s2b1.3", 1), ("s2b2.1", 3), ("s2b2.2", 8),
+        ("s2b2.3", 1), ("s2b3.1", 3), ("s2b3.2", 8), ("s2b3.3", 1),
+        ("s2b4.1", 3), ("s2b4.2", 8), ("s2b4.3", 1), ("s2b5.1", 3),
+        ("s2b5.2", 8), ("s2b5.3", 1), ("s2b6.1", 3), ("s2b6.2", 8),
+        ("s2b6.3", 1), ("s2b7.1", 2), ("s2b7.2", 12), ("s2b7.3", 1),
+        ("s2b8.1", 2), ("s2b8.2", 12), ("s2b8.3", 1), ("s2b9.1", 2),
+        ("s2b9.2", 8), ("s2b9.3", 1), ("s2b10.1", 2), ("s2b10.2", 8),
+        ("s2b10.3", 1), ("s2b11.1", 2), ("s2b11.2", 8), ("s2b11.3", 1),
+        ("s2b12.1", 2), ("s2b12.2", 8), ("s2b12.3", 1), ("s2b13.1", 2),
+        ("s2b13.2", 8), ("s2b13.3", 1), ("s2b14.1", 2), ("s2b14.2", 8),
+        ("s2b14.3", 1), ("s2b15.1", 2), ("s2b15.2", 8), ("s2b15.3", 1),
+        ("s2b16.1", 1), ("s2b16.2", 12), ("s2b16.3", 1), ("s2b17.1", 1),
+        ("s2b17.2", 12), ("s2b17.3", 1), ("s2b18.1", 1), ("s2b18.2", 12),
+        ("s2b18.3", 1), ("s2b19.1", 1), ("s2b19.2", 12), ("s2b19.3", 1),
+        ("s2b20.1", 1), ("s2b20.2", 12), ("s2b20.3", 1), ("s2b21.1", 1),
+        ("s2b21.2", 12), ("s2b21.3", 1), ("s2b22.1", 1), ("s2b22.2", 12),
+        ("s2b22.3", 1), ("s3b0.1", 1), ("s3b0.2", 8), ("s3b0.3", 8),
+        ("s3b0.ds", 1), ("s3b1.1", 8), ("s3b1.2", 1), ("s3b1.3", 1),
+        ("s3b2.1", 8), ("s3b2.2", 1), ("s3b2.3", 1), ("fc", 1))},
 }
 
 HBM_BYTES_PER_S = 3.35e12        # H100 SXM, NVIDIA data sheet
@@ -720,16 +827,18 @@ def live_weights(model, seed: int = LIVE_SEED) -> dict:
     if layers != set(ranges):
         raise KeyError(f"{model.name}: LIVE_RANGES names "
                        f"{sorted(set(ranges) ^ layers)} wrongly")
-    out = {}
-    for name, w in model.weights.items():
-        rng = np.random.default_rng([seed, zlib.crc32(name.encode())])
-        layer, role = name.rsplit(".", 1)
-        if role == "wgt":
-            r = ranges[layer]
-            out[name] = rng.integers(-r, r + 1, w.shape, dtype=np.int8)
-        else:
-            out[name] = rng.integers(-100, 100, w.shape, dtype=w.dtype)
-    return out
+    return {name: live_tensor(name, w, ranges[name.rsplit(".", 1)[0]], seed)
+            for name, w in model.weights.items()}
+
+
+def live_tensor(name: str, w, r: int, seed: int = LIVE_SEED):
+    """``live_weights``' draw of one tensor like ``w``: a weight (``name``
+    ending in ``.wgt``) int8 in [-r, r], a bias int32 in [-100, 100), from a
+    generator seeded by ``seed`` and ``name``."""
+    rng = np.random.default_rng([seed, zlib.crc32(name.encode())])
+    if name.endswith(".wgt"):
+        return rng.integers(-r, r + 1, w.shape, dtype=np.int8)
+    return rng.integers(-100, 100, w.shape, dtype=w.dtype)
 
 
 def shares(a) -> tuple:
@@ -769,15 +878,15 @@ def live_line(name: str, seg: dict) -> tuple:
 # ---------------------------------------------------------------------------
 # what the main path launches
 # ---------------------------------------------------------------------------
-def vta_main_path(models: dict, device) -> list:
+def vta_main_path(models: dict, device, runs: tuple = SERVE_RUNS) -> list:
     """(model, batch, device entries, tensor shapes, {shared tensor: dtype})
-    for each model and batch the serve run launches (``SERVE_RUNS``)."""
+    for each model and batch a serve run launches (``runs``)."""
     out = []
     for name, model in models.items():
         ops, shapes = model_ops(model, device)
         shared = {k: v.dtype.type for k, v in model.weights.items()}
         out += [(name, b, ops, shapes, shared)
-                for key, b in SERVE_RUNS if key == name]
+                for key, b in runs if key == name]
     return out
 
 
@@ -811,14 +920,19 @@ def model_ops(model, device):
     return out, shapes
 
 
+def gemm_shape(e, hw) -> tuple:
+    """(w_d, M, K) of a GEMM entry: its weight blocks, the rows of each
+    block's product and its reduction length."""
+    _, R, w_d, uidx = e[:4]
+    return w_d, len(uidx) // w_d * hw.batch, R * hw.block_in
+
+
 def gemm_shapes(ops, hw) -> dict:
     """{(w_d, M, K): launches per forward} of the GEMM entries."""
     counts: dict = {}
     for e in ops:
         if e[0] == "gemm":
-            _, R, w_d, uidx = e[:4]
-            g = len(uidx)
-            key = (w_d, (g // w_d) * hw.batch, R * hw.block_in)
+            key = gemm_shape(e, hw)
             counts[key] = counts.get(key, 0) + 1
     return counts
 
@@ -1325,9 +1439,9 @@ def check_sweeps(dev, rng, hw, main_path: list, timed: dict) -> tuple:
 # ---------------------------------------------------------------------------
 # phase 3: serve
 # ---------------------------------------------------------------------------
-def serve(models: dict, imgs: dict):
+def serve(models: dict, imgs: dict, runs: tuple = SERVE_RUNS):
     """The main path: ``SERVE_REPS`` full dispatches of each (model, bucket)
-    of ``SERVE_RUNS``, each model a tenant of its own, ``imgs[model]`` its
+    of ``runs``, each model a tenant of its own, ``imgs[model]`` its
     images. Returns (outputs with the model and image index each answers,
     launch counts, per-dispatch timings)."""
     import torch
@@ -1355,12 +1469,12 @@ def serve(models: dict, imgs: dict):
     reset_launch_counts()
     small = min(TRUNK_BUCKETS)
     for r in range(SERVE_REPS):         # the smallest trunk bucket alone
-        for key, b in SERVE_RUNS:
+        for key, b in runs:
             if b == small:
                 submit(key, [(b * r + j) % len(imgs[key]) for j in range(b)])
         eng.drain()
     for r in range(SERVE_REPS):
-        for key, b in SERVE_RUNS:
+        for key, b in runs:
             if b != small:
                 submit(key, range(b))
         eng.drain()
@@ -1369,17 +1483,19 @@ def serve(models: dict, imgs: dict):
     return outs, counts, timings
 
 
-def profile_forward(model, imgs) -> dict:
+def profile_forward(model, imgs, card: str = "") -> dict:
     """Where one forward of ``model`` goes on the captured path: device
     time by kernel name (``torch.profiler``, which attributes the kernels
-    inside CUDA-graph replays), device busy time against host wall time,
+    inside CUDA-graph replays; summed from its raw device events,
+    ``kernel_spans``, as ``key_averages`` sums them, without building every
+    event, which took tens of seconds at 100k kernels), device busy time
+    (the kernels' summed time) against host wall time,
     profiled and not (the profiler slows the host), and
     ``torch.cuda.memory_reserved`` (graph pools, the keys' buffers and all
     else the run holds; ``serve_checks`` gives what each first dispatch
     added). Where the profiler shows no device kernel, device time comes
     from CUDA events around the forward instead, and the line says so."""
     import torch
-    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     walls = []
     for _ in range(3):                  # the same forward, not profiled
@@ -1398,14 +1514,13 @@ def profile_forward(model, imgs) -> dict:
         end.record()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-    rows = []
-    for ev in prof.key_averages():
-        if ev.device_type != DeviceType.CUDA:
-            continue                    # host ops: their kernels are rows
-        dev_us = ev.self_device_time_total
-        if dev_us:
-            rows.append((dev_us, ev.count, ev.key))
-    rows.sort(reverse=True)
+    by_name: dict = {}                  # kernel name -> [device us, count]
+    for a, b, name in kernel_spans(prof):
+        row = by_name.setdefault(name, [0.0, 0])
+        row[0] += b - a
+        row[1] += 1
+    rows = sorted(((us, cnt, name) for name, (us, cnt) in by_name.items()),
+                  reverse=True)
     busy = sum(r[0] for r in rows) / 1e6
     source = "torch.profiler"
     if not rows:
@@ -1426,7 +1541,7 @@ def profile_forward(model, imgs) -> dict:
         f"{out['wall_unprofiled_ms']:.1f} ms (median of 3), idle share "
         f"against it {out['idle_share_unprofiled']:.3f}; device kernels "
         f"{out['device_kernels']}; memory reserved "
-        f"{out['memory_reserved_mb']:.1f} MB")
+        f"{out['memory_reserved_mb']:.1f} MB" + (f" ({card})" if card else ""))
     for dev_us, cnt, key in rows[:12]:
         log(f"  {dev_us / 1e3:9.3f} ms  {cnt:6d}x  {key[:90]}")
     return out
@@ -1509,31 +1624,27 @@ def per_forward(models: dict, device) -> dict:
     return out
 
 
-def serve_checks(models: dict) -> tuple:
-    """Phase 3 on the captured path, over the models of ``serve_models``.
-    The first dispatch of each (model, bucket) runs apart, uncounted: it
-    runs each trace eagerly and captures its chunks (timed as capture
-    cost). Then ``serve``, then the checks, each a count of what failed:
-    every capture-log key once and none during the serve run
+def capture_and_serve(models: dict, imgs: dict, runs: tuple,
+                      card: str = "") -> tuple:
+    """The captured path's run of phases 3 and 3b: the first dispatch of
+    each (model, bucket) of ``runs`` apart, uncounted, which runs each
+    trace eagerly and captures its chunks (timed as capture cost, with the
+    graphs and the ``memory_reserved`` it adds); then ``serve``, the
+    capture log and dispatches zeroed just before. Checks, each a count of
+    what failed: every capture-log key once and none during the serve run
     (``captures``), dispatches equal to the chunk plan per forward
-    (``dispatches``), each kernel once per entry per forward
-    (``launches``), full dispatches of every bucket (``buckets``), requests
-    that differ from ``"torch-cpu"`` (``outputs``), request 0 of each trunk
-    against its digest (``digest``), the trunks' segment outputs outside
-    the live bands (``live``, from ``segment_shares`` on ``"torch-cpu"``:
-    the card's outputs equal those by bits) and ``zeroing_errors``
-    (``zeroing``). Returns (errors, serve rows, capture rows, launch
-    counts, live rows, launches per forward)."""
+    (``dispatches``), ``SERVE_REPS`` full dispatches of every bucket
+    (``buckets``). Returns (errors, serve rows, capture rows, outputs,
+    launch counts)."""
     import torch
     from repro_torch.vta import fsim_torch
     from repro_torch.vta.backend import get_backend
     be = get_backend("torch")
-    imgs = {k: m.random_images(8 if k in DIGESTS else SMALL_BUCKET, seed=0)
-            for k, m in models.items()}
     plans = {k: plan_length(m, be) for k, m in models.items()}
+    at = f" ({card})" if card else ""
     fsim_torch.reset_capture_log()
     capture_rows = []
-    for key, b in SERVE_RUNS:
+    for key, b in runs:
         m = models[key]
         torch.cuda.synchronize()
         held = torch.cuda.memory_reserved()
@@ -1547,18 +1658,18 @@ def serve_checks(models: dict) -> tuple:
         log(f"capture {key} bucket {b}: first dispatch of its "
             f"{len(m.segments)} traces (eager run plus the capture of "
             f"{plans[key]} graphs) {capture_rows[-1]['ms']:.1f} ms; memory "
-            f"reserved +{capture_rows[-1]['reserved_mb']:.1f} MB")
+            f"reserved +{capture_rows[-1]['reserved_mb']:.1f} MB{at}")
     captured = fsim_torch.capture_log()
     fsim_torch.reset_kernel_launch_log()
-    outs, counts, timings = serve(models, imgs)
+    outs, counts, timings = serve(models, imgs, runs)
     dispatches = fsim_torch.kernel_launch_log()
     errs = {}
     errs["captures"] = sum(v != 1 for v in captured.values()) + abs(
-        len(captured) - sum(plans[k] for k, _ in SERVE_RUNS)) + \
+        len(captured) - sum(plans[k] for k, _ in runs)) + \
         (fsim_torch.capture_log() != captured)
-    fwd = SERVE_REPS * sum(plans[k] for k, _ in SERVE_RUNS)
+    fwd = SERVE_REPS * sum(plans[k] for k, _ in runs)
     log(f"dispatches: {dispatches} in the serve run; chunk plan per forward "
-        f"{plans}, {fwd} for its {SERVE_REPS * len(SERVE_RUNS)} forwards")
+        f"{plans}, {fwd} for its {SERVE_REPS * len(runs)} forwards")
     errs["dispatches"] = abs(dispatches - fwd)
     serve_rows = []
     for key, bucket in sorted({(k, b) for k, b, _, _ in timings}):
@@ -1572,10 +1683,31 @@ def serve_checks(models: dict) -> tuple:
             chunk_dispatches_per_forward=plans[key]))
         log(f"serve {key} bucket {bucket}: {len(ms)} full dispatches, ms per "
             f"batch median {med:.1f} (min {min(ms, default=med):.1f}, max "
-            f"{max(ms, default=med):.1f}), {bucket * 1e3 / med:.2f} images/s")
+            f"{max(ms, default=med):.1f}), {bucket * 1e3 / med:.2f} "
+            f"images/s{at}")
     errs["buckets"] = int({(r["model"], r["bucket"]) for r in serve_rows}
-                          != set(SERVE_RUNS)) + sum(
+                          != set(runs)) + sum(
         r["dispatches"] != SERVE_REPS for r in serve_rows)
+    return errs, serve_rows, capture_rows, outs, counts
+
+
+def serve_checks(models: dict) -> tuple:
+    """Phase 3 on the captured path, over the models of ``serve_models``:
+    ``capture_and_serve`` of ``SERVE_RUNS`` and its checks, then these,
+    each a count of what failed: each kernel once per entry per forward
+    (``launches``), requests
+    that differ from ``"torch-cpu"`` (``outputs``), request 0 of each trunk
+    against its digest (``digest``), the trunks' segment outputs outside
+    the live bands (``live``, from ``segment_shares`` on ``"torch-cpu"``:
+    the card's outputs equal those by bits) and ``zeroing_errors``
+    (``zeroing``). Returns (errors, serve rows, capture rows, launch
+    counts, live rows, launches per forward)."""
+    from repro_torch.vta.backend import get_backend
+    be = get_backend("torch")
+    imgs = {k: m.random_images(8 if k in DIGESTS else SMALL_BUCKET, seed=0)
+            for k, m in models.items()}
+    errs, serve_rows, capture_rows, outs, counts = capture_and_serve(
+        models, imgs, SERVE_RUNS)
     log(f"launches on the main path: {counts}")
     per_fwd = per_forward(models, be.device)
     log(f"launches per forward: {per_fwd}")
@@ -1605,6 +1737,112 @@ def serve_checks(models: dict) -> tuple:
         f"{len(outs)} outputs against torch-cpu, digests of request 0 "
         f"{ {k: firsts.get(k) for k in DIGESTS} }")
     return errs, serve_rows, capture_rows, counts, live_rows, per_fwd
+
+
+# ---------------------------------------------------------------------------
+# phase 3b: the ResNet family on the captured path
+# ---------------------------------------------------------------------------
+def resnet_models(hw) -> dict:
+    """The ResNet-34, -50 and -101 trunks (``RESNET_TRUNKS``), compiled for
+    ``hw`` with ``live_weights`` installed."""
+    from repro_torch.serve.model import (ServedModel, load_params,
+                                         resnet_trunk_graph)
+    out = {}
+    for name in RESNET_TRUNKS:
+        depth = int(name[len("resnet"):-len("-trunk")])
+        m = ServedModel.compile(name, resnet_trunk_graph(depth), hw)
+        out[name] = load_params(m, live_weights(m))
+    return out
+
+
+def distinct_entries(ops, hw) -> list:
+    """Of a model's device entries, the first GEMM entry of each (w_d, M,
+    K) (``gemm_shapes``' key) and the first chain or sweep of each
+    ``program_kind``: what phase 2 holds of a trunk it does not time."""
+    seen, out = set(), []
+    for e in ops:
+        if e[0] == "gemm":
+            key = gemm_shape(e, hw)
+        elif e[0] in ("aluchain", "alusweep"):
+            key = program_kind(e[1], RESNET_BUCKET)
+        else:
+            continue
+        if key not in seen:
+            seen.add(key)
+            out.append(e)
+    return out
+
+
+def family_path(models: dict, device) -> list:
+    """``vta_main_path``'s rows for the ResNet family at
+    ``RESNET_BUCKET``, each trunk's entries cut to ``distinct_entries``."""
+    return [(m, b, distinct_entries(ops, models[m].hw), shapes, shared)
+            for m, b, ops, shapes, shared in vta_main_path(
+                models, device, tuple((k, RESNET_BUCKET) for k in models))]
+
+
+def resnet_family_checks(models: dict, card: str = "") -> tuple:
+    """Phase 3b: the ResNet-34, -50 and -101 trunks of ``resnet_models``
+    served at ``RESNET_BUCKET`` through ``VTAServeEngine`` on the captured
+    path, each a tenant: ``capture_and_serve`` and its checks, then these,
+    each a count of what failed: each kernel once per entry per forward
+    (``launches``), image 0 against ``RESNET_DIGESTS`` (``digest``), the
+    first ``RESNET_REF_IMAGES`` images against ``"torch-cpu"`` from the
+    ``segment_shares`` run that gives the ``live:`` line (``outputs``),
+    each image's answer equal across the dispatches (``stable``) and the
+    segments outside the live bands (``live``). Then one profiled forward
+    of each. Returns (errors, rows)."""
+    from repro_torch.vta.backend import get_backend
+    be = get_backend("torch")
+    runs = tuple((k, RESNET_BUCKET) for k in models)
+    imgs = {k: m.random_images(RESNET_BUCKET, seed=0)
+            for k, m in models.items()}
+    parts, t0 = {}, time.perf_counter()
+
+    def part(name):             # wall seconds of each part of the phase
+        nonlocal t0
+        parts[name] = round(time.perf_counter() - t0, 1)
+        t0 = time.perf_counter()
+    errs, serve_rows, capture_rows, outs, counts = capture_and_serve(
+        models, imgs, runs, card)
+    part("captures and serve")
+    per_fwd = per_forward(models, be.device)
+    log(f"launches on the main path: {counts}; per forward: {per_fwd}")
+    errs["launches"] = sum(
+        counts.get(k, 0) != SERVE_REPS * sum(v[k] for v in per_fwd.values())
+        for k in ("gemm", "alu_chain", "alu_sweep"))
+    ref, seg = {}, {}
+    for k, m in models.items():
+        ref[k], seg[k] = segment_shares(m, imgs[k][:RESNET_REF_IMAGES[k]])
+    part("torch-cpu")
+    log(f"torch-cpu reference: {parts['torch-cpu']} s, images "
+        f"{RESNET_REF_IMAGES}")
+    errs["outputs"] = sum(
+        o.shape != models[k].output_shape or o.dtype != np.int8
+        or (i < len(ref[k]) and not np.array_equal(o, ref[k][i]))
+        for k, i, o in outs)
+    answers: dict = {}
+    for k, i, o in outs:
+        answers.setdefault((k, i), set()).add(o.tobytes())
+    errs["stable"] = sum(len(v) != 1 for v in answers.values())
+    digest = {k: hashlib.sha256(next(o for kk, i, o in outs
+                                     if kk == k and i == 0).tobytes())
+              .hexdigest() for k in models}
+    errs["digest"] = sum(digest[k] != RESNET_DIGESTS[k] for k in models)
+    errs["live"], live_rows = 0, []
+    for k in models:
+        bad, row = live_line(k, seg[k])
+        errs["live"] += bad
+        live_rows.append(row)
+    log(f"resnet family checks (count of what failed, 0 passes): {errs}; "
+        f"{sum(i < len(ref[k]) for k, i, _ in outs)} outputs against "
+        f"torch-cpu, digests of image 0 {digest}")
+    prof = [profile_forward(m, imgs[k], card) for k, m in models.items()]
+    part("profiles")
+    log(f"phase 3b parts, wall s: {parts}")
+    return errs, dict(serve=serve_rows, capture=capture_rows, parts=parts,
+                      live=live_rows, profile=prof, launches=counts,
+                      launches_per_forward=per_fwd)
 
 
 # ---------------------------------------------------------------------------
@@ -4331,6 +4569,13 @@ DSE_GRID = dict(log_blocks=(4, 5), mem_widths=(8, 32), spad_scales=(1,),
 # the CLI through its pool: two groups (log blocks 4 and 5; one group would
 # run serially), so the pool opens, its two workers spawned on the card
 DSE_POOL_GRID = dict(log_blocks=(4, 5), mem_widths=(8,), spad_scales=(1,))
+# ResNet-50 at one design point, on the card only, against the JAX
+# package's numpy-backend report of the same point (the digest as DSE_DIGEST;
+# tests/test_torch_dse_resnet50.py asserts it)
+DSE50_DIGEST = \
+    "d91ded6e38854d7137cac5cf7a3b2d87bd94d819df80d93b7df1b4b68bcbf006"
+DSE50_GRID = dict(log_blocks=(4,), mem_widths=(8,), spad_scales=(1,),
+                  tune="full", workers=1, profile=True)
 DSE_DRILL_CALL = 3           # the card backend's run_batched call that fails
 DSE_MEMORY_SLACK = 64 << 20  # bytes memory_allocated may stay above its start
 
@@ -4446,12 +4691,16 @@ def dse_drill(tmp: str) -> int:
     return errs
 
 
-def dse_pool_cli(tmp: str, numpy_out: str) -> tuple:
+def dse_pool_cli(tmp: str, numpy_out: str, beside=None) -> tuple:
     """``python -m repro_torch.core.dse --networks mobilenet`` on
     ``DSE_POOL_GRID`` with ``--tune full --backend torch --workers 2`` in
     a subprocess (the pool spawned, its workers on the card), against the
     numpy sweep's report of the same grid (read back from its cache).
-    Returns (count of what failed, wall seconds)."""
+    ``beside()``, if given, runs in this process while the subprocess
+    runs (both are bound by their hosts' cores, of which the CLI takes
+    three). Returns (count of what failed, the CLI's wall seconds, what
+    ``beside`` returned)."""
+    import threading
     from repro_torch.core import dse
     out = os.path.join(tmp, "pool")
     args = ["--networks", "mobilenet", "--tune", "full", "--backend",
@@ -4459,19 +4708,34 @@ def dse_pool_cli(tmp: str, numpy_out: str) -> tuple:
     for k, v in DSE_POOL_GRID.items():
         args += ["--" + k.replace("_", "-"), ",".join(map(str, v))]
     t0 = time.perf_counter()
-    proc = subprocess.run(
+    proc = subprocess.Popen(
         [sys.executable, "-m", "repro_torch.core.dse", *args],
-        env=dict(os.environ, PYTHONPATH=SRC), capture_output=True,
-        text=True, timeout=600)
-    wall = time.perf_counter() - t0
-    for line in (proc.stdout + proc.stderr).strip().splitlines()[-6:]:
+        env=dict(os.environ, PYTHONPATH=SRC), stdout=subprocess.PIPE,
+        stderr=subprocess.STDOUT, text=True)
+    done: dict = {}
+
+    def wait():
+        try:
+            done["out"] = proc.communicate(timeout=600)[0]
+        finally:
+            done["wall"] = time.perf_counter() - t0
+    waiter = threading.Thread(target=wait)
+    waiter.start()
+    try:
+        got = beside() if beside is not None else None
+    finally:
+        waiter.join()
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+    for line in done.get("out", "").strip().splitlines()[-6:]:
         log(f"  dse cli: {line}")
     want = dse.run_sweep(["mobilenet"], out_dir=numpy_out, backend="numpy",
                          tune="full", workers=1, **DSE_POOL_GRID)
     errs = int(proc.returncode != 0)
     if not errs:
         errs = int(report_file_text(out) != report_text(want.report()))
-    return errs, wall
+    return errs, done["wall"], got
 
 
 class timed_calls:
@@ -4500,11 +4764,12 @@ class timed_calls:
         setattr(self.owner, self.attr, self.fn)
 
 
-def dse_checks(tmp: str) -> tuple:
+def dse_checks(tmp: str, beside=None) -> tuple:
     """Phase 9: ``DSE_GRID`` swept on the numpy FSim, then on the card,
-    the card-fault drill and the CLI through its spawned pool. Returns
-    (count of what failed per check, the numbers to print, the card
-    sweep's launches)."""
+    the card-fault drill and the CLI through its spawned pool, with
+    ``beside()`` run while the CLI runs (what it returned is the rows'
+    ``"beside"``). Returns (count of what failed per check, the numbers to
+    print, the card sweep's launches)."""
     import gc
     import torch
     from repro_torch.analysis.dse_report import render
@@ -4551,7 +4816,8 @@ def dse_checks(tmp: str) -> tuple:
         "memory": int(mem1 - mem0 > DSE_MEMORY_SLACK),
     }
     errs["drill"] = dse_drill(tmp)
-    errs["pool_cli"], wall_cli = dse_pool_cli(tmp, numpy_out)
+    errs["pool_cli"], wall_cli, beside_out = dse_pool_cli(tmp, numpy_out,
+                                                          beside)
     st_np, st = res_np.profile["stages"], res.profile["stages"]
     verify_s = st.get("fsim_verify", 0.0)
     rows = {
@@ -4591,8 +4857,80 @@ def dse_checks(tmp: str) -> tuple:
     for line in render(res.report(), chart=False).splitlines():
         log(f"  {line}")
     log(f"dse checks (count of what failed, 0 passes): {errs}")
+    if beside is not None:
+        rows["beside"] = beside_out
     return errs, rows, {k: counts.get(k, 0)
                         for k in ("gemm", "alu_chain", "alu_sweep")}
+
+
+def dse50_checks(tmp: str, card: str) -> tuple:
+    """Phase 9's ResNet-50 point (``DSE50_GRID``), swept cold on the card
+    only: its report against ``DSE50_DIGEST``, every verification on the
+    uncaptured route and none captured, no device memo left, and memory
+    back within ``DSE_MEMORY_SLACK``. Returns (count of what failed per
+    check, the numbers to print)."""
+    import torch
+    from repro_torch.core import dse
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.vta import fsim_torch
+    out = os.path.join(tmp, "resnet50")
+    reset_sweep_state()
+    torch.cuda.synchronize()
+    mem0 = torch.cuda.memory_allocated()
+    reset_launch_counts()
+    fsim_torch.reset_capture_log()
+    fsim_torch.reset_uncaptured_runs()
+    spent: dict = {}
+    t0 = time.perf_counter()
+    with timed_calls(fsim_torch.TorchBackend, "run_batched", spent,
+                     "run_batched"):
+        res = dse.run_sweep(["resnet50"], out_dir=out, backend="torch",
+                            **DSE50_GRID)
+    wall = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    sched = os.path.join(out, "schedules")
+    store = dse._SCHEDULE_STORES[sched]
+    tuner = dse._TUNERS[("full", os.path.join(out, "autotune"), sched)]
+    counts = {k: launch_counts().get(k, 0)
+              for k in ("gemm", "alu_chain", "alu_sweep")}
+    runs = fsim_torch.uncaptured_runs()
+    memos = device_memos(store, tuner)
+    verifications = tuner.verifications
+    del store, tuner
+    reset_sweep_state()
+    mem1 = torch.cuda.memory_allocated()
+    text = report_file_text(out)
+    errs = {
+        "resnet50.digest": int(hashlib.sha256(text.encode()).hexdigest()
+                               != DSE50_DIGEST),
+        "resnet50.launches": sum(counts[k] == 0 for k in ("gemm",
+                                                          "alu_sweep")),
+        "resnet50.verifications": int(verifications == 0
+                                      or runs != verifications),
+        "resnet50.captures": len(fsim_torch.capture_log()),
+        "resnet50.device_memos": memos,
+        "resnet50.memory": int(mem1 - mem0 > DSE_MEMORY_SLACK),
+    }
+    st = res.profile["stages"]
+    verify_s = st.get("fsim_verify", 0.0)
+    row = {"network": "resnet50", "grid": {k: v for k, v in
+                                           DSE50_GRID.items()},
+           "wall_s": wall, "stages_s": st, "verifications": verifications,
+           "ms_per_verification": 1e3 * verify_s / max(verifications, 1),
+           "run_batched_s": spent.get("run_batched", 0.0),
+           "uncaptured_runs": runs, "launches": counts,
+           "memory_allocated_delta": mem1 - mem0,
+           "programs_scheduled": res.profile["schedule_store"].get(
+               "misses", 0)}
+    log(f"dse resnet50 on the card (log block 4, memory width 8, "
+        f"scratchpad scale 1, --tune full): wall {wall:.3f} s, "
+        f"{verifications} verifications, {row['ms_per_verification']:.3f} "
+        f"ms each (fsim_verify {verify_s:.3f} s, run_batched "
+        f"{row['run_batched_s']:.3f} s), stages {st}; {runs} uncaptured "
+        f"runs, launches {counts}, {row['programs_scheduled']} programs "
+        f"scheduled, {memos} device memos, memory_allocated {mem0} -> "
+        f"{mem1} bytes ({card})")
+    return errs, row
 
 
 def dse_errors(fault: str) -> None:
@@ -5109,6 +5447,15 @@ PLANTED_FAULTS = {  # name: (route, file under src/repro_torch, text, stand-in)
     "alu_sweep.drop_one_split": (
         "alu_sweep", "csrc/alu_sweep.cu", "  int mine = part;",
         "  int mine = threadIdx.x % S == S - 1 ? identity(op) : part;"),
+    # the last reduction row of a per-group-weights entry with R >= 128
+    # adds nothing: of the served trunks only ResNet-50's and -101's
+    # 2048-wide fc has such entries (R = 128), so phase 3's checks and
+    # phase 2's earlier cases pass it
+    "resnet.fc2048_last_row_dropped": (
+        "resnet", "csrc/vta_gemm.cu",
+        "const bool ok = m0 + row < a.M && rr < rn;",
+        "const bool ok = m0 + row < a.M && rr < rn &&\n"
+        "          !(a.gb == 1 && a.R >= 128 && r0 + rr == a.R - 1);"),
     # a captured dispatch starts from the scratchpads the last one left
     "serve.skip_zeroing": (
         "serve", "vta/fsim_torch.py", "                st[k].zero_()",
@@ -5305,6 +5652,7 @@ PLANTED_FAULTS = {  # name: (route, file under src/repro_torch, text, stand-in)
 LAYER_FAULT_KEYS = ("gemm_float", "depthwise", "alu", "pool2d")
 VTA_FAULT_KEYS = ("gemm", "alu_sweep")
 SERVE_FAULT_KEYS = ("serve",)
+RESNET_FAULT_KEYS = ("resnet",)
 POOL_FAULT_KEYS = ("pool", "ladder")
 LM_FAULT_KEYS = ("lm",)
 INIT_FAULT_KEYS = ("lm_init",)
@@ -5328,14 +5676,16 @@ def case_errors(fault: str, route: str) -> int:
     ``FAULT_CASES`` (``attention_errors``), the phase-4 cases, edge cases
     included, of the kernels of ``LAYER_FAULT_KEYS`` (``layer_errors``),
     phase 2's cases of the kernels of ``VTA_FAULT_KEYS`` (``vta_errors``),
-    phase 3's checks of the captured path (``serve_errors``), phase 6's
+    phase 3's checks of the captured path (``serve_errors``), phase 3b's of
+    the ResNet family (``resnet_errors``, with phase 3's), phase 6's
     checks of the worker pool or the ladder (``pool_errors``), the
     golden checks of phases 7 and 8 (``lm_errors``, ``train_errors``),
     the init in the serving dtypes (``init_errors``),
     phase 9's checks of the sweep (``dse_errors``) and phase 10's of the
     mesh layer (``mesh_errors``)."""
     if route == "all" or route not in LAYER_FAULT_KEYS + VTA_FAULT_KEYS \
-            + SERVE_FAULT_KEYS + POOL_FAULT_KEYS + LM_FAULT_KEYS \
+            + SERVE_FAULT_KEYS + RESNET_FAULT_KEYS + POOL_FAULT_KEYS \
+            + LM_FAULT_KEYS \
             + INIT_FAULT_KEYS + TRAIN_FAULT_KEYS + DSE_FAULT_KEYS \
             + MESH_FAULT_KEYS:
         attention_errors(fault, route)
@@ -5343,8 +5693,10 @@ def case_errors(fault: str, route: str) -> int:
         layer_errors(fault, route)
     if route == "all" or route in VTA_FAULT_KEYS:
         vta_errors(fault, route)
-    if route == "all" or route in SERVE_FAULT_KEYS:
+    if route in SERVE_FAULT_KEYS + RESNET_FAULT_KEYS or route == "all":
         serve_errors(fault)
+    if route == "all" or route in RESNET_FAULT_KEYS:
+        resnet_errors(fault)
     if route == "all" or route in POOL_FAULT_KEYS:
         pool_errors(fault, route)
     if route == "all" or route in LM_FAULT_KEYS:
@@ -5382,6 +5734,17 @@ def serve_errors(fault: str) -> None:
               flush=True)
 
 
+def resnet_errors(fault: str) -> None:
+    """Phase 3b's checks (``resnet_family_checks``), one line per check,
+    limit 0."""
+    from repro_torch.vta.isa import DEFAULT_VTA
+    errs = resnet_family_checks(resnet_models(DEFAULT_VTA))[0]
+    for check, err in errs.items():
+        print(json.dumps({"fault": fault, "case": f"resnet {check}",
+                          "err": err, "limit": 0, "over": err > 0}),
+              flush=True)
+
+
 def vta_errors(fault: str, route: str) -> None:
     """Phase 2's cases of the VTA kernels ``route`` names ("all": both),
     each held to its plain version, limit 0: the GEMM's ``gemm_cases`` (one
@@ -5393,7 +5756,8 @@ def vta_errors(fault: str, route: str) -> None:
     dev = torch.device("cuda")
     rng = np.random.default_rng(0)
     hw = DEFAULT_VTA
-    main_path = vta_main_path(serve_models(hw), dev)
+    main_path = vta_main_path(serve_models(hw), dev) + family_path(
+        resnet_models(hw), dev)
 
     def emit(case, err):
         print(json.dumps({"fault": fault, "case": case, "err": err,
@@ -5586,21 +5950,27 @@ def main(argv: list) -> int:
 
     # -- phase 2 ----------------------------------------------------------
     from repro_torch.vta.isa import DEFAULT_VTA
-    dev = torch.device("cuda")
+    # the backend's device by index: phase 2's device entries are then the
+    # executor's own memo (keyed by the device's name), built once
+    dev = torch.device("cuda", torch.cuda.current_device())
     rng = np.random.default_rng(0)
     hw = DEFAULT_VTA
     t0 = time.perf_counter()
     models = serve_models(hw)
-    log(f"compile: " + ", ".join(f"{k} {len(m.segments)} segments"
-                                 for k, m in models.items())
+    family = resnet_models(hw)
+    log(f"compile: " + ", ".join(f"{k} {len(m.segments)} segments" for k, m
+                                 in {**models, **family}.items())
         + f" in {time.perf_counter() - t0:.2f} s (live_weights drawn for "
-          f"both trunks)")
+          f"the five trunks)")
     t0 = time.perf_counter()
     main_path = vta_main_path(models, dev)
     where = {(m, b): i for i, (m, b, *_) in enumerate(main_path)}
     n = max(TRUNK_BUCKETS)
     trunk_ops = main_path[where[(TRUNK, n)]][2]
     trunk_entries = gemm_entries(trunk_ops)
+    # the ResNet family's distinct entries after the main path's, held to
+    # their plain versions and not timed
+    main_path += family_path(family, dev)
     gemm_row = check_gemm(
         dev, rng, hw, [(m, b, gemm_entries(ops))
                        for m, b, ops, _, _ in main_path],
@@ -5622,6 +5992,20 @@ def main(argv: list) -> int:
     prof = {k: profile_forward(models[k], models[k].random_images(8, seed=0))
             for k in (TRUNK, MBN)}
     log(f"phase 3: {time.perf_counter() - t0:.1f} s")
+
+    # -- phase 3b ---------------------------------------------------------
+    t0 = time.perf_counter()
+    errs3b, family_rows = resnet_family_checks(family, smi)
+    if any(errs3b.values()):
+        raise AssertionError(f"phase 3b failed: {errs3b}")
+    log("resnet family: image 0 of each trunk matches the JAX numpy "
+        "backend's digest; the images held equal torch-cpu; every segment "
+        "inside the live bands")
+    del family                  # its graphs and buffers go before phase 4
+    gc.collect()
+    torch.cuda.empty_cache()
+    log(f"phase 3b: {time.perf_counter() - t0:.1f} s; memory reserved after "
+        f"{torch.cuda.memory_reserved() / 1e6:.1f} MB ({smi})")
 
     # -- phase 4 ----------------------------------------------------------
     t0 = time.perf_counter()
@@ -5694,7 +6078,13 @@ def main(argv: list) -> int:
     t0 = time.perf_counter()
     tmp9 = tempfile.mkdtemp(prefix="chip_smoke_dse_")
     try:
-        errs9, dse_rows, dse_launches = dse_checks(tmp9)
+        # the ResNet-50 point runs while the CLI's spawned pool runs
+        errs9, dse_rows, dse_launches = dse_checks(
+            tmp9, beside=lambda: dse50_checks(tmp9, smi))
+        errs50, dse_rows["resnet50"] = dse_rows.pop("beside")
+        log(f"dse resnet50 checks (count of what failed, 0 passes): "
+            f"{errs50}")
+        errs9.update(errs50)
     finally:
         shutil.rmtree(tmp9, ignore_errors=True)
     if any(errs9.values()):
@@ -5718,6 +6108,7 @@ def main(argv: list) -> int:
              launches_pool=pool_rows[1]["launches"]["gemm"],
              launches_tenants=pool_rows[-1]["launches"]["gemm"],
              launches_dse=dse_launches["gemm"],
+             launches_resnet_family=family_rows["launches"].get("gemm", 0),
              per=f"resnet18-trunk forward, batch {n}"),
         dict(name="alu_chain", route="cuda", source=src + "alu_sweep.cu",
              replaces="src/repro/kernels/alu_sweep.py:300",
@@ -5730,11 +6121,14 @@ def main(argv: list) -> int:
              launches_pool=pool_rows[1]["launches"]["alu_sweep"],
              launches_tenants=pool_rows[-1]["launches"]["alu_sweep"],
              launches_dse=dse_launches["alu_sweep"],
+             launches_resnet_family=family_rows["launches"].get(
+                 "alu_sweep", 0),
              per=f"resnet18-trunk forward, batch {n}"),
     ]
     for row, key in zip(kernels, ("gemm", "alu_chain", "alu_sweep")):
         row["launches_per_forward_by_model"] = {
-            m: v[key] for m, v in per_fwd.items()}
+            m: v[key] for m, v in {
+                **per_fwd, **family_rows["launches_per_forward"]}.items()}
     for key, (_, source, replaces, per) in LAYER_OPS.items():
         kernels.append(dict(
             name=key, route="cuda", source=src + source, replaces=replaces,
@@ -5782,6 +6176,7 @@ def main(argv: list) -> int:
                   "launches_cases: phase 5's"))
     log(json.dumps({"serve": serve_rows, "capture": capture_rows,
                     "live": live_rows, "profile": prof}))
+    log(json.dumps({"resnet_family": family_rows}))
     log(json.dumps({"pool": pool_rows}))
     log(json.dumps({"lm": lm_rows}))
     log(json.dumps({"train": train_rows}))

@@ -15,7 +15,8 @@ segments) and a mobilenet-flavored depthwise-separable chain (resident
 dw→pw edges) — at ``tiny`` (unit tests / CI smoke) and ``small`` (default
 benchmark) scales. Full 224×224 graphs run through exactly the same code
 path; ``resnet18_trunk_graph`` and ``mobilenet_trunk_graph`` are the
-full-width ResNet-18 and MobileNet-1.0 VTA trunks.
+full-width ResNet-18 and MobileNet-1.0 VTA trunks, and ``resnet_trunk_graph``
+gives the ResNet-34, -50 and -101 trunks.
 """
 from __future__ import annotations
 
@@ -319,13 +320,28 @@ def _trunk_graph(full: Graph, name: str, image: tuple) -> Graph:
     return g
 
 
+RESNET_DEPTHS = (18, 34, 50, 101)
+
+
+def resnet_trunk_graph(depth: int) -> Graph:
+    """The ResNet-``depth`` VTA trunk at the paper's published widths
+    (``depth`` one of ``RESNET_DEPTHS``), named ``resnet{depth}-trunk``:
+    ``resnet_graph(depth)`` without the CPU-resident ``conv1``, fed by the
+    (1, 64, 112, 112) tensor that enters ``pool1`` — pool1, the basic
+    blocks of 64-512 channels (18, 34) or the bottleneck blocks of 64-2048
+    channels (50, 101), with downsample convs and residual adds, the 7x7
+    global average pool and the fc to 1008."""
+    if depth not in RESNET_DEPTHS:
+        raise ValueError(f"no ResNet-{depth} trunk; depths {RESNET_DEPTHS}")
+    return _trunk_graph(resnet_graph(depth), f"resnet{depth}-trunk",
+                        (1, 64, 112, 112))
+
+
 def resnet18_trunk_graph() -> Graph:
-    """The ResNet-18 VTA trunk at the paper's published widths:
-    ``resnet_graph(18)`` without the CPU-resident ``conv1``, fed by the
-    (1, 64, 112, 112) tensor that enters ``pool1`` — pool1, 8 basic blocks
-    of 64-512 channels with downsample convs and residual adds, the 7x7
-    global average pool and the 512->1008 fc."""
-    return _trunk_graph(resnet_graph(18), "resnet18-trunk", (1, 64, 112, 112))
+    """The ResNet-18 VTA trunk: ``resnet_trunk_graph(18)`` — pool1, 8 basic
+    blocks of 64-512 channels with downsample convs and residual adds, the
+    7x7 global average pool and the 512->1008 fc."""
+    return resnet_trunk_graph(18)
 
 
 def mobilenet_trunk_graph() -> Graph:

@@ -294,6 +294,20 @@ def test_full_width_trunk_compiles_identically():
     _assert_same_model(a, b)
 
 
+def test_resnet50_trunk_compiles_identically():
+    """The bottleneck trunk: every segment's instruction and micro-op
+    encodings and its lowered trace (index arrays by bytes) as the JAX
+    package's."""
+    from test_torch_resnet_family import _j_trunk_graph as _j_resnet_trunk
+    a = jmodel.ServedModel.compile("resnet50-trunk", _j_resnet_trunk(50),
+                                   jisa.DEFAULT_VTA)
+    b = tmodel.ServedModel.compile("resnet50-trunk",
+                                   tmodel.resnet_trunk_graph(50),
+                                   tisa.DEFAULT_VTA)
+    assert a.graph.describe() == b.graph.describe()
+    _assert_same_model(a, b)
+
+
 def test_mobilenet_trunk_compiles_identically():
     a = jmodel.ServedModel.compile(
         "mobilenet1.0-trunk", _j_trunk_graph("mobilenet1.0-trunk"),
@@ -391,10 +405,11 @@ def test_area_model_copy_matches_the_original():
 
 
 def _padded_layers(workloads, hw):
-    """(kind, padded workload) of every VTA layer of ResNet-18 and
-    MobileNet-1.0."""
+    """(kind, padded workload) of every VTA layer of ResNet-18, ResNet-50
+    (its bottleneck blocks: 1x1 reduce and expand convs, the stride-2 1x1
+    downsample, the 2048-channel stage and fc) and MobileNet-1.0."""
     out = []
-    for net in ("resnet18", "mobilenet1.0"):
+    for net in ("resnet18", "resnet50", "mobilenet1.0"):
         for layer in workloads.NETWORKS[net]():
             if not layer.on_cpu:
                 out.append((layer.kind,
@@ -406,7 +421,7 @@ def _padded_layers(workloads, hw):
 def test_tile_candidates_copy_matches_the_original(cfg):
     """``vta_tile_candidates`` (conv and dense, every field of every
     Tiling, in rank order) and ``vta_alu_tile_candidates`` (depthwise and
-    pool) on ResNet-18 and MobileNet-1.0 layers."""
+    pool) on ResNet-18, ResNet-50 and MobileNet-1.0 layers."""
     from repro.core import dse as jdse
     from repro.core import tile_search as jts
     from repro.vta import workloads as jwl
@@ -433,8 +448,9 @@ def test_tile_candidates_copy_matches_the_original(cfg):
 
 
 def test_double_buffer_copy_matches_the_original():
-    """``db_savings`` of every double-buffered candidate tiling of ResNet-18
-    and MobileNet-1.0's convs at the reference config."""
+    """``db_savings`` of every double-buffered candidate tiling of
+    ResNet-18's, ResNet-50's and MobileNet-1.0's convs at the reference
+    config."""
     from repro.core import double_buffer as jdb
     from repro.core import dse as jdse
     from repro.core.tps import Tiling as JTiling

@@ -37,7 +37,8 @@ def test_planted_fault_text_occurs_once(fault):
 def test_every_fault_route_has_cases():
     """A route's fault is run against attention cases of that route, the
     phase-4 or phase-2 cases of its kernel, phase 3's checks of the
-    captured path, phase 6's checks of the worker pool or the ladder,
+    captured path (with phase 3b's of the ResNet family for route
+    ``resnet``), phase 6's checks of the worker pool or the ladder,
     phase 7's golden runs of the language-model session, the init in the
     serving dtypes, phase 8's golden training runs, phase 9's checks of
     the design-space sweep, or the part of phase 10 (the mesh layer) the
@@ -46,9 +47,13 @@ def test_every_fault_route_has_cases():
     for route, *_ in CS.PLANTED_FAULTS.values():
         assert route in attention | set(CS.LAYER_FAULT_KEYS) | set(
             CS.VTA_FAULT_KEYS) | set(CS.SERVE_FAULT_KEYS) | set(
+            CS.RESNET_FAULT_KEYS) | set(
             CS.POOL_FAULT_KEYS) | set(CS.LM_FAULT_KEYS) | set(
             CS.INIT_FAULT_KEYS) | set(CS.TRAIN_FAULT_KEYS) | set(
             CS.DSE_FAULT_KEYS) | set(CS.MESH_FAULT_KEYS)
+    assert {f for f, spec in CS.PLANTED_FAULTS.items()
+            if spec[0] in CS.RESNET_FAULT_KEYS} == {
+        "resnet.fc2048_last_row_dropped"}
     assert {f for f, spec in CS.PLANTED_FAULTS.items()
             if spec[0] == "dse"} == {"dse.card_fault_absorbed",
                                      "dse.captured", "dse.verify_on_cpu"}
