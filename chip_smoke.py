@@ -138,10 +138,13 @@ order; any failure raises and the script exits nonzero:
    cache, or the 4096-key window), Qwen3-0.6B prefill and decode, Mixtral
    8x22B's windowed prefill and RecurrentGemma-9B's MQA at head_dim 256, in
    bf16 and some in f32; MusicGen-Large's 32 heads of 64 (prefill in bf16
-   and f32, decode), Qwen2-VL-2B's GQA group of 6 (prefill, decode) and
-   Qwen2.5-32B's group of 5 (prefill in bf16 and f32, decode), whose
-   earlier cases' kernel time is also printed on a line of its own
-   (``QWEN25_ATTENTION``); besides, the shapes of tests/test_kernels.py's
+   and f32, decode), Qwen2-VL-2B's GQA group of 6 (prefill, decode),
+   Qwen2.5-32B's group of 5 (prefill in bf16 and f32, decode), and
+   DeepSeek-67B's group of 8 (prefill in bf16 and f32, decode: one whole
+   8-row slice of the decode kernel per KV head) with Mixtral 8x22B's
+   windowed decode against its 4096-key window, whose earlier cases'
+   kernel time is also printed on a line of its own
+   (``DEEPSEEK_MIXTRAL_ATTENTION``); besides, the shapes of tests/test_kernels.py's
    attention tests, a case with tails in both tiles, causal rows that see
    no key (``edge.empty_rows``), and the f32 prefill at head_dim 8 (Sq 9)
    and 256 (ragged tiles, window, softcap). A case takes one of three
@@ -220,9 +223,9 @@ order; any failure raises and the script exits nonzero:
    and RG-LRU blocks in PyTorch. The golden runs (``golden_errors``), in
    f32 against ``tests/golden/lm_session_f32.json``,
    ``lm_session_recurrent_f32.json``, ``lm_session_moe_f32.json``,
-   ``lm_session_vlm_audio_f32.json`` and ``lm_session_dense_large_f32.json``,
-   which ``tests/make_lm_golden.py`` writes from the JAX package's
-   ``ServeSession`` on the CPU: Qwen3-0.6B at full width (its depth cut
+   ``lm_session_vlm_audio_f32.json``, ``lm_session_dense_large_f32.json``
+   and ``lm_session_past_card_f32.json``, which ``tests/make_lm_golden.py``
+   writes from the JAX package's ``ServeSession`` on the CPU: Qwen3-0.6B at full width (its depth cut
    to the file's 4 layers), Gemma-2 27B's smoke config (local layers with
    a window of 8 against 32-token prompts), RWKV-6 1.6B at full width cut
    to 2 layers (2048-token prompts: two chunks of 1024, the state carried
@@ -242,7 +245,11 @@ order; any failure raises and the script exits nonzero:
    256,000-row head), its smoke config with query scale 12 ** -0.5 (not
    ``head_dim ** -0.5``, which the older smoke run's scale is) and
    Qwen2.5-32B's smoke config at 10 query heads over 2 KV heads (its
-   published GQA group of 5);
+   published GQA group of 5), DeepSeek-67B and Mixtral 8x22B at full width
+   cut to 1 layer (2.37 B and 2.91 B numpy draws; the configs that fit no
+   card whole; Mixtral's top-2 of 8 experts for every token held to the
+   JAX package's, ``routing_errors``) and DeepSeek-67B's smoke config at
+   16 query heads over 2 KV heads (its published GQA group of 8);
    weights from ``numpy_params`` and the file's seed (their
    sha256 must be the file's, and every weight the reference reads in f32
    must stay f32), 2 prompts, 8 greedy steps: the tokens equal, the
@@ -270,15 +277,22 @@ order; any failure raises and the script exits nonzero:
    from the first decode step), 32 steps (46 ``mma``, 46 ``decode`` and 46
    ``combine`` a step; 54.45 GB of params, its embedding drawn in row
    blocks); Qwen2.5-32B, 4 prompts of 1024 tokens, 32 steps (64 of each;
-   65.53 GB of params, a GQA group of 5); each step's
-   logits of the seven against the same model on
-   ``flash_attention_plain`` fed the kernels' tokens (Moonshot's also the
-   kernels' routing, each MoE layer's top-k indices recorded in the
+   65.53 GB of params, a GQA group of 5); the two configs that fit no card
+   whole at full width and cut depth (each line gives the depth beside
+   the published one): DeepSeek-67B at 40 of 95 layers, 4 prompts of 2048
+   tokens, 32 steps (40 of each; 58.72 GB of params, a GQA group of 8),
+   and Mixtral 8x22B at 12 of 56 layers, 2 prompts of 5120 tokens (past
+   its 4096 window), 32 steps (12 of each; 60.90 GB of params, its expert
+   groups drawn 4 experts at a time); each step's
+   logits of the nine against the same model on
+   ``flash_attention_plain`` fed the kernels' tokens (the MoE models' also
+   the kernels' routing, each MoE layer's top-k indices recorded in the
    kernels' run by ``routing``; the choices the plain run would have made
    otherwise counted, not held), within ``LM_BF16_TOL``, every argmax
-   equal, per codebook for MusicGen (Moonshot's but where one run's
-   largest logit is held by two
-   tokens, the other run's choice one of them: ``exact_tie``, listed).
+   equal, per codebook for MusicGen (but where one run's largest logit is
+   held by two tokens, the other run's choice one of them, for the runs
+   flagged ``exact_ties``: ``exact_tie``, listed; and one bf16 step apart
+   in both runs for those flagged ``step_ties``: ``step_tie``).
    Each times its prefill after one uncounted generation at the timed
    shape (``warm_prefill``: its prefill ms and ``cudaMalloc`` calls, and
    the timed run's, recorded). RWKV-6
@@ -292,11 +306,12 @@ order; any failure raises and the script exits nonzero:
    ``memory_reserved``. Each run's wall is logged on a line of its own
    (``lm wall``): a golden run's numpy draw, sha256, session and
    generation; a bf16 run's init, warm-up, timed generation, profile and
-   plain rerun. The goldens' numpy draws and their sha256 (2.3 B values
-   for Gemma-2 alone) run on a thread of their own beside the bf16 runs,
+   plain rerun. The goldens' numpy draws and their sha256 (11.8 B values,
+   5.3 B of them for DeepSeek-67B and Mixtral) run on ``GOLDEN_THREADS``
+   threads of their own beside the bf16 runs,
    whose work is the card's and the dispatching thread's (numpy's fill and
-   hashlib release the GIL); each golden is checked after the bf16 run
-   during which it was drawn.
+   hashlib release the GIL); each golden is checked, in file order, after
+   the bf16 run during which it was drawn.
 8. Training (``train_checks``), through the entry points a user calls:
    ``make_train_step`` and the ``Trainer`` on the card, every attention
    layer's forward on the port's kernels (the op
@@ -479,7 +494,9 @@ under the rules one position off; a MoE combine that drops expert 0's
 rows; an init in the serving dtypes that rounds the router to bf16, and
 one that keeps the f32 tree beside its cast; a query scale of
 ``head_dim ** -0.5`` whatever the config says, a bf16 prefill whose
-GQA head map is off for a group of 5, and the last reduction row of a
+GQA head map is off for a group of 5, one off for a group of 8, a decode
+whose eighth row of a block of 8 rows sees no key (only a group of 8 or
+more fills such a block at Sq = 1), and the last reduction row of a
 per-group-weights VTA GEMM entry with R >= 128 dropped, which only
 ResNet-50's and -101's 2048-wide fc has), the
 unchanged sources are built once into a build directory the copies share,
@@ -762,6 +779,21 @@ QWEN25_ATTENTION = [
      "none"),
 ]
 ATTENTION_CASES += QWEN25_ATTENTION
+# deepseek-67b (:33-37): 64 query heads over 8 KV heads, a GQA group of 8,
+# which no case above has; at decode (Sq = 1) its 8 rows fill one whole
+# 8-row slice of the decode kernel (``decode_split``), which the groups
+# above pad. mixtral-8x22b's local layers decode against the 4096-key
+# window (48 over 8 heads). Phase 7 serves both at full width and cut
+# depth. Phase 5 prints the earlier cases' total apart from these
+DEEPSEEK_MIXTRAL_ATTENTION = [
+    ("deepseek.prefill", 1, 64, 8, 128, 8192, 8192, True, None, None, None,
+     (BF, F32), "causal"),
+    ("deepseek.decode", 8, 64, 8, 128, 1, 32768, True, None, None, None,
+     (BF,), "none"),
+    ("mixtral.local.decode", 8, 48, 8, 128, 1, 4096, True, 4096, None, None,
+     (BF,), "none"),
+]
+ATTENTION_CASES += DEEPSEEK_MIXTRAL_ATTENTION
 ATTENTION_ROWS = 256     # query rows per case held against float64
 
 
@@ -2551,8 +2583,8 @@ def check_attention(cases, outs: dict) -> dict:
     for key in ATTENTION_KEYS[:3]:      # the routes, held to float64
         rows[key].update(max_err_vs_f64=0.0, plain_max_err_vs_f64=0.0)
     cuda_cores_ms = 0.0   # the f32 prefill's bound at the CUDA cores' rate
-    newer = {spec[0] for spec in QWEN25_ATTENTION}
-    earlier = {"cases": 0, "ms": 0.0}    # the cases before QWEN25_ATTENTION
+    newer = {spec[0] for spec in DEEPSEEK_MIXTRAL_ATTENTION}
+    earlier = {"cases": 0, "ms": 0.0}    # the cases before those
     for c in cases:
         name, q, k, v, kw = c["name"], c["q"], c["k"], c["v"], c["kw"]
         got = outs[name]
@@ -2679,7 +2711,8 @@ def check_attention(cases, outs: dict) -> dict:
     log(f"flash_attention: {len(cases)} cases, kernels "
         f"{sum(rows[k]['ms'] for k in ATTENTION_KEYS[:3]):.3f} ms in all")
     log(f"flash_attention: the {earlier['cases']} cases before the "
-        f"qwen2.5-32b ones, kernels {earlier['ms']:.3f} ms in all")
+        f"deepseek-67b and mixtral-8x22b ones, kernels {earlier['ms']:.3f} "
+        f"ms in all")
     return rows
 
 
@@ -3405,8 +3438,17 @@ LM_GOLDEN_VLM_AUDIO = os.path.join(ROOT, "tests", "golden",
                                    "lm_session_vlm_audio_f32.json")
 LM_GOLDEN_DENSE_LARGE = os.path.join(ROOT, "tests", "golden",
                                      "lm_session_dense_large_f32.json")
+LM_GOLDEN_PAST_CARD = os.path.join(ROOT, "tests", "golden",
+                                   "lm_session_past_card_f32.json")
 LM_GOLDENS = (LM_GOLDEN, LM_GOLDEN_RECURRENT, LM_GOLDEN_MOE,
-              LM_GOLDEN_VLM_AUDIO, LM_GOLDEN_DENSE_LARGE)
+              LM_GOLDEN_VLM_AUDIO, LM_GOLDEN_DENSE_LARGE, LM_GOLDEN_PAST_CARD)
+# threads that draw and hash the goldens' numpy weights beside phase 7's
+# bf16 runs (``lm_checks``): 11.8 B normals in all, 5.3 B of them for
+# DeepSeek-67B's and Mixtral-8x22B's full-width layers, at about 54 M/s a
+# thread. Every golden drawn ahead of its check stays in host memory (47 GB
+# at most); the golden checks alone (``--plant-faults``, three processes at
+# once) draw on one thread, which holds at most two
+GOLDEN_THREADS = 3
 # f32 against the JAX package (CPU): |logit - golden| on the golden's 8
 # largest logits of every step. Both sides are f32 (TF32 off in the
 # matmuls, the prefill kernel at 3xTF32, ~2^-22 per product) summed in
@@ -3427,7 +3469,9 @@ LM_MROPE_TOL = 2e-5
 # (2^-8) on some elements per layer; 28 layers summed in quadrature give
 # sqrt(28) * 2^-8 = 0.021 (38 layers: 0.024); the limit is 3x that. For
 # Qwen2.5-32B's 64 layers the same derivation gives sqrt(64) * 2^-8 =
-# 0.031, half the limit (Gemma-2-27B's 46: 0.026)
+# 0.031, half the limit (Gemma-2-27B's 46: 0.026); DeepSeek-67B cut to 40
+# layers sqrt(40) * 2^-8 = 0.025, Mixtral-8x22B cut to 12 sqrt(12) * 2^-8
+# = 0.014
 LM_BF16_TOL = 2.0 ** -4
 # a model with no attention layer (RWKV-6) holds one decode step to its
 # forward pass over the prompt and that token, at full width and depth in
@@ -3491,6 +3535,28 @@ LM_BF16_RUNS = (
     # both runs, in opposite order (5.96875 and 5.9375): listed, not counted
     dict(name="qwen2.5-32b", seed=0, batch=4, prompt_len=1024, steps=32,
          exact_ties=True, step_ties=True),
+    # past one card whole (134.85 GB in bf16), so at full width cut to 40 of
+    # 95 layers: 29.36 B parameters, 58.72 GB in bf16; a GQA group of 8 (64
+    # query heads over 8), its 102,400-row embedding and head drawn in row
+    # blocks; KV cache 1.34 GB; 65.8 GB reserved on an H100. Its top
+    # logits sit near 7.5, where a bf16 step is 2^-5: on the card 3 of 132
+    # rows differed from the plain run's, each at an exact tie of one run's
+    # largest logit (7.46875 twice in the kernels' run; 7.4375 and 7.53125
+    # twice in the plain run's): listed, not counted
+    dict(name="deepseek-67b", seed=0, batch=4, prompt_len=2048, steps=32,
+         overrides=dict(n_layers=40), exact_ties=True),
+    # past one card whole (281.26 GB in bf16), so at full width cut to 12 of
+    # 56 layers: 30.45 B parameters, 60.90 GB in bf16, each layer's expert
+    # groups drawn 4 experts at a time (``transformer.block_rows``). 5120 >
+    # the 4096 window: the window bites in prefill, and every layer's ring
+    # wraps from the first decode step. Top-2 of 8 experts at capacity
+    # int(1.25 * 2 * 10240 / 8) = 3200 in prefill; KV cache 0.40 GB; 67.1
+    # GB reserved on an H100. On the card 3 of 66 rows differed from the
+    # plain run's, each at an exact tie of one run's largest logit (6.40625
+    # twice in the kernels' run at steps 23 and 26; 6.375 twice in the
+    # plain run's at step 30): listed, not counted
+    dict(name="mixtral-8x22b", seed=0, batch=2, prompt_len=5120, steps=32,
+         overrides=dict(n_layers=12), exact_ties=True),
 )
 
 
@@ -3518,6 +3584,13 @@ def lm_config(run: dict):
     from repro_torch.configs import ARCHS, SMOKE_ARCHS
     return (SMOKE_ARCHS if run.get("smoke") else ARCHS)[run["name"]].replace(
         **run.get("overrides", {}))
+
+
+def published_layers(run: dict) -> int:
+    """The depth of a run's config as published (or as its smoke config
+    has it), before the run's overrides."""
+    from repro_torch.configs import ARCHS, SMOKE_ARCHS
+    return (SMOKE_ARCHS if run.get("smoke") else ARCHS)[run["name"]].n_layers
 
 
 def attention_layers(cfg) -> int:
@@ -3655,7 +3728,10 @@ def golden_errors(run: dict, device, drawn: tuple = None) -> tuple:
     logits at the golden's top 8 of every row (a sequence, or a sequence
     and codebook: ``logit_rows``) more than ``LM_F32_TOL`` away
     (``LM_MROPE_TOL`` for a model with M-RoPE), and on the
-    card attention launches other than ``lm_launches_want``. A step whose
+    card attention launches other than ``lm_launches_want``; for a run
+    that keeps ``routing`` (``tests/make_lm_golden.py``), router calls and
+    tokens whose top-k experts differ from the golden's
+    (``routing_errors``; recorded by ``routing``). A step whose
     golden top-1 margin is under that limit in some row is reported;
     its token and all after it are not compared (a tie may break either
     way), nor are the logits after it. ``weights`` also counts the weights
@@ -3684,11 +3760,14 @@ def golden_errors(run: dict, device, drawn: tuple = None) -> tuple:
                                     device=device)
     seen = record_steps(sess)
     walls["session"], t0 = time.perf_counter() - t0, time.perf_counter()
+    kept: list = []
     reset_launch_counts()
     if cfg.family == "vlm":
         got = vlm_generate(sess, embeds, positions, run["steps"])
     else:
-        got = sess.generate(np.array(run["prompts"], np.int32), run["steps"])
+        with routing(kept) if "routing" in run else contextlib.nullcontext():
+            got = sess.generate(np.array(run["prompts"], np.int32),
+                                run["steps"])
     got = got.cpu().numpy()
     secs = walls["generate"] = time.perf_counter() - t0
     counts = launch_counts()
@@ -3712,14 +3791,31 @@ def golden_errors(run: dict, device, drawn: tuple = None) -> tuple:
                             run["prompt_len"], run["steps"])
     if torch.device(device).type == "cuda":
         errs["launches"] = sum(counts.get(k, 0) != v for k, v in want.items())
-    row = dict(config=cfg.name, layers=cfg.n_layers, d_model=cfg.d_model,
+    row = dict(config=cfg.name, layers=cfg.n_layers,
+               published_layers=published_layers(run), d_model=cfg.d_model,
                batch=run["batch"], prompt_len=run["prompt_len"],
                steps=run["steps"], max_err=worst, limit=limit,
                low_margin_steps=low, tokens_compared=upto, seconds=secs,
                walls=walls, launches={k: counts.get(k, 0) for k in want})
     if "router_margin" in run:
         row["router_margin"] = run["router_margin"]
+    if "routing" in run:
+        errs["routing"], row["routing_choices"] = routing_errors(
+            kept, run["routing"], cfg.top_k)
     return errs, row
+
+
+def routing_errors(kept: list, want: list, k: int) -> tuple:
+    """(router calls whose count differs plus tokens whose top-``k``
+    experts, as a set, differ from the golden's ``routing`` rows, the
+    choices compared): the port's routing, recorded by ``routing``,
+    against the JAX package's."""
+    got = [x.reshape(-1, k).sort(-1).values.cpu().numpy() for x in kept]
+    errs = abs(len(got) - len(want))
+    for g, w in zip(got, want):
+        w = np.sort(np.array(w, np.int64), -1)
+        errs += int(g.shape != w.shape) or int((g != w).any(-1).sum())
+    return errs, sum(x.size for x in got)
 
 
 def profiled_shares(fn) -> dict:
@@ -4057,7 +4153,8 @@ def lm_bf16(device, spec: dict) -> tuple:
     errs[f"{tag}.logits"] = sum(x > limit for x in rel) + sum(
         not d["tie"] for d in differ_at)
     decode_s = statistics.median(times[1:])
-    row = dict(config=cfg.name, layers=cfg.n_layers, dtype=cfg.dtype,
+    row = dict(config=cfg.name, layers=cfg.n_layers,
+               published_layers=published_layers(spec), dtype=cfg.dtype,
                attention_layers=n_attn, batch=B, prompt_len=S, steps=steps,
                prefill_ms=times[0] * 1e3,
                prefill_tokens_per_s=B * S / times[0],
@@ -4095,19 +4192,25 @@ def golden_check(run: dict, device, drawn, errs: dict, rows: list) -> None:
     wall_line(row["run"], t0, row["walls"])
     errs.update({f"{run_tag(run)}.{k}": v for k, v in e.items()})
     rows.append(row)
-    log(f"lm golden {row['config']} ({row['layers']} layers, d_model "
+    log(f"lm golden {row['config']} ({row['layers']} of "
+        f"{row['published_layers']} layers, d_model "
         f"{row['d_model']}, f32): {row['batch']} prompts of "
         f"{row['prompt_len']} tokens, {row['steps']} steps in "
         f"{row['seconds']:.2f} s; largest |logit - JAX| "
         f"{row['max_err']:.3g} (limit {row['limit']}); steps with a "
         f"top-1 margin under the limit {row['low_margin_steps']}; "
-        f"launches {row['launches']}; checks {e}")
+        + (f"router margin {row['router_margin']:.3g}; "
+           if "router_margin" in row else "")
+        + (f"routing compared on {row['routing_choices']} choices; "
+           if "routing_choices" in row else "")
+        + f"launches {row['launches']}; checks {e}")
 
 
 def bf16_line(row: dict, e: dict) -> None:
     """The lines of one bf16 run of ``lm_bf16``: its numbers, then its
     profile's, one line a part."""
-    log(f"lm bf16 {row['config']} ({row['layers']} layers, "
+    log(f"lm bf16 {row['config']} ({row['layers']} of "
+        f"{row['published_layers']} layers, "
         f"{row['attention_layers']} of attention): {row['batch']} x "
         f"{row['prompt_len']} prompt tokens, prefill "
         f"{row['prefill_ms']:.2f} ms ({row['prefill_tokens_per_s']:.0f} "
@@ -4149,15 +4252,17 @@ def bf16_line(row: dict, e: dict) -> None:
 def lm_checks(device, route: str = "all") -> tuple:
     """Phase 7: every golden run of the golden files (``golden_errors``)
     and, for route "all", each bf16 run of ``LM_BF16_RUNS`` (``lm_bf16``).
-    The goldens' numpy weights are drawn and hashed on a thread of their
-    own, in file order, while the bf16 runs hold the card (numpy and
-    hashlib release the GIL): after each bf16 run the goldens drawn so far
-    are checked, and the rest after the last. Returns (errors, rows,
+    The goldens' numpy weights are drawn and hashed on threads of their
+    own (``GOLDEN_THREADS``; one for route "golden"), taken in file order,
+    while the bf16 runs hold the card (numpy and hashlib release the GIL):
+    after each bf16 run the goldens drawn so far are checked in file
+    order, and the rest after the last. Returns (errors, rows,
     launches: the attention launches summed over the runs)."""
     import torch
     errs, rows, launches = {}, [], {}
     goldens = [run for path in LM_GOLDENS for run in lm_golden(path)]
-    with concurrent.futures.ThreadPoolExecutor(1) as pool:
+    threads = GOLDEN_THREADS if route == "all" else 1
+    with concurrent.futures.ThreadPoolExecutor(threads) as pool:
         drawn = [pool.submit(golden_weights, run) for run in goldens]
         done = 0
 
@@ -5383,6 +5488,19 @@ PLANTED_FAULTS = {  # name: (route, file under src/repro_torch, text, stand-in)
         "const int kvh = h / (p.H / p.KV);",
         "const int kvh = p.H / p.KV == 5 ? (h + 1) % p.H / 5\n"
         "                                     : h / (p.H / p.KV);"),
+    # a GQA group of 8 whose last q-head reads the next KV head: only
+    # DeepSeek-67B's cases have that group
+    "mma.gqa8_head_map": (
+        "mma", "csrc/flash_attention_mma.cu",
+        "const int kvh = h / (p.H / p.KV);",
+        "const int kvh = p.H / p.KV == 8 ? (h + 1) % p.H / 8\n"
+        "                                     : h / (p.H / p.KV);"),
+    # the last row of a decode block of 8 rows sees no key: only a slice
+    # that 8 rows fill has that row (deepseek.decode's group of 8 at Sq 1;
+    # the smaller groups pad their slice)
+    "decode.full_slice_last_row": (
+        "decode", "csrc/flash_decode.cu", "const bool vis = gr < rows && key",
+        "const bool vis = gr < rows && (RT < 8 || r < 7) && key"),
     "decode.skip_tile_4096": (
         "decode", "csrc/flash_decode.cu", "gr < rows && key < bend &&",
         "gr < rows && key < bend && (key < 4096 || key >= 4096 + BK) &&"),
@@ -6160,15 +6278,16 @@ def main(argv: list) -> int:
                     r["launches"][key] for r in train_rows},
             per=f"one pass over the phase-5 cases of its route "
                 f"({row5[key]['cases']}): Gemma-2 27B, Qwen3-0.6B, Mixtral "
-                f"8x22B, RecurrentGemma-9B, MusicGen-Large, Qwen2-VL-2B and "
-                f"Qwen2.5-32B attention at prefill 8192 and decode 1 x 32768 / 4096, "
-                f"and the edge cases"
+                f"8x22B, RecurrentGemma-9B, MusicGen-Large, Qwen2-VL-2B, "
+                f"Qwen2.5-32B and DeepSeek-67B attention at prefill 8192 "
+                f"and decode 1 x 32768 / 4096, and the edge cases"
                 + ("; the decode route's time includes its combine"
                    if key == "flash_attention.decode" else "")
                 + "; launches: phase 7's language-model runs (the golden "
                   "f32 runs and the bf16 runs of Qwen3-0.6B, "
                   "RecurrentGemma-9B, Moonshot-v1-16B-A3B, Qwen2-VL-2B, "
-                  "MusicGen-Large, Gemma-2-27B and Qwen2.5-32B; by run in "
+                  "MusicGen-Large, Gemma-2-27B, Qwen2.5-32B, and "
+                  "DeepSeek-67B and Mixtral-8x22B at cut depth; by run in "
                   "launches_by_lm_run), "
                   "launches_train: phase 8's training "
                   "runs (the f32 golden runs and the bf16 Qwen3-0.6B "

@@ -10,6 +10,7 @@ order, as JAX flattens dicts. ``associative_scan`` is the port of
 """
 from __future__ import annotations
 
+import itertools
 import math
 from dataclasses import dataclass
 from typing import Callable, Optional, Sequence
@@ -84,11 +85,11 @@ def materialize(spec: Spec, generator: torch.Generator, dtype,
                 device, shape=None) -> torch.Tensor:
     """Turn one Spec into an initialized tensor on ``device``, its random
     draws from ``generator`` (which must live on ``device``). ``shape``:
-    only a leading slice of the leaf, of that shape, drawn as the leaf's
-    own values are (the same scale) from the generator's next draws; on
-    the CPU the slices of a leaf drawn one after another are its whole
-    draw by bits where each slice holds a multiple of 16 elements (the
-    normal and uniform fills go 16 values at a time)."""
+    only a block of the leaf, of that shape, drawn as the leaf's own
+    values are (the same scale) from the generator's next draws; on the
+    CPU the blocks of a leaf drawn one after another in its memory order
+    are its whole draw by bits where each block holds a multiple of 16
+    elements (the normal and uniform fills go 16 values at a time)."""
     shp = spec.shape if shape is None else tuple(shape)
     f32 = dict(dtype=torch.float32, device=device)
     if spec.init == "zeros":
@@ -112,17 +113,18 @@ def materialize(spec: Spec, generator: torch.Generator, dtype,
 
 def init_tree(specs, generator: torch.Generator, dtype, device,
               cast_to: Callable = lambda path: None,
-              block_rows: Callable = lambda path, spec: 0,
+              block_rows: Callable = lambda path, spec: (),
               path: tuple = ()):
     """Materialize a tree of Specs in ``dtype``, leaf after leaf in sorted
     key order from one generator, each leaf cast to ``cast_to(path)``
     (``None``: kept in ``dtype``) before the next leaf is drawn, so that no
     more than one leaf is ever held in ``dtype``. A leaf for which
-    ``block_rows(path, spec)`` is n > 0 is drawn n rows of its leading dim
-    at a time, each block cast into the leaf: the whole leaf's draw by bits
-    on the CPU, where every block but the last holds a multiple of 16
-    elements and the last at least 16 (the normal fill goes 16 values at a
-    time)."""
+    ``block_rows(path, spec)`` is a block (n0, ..., nk), not ``()``, is
+    drawn a block of that extent in its leading dims at a time, in row-major
+    order, each block cast into the leaf: the whole leaf's draw by bits on
+    the CPU where every dim of the block but its last is 1 and every block
+    but the last holds a multiple of 16 elements and the last at least 16
+    (the normal fill goes 16 values at a time)."""
     if isinstance(specs, dict):
         return {k: init_tree(specs[k], generator, dtype, device, cast_to,
                              block_rows, path + (k,))
@@ -130,15 +132,16 @@ def init_tree(specs, generator: torch.Generator, dtype, device,
     dt = cast_to(path) or dtype
     if specs.init in ("zeros", "ones"):
         return materialize(specs, generator, dt, device)
-    rows = block_rows(path, specs)
-    if not rows:
+    block = tuple(block_rows(path, specs))
+    if not block:
         return materialize(specs, generator, dtype, device).to(dt)
     out = torch.empty(specs.shape, dtype=dt, device=device)
-    n, rest = specs.shape[0], tuple(specs.shape[1:])
-    for i in range(0, n, rows):
-        m = min(rows, n - i)
-        out[i:i + m].copy_(materialize(specs, generator, dtype, device,
-                                       (m,) + rest))
+    lead, rest = specs.shape[:len(block)], tuple(specs.shape[len(block):])
+    for at in itertools.product(*(range(0, n, r)
+                                  for n, r in zip(lead, block))):
+        extent = tuple(min(r, n - i) for i, r, n in zip(at, block, lead))
+        out[tuple(slice(i, i + m) for i, m in zip(at, extent))].copy_(
+            materialize(specs, generator, dtype, device, extent + rest))
     return out
 
 

@@ -484,30 +484,45 @@ def init_params(cfg: ModelConfig, generator: torch.Generator, device):
                      getattr(torch, cfg.param_dtype), device)
 
 
-# a leaf whose f32 draw is larger is drawn in blocks of its leading dim by
-# ``init_cast_params``: the draw and its cast then stay under 2.5 GB above
-# the cast tree. A stacked leaf goes a group at a time (Moonshot-v1-16B-A3B's
-# expert leaves, 35.4 GB each in f32, draw 738 MB at a time), an unstacked
-# one in blocks of rows of at most this size (Gemma-2-27B's embedding, 4.72
-# GB in f32, in three draws)
+# a leaf whose f32 draw is larger is drawn in blocks by ``init_cast_params``:
+# the draw and its cast then stay under 2.5 GB above the cast tree. A
+# stacked leaf goes a group at a time (Moonshot-v1-16B-A3B's expert leaves,
+# 35.4 GB each in f32, draw 738 MB at a time), and a group itself over this
+# size in blocks of its next dim (Mixtral-8x22B's (8, 6144, 16384) expert
+# groups, 3.2 GB in f32, 4 experts a draw); an unstacked leaf goes in blocks
+# of rows of at most this size (Gemma-2-27B's embedding, 4.72 GB in f32, in
+# three draws)
 SLICE_BYTES = 3 << 29
 
 
-def block_rows(path: tuple, shape: tuple) -> int:
-    """The leading-dim rows of each draw of the leaf at ``path`` (its keys)
-    of ``shape``: 0 (drawn whole) where its f32 draw is at most
-    ``SLICE_BYTES`` or it has one dim (the "decay" and "lambda" fills span
-    the last dim); else 1 for a stacked leaf (under ``"scan"``: a group);
-    else the most rows whose f32 draw is at most ``SLICE_BYTES`` and holds a
-    multiple of 16 elements (``layers.init_tree``: the whole draw by bits
-    on the CPU), at least the fewest rows that hold such a multiple."""
-    if len(shape) < 2 or 4 * math.prod(shape) <= SLICE_BYTES:
-        return 0
-    if path[0] == "scan":
-        return 1
+def _row_block(shape: tuple) -> int:
+    """The most leading-dim rows of ``shape`` whose f32 draw is at most
+    ``SLICE_BYTES`` and holds a multiple of 16 elements, at least the fewest
+    rows that hold such a multiple."""
     row = math.prod(shape[1:])
     step = 16 // math.gcd(16, row)
     return max(step, SLICE_BYTES // (4 * row) // step * step)
+
+
+def block_rows(path: tuple, shape: tuple) -> tuple:
+    """The block of each draw of the leaf at ``path`` (its keys) of
+    ``shape``, its extent in the leading dims (``layers.init_tree``):
+    ``()`` (drawn whole) where its f32 draw is at most ``SLICE_BYTES`` or it
+    has one dim (the "decay" and "lambda" fills span the last dim); for a
+    stacked leaf (under ``"scan"``) ``(1,)``, a group, or where one group
+    is over ``SLICE_BYTES`` and has two dims or more, ``(1, n)``: the group
+    in blocks of n rows of its next dim (``_row_block`` of the group); else
+    ``(n,)``, blocks of ``_row_block`` rows. Every block but a leaf's last
+    holds a multiple of 16 elements (a group's last too, where the group
+    does), so that the draw is the whole draw by bits on the CPU."""
+    if len(shape) < 2 or 4 * math.prod(shape) <= SLICE_BYTES:
+        return ()
+    if path[0] != "scan":
+        return (_row_block(shape),)
+    group = shape[1:]
+    if len(group) < 2 or 4 * math.prod(group) <= SLICE_BYTES:
+        return (1,)
+    return (1, _row_block(group))
 
 
 def init_cast_params(cfg: ModelConfig, generator: torch.Generator, device):
@@ -515,9 +530,10 @@ def init_cast_params(cfg: ModelConfig, generator: torch.Generator, device):
     order from the same generator, each leaf cast as ``cast_params`` casts
     it before the next leaf is drawn, so that init holds the cast tree and
     at most ``SLICE_BYTES`` in f32, never the f32 tree. A leaf of more than
-    ``SLICE_BYTES`` in f32 is drawn in blocks of its leading dim into its
-    cast (``block_rows``: a stacked leaf one group at a time, an unstacked
-    one in blocks of rows). On the CPU the result is
+    ``SLICE_BYTES`` in f32 is drawn in blocks of its leading dims into its
+    cast (``block_rows``: a stacked leaf one group at a time, or a group
+    over ``SLICE_BYTES`` in blocks of its next dim, an unstacked one in
+    blocks of rows). On the CPU the result is
     ``cast_params(init_params(...))`` by bits; on CUDA a leaf drawn in blocks
     draws other values (Philox draws a block from its own offset)."""
     dt = getattr(torch, cfg.dtype)

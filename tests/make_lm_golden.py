@@ -7,6 +7,7 @@ prompts that numpy makes from a seed.
     PYTHONPATH=src JAX_PLATFORMS=cpu python tests/make_lm_golden.py --moe
     PYTHONPATH=src JAX_PLATFORMS=cpu python tests/make_lm_golden.py --vlm-audio
     PYTHONPATH=src JAX_PLATFORMS=cpu python tests/make_lm_golden.py --dense-large
+    PYTHONPATH=src JAX_PLATFORMS=cpu python tests/make_lm_golden.py --past-card
 
 Not a test (pytest collects ``test_*.py`` only). The first writes
 ``golden/lm_session_f32.json``, runs each in f32:
@@ -65,6 +66,20 @@ each in f32:
 - ``qwen2.5-32b``'s smoke config with 10 query heads over 2 KV heads, the
   published GQA group of 5 (40 over 8).
 
+``--past-card`` writes ``golden/lm_session_past_card_f32.json`` (~3 min,
+~13 GB at its peak here), runs each in f32, 2 prompts of 64 or 32 tokens,
+8 steps, of the two configs that fit no card whole:
+
+- ``deepseek-67b`` at full width (d_model 8192, 64/8 heads of 128, a GQA
+  group of 8, d_ff 22016, vocab 102400) cut to ``PAST_CARD_LAYERS`` of 95
+  (2.37 B parameters, 9.5 GB): on the card only;
+- ``mixtral-8x22b`` at full width (d_model 6144, 48/8 heads of 128, window
+  4096, 8 experts of moe_d_ff 16384, top-2, vocab 32768) cut to
+  ``PAST_CARD_LAYERS`` of 56 (2.91 B parameters, 11.6 GB): on the card
+  only; it also keeps each router call's top-2 experts (``routing``);
+- ``deepseek-67b``'s smoke config with 16 query heads over 2 KV heads, the
+  published GQA group of 8 (64 over 8).
+
 A vlm run feeds embeddings, not tokens, which ``ServeSession.generate``
 does not pass: it drives ``make_prefill_step`` and ``make_decode_step``
 itself (``vlm_generate``). The embeddings are numpy's standard normal
@@ -83,7 +98,9 @@ codebooks, and their rows are the same either way).
 
 A MoE run also keeps ``router_margin``: the smallest gap between the K-th
 and the (K+1)-th largest router probability over every token, layer and
-step, where a routing choice would flip first.
+step, where a routing choice would flip first. A run with
+``record_routing`` keeps ``routing`` too: each router call's top-K expert
+indices, in call order, one row of K per token.
 
 Per run the file keeps the config's name and overrides, the seeds, the
 prompts, a sha256 of the weights (``convert.tree_sha256``: whether numpy
@@ -121,6 +138,7 @@ OUT_RECURRENT = os.path.join(GOLDEN, "lm_session_recurrent_f32.json")
 OUT_MOE = os.path.join(GOLDEN, "lm_session_moe_f32.json")
 OUT_VLM_AUDIO = os.path.join(GOLDEN, "lm_session_vlm_audio_f32.json")
 OUT_DENSE_LARGE = os.path.join(GOLDEN, "lm_session_dense_large_f32.json")
+OUT_PAST_CARD = os.path.join(GOLDEN, "lm_session_past_card_f32.json")
 QWEN3_LAYERS = 4
 RWKV_LAYERS = 2
 GRIFFIN_LAYERS = 3
@@ -128,6 +146,7 @@ MOE_LAYERS = 1
 VLM_LAYERS = 4
 AUDIO_LAYERS = 4
 GEMMA_LAYERS = 2
+PAST_CARD_LAYERS = 1
 TOP = 8
 RUNS = [
     dict(name="qwen3-0.6b", smoke=False,
@@ -191,24 +210,49 @@ DENSE_LARGE_RUNS = [
          overrides=dict(dtype="float32", n_heads=10, n_kv_heads=2),
          seed=0, prompt_seed=1, batch=2, prompt_len=32, steps=8),
 ]
+PAST_CARD_RUNS = [
+    dict(name="deepseek-67b", smoke=False,
+         overrides=dict(dtype="float32", n_layers=PAST_CARD_LAYERS),
+         seed=0, prompt_seed=1, batch=2, prompt_len=64, steps=8),
+    # prompt seed 1: its smallest router margin over the 9 router calls,
+    # 1.7e-3, stands four orders above the f32 noise of the router's
+    # probabilities between the card and this CPU (summation order over
+    # d_model 6144: ~1e-7), where Moonshot's full-width run sits at 6.3e-7
+    dict(name="mixtral-8x22b", smoke=False,
+         overrides=dict(dtype="float32", n_layers=PAST_CARD_LAYERS),
+         seed=0, prompt_seed=1, batch=2, prompt_len=64,
+         steps=8, record_routing=True),
+    # prompt seed 2: seed 1's prompts leave a top-1 margin under
+    # chip_smoke's LM_F32_TOL at step 4, after which no token would be
+    # compared
+    dict(name="deepseek-67b", smoke=True,
+         overrides=dict(dtype="float32", n_heads=16, n_kv_heads=2),
+         seed=0, prompt_seed=2, batch=2, prompt_len=32, steps=8),
+]
 MODES = {(): (RUNS, OUT), ("--recurrent",): (RECURRENT_RUNS, OUT_RECURRENT),
          ("--moe",): (MOE_RUNS, OUT_MOE),
          ("--vlm-audio",): (VLM_AUDIO_RUNS, OUT_VLM_AUDIO),
-         ("--dense-large",): (DENSE_LARGE_RUNS, OUT_DENSE_LARGE)}
+         ("--dense-large",): (DENSE_LARGE_RUNS, OUT_DENSE_LARGE),
+         ("--past-card",): (PAST_CARD_RUNS, OUT_PAST_CARD)}
 
 
 @contextlib.contextmanager
-def router_margins(margins: list):
+def router_margins(margins: list, routing: list = None):
     """``jax.lax.top_k`` (which only the MoE router calls) taking k + 1
     values, the (k+1)-th only to append the smallest K-th minus (K+1)-th
-    gap of each call to ``margins`` (a host callback under ``jit``); the
-    top k it returns are ``top_k``'s own."""
+    gap of each call to ``margins`` (a host callback under ``jit``), and,
+    with ``routing``, each call's top-k indices as rows of k; the top k it
+    returns are ``top_k``'s own."""
     real = jax.lax.top_k
+
+    def keep(v, i, k):
+        margins.append(float(np.min(v[..., k - 1] - v[..., k])))
+        if routing is not None:
+            routing.append(np.asarray(i)[..., :k].reshape(-1, k).tolist())
 
     def top_k(x, k):
         vals, idx = real(x, k + 1)
-        jax.debug.callback(lambda v: margins.append(float(np.min(
-            v[..., k - 1] - v[..., k]))), vals)
+        jax.debug.callback(lambda v, i: keep(v, i, k), vals, idx)
         return vals[..., :k], idx[..., :k]
     jax.lax.top_k = top_k
     try:
@@ -265,6 +309,7 @@ def golden_run(run: dict) -> dict:
     sess._prefill, sess._decode = keep(prefill), keep(decode)
     B, S = run["batch"], run["prompt_len"]
     margins: list = []
+    routing = [] if run.get("record_routing") else None
     inputs: dict = {}
     if cfg.family == "vlm":
         embeds = np.random.default_rng(run["embed_seed"]).standard_normal(
@@ -279,7 +324,7 @@ def golden_run(run: dict) -> dict:
         shape = (B, cfg.n_codebooks, S) if cfg.n_codebooks else (B, S)
         toks = np.random.default_rng(run["prompt_seed"]).integers(
             0, cfg.vocab_size, shape, dtype=np.int32)
-        with router_margins(margins):
+        with router_margins(margins, routing):
             out = np.asarray(sess.generate(jnp.asarray(toks), run["steps"]))
         inputs["prompts"] = toks.tolist()
     top = []
@@ -288,6 +333,8 @@ def golden_run(run: dict) -> dict:
         top.append({"index": idx.tolist(),
                     "value": np.take_along_axis(logits, idx, -1).tolist()})
     extra = {"router_margin": min(margins)} if margins else {}
+    if routing is not None:
+        extra["routing"] = routing
     return dict(run, weights_sha256=sha, **inputs, tokens=out.tolist(),
                 top=top, **extra)
 
@@ -295,7 +342,7 @@ def golden_run(run: dict) -> dict:
 def main(argv: list) -> None:
     if tuple(argv[1:]) not in MODES:
         raise SystemExit(f"usage: {argv[0]} [--recurrent | --moe | "
-                         f"--vlm-audio | --dense-large]")
+                         f"--vlm-audio | --dense-large | --past-card]")
     specs, out_path = MODES[tuple(argv[1:])]
     runs = [golden_run(r) for r in specs]
     os.makedirs(GOLDEN, exist_ok=True)

@@ -477,7 +477,7 @@ def test_unstacked_leaf_in_row_blocks_is_the_whole_draw(shape, slice_bytes,
     from repro_torch.models import transformer as tfm
     from repro_torch.models.layers import Spec, init_tree
     monkeypatch.setattr(tfm, "SLICE_BYTES", slice_bytes)
-    assert tfm.block_rows(("embed",), shape) == rows
+    assert tfm.block_rows(("embed",), shape) == (rows,)
     row = math.prod(shape[1:])
     assert rows * row % 16 == 0 and 4 * rows * row <= slice_bytes
     spec = {"embed": Spec(shape, ("vocab",) + ("d",) * (len(shape) - 1),
@@ -499,6 +499,46 @@ def test_unstacked_leaf_in_row_blocks_is_the_whole_draw(shape, slice_bytes,
     assert got.dtype == torch.bfloat16 and torch.equal(got, want)
 
 
+@pytest.mark.parametrize("shape,slice_bytes,block", [
+    ((3, 5, 4, 8), 4 * 32 * 2, (1, 2)),    # rows of 32: 2, 2, 1 a group
+    ((2, 8, 3, 4), 4 * 12 * 5, (1, 4)),    # rows of 12: 4 rows a draw
+])
+def test_stacked_group_in_blocks_is_the_whole_draw(shape, slice_bytes,
+                                                   block, monkeypatch):
+    """With ``SLICE_BYTES`` under one group of a stacked leaf (Mixtral's
+    (8, 6144, 16384) expert groups at full width), the leaf is drawn a
+    group at a time in blocks of rows of the group's next dim (each at
+    most ``SLICE_BYTES`` in f32 and a multiple of 16 elements), cast into
+    the leaf, and equals the whole draw's cast by bits on the CPU."""
+    from repro_torch.models import transformer as tfm
+    from repro_torch.models.layers import Spec, init_tree
+    monkeypatch.setattr(tfm, "SLICE_BYTES", slice_bytes)
+    path = ("scan", "l0", "ffn", "wi")
+    assert 4 * math.prod(shape[1:]) > slice_bytes
+    assert tfm.block_rows(path, shape) == block
+    row = math.prod(shape[2:])
+    assert block[1] * row % 16 == 0 and 4 * block[1] * row <= slice_bytes
+    spec = {"scan": {"l0": {"ffn": {"wi": Spec(
+        shape, ("layers", "experts", "d_model", "moe_d_ff"), scale=0.02)}}}}
+    draws = []
+    real = tlayers.materialize
+
+    def counted(*a, **kw):
+        out = real(*a, **kw)
+        draws.append(tuple(out.shape))
+        return out
+    monkeypatch.setattr(tlayers, "materialize", counted)
+    got = init_tree(spec, torch.Generator().manual_seed(5), torch.float32,
+                    "cpu", lambda path: torch.bfloat16,
+                    lambda path, s: tfm.block_rows(path, s.shape))
+    got = got["scan"]["l0"]["ffn"]["wi"]
+    assert len(draws) == shape[0] * -(-shape[1] // block[1])
+    assert all(d[0] == 1 and 4 * math.prod(d) <= slice_bytes for d in draws)
+    want = torch.randn(shape, generator=torch.Generator().manual_seed(5)).mul_(
+        0.02).to(torch.bfloat16)
+    assert got.dtype == torch.bfloat16 and torch.equal(got, want)
+
+
 @pytest.mark.parametrize("name", sorted(T_ARCHS))
 def test_init_draws_at_most_slice_bytes_in_f32(name, monkeypatch):
     """The init in the serving dtypes of every config at full width and
@@ -506,9 +546,9 @@ def test_init_draws_at_most_slice_bytes_in_f32(name, monkeypatch):
     ``SLICE_BYTES``, which is under ``chip_smoke.INIT_PEAK_SLACK``: init's
     peak above what it holds. Gemma-2-27B's 256,000 x 4608 embedding takes
     three draws, Qwen2.5-32B's embedding and head two each. A stacked leaf
-    is drawn a group at a time, and Mixtral-8x22B's expert groups (3.2 GB
-    in f32; 281 GB in bf16, no one card holds it) are over: there only its
-    unstacked leaves are held to the limit."""
+    is drawn a group at a time (Moonshot's expert groups, 738 MB), and
+    Mixtral-8x22B's expert groups (3.2 GB in f32) in blocks of 4 experts,
+    two draws a group."""
     from repro_torch.models import transformer as tfm
     from test_torch_session import _chip_smoke
     draws = []
@@ -519,15 +559,19 @@ def test_init_draws_at_most_slice_bytes_in_f32(name, monkeypatch):
             draws.append((spec.names, 4 * math.prod(shp)))
         return torch.empty(shp, dtype=dtype, device="meta")
     monkeypatch.setattr(tlayers, "materialize", meta)
-    tfm.init_cast_params(T_ARCHS[name], torch.Generator(), "meta")
-    held = [b for n, b in draws
-            if name != "mixtral-8x22b" or n[0] != "layers"]
-    assert max(held) <= tfm.SLICE_BYTES < _chip_smoke().INIT_PEAK_SLACK
+    cfg = T_ARCHS[name]
+    tfm.init_cast_params(cfg, torch.Generator(), "meta")
+    assert max(b for _, b in draws) <= tfm.SLICE_BYTES \
+        < _chip_smoke().INIT_PEAK_SLACK
     heads = [n for n, _ in draws if n in (("vocab", "d_model"),
                                            ("d_model", "vocab"))]
     want = {"gemma2-27b": 3, "qwen2.5-32b": 4}
     if name in want:
         assert len(heads) == want[name]
+    experts = [n for n, _ in draws if n[:2] == ("layers", "experts")]
+    per_group = {"mixtral-8x22b": 2, "moonshot-v1-16b-a3b": 1}
+    if name in per_group:
+        assert len(experts) == 3 * per_group[name] * cfg.n_groups
 
 
 def test_init_kv_cache_matches_jax():
