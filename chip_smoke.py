@@ -267,23 +267,25 @@ order; any failure raises and the script exits nonzero:
    ``flash_attention_combine``); RecurrentGemma-9B, 2 prompts of 2560
    tokens (past its 2048 window), 32 steps (12 ``mma`` per prefill, 12
    ``decode`` and 12 ``combine`` a step); Moonshot-v1-16B-A3B, 4 prompts
-   of 1024 tokens, 32 steps (48 ``mma``, 48 ``decode`` and 48 ``combine``
+   of 1024 tokens, 16 steps (48 ``mma``, 48 ``decode`` and 48 ``combine``
    a step; 56.1 GB of params, freed before the next phase); Qwen2-VL-2B,
    4 sequences of one 32 x 32 image and 1024 text positions, 32
    teacher-forced steps (28 ``mma``, 28 ``decode`` and 28 ``combine`` a
    step); MusicGen-Large, 4 x 4 codebooks x 1024 prompt tokens, 32 steps
    (48 ``mma``, 48 ``decode`` and 48 ``combine`` a step); Gemma-2 27B,
    2 prompts of 5120 tokens (past its 4096 window: every local ring wraps
-   from the first decode step), 32 steps (46 ``mma``, 46 ``decode`` and 46
+   from the first decode step), 16 steps (46 ``mma``, 46 ``decode`` and 46
    ``combine`` a step; 54.45 GB of params, its embedding drawn in row
-   blocks); Qwen2.5-32B, 4 prompts of 1024 tokens, 32 steps (64 of each;
+   blocks); Qwen2.5-32B, 4 prompts of 1024 tokens, 16 steps (64 of each;
    65.53 GB of params, a GQA group of 5); the two configs that fit no card
    whole at full width and cut depth (each line gives the depth beside
    the published one): DeepSeek-67B at 40 of 95 layers, 4 prompts of 2048
-   tokens, 32 steps (40 of each; 58.72 GB of params, a GQA group of 8),
+   tokens, 16 steps (40 of each; 58.72 GB of params, a GQA group of 8),
    and Mixtral 8x22B at 12 of 56 layers, 2 prompts of 5120 tokens (past
-   its 4096 window), 32 steps (12 of each; 60.90 GB of params, its expert
-   groups drawn 4 experts at a time); each step's
+   its 4096 window), 16 steps (12 of each; 60.90 GB of params, its expert
+   groups drawn 4 experts at a time; these five decode 16 steps, 32
+   before phase 8 trained three more configs whole, to keep the run in
+   time); each step's
    logits of the nine against the same model on
    ``flash_attention_plain`` fed the kernels' tokens (the MoE models' also
    the kernels' routing, each MoE layer's top-k indices recorded in the
@@ -336,22 +338,40 @@ order; any failure raises and the script exits nonzero:
    carries rounding into the weights) of the golden's, and the attention
    launches exactly ``train_launches_want`` (``tf32x3``: one per
    attention layer in the forward and one more in its group's
-   recompute, per microbatch). The bf16 run
-   (``train_bf16``, ``TRAIN_BF16``): Qwen3-0.6B at full width and depth
-   (28 layers, f32 master weights from a seeded generator on the card,
-   bf16 compute, remat ``"full"``, the loss in 8 chunks), the ``Trainer``
-   4 steps of 4 x 2048 tokens from ``DataLoader`` with a checkpoint at
-   step 2: each step 56 ``flash_attention.mma`` launches (28 x (1 + 1)),
-   counts zeroed just before it and read just after; the step-2
-   checkpoint restored equal by bits; step 1 again on the kernels and on
-   ``flash_attention_plain``: every gradient leaf finite and nonzero on
-   the kernels, each within ``TRAIN_GRAD_TOL`` of the plain run's by norm,
-   the losses within ``TRAIN_BF16_LOSS_TOL``. It prints ms per step (the
-   median of steps 2-4), tokens/s, the peak of
-   ``torch.cuda.max_memory_allocated`` in a step, and from one profiled
-   step the attention forward's share of device time, the backward's (the
-   kernels inside the attention backward's profiler range) and the idle
-   share.
+   recompute, per microbatch). And against
+   ``tests/golden/train_full_width_f32.json`` (``--full-width``, card
+   only): Qwen2-VL-2B (2 x 256, embeddings kept by their sha256 and made
+   again by ``make_batch``), RWKV-6 1.6B (2 x 2048: the WKV state carried
+   across two chunks of 1024) and MusicGen-Large (``grad_accum`` 2, 4 x 4
+   x 256), each at its published width cut to 2 layers, and MusicGen's
+   smoke config under ``grad_accum`` 2. Each golden runs the donated step
+   (``donate=True``, the Trainer's); the goldens' numpy weights are drawn
+   on ``GOLDEN_THREADS`` threads beside the bf16 runs, as phase 7's are.
+   The bf16 runs (``train_bf16``, ``TRAIN_BF16_RUNS``), each at full
+   width and depth through the ``Trainer``, whose step is donated (one
+   train state held: MusicGen-Large's 39.1 GB would not fit twice), f32
+   master weights from its seeded draw on the card, bf16 compute, remat
+   ``"full"``, the loss in 8 chunks: Qwen3-0.6B 4 steps of 4 x 2048 with
+   a checkpoint at step 2, Qwen2-VL-2B 3 steps of 4 x 2048 embeddings at
+   M-RoPE positions, RWKV-6 1.6B 3 steps of 4 x 2048, MusicGen-Large 3
+   steps of 4 x 4 x 1024 in two microbatches; each step 56, 56, 0 and 192
+   ``flash_attention.mma`` launches, counts zeroed just before it and read
+   just after. Before the first step, the Trainer's initial params and
+   step 1's batch, a microbatch at a time, on the kernels and on
+   ``flash_attention_plain`` (``train_grad_errors``): every gradient leaf
+   finite and nonzero on the kernels (a vlm's ``embed``, which embeddings
+   never reach, zero in both), each within ``TRAIN_GRAD_TOL`` of the
+   plain run's by norm, the losses within ``TRAIN_BF16_LOSS_TOL``, the
+   kernels' launches one step's (RWKV-6 has no attention and no plain
+   pair: finite and nonzero only). Qwen3's step-2 checkpoint restored to
+   the sha256 of every leaf of the state it was taken from
+   (``state_hashes``, hashed after the step: the next one overwrites the
+   tensors). Each run prints ms per step (the median of steps 2 on),
+   tokens/s, the peak of ``torch.cuda.max_memory_allocated`` in each
+   step, the train state's bytes and what the functional step's update
+   would hold, and from one profiled step the attention forward's share
+   of device time, the backward's (the kernels inside the attention
+   backward's profiler range) and the idle share.
 9. The design-space sweep (``dse_checks``), through ``run_sweep`` and
    the CLI a user calls: ``DSE_GRID`` (ResNet-18 and MobileNet-1.0 at
    published widths, log blocks 4 and 5, memory widths 8 and 32,
@@ -397,8 +417,9 @@ order; any failure raises and the script exits nonzero:
    distributed by the logical rules and ``generate`` under ``use_rules``:
    tokens and every step's logits equal by bits, the attention launches
    under the rules exactly phase 7's; prefill and decode ms of both, and
-   phase 7's, recorded. 10b (``mesh_train``): one train step at phase 8's
-   configuration from its starting params and first batch, plain and
+   phase 7's, recorded. 10b (``mesh_train``): one functional train step at
+   the configuration of phase 8's Qwen3 run from its starting params and
+   first batch, plain and
    under the rules: loss and grad_norm equal by bits, every updated param
    and AdamW moment equal by bits and in its param's placements, every
    gradient in its param's placements, 56 ``mma`` launches. 10c
@@ -483,7 +504,9 @@ state, a cast at load that rounds the RG-LRU gates to bf16, M-RoPE
 reading row 0 for every section, and a codebook head that reads the next
 codebook's weights; in training, an attention forward whose result has
 no ``grad_fn``, a backward whose dK and dV keep one query head of each
-GQA group, and a ``grad_accum`` loop that drops its last microbatch; in the
+GQA group, a ``grad_accum`` loop that drops its last microbatch, a
+donated update that leaves the second moment as it was, and a donated
+microbatch sum that skips the second microbatch; in the
 sweep, ``CardFault`` caught at ``eval_job`` as an infeasible point, a
 verification on the captured route, and one that resolves the card to
 ``"torch-cpu"``; in the mesh layer, a DTensor attention that takes the
@@ -3489,7 +3512,11 @@ LM_FORWARD_TOL = 1e-3
 # ``transformer.SLICE_BYTES`` in f32 and its cast: under 2.5 GB. Keeping
 # the f32 tree beside its cast costs twice the params
 INIT_PEAK_SLACK = 2.5e9
-# bf16 at full width and depth, weights from a seeded generator on the card
+# bf16 at full width and depth, weights from a seeded generator on the card.
+# The five largest runs decode 16 steps (32 before phase 8 trained the vlm,
+# ssm and audio configs whole): their plain reruns took 137 of phase 7's
+# 292 s on an H100, most of it the plain decode, whose key block halves
+# down to 1 at an odd cache length (the reference's rule, ``_blocks``)
 LM_BF16_RUNS = (
     dict(name="qwen3-0.6b", seed=0, batch=4, prompt_len=1024, steps=32),
     dict(name="rwkv6-1.6b", seed=0, batch=4, prompt_len=2048, steps=32),
@@ -3501,10 +3528,10 @@ LM_BF16_RUNS = (
     # init in the serving dtypes. ``exact_ties``: an argmax that differs
     # from the plain run's where one run's largest logit is held by two
     # tokens, the other run's choice one of them, is listed, not counted
-    # (this run's steps 6 and 9 on the card: the kernels' 3.78125 and
-    # 3.875, each held twice)
+    # (steps 6 and 9 on an H100, at 32 decode steps and at 16: the
+    # kernels' 3.78125 and 3.875, each held twice)
     dict(name="moonshot-v1-16b-a3b", seed=0, batch=4, prompt_len=1024,
-         steps=32, exact_ties=True),
+         steps=16, exact_ties=True),
     # 1.77 B parameters, 3.5 GB: one image of 32 x 32 patches (1024
     # positions), then 1024 positions of text; each decode step fed the
     # next seeded embedding (``vlm_generate``)
@@ -3526,24 +3553,26 @@ LM_BF16_RUNS = (
     # window: the window bites in prefill, and the ring of every local
     # layer wraps from the first decode step. KV cache 1.94 GB (23 global
     # layers) + 1.54 GB (23 local)
-    dict(name="gemma2-27b", seed=0, batch=2, prompt_len=5120, steps=32),
+    dict(name="gemma2-27b", seed=0, batch=2, prompt_len=5120, steps=16),
     # 32.8 B parameters, 65.53 GB in bf16, a GQA group of 5 (40 query heads
     # over 8); KV cache 1.11 GB; about 70 GB at the peak. Its top logits sit
-    # near 6, where a bf16 step is 2^-5: on an H100 3 of 132 rows differed
-    # from the plain run's, two at an exact tie in the kernels' run (6.25
-    # twice, 5.90625 twice) and one with the two tokens one step apart in
-    # both runs, in opposite order (5.96875 and 5.9375): listed, not counted
-    dict(name="qwen2.5-32b", seed=0, batch=4, prompt_len=1024, steps=32,
-         exact_ties=True, step_ties=True),
+    # near 6, where a bf16 step is 2^-5: at 16 steps on an H100 1 of 68
+    # rows differed from the plain run's, at an exact tie in the kernels'
+    # run (6.25 twice, step 8): listed, not counted. No row differed with
+    # the two tokens one step apart in both runs in 16 steps (one did at
+    # 32), so this run takes no ``step_ties``
+    dict(name="qwen2.5-32b", seed=0, batch=4, prompt_len=1024, steps=16,
+         exact_ties=True),
     # past one card whole (134.85 GB in bf16), so at full width cut to 40 of
     # 95 layers: 29.36 B parameters, 58.72 GB in bf16; a GQA group of 8 (64
     # query heads over 8), its 102,400-row embedding and head drawn in row
     # blocks; KV cache 1.34 GB; 65.8 GB reserved on an H100. Its top
-    # logits sit near 7.5, where a bf16 step is 2^-5: on the card 3 of 132
-    # rows differed from the plain run's, each at an exact tie of one run's
-    # largest logit (7.46875 twice in the kernels' run; 7.4375 and 7.53125
-    # twice in the plain run's): listed, not counted
-    dict(name="deepseek-67b", seed=0, batch=4, prompt_len=2048, steps=32,
+    # logits sit near 7.5, where a bf16 step is 2^-5: at 16 steps on the
+    # card 3 of 68 rows differed from the plain run's, each at an exact
+    # tie of one run's largest logit (7.46875 twice in the kernels' run at
+    # step 4; 7.4375 and 7.53125 twice in the plain run's at steps 7 and
+    # 13): listed, not counted
+    dict(name="deepseek-67b", seed=0, batch=4, prompt_len=2048, steps=16,
          overrides=dict(n_layers=40), exact_ties=True),
     # past one card whole (281.26 GB in bf16), so at full width cut to 12 of
     # 56 layers: 30.45 B parameters, 60.90 GB in bf16, each layer's expert
@@ -3551,12 +3580,11 @@ LM_BF16_RUNS = (
     # the 4096 window: the window bites in prefill, and every layer's ring
     # wraps from the first decode step. Top-2 of 8 experts at capacity
     # int(1.25 * 2 * 10240 / 8) = 3200 in prefill; KV cache 0.40 GB; 67.1
-    # GB reserved on an H100. On the card 3 of 66 rows differed from the
-    # plain run's, each at an exact tie of one run's largest logit (6.40625
-    # twice in the kernels' run at steps 23 and 26; 6.375 twice in the
-    # plain run's at step 30): listed, not counted
-    dict(name="mixtral-8x22b", seed=0, batch=2, prompt_len=5120, steps=32,
-         overrides=dict(n_layers=12), exact_ties=True),
+    # GB reserved on an H100. At 16 steps on the card every argmax agreed
+    # with the plain run's (34 of 34; the exact ties seen at 32 steps fell
+    # at steps 23, 26 and 30), so this run takes no ``exact_ties``
+    dict(name="mixtral-8x22b", seed=0, batch=2, prompt_len=5120, steps=16,
+         overrides=dict(n_layers=12)),
 )
 
 
@@ -4309,7 +4337,11 @@ def lm_errors(fault: str) -> None:
 TRAIN_GOLDEN = os.path.join(ROOT, "tests", "golden", "train_f32.json")
 TRAIN_GOLDEN_FAMILIES = os.path.join(ROOT, "tests", "golden",
                                      "train_families_f32.json")
-TRAIN_GOLDENS = (TRAIN_GOLDEN, TRAIN_GOLDEN_FAMILIES)
+# Qwen2-VL-2B, RWKV-6 1.6B and MusicGen-Large at full width cut to 2
+# layers (card only), and MusicGen's smoke config under grad_accum 2
+TRAIN_GOLDEN_FULL_WIDTH = os.path.join(ROOT, "tests", "golden",
+                                       "train_full_width_f32.json")
+TRAIN_GOLDENS = (TRAIN_GOLDEN, TRAIN_GOLDEN_FAMILIES, TRAIN_GOLDEN_FULL_WIDTH)
 # a batch's keys and dtypes in the golden files (a vlm's embeddings,
 # positions and labels; the others' tokens and labels)
 BATCH_DTYPES = {"tokens": np.int32, "labels": np.int32,
@@ -4345,12 +4377,31 @@ TRAIN_GRAD_TOL = 2.0 ** -4
 # of a loss near 12, which one bf16 step on some attention outputs moves
 # by far less (7.8e-6 on an H100)
 TRAIN_BF16_LOSS_TOL = 2.0 ** -8
-# bf16 at full width and depth: Qwen3-0.6B, 28 layers, f32 master weights
-# from a seeded generator on the card, remat "full", loss in 8 chunks;
-# 4 Trainer steps of 4 x 2048 tokens, a checkpoint at step 2
-TRAIN_BF16 = dict(name="qwen3-0.6b", seed=0, batch=4, seq_len=2048, steps=4,
-                  ckpt_every=2,
-                  opt=dict(lr=1e-4, warmup_steps=2, total_steps=100))
+# bf16 at full width and depth, each through the ``Trainer`` (its step
+# donated), f32 master weights from the Trainer's seeded draw on the card,
+# bf16 compute, remat "full", the loss in 8 chunks (``train_config``).
+# Only Qwen3-0.6B's run checkpoints: the checkpoint code is the same for
+# every family, and writing a 19-39 GB state to the host's disk would cost
+# tens of seconds a run
+TRAIN_OPT = dict(lr=1e-4, warmup_steps=2, total_steps=100)
+TRAIN_BF16_RUNS = (
+    # 28 layers, 4 steps of 4 x 2048 tokens, a checkpoint at step 2
+    dict(name="qwen3-0.6b", seed=0, batch=4, seq_len=2048, steps=4,
+         ckpt_every=2, opt=TRAIN_OPT),
+    # 28 layers, 12 query heads over 2 KV heads of 128 (a GQA group of 6):
+    # make_batch's embeddings at its M-RoPE positions; 21.3 GB of state
+    dict(name="qwen2-vl-2b", seed=0, batch=4, seq_len=2048, steps=3,
+         opt=TRAIN_OPT),
+    # 24 layers, no attention: two scan_chunks of 1024 a sequence; 19.2 GB
+    # of state. Its numerics are held by the f32 golden at full width
+    dict(name="rwkv6-1.6b", seed=0, batch=4, seq_len=2048, steps=3,
+         opt=TRAIN_OPT),
+    # 48 layers, 32 heads of 64, 4 codebooks, grad_accum 2 (two
+    # microbatches of 2 a step); 39.1 GB of state, which the step holds
+    # once: without donation the update alone would hold two (~98 GB)
+    dict(name="musicgen-large", seed=0, batch=4, seq_len=1024, steps=3,
+         opt=TRAIN_OPT),
+)
 
 
 def train_golden(path: str = TRAIN_GOLDEN) -> list:
@@ -4358,18 +4409,26 @@ def train_golden(path: str = TRAIN_GOLDEN) -> list:
         return json.load(f)["runs"]
 
 
+def train_config(spec: dict):
+    """The config of a bf16 training run: the published one with phase 8's
+    overrides (remat "full", the loss in 8 chunks)."""
+    from repro_torch.configs import ARCHS
+    return ARCHS[spec["name"]].replace(remat=True, remat_policy="full",
+                                       loss_chunks=8)
+
+
 def train_attention_launches(cfg) -> int:
-    """The attention kernel's launches in one train step of ``cfg``
-    (forward and backward): one per attention layer in the forward, and
+    """The attention kernel's launches in one forward and backward pass of
+    ``cfg`` (one microbatch): one per attention layer in the forward, and
     one more per attention layer of a checkpointed pattern group, whose
     recompute in the backward runs its forward again (remat ``"full"``
     or ``"dots"``; the trailing layers are not checkpointed). The backward
-    itself launches none. Qwen3-0.6B, 28 attention layers under remat
-    ``"full"``: 28 x (1 + 1) = 56 a step. Every smoke config trains
-    under remat ``"full"`` too, so the golden runs' remat doubles their
-    launches: 4 a step for the Mixtral, RecurrentGemma (two local layers,
-    both in pattern groups), Qwen2-VL and MusicGen smoke configs, 0 for
-    RWKV-6's."""
+    itself launches none. Qwen3-0.6B and Qwen2-VL-2B, 28 attention layers
+    under remat ``"full"``: 28 x (1 + 1) = 56 a pass; MusicGen-Large's 48:
+    96; RWKV-6 0. Every smoke config trains under remat ``"full"`` too, so
+    the golden runs' remat doubles their launches: 4 a pass for the
+    Mixtral, RecurrentGemma (two local layers, both in pattern groups),
+    Qwen2-VL and MusicGen smoke configs, 0 for RWKV-6's."""
     from repro_torch.configs.base import ATTN_GLOBAL, ATTN_LOCAL
     attn = [k in (ATTN_GLOBAL, ATTN_LOCAL) for k in cfg.layer_kinds]
     grouped = sum(attn[:cfg.n_groups * len(cfg.pattern)])
@@ -4380,7 +4439,8 @@ def train_attention_launches(cfg) -> int:
 def train_launches_want(cfg, seq_len: int, steps: int) -> dict:
     """The attention launches of ``steps`` train steps of ``cfg`` at
     ``seq_len``, each step ``cfg.grad_accum`` forward and backward passes
-    (one a microbatch): all on the prefill route of ``cfg.dtype``."""
+    (one a microbatch): all on the prefill route of ``cfg.dtype``.
+    MusicGen-Large a step: 96 x 2 microbatches = 192."""
     import torch
     from repro_torch.kernels.flash_attention import ROUTES, attention_route
     n = steps * cfg.grad_accum * train_attention_launches(cfg)
@@ -4391,19 +4451,41 @@ def train_launches_want(cfg, seq_len: int, steps: int) -> dict:
     return want
 
 
-def train_golden_errors(run: dict, device) -> tuple:
-    """One run of the golden file (``tests/make_train_golden.py``: the JAX
+def state_hashes(tree) -> list:
+    """sha256 of every leaf of a train state ``tree`` (``convert.
+    tree_sha256`` of the leaf's host copy; a bf16 leaf by its bits), in
+    ``tree_leaves`` order, hashed on 8 threads (the copy and hashlib
+    release the GIL): a checkpoint held to the state it was taken from
+    without a second copy of the state on the card."""
+    import torch
+    from repro_torch.models.convert import tree_sha256
+    from repro_torch.utils.tree import tree_leaves
+
+    def one(t):
+        t = t.detach()
+        if t.dtype == torch.bfloat16:
+            t = t.view(torch.int16)
+        return tree_sha256(t.to("cpu").numpy())
+    with concurrent.futures.ThreadPoolExecutor(8) as pool:
+        return list(pool.map(one, tree_leaves(tree)))
+
+
+def train_golden_errors(run: dict, device, drawn: tuple = None) -> tuple:
+    """One run of a golden file (``tests/make_train_golden.py``: the JAX
     package's ``make_train_step`` in f32 on the CPU) through the port's
-    ``make_train_step`` on ``device`` (``grad_accum`` from the run's
-    config: the reference's ``lax.scan`` over microbatches against the
-    port's loop), its attention on the port's kernels
-    (on the card; the plain version's forward on the CPU), weights from
-    ``numpy_params`` with the golden's seed, the batches the golden
-    recorded (``make_batch``'s on the machine that wrote it: numpy's
+    ``make_train_step`` on ``device``, donated as the Trainer's
+    (``grad_accum`` from the run's config: the reference's ``lax.scan``
+    over microbatches against the port's loop), its attention on the
+    port's kernels (on the card; the plain version's forward on the CPU),
+    weights from ``numpy_params`` with the golden's seed (``drawn`` by
+    ``golden_weights``, or drawn here), the batches the golden recorded
+    (``make_batch``'s on the machine that wrote it: numpy's
     ``Generator.zipf`` draws other tokens under other numpy versions, so
     whether this machine's ``make_batch`` gives the same ones is only
-    reported). Counts, each 0 to pass: weights whose sha256 is not the
-    golden's, steps whose loss lies more than ``TRAIN_LOSS_RTOL``, or
+    reported); a full-width vlm run's embeddings, kept by their sha256,
+    made again by ``make_batch`` (its first draw, ``standard_normal``).
+    Counts, each 0 to pass: weights, or embeddings, whose sha256 is not
+    the golden's, steps whose loss lies more than ``TRAIN_LOSS_RTOL``, or
     grad_norm more than ``TRAIN_GNORM_RTOL`` (the first step's, the later
     steps'), from the golden's (relative), or whose lr is not the
     golden's, and on the card attention launches other than
@@ -4411,21 +4493,28 @@ def train_golden_errors(run: dict, device) -> tuple:
     import torch
     from repro_torch.kernels import launch_counts, reset_launch_counts
     from repro_torch.models import build_model
-    from repro_torch.models.convert import (numpy_params, params_from_numpy,
-                                            tree_sha256)
+    from repro_torch.models.convert import params_from_numpy, tree_sha256
     from repro_torch.train.data import DataConfig, make_batch
     from repro_torch.train.optimizer import AdamWConfig, init_opt_state
     from repro_torch.train.step import make_train_step
     cfg = lm_config(run)
-    weights = numpy_params(cfg, run["seed"])
-    errs = {"weights": int(tree_sha256(weights) != run["weights_sha256"])}
+    weights, same, walls = drawn or golden_weights(run)
+    errs = {"weights": int(not same)}
     params = params_from_numpy(weights, device)
     del weights
     opt_state = init_opt_state(params)
-    step = make_train_step(build_model(cfg), AdamWConfig(**run["opt"]))
+    step = make_train_step(build_model(cfg), AdamWConfig(**run["opt"]),
+                           donate=True)
     dcfg = DataConfig(**run["data"])
-    batches = [{k: np.array(g[k], dt) for k, dt in BATCH_DTYPES.items()
-                if k in g} for g in run["per_step"]]
+    batches = []
+    for s, g in enumerate(run["per_step"]):
+        b = {k: np.array(g[k], dt) for k, dt in BATCH_DTYPES.items()
+             if k in g}
+        if "embeds_sha256" in g:
+            b["embeds"] = make_batch(dcfg, cfg, s)["embeds"]
+            errs["embeds"] = errs.get("embeds", 0) + int(
+                tree_sha256(b["embeds"]) != g["embeds_sha256"])
+        batches.append(b)
     same_data = all(all(np.array_equal(v, b[k]) for k, v in make_batch(
         dcfg, cfg, s).items()) for s, b in enumerate(batches))
     batches = [{k: torch.as_tensor(v, device=device) for k, v in b.items()}
@@ -4451,67 +4540,147 @@ def train_golden_errors(run: dict, device) -> tuple:
         errs["launches"] = sum(counts.get(k, 0) != v for k, v in want.items())
     row = dict(config=cfg.name, layers=cfg.n_layers, d_model=cfg.d_model,
                vocab=cfg.vocab_size, batch=dcfg.batch, seq_len=dcfg.seq_len,
-               grad_accum=cfg.grad_accum, steps=run["steps"], loss=[g["loss"] for g in got],
+               grad_accum=cfg.grad_accum, steps=run["steps"],
+               loss=[g["loss"] for g in got],
                grad_norm=[g["grad_norm"] for g in got],
                loss_rel_err=rel["loss"], grad_norm_rel_err=rel["grad_norm"],
                limits=dict(loss=TRAIN_LOSS_RTOL,
                            grad_norm=TRAIN_GNORM_RTOL), seconds=secs,
-               make_batch_matches_golden=same_data,
+               walls=walls, make_batch_matches_golden=same_data,
                launches={k: counts.get(k, 0) for k in want})
     return errs, row
 
 
-def train_bf16(device, spec: dict = TRAIN_BF16) -> tuple:
-    """Phase 8's run at full width and depth (``TRAIN_BF16``): the
-    ``Trainer`` on the card, its data from ``DataLoader``, with a
-    checkpoint at step ``ckpt_every``. Each step is timed on the host
-    clock between synchronizes, its attention launches zeroed just before
-    it and read just after (``train_launches_want``). Checks, each a count
-    of what failed: launches per step; every step's loss and grad_norm
-    finite; the checkpoint of step ``ckpt_every`` restored
-    (``CheckpointManager.restore``) equal by bits to that step's params
-    and optimizer state; then step 1 again on its weights and batch
-    (``loss_and_grads``), on the kernels and on ``flash_attention_plain``
-    (``build_model(cfg, attention="torch")``): every parameter leaf's
-    gradient on the kernels' path finite and not all zero, within
-    ``TRAIN_GRAD_TOL`` of the plain run's by norm, the losses within
-    ``TRAIN_BF16_LOSS_TOL``, the repeat's launches those of one step.
-    Last, one more step under ``torch.profiler`` (``profiled_shares``):
-    the attention forward's and backward's shares of device time and the
-    idle share. Memory: ``torch.cuda.max_memory_allocated`` in each step,
-    over what was allocated before the Trainer was built; step 1's is the
-    training's own (later steps also hold what this check keeps: step 1's
-    weights, the checkpointed step's state). Returns (errors, row)."""
+def train_grad_errors(tr, want1: dict) -> tuple:
+    """Phase 8's gradient check of one bf16 run, before its first step:
+    the ``Trainer``'s initial params (``init_params``, the weights step 1
+    trains on) and step 1's batch (``make_batch``, as its ``DataLoader``
+    gives it), a microbatch at a time as the step takes them, through
+    ``loss_and_grads`` on the kernels and on ``flash_attention_plain``
+    (``build_model(cfg, attention="torch")``). Counts: a leaf whose
+    gradient on the kernels is not finite or all zero (a vlm fed
+    embeddings reaches no row of ``embed``: that leaf must be all zero in
+    both runs instead), gradients more than ``TRAIN_GRAD_TOL`` from the
+    plain run's by norm, losses more than ``TRAIN_BF16_LOSS_TOL`` apart,
+    and the kernels' launches other than one step's. A model without
+    attention (RWKV-6) has no plain pair: its gradients are checked for
+    finite and nonzero only, its numerics held by the f32 golden. The
+    params and gradients are freed before the Trainer runs. Returns
+    (errors, row)."""
     import torch
-    from repro_torch.configs import ARCHS
     from repro_torch.kernels import launch_counts, reset_launch_counts
     from repro_torch.models import build_model
+    from repro_torch.train.data import make_batch
+    from repro_torch.train.step import (compute_params, loss_and_grads,
+                                        microbatch)
+    from repro_torch.utils.tree import flatten_dict
+    cfg, dev, dt = tr.model_cfg, tr.device, getattr(torch, tr.model_cfg.dtype)
+    tag, n = f"train.{cfg.name}", cfg.grad_accum
+    pair = train_attention_launches(cfg) > 0
+    batch = {k: torch.as_tensor(v, device=dev)
+             for k, v in make_batch(tr.data_cfg, cfg, 0).items()}
+    unreached = {"embed"} if "embeds" in batch else set()
+    params_c = compute_params(tr.init_params(), dt)
+    plain = build_model(cfg, attention="torch") if pair else None
+    rel, bad, losses, repeat = {}, set(), [], {}
+    for i in range(n):
+        mb = {k: microbatch(x, n, i) for k, x in batch.items()}
+        reset_launch_counts()
+        lk, _, gk = loss_and_grads(tr.model, params_c, mb)
+        torch.cuda.synchronize()
+        for k, v in launch_counts().items():
+            repeat[k] = repeat.get(k, 0) + v
+        fk = flatten_dict(gk)
+        del gk
+        lp, fp = lk, None
+        if pair:
+            lp, _, gp = loss_and_grads(plain, params_c, mb)
+            fp = flatten_dict(gp)
+            del gp
+        for k, g in fk.items():
+            zero = not bool((g != 0).any())
+            if not bool(torch.isfinite(g).all()) or zero != (k in unreached):
+                bad.add(k)
+            if fp is not None and k not in unreached:
+                r = float((g.float() - fp[k].float()).norm()
+                          / fp[k].float().norm())
+                rel[k] = max(rel.get(k, 0.0), r)
+            elif fp is not None and bool((fp[k] != 0).any()):
+                bad.add(k)
+        losses.append((float(lk), float(lp)))
+        del fk, fp
+    del params_c, batch
+    gc.collect()
+    torch.cuda.empty_cache()
+    loss_rel = max(abs(a - b) / abs(b) for a, b in losses)
+    errs = {f"{tag}.grads_nonzero": len(bad),
+            f"{tag}.repeat_launches": int(any(
+                repeat.get(k, 0) != v for k, v in want1.items()))}
+    if pair:
+        errs[f"{tag}.grads"] = sum(not r <= TRAIN_GRAD_TOL
+                                   for r in rel.values())
+        errs[f"{tag}.loss"] = int(not loss_rel <= TRAIN_BF16_LOSS_TOL)
+    row = dict(grad_checked=("flash_attention_plain" if pair else
+                             "finite and nonzero only (no attention)"),
+               microbatches=n, unreached_leaves=sorted(unreached),
+               zero_or_nonfinite_grads=sorted(bad),
+               loss_kernels=[a for a, _ in losses],
+               loss_plain=[b for _, b in losses] if pair else None,
+               loss_rel_err=loss_rel if pair else None,
+               loss_limit=TRAIN_BF16_LOSS_TOL,
+               grad_rel_err_max=max(rel.values()) if rel else None,
+               grad_rel_err_worst=sorted(rel.items(),
+                                         key=lambda kv: -kv[1])[:3],
+               grad_limit=TRAIN_GRAD_TOL)
+    return errs, row
+
+
+def train_bf16(device, spec: dict) -> tuple:
+    """One run of ``TRAIN_BF16_RUNS``: the ``Trainer`` on the card, its
+    step donated (one train state held), its data from ``DataLoader``,
+    with a checkpoint at step ``ckpt_every`` where the run has one. First
+    the gradient check on the Trainer's initial params
+    (``train_grad_errors``); then ``steps`` steps, each timed on the host
+    clock between synchronizes, its attention launches zeroed just before
+    it and read just after (``train_launches_want``). Checks, each a
+    count of what failed: launches per step; every step's loss and
+    grad_norm finite; the checkpoint of step ``ckpt_every`` restored
+    (``CheckpointManager.restore``) to the sha256 of every leaf of that
+    step's params and optimizer state, taken just after the step
+    (``state_hashes``: the next step overwrites the tensors). Last, one
+    more step under ``torch.profiler`` (``profiled_shares``): the
+    attention forward's and backward's shares of device time and the idle
+    share. Memory: ``torch.cuda.max_memory_allocated`` in each step, over
+    what was allocated before the Trainer was built, and the bytes that
+    the functional step's update would hold (two train states, the
+    gradients and the compute copy). Returns (errors, row)."""
+    import torch
+    from repro_torch.kernels import launch_counts, reset_launch_counts
     from repro_torch.train.checkpoint import CheckpointManager
-    from repro_torch.train.data import DataConfig
+    from repro_torch.train.data import DataConfig, make_batch
     from repro_torch.train.loop import Trainer, TrainerConfig
     from repro_torch.train.optimizer import AdamWConfig
-    from repro_torch.train.step import compute_params, loss_and_grads
-    from repro_torch.utils.tree import flatten_dict, tree_leaves
-    cfg = ARCHS[spec["name"]].replace(remat=True, remat_policy="full",
-                                      loss_chunks=8)
-    B, S, steps, at = (spec[k] for k in ("batch", "seq_len", "steps",
-                                         "ckpt_every"))
-    tag, dt = f"train.{cfg.name}", getattr(torch, cfg.dtype)
+    from repro_torch.utils.tree import tree_leaves
+    cfg = train_config(spec)
+    B, S, steps = (spec[k] for k in ("batch", "seq_len", "steps"))
+    at = spec.get("ckpt_every")
+    tag = f"train.{cfg.name}"
     want1 = train_launches_want(cfg, S, 1)
+    walls, t0 = {}, time.perf_counter()
     torch.cuda.synchronize()
     base = torch.cuda.memory_allocated()
-    ckpt_dir = tempfile.mkdtemp(prefix="chip_smoke_train_")
+    ckpt_dir = tempfile.mkdtemp(prefix="chip_smoke_train_") if at else None
     try:
         tr = Trainer(cfg, DataConfig(seed=spec["seed"], batch=B, seq_len=S),
                      AdamWConfig(**spec["opt"]),
                      TrainerConfig(num_steps=steps, log_every=1,
-                                   ckpt_every=at, ckpt_dir=ckpt_dir,
+                                   ckpt_every=at or steps, ckpt_dir=ckpt_dir,
                                    seed=spec["seed"]), device=device)
-        inner, seen, kept = tr.step_fn, [], {}
+        errs, grad_row = train_grad_errors(tr, want1)
+        walls["grad_check"], t0 = time.perf_counter() - t0, time.perf_counter()
+        inner, seen, hashes, peaks = tr.step_fn, [], [], []
 
         def step_fn(params, opt_state, batch):
-            if not seen:
-                kept["first"] = (params, batch)
             torch.cuda.synchronize()
             torch.cuda.reset_peak_memory_stats()
             reset_launch_counts()
@@ -4521,128 +4690,162 @@ def train_bf16(device, spec: dict = TRAIN_BF16) -> tuple:
             seen.append((time.perf_counter() - t0, launch_counts()))
             peaks.append(torch.cuda.max_memory_allocated() - base)
             if len(seen) == at:
-                kept["ckpt"] = out[:2]
+                hashes.extend(state_hashes(out[:2]))
             return out
-        tr.step_fn, peaks = step_fn, []
-        torch.cuda.synchronize()
+        tr.step_fn = step_fn
         params, opt_state, hist = tr.run(steps)
-        restored, rstep = CheckpointManager(ckpt_dir).restore(
-            kept["ckpt"], step=at, device=device)
-        pairs = list(zip(tree_leaves(restored), tree_leaves(kept["ckpt"])))
-        errs = {f"{tag}.launches": sum(
-                    any(c.get(k, 0) != v for k, v in want1.items())
-                    for _, c in seen) + int(len(seen) != steps),
-                f"{tag}.finite": sum(
-                    not (math.isfinite(h["loss"])
-                         and math.isfinite(h["grad_norm"])) for h in hist),
-                f"{tag}.checkpoint": int(rstep != at) + sum(
-                    a.dtype != b.dtype or not torch.equal(a, b)
-                    for a, b in pairs)}
-        del restored, pairs, kept["ckpt"]
-        p0, b0 = kept.pop("first")
-        reset_launch_counts()
-        lk, _, gk = loss_and_grads(tr.model, compute_params(p0, dt), b0)
-        torch.cuda.synchronize()
-        repeat = launch_counts()
-        lp, _, gp = loss_and_grads(build_model(cfg, attention="torch"),
-                                   compute_params(p0, dt), b0)
-        fk, fp = flatten_dict(gk), flatten_dict(gp)
-        del gk, gp
-        rel = {k: float((fk[k].float() - fp[k].float()).norm()
-                        / fp[k].float().norm()) for k in fp}
-        bad = [k for k, g in fk.items() if not bool(torch.isfinite(g).all())
-               or not bool((g != 0).any())]
-        loss_rel = abs(float(lk) - float(lp)) / abs(float(lp))
-        errs[f"{tag}.grads_nonzero"] = len(bad) + int(sorted(fk) != sorted(fp))
-        errs[f"{tag}.grads"] = sum(not r <= TRAIN_GRAD_TOL
-                                   for r in rel.values())
-        errs[f"{tag}.loss"] = int(not loss_rel <= TRAIN_BF16_LOSS_TOL)
-        errs[f"{tag}.repeat_launches"] = int(any(
-            repeat.get(k, 0) != v for k, v in want1.items()))
-        del fk, fp
+        walls["steps"], t0 = time.perf_counter() - t0, time.perf_counter()
+        errs.update({
+            f"{tag}.launches": sum(
+                any(c.get(k, 0) != v for k, v in want1.items())
+                for _, c in seen) + int(len(seen) != steps),
+            f"{tag}.finite": sum(
+                not (math.isfinite(h["loss"])
+                     and math.isfinite(h["grad_norm"])) for h in hist)})
+        if at:
+            restored, rstep = CheckpointManager(ckpt_dir).restore(
+                (params, opt_state), step=at, device="cpu")
+            errs[f"{tag}.checkpoint"] = int(rstep != at) + int(
+                not hashes or state_hashes(restored) != hashes)
+            del restored
+            walls["checkpoint"], t0 = (time.perf_counter() - t0,
+                                       time.perf_counter())
+        n_params = sum(p.numel() for p in tree_leaves(params))
+        state_mb = tree_bytes(params) * 3 / 1e6
+        b0 = {k: torch.as_tensor(v, device=device)
+              for k, v in make_batch(tr.data_cfg, cfg, 0).items()}
         prof = profiled_shares(lambda: inner(params, opt_state, b0))
+        walls["profile"] = time.perf_counter() - t0
+        del params, opt_state, b0
     finally:
-        shutil.rmtree(ckpt_dir, ignore_errors=True)
+        if ckpt_dir:
+            shutil.rmtree(ckpt_dir, ignore_errors=True)
+    gc.collect()
+    torch.cuda.empty_cache()
     secs = [s for s, _ in seen]
     step_s = statistics.median(secs[1:])
-    worst = sorted(rel.items(), key=lambda kv: -kv[1])[:3]
+    grads_mb = n_params * (4 if cfg.grad_accum > 1 else 2) / 1e6
     row = dict(config=cfg.name, layers=cfg.n_layers, dtype=cfg.dtype,
                remat=cfg.remat_policy, loss_chunks=cfg.loss_chunks, batch=B,
-               seq_len=S, steps=steps, loss=[h["loss"] for h in hist],
+               seq_len=S, grad_accum=cfg.grad_accum, steps=steps,
+               checkpoint_at=at, params=n_params,
+               loss=[h["loss"] for h in hist],
                grad_norm=[h["grad_norm"] for h in hist],
                step_ms=[s * 1e3 for s in secs],
                step_ms_median_2_on=step_s * 1e3,
                tokens_per_s=B * S / step_s,
-               peak_allocated_mb=peaks[0] / 1e6,
+               peak_allocated_mb=max(peaks) / 1e6,
                peak_allocated_mb_per_step=[x / 1e6 for x in peaks],
+               train_state_mb=state_mb,
+               undonated_update_mb=2 * state_mb + grads_mb
+               + n_params * 2 / 1e6,
                memory_reserved_mb=torch.cuda.memory_reserved() / 1e6,
-               launches_per_step=[c.get("flash_attention", 0) for _, c in seen],
+               launches_per_step=[c.get("flash_attention", 0)
+                                  for _, c in seen],
                launches={k: sum(c.get(k, 0) for _, c in seen) for k in want1},
-               grad_rel_err_max=max(rel.values()),
-               grad_rel_err_worst=worst, grad_limit=TRAIN_GRAD_TOL,
-               zero_or_nonfinite_grads=bad, loss_kernels=float(lk),
-               loss_plain=float(lp), loss_rel_err=loss_rel,
-               loss_limit=TRAIN_BF16_LOSS_TOL, profile=prof)
+               **grad_row, profile=prof, walls=walls)
     return errs, row
 
 
+def train_golden_check(run: dict, device, drawn, errs: dict,
+                       rows: list) -> None:
+    """``train_golden_errors`` of one golden run (its weights ``drawn`` by
+    ``golden_weights``), its checks into ``errs`` and its row into
+    ``rows``, with its line."""
+    e, row = train_golden_errors(run, device, drawn)
+    errs.update({f"{run_tag(run)}.{k}": v for k, v in e.items()})
+    rows.append(row)
+    log(f"train golden {row['config']} ({row['layers']} layers, d_model "
+        f"{row['d_model']}, vocab {row['vocab']}, f32): {row['steps']} "
+        f"steps of {row['batch']} x {row['seq_len']} tokens in "
+        f"{row['grad_accum']} microbatches, in {row['seconds']:.2f} s "
+        f"(draw {row['walls']['draw']:.2f} s, sha256 "
+        f"{row['walls']['sha256']:.2f} s); loss {row['loss']}, relative "
+        f"error {max(row['loss_rel_err']):.3g} (limit {TRAIN_LOSS_RTOL}); "
+        f"grad_norm {row['grad_norm']}, relative error by step "
+        f"{[float(f'{e:.3g}') for e in row['grad_norm_rel_err']]} "
+        f"(limits {TRAIN_GNORM_RTOL[0]} on the first step, "
+        f"{TRAIN_GNORM_RTOL[1]} after); this machine's make_batch gives "
+        f"the golden's batches: {row['make_batch_matches_golden']}; "
+        f"launches {row['launches']}; checks {e}")
+
+
+def train_bf16_lines(row: dict, e: dict) -> None:
+    """The lines of one bf16 run of ``train_bf16``: its numbers, then its
+    profile's."""
+    p = row["profile"]
+    log(f"train wall bf16 {row['config']}: " + ", ".join(
+        f"{k} {v:.2f}" for k, v in row["walls"].items()) + " s")
+    log(f"train bf16 {row['config']} ({row['layers']} layers, "
+        f"{row['params'] / 1e9:.3f} B params, remat {row['remat']}, loss "
+        f"in {row['loss_chunks']} chunks, {row['grad_accum']} "
+        f"microbatches): {row['steps']} steps of {row['batch']} x "
+        f"{row['seq_len']} tokens, ms per step "
+        f"{[round(x, 2) for x in row['step_ms']]}, median of steps "
+        f"2-{row['steps']} {row['step_ms_median_2_on']:.2f} ms, "
+        f"{row['tokens_per_s']:.0f} tokens/s; peak allocated per step "
+        f"{[round(x, 1) for x in row['peak_allocated_mb_per_step']]} MB "
+        f"(train state {row['train_state_mb']:.1f} MB; the functional "
+        f"step's update would hold {row['undonated_update_mb']:.1f} MB), "
+        f"reserved {row['memory_reserved_mb']:.1f} MB; loss {row['loss']}, "
+        f"grad_norm {row['grad_norm']}; step 1's weights and batch against "
+        f"{row['grad_checked']}: loss {row['loss_kernels']} vs "
+        f"{row['loss_plain']} (relative {row['loss_rel_err']}, limit "
+        f"{row['loss_limit']}), gradients by norm worst "
+        f"{row['grad_rel_err_worst']} (limit {row['grad_limit']}), "
+        f"unreached leaves {row['unreached_leaves']}; launches per step "
+        f"{row['launches_per_step']}; launches {row['launches']}; checks "
+        f"{e}")
+    log(f"train bf16 {row['config']} profile, one step: " + (
+        "the profiler saw no device kernel" if p is None else
+        f"wall {p['wall_ms']:.2f} ms, {p['kernels']} device kernels "
+        f"summing {p['kernel_sum_ms']:.3f} ms (busy "
+        f"{p['busy_ms']:.3f}); attention forward {p['attention_ms']:.3f}"
+        f" ms = share {p['attention_share']:.3f}; attention backward "
+        f"{p['attention_backward_ms']:.3f} ms = share "
+        f"{p['attention_backward_share']:.3f}; idle share "
+        f"{p['idle_share']:.3f}; unprofiled wall "
+        f"{p['wall_unprofiled_ms']:.2f} ms, idle share against it "
+        f"{p['idle_share_unprofiled']:.3f}; most time: " + "; ".join(
+            f"{k['kernel']} {k['ms']:.3f} ms in {k['count']}"
+            for k in p["top"])))
+
+
 def train_checks(device, route: str = "all") -> tuple:
-    """Phase 8: every golden run of both golden files
-    (``train_golden_errors``) then, for route "all", the bf16 run
-    (``train_bf16``). Returns (errors, rows, launches: the attention
-    launches summed over the runs)."""
+    """Phase 8: every golden run of the golden files
+    (``train_golden_errors``) and, for route "all", each bf16 run of
+    ``TRAIN_BF16_RUNS`` (``train_bf16``). The goldens' numpy weights are
+    drawn and hashed on ``GOLDEN_THREADS`` threads (one for route
+    "golden") beside the bf16 runs, as phase 7's are; after each bf16 run
+    the goldens drawn so far are checked in file order, and the rest after
+    the last. Returns (errors, rows, launches: the attention launches
+    summed over the runs)."""
     import torch
     errs, rows, launches = {}, [], {}
-    for run in (r for path in TRAIN_GOLDENS for r in train_golden(path)):
-        e, row = train_golden_errors(run, device)
-        errs.update({f"{run_tag(run)}.{k}": v for k, v in e.items()})
-        rows.append(row)
-        log(f"train golden {row['config']} ({row['layers']} layers, d_model "
-            f"{row['d_model']}, vocab {row['vocab']}, f32): {row['steps']} "
-            f"steps of {row['batch']} x {row['seq_len']} tokens in "
-            f"{row['grad_accum']} microbatches, in "
-            f"{row['seconds']:.2f} s; loss {row['loss']}, relative error "
-            f"{max(row['loss_rel_err']):.3g} (limit {TRAIN_LOSS_RTOL}); "
-            f"grad_norm {row['grad_norm']}, relative error by step "
-            f"{[float(f'{e:.3g}') for e in row['grad_norm_rel_err']]} "
-            f"(limits {TRAIN_GNORM_RTOL[0]} on the first step, "
-            f"{TRAIN_GNORM_RTOL[1]} after); this machine's make_batch gives "
-            f"the golden's batches: {row['make_batch_matches_golden']}; "
-            f"launches {row['launches']}; checks {e}")
-    if route == "all":
-        torch.cuda.empty_cache()
-        e, row = train_bf16(device)
-        errs.update(e)
-        rows.append(row)
-        p = row["profile"]
-        log(f"train bf16 {row['config']} ({row['layers']} layers, remat "
-            f"{row['remat']}, loss in {row['loss_chunks']} chunks): "
-            f"{row['steps']} steps of {row['batch']} x {row['seq_len']} "
-            f"tokens, ms per step {[round(x, 2) for x in row['step_ms']]}, "
-            f"median of steps 2-{row['steps']} "
-            f"{row['step_ms_median_2_on']:.2f} ms, "
-            f"{row['tokens_per_s']:.0f} tokens/s; peak allocated "
-            f"{row['peak_allocated_mb']:.1f} MB, reserved "
-            f"{row['memory_reserved_mb']:.1f} MB; loss {row['loss']}; "
-            f"step 1 against flash_attention_plain: loss "
-            f"{row['loss_kernels']:.6f} vs {row['loss_plain']:.6f} "
-            f"(relative {row['loss_rel_err']:.3g}, limit "
-            f"{row['loss_limit']}), gradients by norm worst "
-            f"{row['grad_rel_err_worst']} (limit {row['grad_limit']}); "
-            f"launches {row['launches']}; checks {e}")
-        log(f"train bf16 {row['config']} profile, one step: " + (
-            "the profiler saw no device kernel" if p is None else
-            f"wall {p['wall_ms']:.2f} ms, {p['kernels']} device kernels "
-            f"summing {p['kernel_sum_ms']:.3f} ms (busy "
-            f"{p['busy_ms']:.3f}); attention forward {p['attention_ms']:.3f}"
-            f" ms = share {p['attention_share']:.3f}; attention backward "
-            f"{p['attention_backward_ms']:.3f} ms = share "
-            f"{p['attention_backward_share']:.3f}; idle share "
-            f"{p['idle_share']:.3f}; unprofiled wall "
-            f"{p['wall_unprofiled_ms']:.2f} ms, idle share against it "
-            f"{p['idle_share_unprofiled']:.3f}; most time: " + "; ".join(
-                f"{k['kernel']} {k['ms']:.3f} ms in {k['count']}"
-                for k in p["top"])))
+    goldens = [r for path in TRAIN_GOLDENS for r in train_golden(path)]
+    threads = GOLDEN_THREADS if route == "all" else 1
+    with concurrent.futures.ThreadPoolExecutor(threads) as pool:
+        drawn = [pool.submit(golden_weights, run) for run in goldens]
+        done = 0
+
+        def check_goldens(wait: bool) -> None:
+            nonlocal done
+            while done < len(goldens) and (wait or drawn[done].done()):
+                train_golden_check(goldens[done], device,
+                                   drawn[done].result(), errs, rows)
+                drawn[done] = None          # its weights go
+                done += 1
+        for spec in TRAIN_BF16_RUNS if route == "all" else ():
+            gc.collect()
+            torch.cuda.empty_cache()
+            e, row = train_bf16(device, spec)
+            errs.update(e)
+            rows.append(row)
+            train_bf16_lines(row, e)
+            check_goldens(wait=False)
+        check_goldens(wait=True)
+    gc.collect()
+    torch.cuda.empty_cache()
     for row in rows:
         for k, v in row["launches"].items():
             launches[k] = launches.get(k, 0) + v
@@ -5229,7 +5432,8 @@ def init_errors(fault: str) -> None:
 
 
 def mesh_train(device, mesh, rules) -> tuple:
-    """10b: one bf16 train step at phase 8's configuration (``TRAIN_BF16``)
+    """10b: one bf16 train step at the configuration of phase 8's first run
+    (``TRAIN_BF16_RUNS[0]``, Qwen3-0.6B)
     from its starting params and first batch, once plain and once with
     params and optimizer state distributed by the rules and the step under
     them. Checks: loss and grad_norm equal by bits; every updated param
@@ -5239,17 +5443,16 @@ def mesh_train(device, mesh, rules) -> tuple:
     exactly one step's (``train_launches_want``: 56 ``mma``)."""
     import torch
     from torch.distributed.tensor import Replicate, distribute_tensor
-    from repro_torch.configs import ARCHS
     from repro_torch.kernels import launch_counts, reset_launch_counts
     from repro_torch.sharding.logical import use_rules
     from repro_torch.train.data import DataConfig, DataLoader
     from repro_torch.train.loop import Trainer, TrainerConfig
     from repro_torch.train.optimizer import AdamWConfig
-    from repro_torch.train.step import compute_params, loss_and_grads
+    from repro_torch.train.step import (compute_params, loss_and_grads,
+                                        make_train_step)
     from repro_torch.utils.tree import flatten_dict
-    spec = TRAIN_BF16
-    cfg = ARCHS[spec["name"]].replace(remat=True, remat_policy="full",
-                                      loss_chunks=8)
+    spec = TRAIN_BF16_RUNS[0]
+    cfg = train_config(spec)
     tr = Trainer(cfg, DataConfig(seed=spec["seed"], batch=spec["batch"],
                                  seq_len=spec["seq_len"]),
                  AdamWConfig(**spec["opt"]), TrainerConfig(seed=spec["seed"]),
@@ -5262,7 +5465,9 @@ def mesh_train(device, mesh, rules) -> tuple:
     finally:
         loader.close()
     names = tr.model.logical_names()
-    p1, s1, m1 = tr.step_fn(params, opt_state, batch)
+    # the functional step: the plain step's inputs are distributed after it
+    step = make_train_step(tr.model, tr.opt_cfg)
+    p1, s1, m1 = step(params, opt_state, batch)
     dparams = distributed(params, names, mesh, rules)
     dopt = {"step": distribute_tensor(opt_state["step"], mesh,
                                       [Replicate()] * 2, src_data_rank=None),
@@ -5273,7 +5478,7 @@ def mesh_train(device, mesh, rules) -> tuple:
     reset_launch_counts()
     t0 = time.perf_counter()
     with use_rules(rules):
-        p2, s2, m2 = tr.step_fn(dparams, dopt, batch)
+        p2, s2, m2 = step(dparams, dopt, batch)
     torch.cuda.synchronize()
     step_s = time.perf_counter() - t0
     counts = launch_counts()
@@ -5439,7 +5644,7 @@ def mesh_checks(device, parts=MESH_PARTS, lm_row=None) -> tuple:
                 if kept is None:
                     from repro_torch.configs import ARCHS
                     from repro_torch.models import build_model
-                    model = build_model(ARCHS[TRAIN_BF16["name"]])
+                    model = build_model(ARCHS[TRAIN_BF16_RUNS[0]["name"]])
                     kept = (model, model.init(torch.Generator(
                         device=device).manual_seed(0), device))
                 e, rows[part] = mesh_restore(device, rules, *kept)
@@ -5759,6 +5964,20 @@ PLANTED_FAULTS = {  # name: (route, file under src/repro_torch, text, stand-in)
     "train.grad_accum_drops_last": (
         "train", "train/step.py", "            for i in range(grad_accum):\n",
         "            for i in range(grad_accum - 1):\n"),
+    # the donated update (the Trainer's) writes each leaf's p and mu and
+    # leaves its nu as it was
+    "train.donate_keeps_nu": (
+        "train", "train/optimizer.py",
+        "                for old, new in zip((p, mu, nu), upd(p, g, mu, nu)):\n",
+        "                for old, new in zip((p, mu), upd(p, g, mu, nu)):\n"),
+    # the microbatch sum, added in place, skips the second microbatch's
+    # gradients while its loss still counts (unlike
+    # train.grad_accum_drops_last, the first step's loss stays right)
+    "train.accum_drops_microbatch": (
+        "train", "train/step.py",
+        "                    a.add_(b.to(torch.float32))\n",
+        "                    if i != 1:\n"
+        "                        a.add_(b.to(torch.float32))\n"),
     # the token shift under the rules one position off (no shift)
     "mesh_serve.shift_off_by_one": (
         "mesh_serve", "sharding/logical.py",
@@ -6290,8 +6509,9 @@ def main(argv: list) -> int:
                   "DeepSeek-67B and Mixtral-8x22B at cut depth; by run in "
                   "launches_by_lm_run), "
                   "launches_train: phase 8's training "
-                  "runs (the f32 golden runs and the bf16 Qwen3-0.6B "
-                  "Trainer steps; by run in launches_by_train_run), "
+                  "runs (the f32 golden runs and the bf16 Trainer steps "
+                  "of Qwen3-0.6B, Qwen2-VL-2B, RWKV-6 1.6B and "
+                  "MusicGen-Large; by run in launches_by_train_run), "
                   "launches_cases: phase 5's"))
     log(json.dumps({"serve": serve_rows, "capture": capture_rows,
                     "live": live_rows, "profile": prof}))

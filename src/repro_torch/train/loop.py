@@ -1,11 +1,16 @@
 """Trainer: wires model, data, optimizer, checkpointing and fault
 tolerance; the port of ``repro/train/loop.py``.
 
-The step runs eagerly (the reference jits it and donates params and
-optimizer state): ``make_train_step``'s function, every attention layer on
-the port's kernels. The Trainer runs on ``device``, ``"cuda"`` by default,
-and raises where there is no CUDA device: it never falls back to the CPU
-on its own; ``device="cpu"`` is explicit.
+The step runs eagerly (the reference jits it): ``make_train_step``'s
+function, every attention layer on the port's kernels. It is built with
+``donate=True``, as the reference donates params and optimizer state
+(``donate_argnums=(0, 1)``): each step writes the new state over the old,
+so one train state is held, not two. ``CheckpointManager.save`` takes its
+host copy before it returns, so an async save keeps the step it was given
+though the next step overwrites the tensors. The Trainer runs on
+``device``, ``"cuda"`` by default, and raises where there is no CUDA
+device: it never falls back to the CPU on its own; ``device="cpu"`` is
+explicit.
 """
 from __future__ import annotations
 
@@ -51,7 +56,7 @@ class Trainer:
         self.model = build_model(model_cfg)
         self.opt_cfg = opt_cfg
         self.data_cfg = data_cfg
-        self.step_fn = make_train_step(self.model, opt_cfg)
+        self.step_fn = make_train_step(self.model, opt_cfg, donate=True)
         self.ckpt = (CheckpointManager(tcfg.ckpt_dir, keep_last_k=tcfg.keep_ckpts,
                                        async_save=tcfg.async_ckpt)
                      if tcfg.ckpt_dir else None)
@@ -61,9 +66,14 @@ class Trainer:
         self.history: list[dict] = []
 
     # ------------------------------------------------------------------
-    def init_or_resume(self):
+    def init_params(self):
+        """The params a run starts from, drawn from ``tcfg.seed`` on the
+        Trainer's device: those of step 1 where no checkpoint resumes."""
         gen = torch.Generator(device=self.device).manual_seed(self.tcfg.seed)
-        params = self.model.init(gen, self.device)
+        return self.model.init(gen, self.device)
+
+    def init_or_resume(self):
+        params = self.init_params()
         opt_state = init_opt_state(params)
         start_step = 0
         if self.ckpt is not None and self.ckpt.latest_step() is not None:

@@ -3,8 +3,9 @@
 The optimizer state mirrors the param tree. Every update runs in f32 in
 the reference's order of operations, and the leaves are visited in sorted
 key order, as ``jax.tree_util`` flattens dicts, so that ``global_norm``
-sums them as the reference does. ``adamw_update`` returns new tensors; it
-changes none of its arguments.
+sums them as the reference does. ``adamw_update`` returns new tensors and
+changes none of its arguments, unless it is told to take them over
+(``donate``), as the reference's jitted step takes its donated buffers.
 """
 from __future__ import annotations
 
@@ -64,8 +65,32 @@ def global_norm(tree) -> torch.Tensor:
     return torch.sqrt(total)
 
 
-def adamw_update(cfg: AdamWConfig, params, grads, state):
-    """Returns (new_params, new_state, metrics)."""
+# the donated update takes a leaf in blocks of its leading dim of at most
+# this many elements: a stacked leaf holds every layer (MusicGen-Large's
+# ffn weights, 805 M values), and the f32 temporaries of the update of a
+# whole one took ~19 GB on the card
+DONATE_BLOCK = 1 << 24
+
+
+def _blocks(t: torch.Tensor) -> tuple:
+    """Views of ``t`` that cover it, in blocks of its leading dim of at
+    most ``DONATE_BLOCK`` elements (at least one row); ``t`` itself for a
+    scalar or a vector."""
+    if t.dim() < 2 or t.numel() <= DONATE_BLOCK:
+        return (t,)
+    return torch.split(t, max(1, DONATE_BLOCK // (t.numel() // t.shape[0])))
+
+
+def adamw_update(cfg: AdamWConfig, params, grads, state, donate=False):
+    """Returns (new_params, new_state, metrics).
+
+    ``donate=True`` writes the update over ``params`` and ``state``, a leaf
+    at a time, in blocks of its leading dim (``_blocks``): each block's new
+    (p, mu, nu) are computed exactly as without (the same elementwise
+    operations, so the same bits), copied into its tensors, and dropped
+    before the next block, so the update holds one block's temporaries,
+    not a second state. It returns the tensors it was given,
+    ``state["step"]`` counted up in place."""
     step = state["step"] + 1
     gnorm = global_norm(grads)
     scale = torch.clamp(cfg.grad_clip / (gnorm + 1e-9), max=1.0)
@@ -85,10 +110,20 @@ def adamw_update(cfg: AdamWConfig, params, grads, state):
         newp = pf - lr * (step_ + cfg.weight_decay * pf)
         return newp.to(p.dtype), mu.to(p.dtype), nu.to(p.dtype)
 
+    metrics = {"grad_norm": gnorm, "lr": lr}
+    if donate:
+        for leaf in zip(*(tree_leaves(t) for t in (
+                params, grads, state["mu"], state["nu"]))):
+            for p, g, mu, nu in zip(*map(_blocks, leaf)):
+                for old, new in zip((p, mu, nu), upd(p, g, mu, nu)):
+                    old.copy_(new)
+                del new
+        state["step"].copy_(step)
+        return params, {"step": state["step"], "mu": state["mu"],
+                        "nu": state["nu"]}, metrics
     outs = tree_map(upd, params, grads, state["mu"], state["nu"])
     return _pick(outs, 0), {"step": step, "mu": _pick(outs, 1),
-                            "nu": _pick(outs, 2)}, \
-        {"grad_norm": gnorm, "lr": lr}
+                            "nu": _pick(outs, 2)}, metrics
 
 
 def _pick(tree: dict, i: int):

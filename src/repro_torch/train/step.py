@@ -68,13 +68,22 @@ def microbatch(x, n: int, i: int):
 
 
 def make_train_step(model: Model, opt_cfg: AdamWConfig,
-                    grad_accum: int = 1):
+                    grad_accum: int = 1, donate: bool = False):
     """Returns train_step(params, opt_state, batch) -> (params, opt_state,
     metrics), ``batch`` a dict of tensors on the params' device.
 
     grad_accum > 1 loops over microbatches (the batch's leading dim must
-    divide), summing the gradients in f32, then divides loss and
-    gradients by their count; the metrics are the last microbatch's."""
+    divide), adding the gradients in place into an f32 sum the step
+    allocates (each microbatch's gradients dropped before the next), then
+    divides loss and gradients by their count; the metrics are the last
+    microbatch's.
+
+    ``donate=True`` is the reference's ``jax.jit(..., donate_argnums=(0,
+    1))``: the step takes over the ``params`` and ``opt_state`` it is
+    given and writes the new values into their tensors (``adamw_update``'s
+    ``donate``); the bits are those of ``donate=False``. It returns the
+    tensors it was given. A caller that needs the old values after the
+    call copies them first, as JAX makes donated buffers unusable."""
     cfg = model.cfg
     grad_accum = max(grad_accum, getattr(cfg, "grad_accum", 1))
     dtype = getattr(torch, cfg.dtype)
@@ -93,13 +102,16 @@ def make_train_step(model: Model, opt_cfg: AdamWConfig,
                       for k, x in batch.items()}
                 lo, metrics, g = loss_and_grads(model, params_c, mb)
                 loss = loss + lo
-                grads = tree_map(lambda a, b: a + b.to(torch.float32),
-                                 grads, g)
+                for a, b in zip(tree_leaves(grads), tree_leaves(g)):
+                    a.add_(b.to(torch.float32))
+                del g
             loss = loss / grad_accum
-            grads = tree_map(lambda g: g / grad_accum, grads)
+            for g in tree_leaves(grads):
+                g.div_(grad_accum)
+        del params_c
         with torch.no_grad():
             params, opt_state, opt_metrics = adamw_update(
-                opt_cfg, params, grads, opt_state)
+                opt_cfg, params, grads, opt_state, donate=donate)
         return params, opt_state, {"loss": loss, **metrics, **opt_metrics}
 
     return train_step

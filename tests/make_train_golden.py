@@ -4,6 +4,7 @@ batches that numpy makes from a seed.
 
     PYTHONPATH=src JAX_PLATFORMS=cpu python tests/make_train_golden.py
     PYTHONPATH=src JAX_PLATFORMS=cpu python tests/make_train_golden.py --families
+    PYTHONPATH=src JAX_PLATFORMS=cpu python tests/make_train_golden.py --full-width
 
 Not a test (pytest collects ``test_*.py`` only). The first writes
 ``golden/train_f32.json`` (~1 min, ~6 GB at its peak), runs each in f32:
@@ -25,6 +26,26 @@ f32:
   ``musicgen-large`` (codebooks), batch 2 x 32 unless said;
 - ``qwen3-0.6b`` at full width cut to ``QWEN3_LAYERS`` with ``grad_accum``
   2, batch 4 x 256: the reference's ``lax.scan`` over two microbatches.
+
+``--full-width`` writes ``golden/train_full_width_f32.json``: the
+configs that ``chip_smoke.py`` phase 8 trains whole in bf16, at their
+published widths with the depth cut to ``FULL_WIDTH_LAYERS``, in f32:
+
+- ``qwen2-vl-2b`` (12/2 heads of 128, a GQA group of 6), batch 2 x 256 of
+  ``make_batch``'s embeddings at its M-RoPE positions;
+- ``rwkv6-1.6b``, batch 2 x 2048: two of its ``scan_chunk``s of 1024, so
+  the WKV carries its state from one chunk into the next;
+- ``musicgen-large`` (32 heads of 64, 4 codebooks) under its own
+  ``grad_accum`` of 2, batch 4 x 4 codebooks x 256;
+- ``musicgen-large``'s smoke config under ``grad_accum`` 2, batch 4 x 32:
+  the one run of the file the CPU tests can afford, which sees the
+  microbatch sum.
+
+A full-width run's embeddings (786,432 floats a step) are kept by their
+sha256 (``embeds_sha256``), not their values: ``standard_normal`` is the
+first draw of ``make_batch``'s generator, so the card's host makes them
+again and checks the hash. The mode takes ~3 min and ~10 GB at the
+peak.
 
 Per run the file keeps the config's name and overrides, the weights' seed
 and sha256 (``convert.tree_sha256``: whether numpy made the same ones on
@@ -74,7 +95,28 @@ FAMILY_RUNS = [
          overrides=dict(dtype="float32", n_layers=QWEN3_LAYERS, grad_accum=2),
          seed=0, data=dict(seed=1, batch=4, seq_len=256), opt=OPT, steps=3),
 ]
-MODES = {(): (RUNS, OUT), ("--families",): (FAMILY_RUNS, OUT_FAMILIES)}
+OUT_FULL_WIDTH = os.path.join(GOLDEN, "train_full_width_f32.json")
+FULL_WIDTH_LAYERS = 2
+# the full-width runs at a tenth of OPT's rate: at 1e-3 RWKV-6's loss
+# doubles at the second step (11.55 -> 22.64) and MusicGen-Large's climbs
+# at the third (6.73 -> 10.61), and a diverging run amplifies rounding:
+# the port on the CPU lay 8.5e-6 from RWKV-6's third loss, against
+# chip_smoke.py's TRAIN_LOSS_RTOL of 1e-5 (1.1e-7 at 1e-4)
+OPT_FULL_WIDTH = dict(OPT, lr=1e-4)
+FULL_WIDTH_RUNS = [
+    dict(name=name, smoke=False,
+         overrides=dict(dtype="float32", n_layers=FULL_WIDTH_LAYERS), seed=0,
+         data=dict(seed=1, batch=batch, seq_len=seq_len), opt=OPT_FULL_WIDTH,
+         steps=3)
+    for name, batch, seq_len in (("qwen2-vl-2b", 2, 256),
+                                 ("rwkv6-1.6b", 2, 2048),
+                                 ("musicgen-large", 4, 256))] + [
+    dict(name="musicgen-large", smoke=True,
+         overrides=dict(dtype="float32", grad_accum=2), seed=0,
+         data=dict(seed=1, batch=4, seq_len=32), opt=OPT, steps=3),
+]
+MODES = {(): (RUNS, OUT), ("--families",): (FAMILY_RUNS, OUT_FAMILIES),
+         ("--full-width",): (FULL_WIDTH_RUNS, OUT_FULL_WIDTH)}
 METRICS = ("loss", "xent", "moe_aux", "grad_norm", "lr")
 
 
@@ -96,14 +138,18 @@ def golden_run(run: dict) -> dict:
         batch = make_batch(dcfg, tcfg, s)
         params, opt_state, m = step_fn(
             params, opt_state, jax.tree_util.tree_map(jnp.asarray, batch))
-        per_step.append({**{k: v.tolist() for k, v in batch.items()},
+        kept = {k: v.tolist() for k, v in batch.items()
+                if run["smoke"] or k != "embeds"}
+        if not run["smoke"] and "embeds" in batch:
+            kept["embeds_sha256"] = tree_sha256(batch["embeds"])
+        per_step.append({**kept,
                          **{k: float(np.asarray(m[k])) for k in METRICS}})
     return dict(run, weights_sha256=sha, per_step=per_step)
 
 
 def main(argv: list) -> None:
     if tuple(argv[1:]) not in MODES:
-        raise SystemExit(f"usage: {argv[0]} [--families]")
+        raise SystemExit(f"usage: {argv[0]} [--families | --full-width]")
     specs, out_path = MODES[tuple(argv[1:])]
     runs = [golden_run(r) for r in specs]
     os.makedirs(GOLDEN, exist_ok=True)
