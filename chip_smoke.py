@@ -344,7 +344,17 @@ order; any failure raises and the script exits nonzero:
    again by ``make_batch``), RWKV-6 1.6B (2 x 2048: the WKV state carried
    across two chunks of 1024) and MusicGen-Large (``grad_accum`` 2, 4 x 4
    x 256), each at its published width cut to 2 layers, and MusicGen's
-   smoke config under ``grad_accum`` 2. Each golden runs the donated step
+   smoke config under ``grad_accum`` 2. And against
+   ``tests/golden/train_past_card_f32.json`` (``--past-card``, card only
+   but the smoke run): the configs whose train state exceeds one card at
+   their published widths cut to one pattern group, the loss in one
+   chunk, each under its own ``grad_accum`` (the reference's ``lax.scan``
+   over microbatches): Moonshot-v1-16B-A3B at 1 layer (64 experts, top 6,
+   the aux loss; 2 x 256 in 2 microbatches), RecurrentGemma-9B at 3 (the
+   RG-LRU scan at ``lru_width`` 4096, MQA over one KV head of 256; 2 x
+   256), Gemma-2 27B at 2 (both softcaps, the post norms; 4 x 256 in 4),
+   and Moonshot's smoke config (2 x 32); the MoE runs record their
+   smallest router margin. Each golden runs the donated step
    (``donate=True``, the Trainer's); the goldens' numpy weights are drawn
    on ``GOLDEN_THREADS`` threads beside the bf16 runs, as phase 7's are.
    The bf16 runs (``train_bf16``, ``TRAIN_BF16_RUNS``), each at full
@@ -354,16 +364,27 @@ order; any failure raises and the script exits nonzero:
    ``"full"``, the loss in 8 chunks: Qwen3-0.6B 4 steps of 4 x 2048 with
    a checkpoint at step 2, Qwen2-VL-2B 3 steps of 4 x 2048 embeddings at
    M-RoPE positions, RWKV-6 1.6B 3 steps of 4 x 2048, MusicGen-Large 3
-   steps of 4 x 4 x 1024 in two microbatches; each step 56, 56, 0 and 192
-   ``flash_attention.mma`` launches, counts zeroed just before it and read
-   just after. Before the first step, the Trainer's initial params and
+   steps of 4 x 4 x 1024 in two microbatches; and the configs whose train
+   state exceeds one card at full width and the deepest whole-pattern
+   depth whose step stays within ``TRAIN_PEAK_LIMIT``
+   (``tools/train_depth_probe.py`` finds it; each line gives the depth
+   beside the published one): Moonshot-v1-16B-A3B 3 steps of 4 x 2048 in
+   two microbatches, RecurrentGemma-9B 3 steps of 2 x 4096 in two (one
+   sequence past its 2048 window a microbatch), Gemma-2 27B 3 steps of 4
+   x 5120 in four (past its 4096 window), at 5 of 48, 12 of 38 and 2 of
+   46 layers; each step 56, 56, 0, 192, 20, 16 and 16
+   ``flash_attention.mma`` launches, counts zeroed just before
+   it and read just after, and its peak within ``TRAIN_PEAK_LIMIT``.
+   Before the first step, the Trainer's initial params and
    step 1's batch, a microbatch at a time, on the kernels and on
    ``flash_attention_plain`` (``train_grad_errors``): every gradient leaf
    finite and nonzero on the kernels (a vlm's ``embed``, which embeddings
    never reach, zero in both), each within ``TRAIN_GRAD_TOL`` of the
    plain run's by norm, the losses within ``TRAIN_BF16_LOSS_TOL``, the
    kernels' launches one step's (RWKV-6 has no attention and no plain
-   pair: finite and nonzero only). Qwen3's step-2 checkpoint restored to
+   pair: finite and nonzero only; Moonshot's plain run takes the kernels'
+   routing, and the choices it would have made otherwise are counted).
+   Qwen3's step-2 checkpoint restored to
    the sha256 of every leaf of the state it was taken from
    (``state_hashes``, hashed after the step: the next one overwrites the
    tensors). Each run prints ms per step (the median of steps 2 on),
@@ -376,14 +397,15 @@ order; any failure raises and the script exits nonzero:
    the CLI a user calls: ``DSE_GRID`` (ResNet-18 and MobileNet-1.0 at
    published widths, log blocks 4 and 5, memory widths 8 and 32,
    scratchpad scale 1, ``--tune full``, one worker, ``--profile``) swept
-   cold on the numpy FSim and then on the card, where every winning tile
-   is verified once on ``TorchBackend(capture=False)`` through the VTA
-   GEMM and sweep kernels. Launch counts, the capture log and the
-   uncaptured-run count are zeroed and ``memory_allocated`` noted just
-   before the card sweep. Checks, each a count of what failed: the two
-   reports byte-identical without ``wall_s``, ``cache`` and ``profile``;
-   the numpy report's sha256 ``DSE_DIGEST``, the JAX package's
-   (tests/test_torch_dse.py pins the same digest); the VTA GEMM and the
+   cold on the card, where every winning tile is verified once on
+   ``TorchBackend(capture=False)`` through the VTA GEMM and sweep
+   kernels. Launch counts, the capture log and the uncaptured-run count
+   are zeroed and ``memory_allocated`` noted just before the sweep.
+   Checks, each a count of what failed: the report's sha256, without
+   ``wall_s``, ``cache`` and ``profile``, ``DSE_DIGEST``, the JAX
+   package's numpy report (tests/test_torch_dse.py asserts the same
+   digest of the JAX package, and holds the port's numpy FSim to it by
+   bytes); the VTA GEMM and the
    sweep kernel launched, and as many uncaptured runs as the tuner's
    verifications; no capture; no executor memo on any trace the
    ScheduleStore or the tuner holds (``device_memos``); memory back within
@@ -392,8 +414,10 @@ order; any failure raises and the script exits nonzero:
    the sweep in ``CardFault``, nothing of that point cached); and
    ``python -m repro_torch.core.dse`` on MobileNet over
    ``DSE_POOL_GRID`` with ``--backend torch --workers 2`` (two groups, so
-   its pool spawns two workers on the card) exiting 0 with the numpy
-   report of that grid. While that CLI runs, ResNet-50 at one point
+   its pool spawns two workers on the card) exiting 0 with a report
+   whose sha256 is ``DSE_POOL_DIGEST``, the JAX package's numpy report of
+   that grid (asserted as ``DSE_DIGEST`` is). While that CLI runs,
+   ResNet-50 at one point
    (``DSE50_GRID``: log block 4, memory width 8, scratchpad scale 1,
    ``--tune full``, one worker, ``--profile``) is swept cold on the card
    only (``dse50_checks``): its report against ``DSE50_DIGEST``, the JAX
@@ -505,8 +529,12 @@ reading row 0 for every section, and a codebook head that reads the next
 codebook's weights; in training, an attention forward whose result has
 no ``grad_fn``, a backward whose dK and dV keep one query head of each
 GQA group, a ``grad_accum`` loop that drops its last microbatch, a
-donated update that leaves the second moment as it was, and a donated
-microbatch sum that skips the second microbatch; in the
+donated update that leaves the second moment as it was, a donated
+microbatch sum that skips the second microbatch, and, on the route
+``PAST_CARD_ROUTE`` (the past-card golden file and the past-card runs'
+gradient checks, each such copy alone on the card), the MoE
+router's logits detached and a backward chunk that reads its keys from
+key 0, not from its window's first key; in the
 sweep, ``CardFault`` caught at ``eval_job`` as an infeasible point, a
 verification on the captured route, and one that resolves the card to
 ``"torch-cpu"``; in the mesh layer, a DTensor attention that takes the
@@ -524,7 +552,8 @@ per-group-weights VTA GEMM entry with R >= 128 dropped, which only
 ResNet-50's and -101's 2048-wide fc has), the
 unchanged sources are built once into a build directory the copies share,
 and each copy builds its changed source and runs the cases of its route
-through their limit checks (``--case-errors``, three copies at a time): the
+through their limit checks (``--case-errors``, three copies at a time, the
+first to end freeing its place; ``fault_copy_fits``): the
 phase-5 cases and those of ``FAULT_CASES`` through ``attention_error``, the
 phase-4 and edge cases of the float GEMM, depthwise, ALU or pooling kernel
 (the exact ones by value and by bits), phase 2's
@@ -538,8 +567,8 @@ serving dtypes of Moonshot cut to 4 layers (``init_errors``: its peak,
 what it holds, its f32 leaves), or phase 9's checks
 (``dse_errors``), or the part of phase 10 the fault lies in
 (``mesh_errors``: 10a, 10c or 10d); the unchanged copy runs
-all of them. One JSON line per (fault, case) gives the kernel's error
-and its limit (attention: the kernel's and the plain version's largest
+all of them, and a second one the past-card route. One JSON line per
+(fault, case) gives the kernel's error and its limit (attention: the kernel's and the plain version's largest
 error against float64, the largest |out| and the elements over the limit).
 It exits 0 only if the unchanged kernels pass every case and each fault
 fails at least one, and prints how many faults were caught of how many
@@ -3596,14 +3625,15 @@ def lm_golden(path: str = LM_GOLDEN) -> list:
 def run_tag(run: dict) -> str:
     """A golden run's name in the checks: its config's, with ``-smoke``
     for a smoke config, ``-grad_accum<n>`` where it overrides that, and
-    ``-<key>`` for each other override but the dtype and the depth (two
-    runs of one config and file apart: ``-query_scale``)."""
+    ``-<key>`` for each other override but the dtype, the depth and the
+    loss's chunks (two runs of one config and file apart:
+    ``-query_scale``)."""
     over = run.get("overrides", {})
     n = over.get("grad_accum")
     return run["name"] + ("-smoke" if run["smoke"] else "") + (
         f"-grad_accum{n}" if n else "") + "".join(
         f"-{k}" for k in sorted(over)
-        if k not in ("dtype", "n_layers", "grad_accum"))
+        if k not in ("dtype", "n_layers", "grad_accum", "loss_chunks"))
 
 
 def lm_config(run: dict):
@@ -4289,7 +4319,7 @@ def lm_checks(device, route: str = "all") -> tuple:
     import torch
     errs, rows, launches = {}, [], {}
     goldens = [run for path in LM_GOLDENS for run in lm_golden(path)]
-    threads = GOLDEN_THREADS if route == "all" else 1
+    threads = 1 if route == "golden" else GOLDEN_THREADS
     with concurrent.futures.ThreadPoolExecutor(threads) as pool:
         drawn = [pool.submit(golden_weights, run) for run in goldens]
         done = 0
@@ -4341,7 +4371,12 @@ TRAIN_GOLDEN_FAMILIES = os.path.join(ROOT, "tests", "golden",
 # layers (card only), and MusicGen's smoke config under grad_accum 2
 TRAIN_GOLDEN_FULL_WIDTH = os.path.join(ROOT, "tests", "golden",
                                        "train_full_width_f32.json")
-TRAIN_GOLDENS = (TRAIN_GOLDEN, TRAIN_GOLDEN_FAMILIES, TRAIN_GOLDEN_FULL_WIDTH)
+# Moonshot-v1-16B-A3B (1 layer), RecurrentGemma-9B (3) and Gemma-2 27B (2)
+# at full width (card only), and Moonshot's smoke config
+TRAIN_GOLDEN_PAST_CARD = os.path.join(ROOT, "tests", "golden",
+                                      "train_past_card_f32.json")
+TRAIN_GOLDENS = (TRAIN_GOLDEN, TRAIN_GOLDEN_FAMILIES, TRAIN_GOLDEN_FULL_WIDTH,
+                 TRAIN_GOLDEN_PAST_CARD)
 # a batch's keys and dtypes in the golden files (a vlm's embeddings,
 # positions and labels; the others' tokens and labels)
 BATCH_DTYPES = {"tokens": np.int32, "labels": np.int32,
@@ -4401,7 +4436,33 @@ TRAIN_BF16_RUNS = (
     # once: without donation the update alone would hold two (~98 GB)
     dict(name="musicgen-large", seed=0, batch=4, seq_len=1024, steps=3,
          opt=TRAIN_OPT),
+    # the configs whose train state exceeds one card, at full width and the
+    # deepest whole-pattern depth whose peak stays within TRAIN_PEAK_LIMIT
+    # (tools/train_depth_probe.py on an H100: the peaks a step below).
+    # Moonshot: 64 experts, top 6, the aux loss; 2 microbatches of 2 x
+    # 2048; 5 of 48 layers, 74.17 GB (4: 62.09 GB; 6 out of memory)
+    dict(name="moonshot-v1-16b-a3b", seed=0, batch=4, seq_len=2048, steps=3,
+         opt=TRAIN_OPT, overrides=dict(n_layers=5)),
+    # RecurrentGemma: groups of (rglru, rglru, attn_local); one sequence of
+    # 4096 a microbatch, past its 2048 window; 12 of 38 layers, 74.79 GB
+    # (9: 62.89 GB; 15 out of memory)
+    dict(name="recurrentgemma-9b", seed=0, batch=2, seq_len=4096, steps=3,
+         opt=TRAIN_OPT, overrides=dict(n_layers=12)),
+    # Gemma-2: local/global pairs, both softcaps; one sequence of 5120 a
+    # microbatch (4 of them), past its 4096 window; 2 of 46 layers, 52.22
+    # GB (4: 77.13 GB, over the limit)
+    dict(name="gemma2-27b", seed=0, batch=4, seq_len=5120, steps=3,
+         opt=TRAIN_OPT, overrides=dict(n_layers=2)),
 )
+# the bf16 runs whose train state exceeds one card; --plant-faults runs
+# their gradient checks, and the past-card golden file, on a route of its
+# own ("past_card", its copies alone on the card)
+TRAIN_PAST_CARD_NAMES = ("moonshot-v1-16b-a3b", "recurrentgemma-9b",
+                         "gemma2-27b")
+# the most a bf16 run's step may hold on the card (max_memory_allocated
+# over what was allocated before the Trainer was built), 4 GB under the
+# H100's 80 GB for the allocator's own slack
+TRAIN_PEAK_LIMIT = 76e9
 
 
 def train_golden(path: str = TRAIN_GOLDEN) -> list:
@@ -4411,10 +4472,12 @@ def train_golden(path: str = TRAIN_GOLDEN) -> list:
 
 def train_config(spec: dict):
     """The config of a bf16 training run: the published one with phase 8's
-    overrides (remat "full", the loss in 8 chunks)."""
+    overrides (remat "full", the loss in 8 chunks) and the run's own (a
+    depth cut), as ``lm_config`` applies a serving run's."""
     from repro_torch.configs import ARCHS
     return ARCHS[spec["name"]].replace(remat=True, remat_policy="full",
-                                       loss_chunks=8)
+                                       loss_chunks=8,
+                                       **spec.get("overrides", {}))
 
 
 def train_attention_launches(cfg) -> int:
@@ -4564,9 +4627,13 @@ def train_grad_errors(tr, want1: dict) -> tuple:
     plain run's by norm, losses more than ``TRAIN_BF16_LOSS_TOL`` apart,
     and the kernels' launches other than one step's. A model without
     attention (RWKV-6) has no plain pair: its gradients are checked for
-    finite and nonzero only, its numerics held by the f32 golden. The
-    params and gradients are freed before the Trainer runs. Returns
-    (errors, row)."""
+    finite and nonzero only, its numerics held by the f32 golden. A MoE
+    model's plain run takes the kernels' run's routing (each router call's
+    top-k recorded by ``routing``, the backward's recompute included), so
+    that the two gradients differ by rounding alone; the choices the plain
+    run would have made otherwise are counted, not held, as phase 7 counts
+    them. The params and gradients are freed before the Trainer runs.
+    Returns (errors, row)."""
     import torch
     from repro_torch.kernels import launch_counts, reset_launch_counts
     from repro_torch.models import build_model
@@ -4582,19 +4649,24 @@ def train_grad_errors(tr, want1: dict) -> tuple:
     unreached = {"embed"} if "embeds" in batch else set()
     params_c = compute_params(tr.init_params(), dt)
     plain = build_model(cfg, attention="torch") if pair else None
-    rel, bad, losses, repeat = {}, set(), [], {}
+    moe = cfg.family == "moe"
+    rel, bad, losses, repeat, differ, choices = {}, set(), [], {}, [], 0
     for i in range(n):
         mb = {k: microbatch(x, n, i) for k, x in batch.items()}
         reset_launch_counts()
-        lk, _, gk = loss_and_grads(tr.model, params_c, mb)
+        kept: list = []
+        with routing(kept) if moe else contextlib.nullcontext():
+            lk, _, gk = loss_and_grads(tr.model, params_c, mb)
         torch.cuda.synchronize()
+        choices += sum(x.numel() for x in kept)
         for k, v in launch_counts().items():
             repeat[k] = repeat.get(k, 0) + v
         fk = flatten_dict(gk)
         del gk
         lp, fp = lk, None
         if pair:
-            lp, _, gp = loss_and_grads(plain, params_c, mb)
+            with routing(kept, differ) if moe else contextlib.nullcontext():
+                lp, _, gp = loss_and_grads(plain, params_c, mb)
             fp = flatten_dict(gp)
             del gp
         for k, g in fk.items():
@@ -4608,7 +4680,7 @@ def train_grad_errors(tr, want1: dict) -> tuple:
             elif fp is not None and bool((fp[k] != 0).any()):
                 bad.add(k)
         losses.append((float(lk), float(lp)))
-        del fk, fp
+        del fk, fp, kept
     del params_c, batch
     gc.collect()
     torch.cuda.empty_cache()
@@ -4632,7 +4704,27 @@ def train_grad_errors(tr, want1: dict) -> tuple:
                grad_rel_err_worst=sorted(rel.items(),
                                          key=lambda kv: -kv[1])[:3],
                grad_limit=TRAIN_GRAD_TOL)
+    if moe:
+        row.update(router_choices=choices,
+                   router_choices_differ=int(sum(int(x) for x in differ)))
     return errs, row
+
+
+def trainer(spec: dict, device, ckpt_dir: str = None):
+    """The ``Trainer`` of a bf16 run of ``TRAIN_BF16_RUNS`` on ``device``,
+    its checkpoints at step ``ckpt_every`` into ``ckpt_dir`` where the run
+    has one."""
+    from repro_torch.train.data import DataConfig
+    from repro_torch.train.loop import Trainer, TrainerConfig
+    from repro_torch.train.optimizer import AdamWConfig
+    steps, at = spec["steps"], spec.get("ckpt_every")
+    return Trainer(train_config(spec),
+                   DataConfig(seed=spec["seed"], batch=spec["batch"],
+                              seq_len=spec["seq_len"]),
+                   AdamWConfig(**spec["opt"]),
+                   TrainerConfig(num_steps=steps, log_every=1,
+                                 ckpt_every=at or steps, ckpt_dir=ckpt_dir,
+                                 seed=spec["seed"]), device=device)
 
 
 def train_bf16(device, spec: dict) -> tuple:
@@ -4657,9 +4749,7 @@ def train_bf16(device, spec: dict) -> tuple:
     import torch
     from repro_torch.kernels import launch_counts, reset_launch_counts
     from repro_torch.train.checkpoint import CheckpointManager
-    from repro_torch.train.data import DataConfig, make_batch
-    from repro_torch.train.loop import Trainer, TrainerConfig
-    from repro_torch.train.optimizer import AdamWConfig
+    from repro_torch.train.data import make_batch
     from repro_torch.utils.tree import tree_leaves
     cfg = train_config(spec)
     B, S, steps = (spec[k] for k in ("batch", "seq_len", "steps"))
@@ -4671,11 +4761,7 @@ def train_bf16(device, spec: dict) -> tuple:
     base = torch.cuda.memory_allocated()
     ckpt_dir = tempfile.mkdtemp(prefix="chip_smoke_train_") if at else None
     try:
-        tr = Trainer(cfg, DataConfig(seed=spec["seed"], batch=B, seq_len=S),
-                     AdamWConfig(**spec["opt"]),
-                     TrainerConfig(num_steps=steps, log_every=1,
-                                   ckpt_every=at or steps, ckpt_dir=ckpt_dir,
-                                   seed=spec["seed"]), device=device)
+        tr = trainer(spec, device, ckpt_dir)
         errs, grad_row = train_grad_errors(tr, want1)
         walls["grad_check"], t0 = time.perf_counter() - t0, time.perf_counter()
         inner, seen, hashes, peaks = tr.step_fn, [], [], []
@@ -4701,7 +4787,8 @@ def train_bf16(device, spec: dict) -> tuple:
                 for _, c in seen) + int(len(seen) != steps),
             f"{tag}.finite": sum(
                 not (math.isfinite(h["loss"])
-                     and math.isfinite(h["grad_norm"])) for h in hist)})
+                     and math.isfinite(h["grad_norm"])) for h in hist),
+            f"{tag}.peak": sum(x > TRAIN_PEAK_LIMIT for x in peaks)})
         if at:
             restored, rstep = CheckpointManager(ckpt_dir).restore(
                 (params, opt_state), step=at, device="cpu")
@@ -4725,7 +4812,8 @@ def train_bf16(device, spec: dict) -> tuple:
     secs = [s for s, _ in seen]
     step_s = statistics.median(secs[1:])
     grads_mb = n_params * (4 if cfg.grad_accum > 1 else 2) / 1e6
-    row = dict(config=cfg.name, layers=cfg.n_layers, dtype=cfg.dtype,
+    row = dict(config=cfg.name, layers=cfg.n_layers,
+               published_layers=published_layers(spec), dtype=cfg.dtype,
                remat=cfg.remat_policy, loss_chunks=cfg.loss_chunks, batch=B,
                seq_len=S, grad_accum=cfg.grad_accum, steps=steps,
                checkpoint_at=at, params=n_params,
@@ -4735,6 +4823,7 @@ def train_bf16(device, spec: dict) -> tuple:
                step_ms_median_2_on=step_s * 1e3,
                tokens_per_s=B * S / step_s,
                peak_allocated_mb=max(peaks) / 1e6,
+               peak_limit_mb=TRAIN_PEAK_LIMIT / 1e6,
                peak_allocated_mb_per_step=[x / 1e6 for x in peaks],
                train_state_mb=state_mb,
                undonated_update_mb=2 * state_mb + grads_mb
@@ -4776,7 +4865,8 @@ def train_bf16_lines(row: dict, e: dict) -> None:
     p = row["profile"]
     log(f"train wall bf16 {row['config']}: " + ", ".join(
         f"{k} {v:.2f}" for k, v in row["walls"].items()) + " s")
-    log(f"train bf16 {row['config']} ({row['layers']} layers, "
+    log(f"train bf16 {row['config']} ({row['layers']} of "
+        f"{row['published_layers']} layers, "
         f"{row['params'] / 1e9:.3f} B params, remat {row['remat']}, loss "
         f"in {row['loss_chunks']} chunks, {row['grad_accum']} "
         f"microbatches): {row['steps']} steps of {row['batch']} x "
@@ -4785,6 +4875,7 @@ def train_bf16_lines(row: dict, e: dict) -> None:
         f"2-{row['steps']} {row['step_ms_median_2_on']:.2f} ms, "
         f"{row['tokens_per_s']:.0f} tokens/s; peak allocated per step "
         f"{[round(x, 1) for x in row['peak_allocated_mb_per_step']]} MB "
+        f"(limit {row['peak_limit_mb']:.0f} MB) "
         f"(train state {row['train_state_mb']:.1f} MB; the functional "
         f"step's update would hold {row['undonated_update_mb']:.1f} MB), "
         f"reserved {row['memory_reserved_mb']:.1f} MB; loss {row['loss']}, "
@@ -4793,7 +4884,12 @@ def train_bf16_lines(row: dict, e: dict) -> None:
         f"{row['loss_plain']} (relative {row['loss_rel_err']}, limit "
         f"{row['loss_limit']}), gradients by norm worst "
         f"{row['grad_rel_err_worst']} (limit {row['grad_limit']}), "
-        f"unreached leaves {row['unreached_leaves']}; launches per step "
+        f"unreached leaves {row['unreached_leaves']}; "
+        + (f"router choices of the plain run that differ from the "
+           f"kernels' {row['router_choices_differ']} of "
+           f"{row['router_choices']} (the plain run takes the kernels'); "
+           if "router_choices" in row else "")
+        + f"launches per step "
         f"{row['launches_per_step']}; launches {row['launches']}; checks "
         f"{e}")
     log(f"train bf16 {row['config']} profile, one step: " + (
@@ -4812,18 +4908,27 @@ def train_bf16_lines(row: dict, e: dict) -> None:
 
 
 def train_checks(device, route: str = "all") -> tuple:
-    """Phase 8: every golden run of the golden files
-    (``train_golden_errors``) and, for route "all", each bf16 run of
-    ``TRAIN_BF16_RUNS`` (``train_bf16``). The goldens' numpy weights are
-    drawn and hashed on ``GOLDEN_THREADS`` threads (one for route
-    "golden") beside the bf16 runs, as phase 7's are; after each bf16 run
-    the goldens drawn so far are checked in file order, and the rest after
-    the last. Returns (errors, rows, launches: the attention launches
-    summed over the runs)."""
+    """Phase 8: for route "all", every golden run of the golden files
+    (``train_golden_errors``) and each bf16 run of ``TRAIN_BF16_RUNS``
+    (``train_bf16``). Route "golden" runs the golden files but the
+    past-card one; route "past_card" that file and the gradient check
+    (``train_grad_errors``, no step) of each run of
+    ``TRAIN_PAST_CARD_NAMES``. The goldens' numpy weights are drawn and
+    hashed on ``GOLDEN_THREADS`` threads (one for route "golden", whose
+    copies run three at a time) beside the bf16 runs, as phase 7's are; after each bf16 run the goldens drawn
+    so far are checked in file order, and the rest after the last.
+    Returns (errors, rows, launches: the attention launches summed over
+    the runs)."""
     import torch
     errs, rows, launches = {}, [], {}
-    goldens = [r for path in TRAIN_GOLDENS for r in train_golden(path)]
-    threads = GOLDEN_THREADS if route == "all" else 1
+    paths = {"all": TRAIN_GOLDENS, "past_card": (TRAIN_GOLDEN_PAST_CARD,),
+             "golden": tuple(p for p in TRAIN_GOLDENS
+                             if p != TRAIN_GOLDEN_PAST_CARD)}[route]
+    specs = {"all": TRAIN_BF16_RUNS, "golden": (),
+             "past_card": tuple(r for r in TRAIN_BF16_RUNS
+                                if r["name"] in TRAIN_PAST_CARD_NAMES)}[route]
+    goldens = [r for path in paths for r in train_golden(path)]
+    threads = 1 if route == "golden" else GOLDEN_THREADS
     with concurrent.futures.ThreadPoolExecutor(threads) as pool:
         drawn = [pool.submit(golden_weights, run) for run in goldens]
         done = 0
@@ -4835,13 +4940,21 @@ def train_checks(device, route: str = "all") -> tuple:
                                    drawn[done].result(), errs, rows)
                 drawn[done] = None          # its weights go
                 done += 1
-        for spec in TRAIN_BF16_RUNS if route == "all" else ():
+        for spec in specs:
             gc.collect()
             torch.cuda.empty_cache()
-            e, row = train_bf16(device, spec)
+            if route == "all":
+                e, row = train_bf16(device, spec)
+                train_bf16_lines(row, e)
+            else:
+                cfg = train_config(spec)
+                e, row = train_grad_errors(
+                    trainer(spec, device),
+                    train_launches_want(cfg, spec["seq_len"], 1))
+                row.update(config=cfg.name, launches={})
+                log(f"train grad check {cfg.name}: {row}; checks {e}")
             errs.update(e)
             rows.append(row)
-            train_bf16_lines(row, e)
             check_goldens(wait=False)
         check_goldens(wait=True)
     gc.collect()
@@ -4853,10 +4966,11 @@ def train_checks(device, route: str = "all") -> tuple:
     return errs, rows, launches
 
 
-def train_errors(fault: str) -> None:
-    """Phase 8's golden checks on the card, one line per check, limit 0."""
+def train_errors(fault: str, route: str = "golden") -> None:
+    """Phase 8's checks of ``route`` on the card (``train_checks``), one
+    line per check, limit 0."""
     import torch
-    errs = train_checks(torch.device("cuda"), route="golden")[0]
+    errs = train_checks(torch.device("cuda"), route=route)[0]
     for check, err in errs.items():
         print(json.dumps({"fault": fault, "case": f"train {check}",
                           "err": err, "limit": 0, "over": err > 0}),
@@ -4877,6 +4991,11 @@ DSE_GRID = dict(log_blocks=(4, 5), mem_widths=(8, 32), spad_scales=(1,),
 # the CLI through its pool: two groups (log blocks 4 and 5; one group would
 # run serially), so the pool opens, its two workers spawned on the card
 DSE_POOL_GRID = dict(log_blocks=(4, 5), mem_widths=(8,), spad_scales=(1,))
+# sha256 of the JAX package's numpy-backend report.json of MobileNet on
+# DSE_POOL_GRID with --tune full, made as DSE_DIGEST; tests/test_torch_dse.py
+# asserts the same digest
+DSE_POOL_DIGEST = \
+    "c13cf63505a2448de8c30e4e2c2cfa706eed5c3e05bb13a19119e67dde1923a4"
 # ResNet-50 at one design point, on the card only, against the JAX
 # package's numpy-backend report of the same point (the digest as DSE_DIGEST;
 # tests/test_torch_dse_resnet50.py asserts it)
@@ -4999,17 +5118,17 @@ def dse_drill(tmp: str) -> int:
     return errs
 
 
-def dse_pool_cli(tmp: str, numpy_out: str, beside=None) -> tuple:
+def dse_pool_cli(tmp: str, beside=None) -> tuple:
     """``python -m repro_torch.core.dse --networks mobilenet`` on
     ``DSE_POOL_GRID`` with ``--tune full --backend torch --workers 2`` in
-    a subprocess (the pool spawned, its workers on the card), against the
-    numpy sweep's report of the same grid (read back from its cache).
+    a subprocess (the pool spawned, its workers on the card), its report's
+    sha256 against ``DSE_POOL_DIGEST``, the JAX package's numpy report of
+    that grid.
     ``beside()``, if given, runs in this process while the subprocess
     runs (both are bound by their hosts' cores, of which the CLI takes
     three). Returns (count of what failed, the CLI's wall seconds, what
     ``beside`` returned)."""
     import threading
-    from repro_torch.core import dse
     out = os.path.join(tmp, "pool")
     args = ["--networks", "mobilenet", "--tune", "full", "--backend",
             "torch", "--workers", "2", "--out", out]
@@ -5038,11 +5157,10 @@ def dse_pool_cli(tmp: str, numpy_out: str, beside=None) -> tuple:
             proc.wait()
     for line in done.get("out", "").strip().splitlines()[-6:]:
         log(f"  dse cli: {line}")
-    want = dse.run_sweep(["mobilenet"], out_dir=numpy_out, backend="numpy",
-                         tune="full", workers=1, **DSE_POOL_GRID)
     errs = int(proc.returncode != 0)
     if not errs:
-        errs = int(report_file_text(out) != report_text(want.report()))
+        errs = int(hashlib.sha256(report_file_text(out).encode()).hexdigest()
+                   != DSE_POOL_DIGEST)
     return errs, done["wall"], got
 
 
@@ -5073,8 +5191,10 @@ class timed_calls:
 
 
 def dse_checks(tmp: str, beside=None) -> tuple:
-    """Phase 9: ``DSE_GRID`` swept on the numpy FSim, then on the card,
-    the card-fault drill and the CLI through its spawned pool, with
+    """Phase 9: ``DSE_GRID`` swept on the card, its report held to
+    ``DSE_DIGEST`` (the JAX package's numpy report, which the tier-1 tests
+    hold the port's numpy FSim to), the card-fault drill and the CLI
+    through its spawned pool, with
     ``beside()`` run while the CLI runs (what it returned is the rows'
     ``"beside"``). Returns (count of what failed per check, the numbers to
     print, the card sweep's launches)."""
@@ -5084,8 +5204,6 @@ def dse_checks(tmp: str, beside=None) -> tuple:
     from repro_torch.kernels import launch_counts, reset_launch_counts
     from repro_torch.vta import fsim_torch
     smi = card_line()
-    numpy_out = os.path.join(tmp, "numpy")
-    res_np, wall_np, _, tuner_np = dse_sweep("numpy", numpy_out)
     torch.cuda.synchronize()
     gc.collect()
     mem0 = torch.cuda.memory_allocated()
@@ -5111,11 +5229,9 @@ def dse_checks(tmp: str, beside=None) -> tuple:
     del store, tuner
     reset_sweep_state()
     mem1 = torch.cuda.memory_allocated()
-    text_np = report_file_text(numpy_out)
     text = report_file_text(os.path.join(tmp, "torch"))
     errs = {
-        "reports_equal": int(text != text_np),
-        "digest": int(hashlib.sha256(text_np.encode()).hexdigest()
+        "digest": int(hashlib.sha256(text.encode()).hexdigest()
                       != DSE_DIGEST),
         "launches": sum(counts.get(k, 0) == 0 for k in ("gemm", "alu_sweep")),
         "verifications": int(verifications == 0 or runs != verifications),
@@ -5124,14 +5240,11 @@ def dse_checks(tmp: str, beside=None) -> tuple:
         "memory": int(mem1 - mem0 > DSE_MEMORY_SLACK),
     }
     errs["drill"] = dse_drill(tmp)
-    errs["pool_cli"], wall_cli, beside_out = dse_pool_cli(tmp, numpy_out,
-                                                          beside)
-    st_np, st = res_np.profile["stages"], res.profile["stages"]
+    errs["pool_cli"], wall_cli, beside_out = dse_pool_cli(tmp, beside)
+    st = res.profile["stages"]
     verify_s = st.get("fsim_verify", 0.0)
     rows = {
         "card": smi,
-        "numpy": {"wall_s": wall_np, "stages_s": st_np,
-                  "verifications": tuner_np.verifications},
         "torch": {"wall_s": wall, "stages_s": st,
                   "verifications": verifications,
                   "ms_per_verification": 1e3 * verify_s / max(verifications,
@@ -5144,11 +5257,11 @@ def dse_checks(tmp: str, beside=None) -> tuple:
         "programs_scheduled": res.profile["schedule_store"].get("misses", 0),
         "cli_pool_wall_s": wall_cli,
     }
-    for name, r in (("numpy", rows["numpy"]), ("torch", rows["torch"])):
-        log(f"dse sweep on {name}: wall {r['wall_s']:.3f} s, fsim_verify "
-            f"{r['stages_s'].get('fsim_verify', 0.0):.3f} s, "
-            f"{r['verifications']} verifications; stages {r['stages_s']} "
-            f"({smi})")
+    r = rows["torch"]
+    log(f"dse sweep on torch: wall {r['wall_s']:.3f} s, fsim_verify "
+        f"{r['stages_s'].get('fsim_verify', 0.0):.3f} s, "
+        f"{r['verifications']} verifications; stages {r['stages_s']} "
+        f"({smi})")
     call_s, lower_s, entries_s = (spent.get(k, 0.0) for k in (
         "run_batched", "lower", "entries"))
     log(f"dse on the card: {verifications} verifications, "
@@ -5876,6 +5989,19 @@ PLANTED_FAULTS = {  # name: (route, file under src/repro_torch, text, stand-in)
         '        dk[:, :, k0:k1] += torch.einsum("bkcl,bkcd->bkld", ds[:, :, 0],'
         ' qc[:, :, 0])\n        dv[:, :, k0:k1] += torch.einsum('
         '"bkcl,bkcd->bkld", p[:, :, 0], doc[:, :, 0])'),
+    # the router's logits detached: the router gets no gradient, nor does
+    # the residual stream through the gates
+    "train.moe_router_no_grad": (
+        "train", "models/moe.py",
+        '    logits = linear(xf.to(f32), p["router"].to(f32))\n',
+        '    logits = linear(xf.to(f32), p["router"].to(f32)).detach()\n'),
+    # a backward chunk that reads its keys from key 0, not from its
+    # window's first key k0 (the same where k0 is 0: every chunk of a
+    # sequence within its window)
+    "train.backward_window_dropped": (
+        "train", "kernels/flash_attention.py",
+        "        kb, vb = kf[:, :, :, k0:k1], vf[:, :, :, k0:k1]\n",
+        "        kb, vb = kf[:, :, :, :k1 - k0], vf[:, :, :, :k1 - k0]\n"),
     # the sweep records a fault of the card as an infeasible point (the
     # reference's handler at eval_job, with CardFault put back into it)
     "dse.card_fault_absorbed": (
@@ -5994,6 +6120,18 @@ POOL_FAULT_KEYS = ("pool", "ladder")
 LM_FAULT_KEYS = ("lm",)
 INIT_FAULT_KEYS = ("lm_init",)
 TRAIN_FAULT_KEYS = ("train",)
+# the training faults that only phase 8's past-card runs catch run on a
+# route limited to those runs (``train_checks``' "past_card"): the
+# past-card golden file and the gradient checks of TRAIN_PAST_CARD_NAMES
+PAST_CARD_ROUTE = "train_past_card"
+PAST_CARD_FAULTS = ("train.moe_router_no_grad",
+                    "train.backward_window_dropped")
+# routes whose copy holds most of the card (~53 GB): such a copy runs
+# alone, its golden draws on GOLDEN_THREADS threads
+HEAVY_FAULT_ROUTES = (PAST_CARD_ROUTE,)
+# the longest a fault copy may run: the unchanged copy runs every route
+# and took over 900 s beside two others on an H100's host
+FAULT_COPY_S = 1800
 DSE_FAULT_KEYS = ("dse",)
 MESH_FAULT_KEYS = ("mesh_serve", "mesh_restore", "mesh_dryrun")
 # --plant-faults runs these besides ATTENTION_CASES: the only windowed
@@ -6024,7 +6162,7 @@ def case_errors(fault: str, route: str) -> int:
             + SERVE_FAULT_KEYS + RESNET_FAULT_KEYS + POOL_FAULT_KEYS \
             + LM_FAULT_KEYS \
             + INIT_FAULT_KEYS + TRAIN_FAULT_KEYS + DSE_FAULT_KEYS \
-            + MESH_FAULT_KEYS:
+            + MESH_FAULT_KEYS + (PAST_CARD_ROUTE,):
         attention_errors(fault, route)
     if route == "all" or route in LAYER_FAULT_KEYS:
         layer_errors(fault, route)
@@ -6040,8 +6178,10 @@ def case_errors(fault: str, route: str) -> int:
         lm_errors(fault)
     if route == "all" or route in INIT_FAULT_KEYS:
         init_errors(fault)
-    if route == "all" or route in TRAIN_FAULT_KEYS:
+    if route == "all" or route == "train":
         train_errors(fault)
+    if route == PAST_CARD_ROUTE:
+        train_errors(fault, "past_card")
     if route == "all" or route in DSE_FAULT_KEYS:
         dse_errors(fault)
     if route == "all" or route in MESH_FAULT_KEYS:
@@ -6186,6 +6326,17 @@ def attention_errors(fault: str, route: str) -> None:
               flush=True)
 
 
+def fault_copy_fits(route: str, running: list) -> bool:
+    """Whether a copy of ``route`` may start beside copies of the routes
+    ``running``: three copies at a time hold the card's memory well
+    inside 80 GB; a copy of a heavy route (~53 GB, its past-card
+    gradient checks) runs alone."""
+    if route in HEAVY_FAULT_ROUTES:
+        return not running
+    return len(running) < 3 and not any(r in HEAVY_FAULT_ROUTES
+                                        for r in running)
+
+
 def plant_faults() -> int:
     """``--plant-faults``: see the module's docstring."""
     tmp = tempfile.mkdtemp(prefix="chip_smoke_faults_")
@@ -6199,8 +6350,14 @@ def plant_faults() -> int:
         t0 = time.perf_counter()
         _build.build_all()
         log(f"build: {time.perf_counter() - t0:.1f} s")
-        jobs = [("none", "all", None)] + [
-            (f, spec[0], spec[1:]) for f, spec in PLANTED_FAULTS.items()]
+        # the unchanged copy runs every route: "all", and each heavy route
+        # apart; the heavy copies first, so that they overlap the others
+        controls = [("none", "all", None)] + [
+            (f"none.{r}", r, None) for r in HEAVY_FAULT_ROUTES]
+        jobs = controls + [
+            (f, PAST_CARD_ROUTE if f in PAST_CARD_FAULTS else spec[0],
+             spec[1:]) for f, spec in PLANTED_FAULTS.items()]
+        jobs.sort(key=lambda j: j[1] not in HEAVY_FAULT_ROUTES)
         for fault, route, sub in jobs:
             dst = os.path.join(tmp, fault)
             shutil.copytree(ROOT, dst, ignore=shutil.ignore_patterns(
@@ -6213,22 +6370,33 @@ def plant_faults() -> int:
                                          f"{sub[0]} once")
                 with open(path, "w") as f:
                     f.write(text.replace(sub[1], sub[2]))
-        # three copies at a time hold the card's memory well inside 80 GB
-        pending = list(jobs)
+        pending, routes, started = list(jobs), {}, {}
         while pending or procs:
-            while pending and len(procs) < 3:
+            while pending and fault_copy_fits(
+                    pending[0][1], [routes[f] for f in procs]):
                 fault, route, _ = pending.pop(0)
-                procs[fault] = subprocess.Popen(
-                    [sys.executable, "chip_smoke.py", "--case-errors",
-                     fault, route], cwd=os.path.join(tmp, fault), env=env,
-                    stdout=subprocess.PIPE, text=True)
-            fault = next(iter(procs))
+                routes[fault], started[fault] = route, time.perf_counter()
+                with open(os.path.join(tmp, f"{fault}.out"), "w") as out:
+                    procs[fault] = subprocess.Popen(
+                        [sys.executable, "chip_smoke.py", "--case-errors",
+                         fault, route], cwd=os.path.join(tmp, fault),
+                        env=env, stdout=out, text=True)
+            # the first copy to end, whichever it is, frees its place
+            done = [f for f, p in procs.items() if p.poll() is not None]
+            late = [f for f in procs
+                    if time.perf_counter() - started[f] > FAULT_COPY_S]
+            if late:
+                raise AssertionError(f"{late[0]}: over {FAULT_COPY_S} s")
+            if not done:
+                time.sleep(1)
+                continue
+            fault = done[0]
             proc = procs.pop(fault)
-            out, _ = proc.communicate(timeout=900)
             if proc.returncode:
                 raise AssertionError(f"{fault}: exit {proc.returncode}")
-            lines = [json.loads(x) for x in out.splitlines()
-                     if x.startswith("{")]
+            with open(os.path.join(tmp, f"{fault}.out")) as f:
+                lines = [json.loads(x) for x in f.read().splitlines()
+                         if x.startswith("{")]
             for x in lines:
                 log(json.dumps(x))
             failed[fault] = [x["case"] for x in lines if x["over"]]
@@ -6241,9 +6409,10 @@ def plant_faults() -> int:
                 proc.wait()
         shutil.rmtree(tmp, ignore_errors=True)
     caught = sum(bool(failed[f]) for f in PLANTED_FAULTS)
+    unchanged = sum(len(failed[f]) for f, _, _ in controls)
     log(f"planted faults caught: {caught} of {len(PLANTED_FAULTS)}; the "
-        f"unchanged copy over the limit in {len(failed['none'])} cases")
-    if failed["none"] or not all(failed[f] for f in PLANTED_FAULTS):
+        f"unchanged copy over the limit in {unchanged} cases")
+    if unchanged or not all(failed[f] for f in PLANTED_FAULTS):
         raise AssertionError("the unchanged kernels failed, or a fault "
                              "passed")
     return 0

@@ -5,6 +5,7 @@ batches that numpy makes from a seed.
     PYTHONPATH=src JAX_PLATFORMS=cpu python tests/make_train_golden.py
     PYTHONPATH=src JAX_PLATFORMS=cpu python tests/make_train_golden.py --families
     PYTHONPATH=src JAX_PLATFORMS=cpu python tests/make_train_golden.py --full-width
+    PYTHONPATH=src JAX_PLATFORMS=cpu python tests/make_train_golden.py --past-card
 
 Not a test (pytest collects ``test_*.py`` only). The first writes
 ``golden/train_f32.json`` (~1 min, ~6 GB at its peak), runs each in f32:
@@ -47,6 +48,40 @@ first draw of ``make_batch``'s generator, so the card's host makes them
 again and checks the hash. The mode takes ~3 min and ~10 GB at the
 peak.
 
+``--past-card`` writes ``golden/train_past_card_f32.json``: the configs
+whose train state exceeds one card, which ``chip_smoke.py`` phase 8
+trains in bf16 at full width and cut depth, here at their published
+widths with the depth cut to one pattern group and the loss in one chunk
+(``loss_chunks`` 1, which orders the loss's sum and leaves every shape as
+published), in f32, each under its own ``grad_accum``:
+
+- ``moonshot-v1-16b-a3b``, 1 layer (64 experts, top 6, the load-balance
+  aux loss), batch 2 x 256 in 2 microbatches;
+- ``recurrentgemma-9b``, 3 layers (``rglru, rglru, attn_local``: the RG-LRU
+  scan at ``lru_width`` 4096, MQA of 16 query heads over 1 KV head of
+  256), batch 2 x 256 in 2 microbatches;
+- ``gemma2-27b``, 2 layers (a local/global pair: the attention softcap of
+  50, the final softcap of 30, the post norms), batch 4 x 256 in 4
+  microbatches;
+- ``moonshot-v1-16b-a3b``'s smoke config, batch 2 x 32: the one run of the
+  file the CPU tests can afford, the MoE family's training golden.
+
+Each MoE run keeps ``router_margin``, as tests/make_lm_golden.py does: the
+smallest gap between the K-th and the (K+1)-th largest router probability
+over every token, layer, microbatch and step (the forward and the
+backward's recompute), where a routing choice would flip first.
+
+The step is jitted with ``donate_argnums=(0, 1)``, as the reference's
+``Trainer`` jits it. On an 8-core x86 host the mode took 7.5 min, its runs
+74.4, 124.9, 243.0 and 5.1 s, at peaks of resident memory of 25.72,
+33.90, 47.43 and 1.19 GB. XLA's own reckoning of the full-width steps'
+buffers (``tests/golden_step_memory.py``) is 24.83, 32.85 and 46.25 GB
+donated and 29.82, 39.82 and 55.60 GB without: each peak sits within
+1.2 GB over the donated figure, so the CPU backend took the donation.
+
+Every mode jits the step with that donation, which changes no value: the
+default mode's file is byte for byte the one made without it.
+
 Per run the file keeps the config's name and overrides, the weights' seed
 and sha256 (``convert.tree_sha256``: whether numpy made the same ones on
 the card's host), the data and AdamW settings, and per step the batch
@@ -56,9 +91,12 @@ versions, so the card's host reads them from here),
 the loss, xent, moe_aux, grad_norm and lr. ``chip_smoke.py`` reads only
 this JSON.
 """
+import contextlib
 import json
 import os
 import sys
+import threading
+import time
 
 import jax
 import jax.numpy as jnp
@@ -115,12 +153,79 @@ FULL_WIDTH_RUNS = [
          overrides=dict(dtype="float32", grad_accum=2), seed=0,
          data=dict(seed=1, batch=4, seq_len=32), opt=OPT, steps=3),
 ]
-MODES = {(): (RUNS, OUT), ("--families",): (FAMILY_RUNS, OUT_FAMILIES),
-         ("--full-width",): (FULL_WIDTH_RUNS, OUT_FULL_WIDTH)}
+OUT_PAST_CARD = os.path.join(GOLDEN, "train_past_card_f32.json")
+# depths of one pattern group: Moonshot's (attn_global,),
+# RecurrentGemma's (rglru, rglru, attn_local), Gemma-2's local/global pair.
+# The loss in one chunk: the reference's chunk loop is unrolled, and XLA's
+# CPU build holds every chunk's f32 head gradient until it sums them (8 x
+# 4.7 GB for Gemma-2's 256000 x 4608 embedding: its step's buffers 75.8
+# GB under 8 chunks, 46.3 GB under 1, by tests/golden_step_memory.py)
+PAST_CARD_RUNS = [
+    dict(name=name, smoke=False,
+         overrides=dict(dtype="float32", n_layers=layers, loss_chunks=1),
+         seed=0, data=dict(seed=1, batch=batch, seq_len=256),
+         opt=OPT_FULL_WIDTH, steps=3)
+    for name, layers, batch in (("moonshot-v1-16b-a3b", 1, 2),
+                                ("recurrentgemma-9b", 3, 2),
+                                ("gemma2-27b", 2, 4))] + [
+    dict(name="moonshot-v1-16b-a3b", smoke=True,
+         overrides=dict(dtype="float32"), seed=0,
+         data=dict(seed=1, batch=2, seq_len=32), opt=OPT_FULL_WIDTH,
+         steps=3),
+]
+# mode: (runs, file, whether a MoE run keeps its router_margin)
+MODES = {(): (RUNS, OUT, False),
+         ("--families",): (FAMILY_RUNS, OUT_FAMILIES, False),
+         ("--full-width",): (FULL_WIDTH_RUNS, OUT_FULL_WIDTH, False),
+         ("--past-card",): (PAST_CARD_RUNS, OUT_PAST_CARD, True)}
 METRICS = ("loss", "xent", "moe_aux", "grad_norm", "lr")
 
 
-def golden_run(run: dict) -> dict:
+@contextlib.contextmanager
+def router_margins(margins: list):
+    """``jax.lax.top_k`` (which only the MoE router calls) taking k + 1
+    values, the (k+1)-th only to append the smallest K-th minus (K+1)-th
+    gap of each call to ``margins`` (a host callback under ``jit``); the
+    top k it returns are ``top_k``'s own."""
+    real = jax.lax.top_k
+
+    def top_k(x, k):
+        vals, idx = real(x, k + 1)
+        jax.debug.callback(lambda v: margins.append(
+            float(np.min(v[..., k - 1] - v[..., k]))), vals)
+        return vals[..., :k], idx[..., :k]
+    jax.lax.top_k = top_k
+    try:
+        yield
+    finally:
+        jax.lax.top_k = real
+
+
+@contextlib.contextmanager
+def peak_rss(out: dict):
+    """The largest resident set of this process within the block, in
+    bytes, into ``out["peak_rss"]``: ``VmRSS`` read every 20 ms."""
+    done = threading.Event()
+    peak = [0]
+
+    def sample():
+        while not done.is_set():
+            with open("/proc/self/status") as f:
+                for line in f:
+                    if line.startswith("VmRSS:"):
+                        peak[0] = max(peak[0], int(line.split()[1]) << 10)
+            done.wait(0.02)
+    t = threading.Thread(target=sample, daemon=True)
+    t.start()
+    try:
+        yield
+    finally:
+        done.set()
+        t.join()
+        out["peak_rss"] = peak[0]
+
+
+def golden_run(run: dict, margin: bool = False) -> dict:
     cfg = (SMOKE_ARCHS if run["smoke"] else ARCHS)[run["name"]].replace(
         **run["overrides"])
     tcfg = (T_SMOKE if run["smoke"] else T_ARCHS)[run["name"]].replace(
@@ -131,34 +236,46 @@ def golden_run(run: dict) -> dict:
     del weights
     opt_state = init_opt_state(params)
     step_fn = jax.jit(make_train_step(build_model(cfg),
-                                      AdamWConfig(**run["opt"])))
+                                      AdamWConfig(**run["opt"])),
+                      donate_argnums=(0, 1))
     dcfg = DataConfig(**run["data"])
-    per_step = []
+    per_step, margins = [], []
     for s in range(run["steps"]):
         batch = make_batch(dcfg, tcfg, s)
-        params, opt_state, m = step_fn(
-            params, opt_state, jax.tree_util.tree_map(jnp.asarray, batch))
+        with router_margins(margins) if margin else contextlib.nullcontext():
+            params, opt_state, m = step_fn(
+                params, opt_state, jax.tree_util.tree_map(jnp.asarray, batch))
+            jax.block_until_ready(m)
         kept = {k: v.tolist() for k, v in batch.items()
                 if run["smoke"] or k != "embeds"}
         if not run["smoke"] and "embeds" in batch:
             kept["embeds_sha256"] = tree_sha256(batch["embeds"])
         per_step.append({**kept,
                          **{k: float(np.asarray(m[k])) for k in METRICS}})
-    return dict(run, weights_sha256=sha, per_step=per_step)
+    extra = {"router_margin": min(margins)} if margins else {}
+    return dict(run, weights_sha256=sha, per_step=per_step, **extra)
 
 
 def main(argv: list) -> None:
     if tuple(argv[1:]) not in MODES:
-        raise SystemExit(f"usage: {argv[0]} [--families | --full-width]")
-    specs, out_path = MODES[tuple(argv[1:])]
-    runs = [golden_run(r) for r in specs]
+        raise SystemExit(f"usage: {argv[0]} [--families | --full-width | "
+                         f"--past-card]")
+    specs, out_path, margin = MODES[tuple(argv[1:])]
+    runs = []
+    for r in specs:
+        t0, seen = time.perf_counter(), {}
+        with peak_rss(seen):
+            runs.append(golden_run(r, margin))
+        print(r["name"], r["overrides"], f"{time.perf_counter() - t0:.1f} s,",
+              f"peak RSS {seen['peak_rss'] / 1e9:.2f} GB", flush=True)
     os.makedirs(GOLDEN, exist_ok=True)
     with open(out_path, "w") as f:
         json.dump({"made_by": "tests/make_train_golden.py", "runs": runs}, f,
                   indent=1)
         f.write("\n")
     for r in runs:
-        print(r["name"], [(x["loss"], x["grad_norm"]) for x in r["per_step"]])
+        print(r["name"], [(x["loss"], x["grad_norm"]) for x in r["per_step"]],
+              "router margin", r.get("router_margin"))
 
 
 if __name__ == "__main__":

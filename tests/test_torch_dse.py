@@ -265,6 +265,13 @@ DSE_DIGEST = \
     "88321c259756792203249701f2542fe63c937255d931b2bb0fbcfae9a3a9a1e2"
 PHASE9_GRID = dict(log_blocks=(4, 5), mem_widths=(8, 32), spad_scales=(1,),
                    tune="full")
+# the same digest of mobilenet alone on the grid of phase 9's CLI run
+# through its spawned pool (chip_smoke.DSE_POOL_GRID): log blocks 4 and 5,
+# memory width 8, scratchpad scale 1, --tune full
+DSE_POOL_DIGEST = \
+    "c13cf63505a2448de8c30e4e2c2cfa706eed5c3e05bb13a19119e67dde1923a4"
+POOL_GRID = dict(log_blocks=(4, 5), mem_widths=(8,), spad_scales=(1,),
+                 tune="full")
 
 
 def _report_text(path) -> str:
@@ -313,6 +320,27 @@ def test_chip_smoke_pins_the_same_dse_digest():
         text = f.read()
     m = re.search(r'DSE_DIGEST = \\\s*"([0-9a-f]{64})"', text)
     assert m and m.group(1) == DSE_DIGEST
+
+
+def test_pool_grid_digest_of_the_jax_package(tmp_path):
+    """The JAX package's numpy report of mobilenet on the pool CLI's grid,
+    which phase 9 holds the CLI's card report to by its sha256."""
+    from repro.core import dse as jdse
+    jdse.run_sweep(["mobilenet"], out_dir=str(tmp_path), workers=2,
+                   backend="numpy", **POOL_GRID)
+    text = _report_text(tmp_path / "report.json")
+    assert hashlib.sha256(text.encode()).hexdigest() == DSE_POOL_DIGEST
+
+
+def test_chip_smoke_pins_the_same_pool_digest():
+    path = os.path.join(os.path.dirname(__file__), os.pardir,
+                        "chip_smoke.py")
+    with open(path) as f:
+        text = f.read()
+    m = re.search(r'DSE_POOL_DIGEST = \\\s*"([0-9a-f]{64})"', text)
+    assert m and m.group(1) == DSE_POOL_DIGEST
+    assert "DSE_POOL_GRID = dict(log_blocks=(4, 5), mem_widths=(8,), " \
+        "spad_scales=(1,))" in text
 
 
 # ---------------------------------------------------------------------------
