@@ -353,8 +353,14 @@ order; any failure raises and the script exits nonzero:
    the aux loss; 2 x 256 in 2 microbatches), RecurrentGemma-9B at 3 (the
    RG-LRU scan at ``lru_width`` 4096, MQA over one KV head of 256; 2 x
    256), Gemma-2 27B at 2 (both softcaps, the post norms; 4 x 256 in 4),
-   and Moonshot's smoke config (2 x 32); the MoE runs record their
-   smallest router margin. Each golden runs the donated step
+   and Moonshot's smoke config (2 x 32); and against
+   ``tests/golden/train_past_card_large_f32.json`` (``--past-card-large``,
+   card only but the smoke runs): Qwen2.5-32B (a GQA group of 5, the q/k/v
+   bias; 4 x 256 in 4), DeepSeek-67B (a group of 8; 8 x 256 in 8) and
+   Mixtral-8x22B (top 2 of 8 experts, the aux loss; 4 x 256 in 4) at
+   full width and 1 layer, the loss in one chunk, and the Qwen2.5 and
+   DeepSeek smoke configs at 10 / 2 and 16 / 2 heads (2 x 32); the MoE
+   runs record their smallest router margin. Each golden runs the donated step
    (``donate=True``, the Trainer's); the goldens' numpy weights are drawn
    on ``GOLDEN_THREADS`` threads beside the bf16 runs, as phase 7's are.
    The bf16 runs (``train_bf16``, ``TRAIN_BF16_RUNS``), each at full
@@ -372,9 +378,13 @@ order; any failure raises and the script exits nonzero:
    two microbatches, RecurrentGemma-9B 3 steps of 2 x 4096 in two (one
    sequence past its 2048 window a microbatch), Gemma-2 27B 3 steps of 4
    x 5120 in four (past its 4096 window), at 5 of 48, 12 of 38 and 2 of
-   46 layers; each step 56, 56, 0, 192, 20, 16 and 16
-   ``flash_attention.mma`` launches, counts zeroed just before
-   it and read just after, and its peak within ``TRAIN_PEAK_LIMIT``.
+   46 layers; Qwen2.5-32B 3 steps of 4 x 2048 in four, DeepSeek-67B 3
+   steps of 8 x 2048 in eight, Mixtral-8x22B 3 steps of 4 x 5120 in four
+   (past its 4096 window), at 4 of 64, 2 of 95 and 1 of 56; each step 56,
+   56, 0, 192, 20, 16, 16, 32, 32 and 8 ``flash_attention.mma`` launches,
+   counts zeroed
+   just before it and read just after, and its peak within
+   ``TRAIN_PEAK_LIMIT``.
    Before the first step, the Trainer's initial params and
    step 1's batch, a microbatch at a time, on the kernels and on
    ``flash_attention_plain`` (``train_grad_errors``): every gradient leaf
@@ -382,8 +392,10 @@ order; any failure raises and the script exits nonzero:
    never reach, zero in both), each within ``TRAIN_GRAD_TOL`` of the
    plain run's by norm, the losses within ``TRAIN_BF16_LOSS_TOL``, the
    kernels' launches one step's (RWKV-6 has no attention and no plain
-   pair: finite and nonzero only; Moonshot's plain run takes the kernels'
-   routing, and the choices it would have made otherwise are counted).
+   pair: finite and nonzero only; Moonshot's and Mixtral's plain runs take
+   the kernels' routing, and the choices they would have made otherwise
+   are counted), and the init's peak over the f32 params it draws within
+   ``INIT_PEAK_SLACK``; the check's own peak is printed.
    Qwen3's step-2 checkpoint restored to
    the sha256 of every leaf of the state it was taken from
    (``state_hashes``, hashed after the step: the next one overwrites the
@@ -450,11 +462,12 @@ order; any failure raises and the script exits nonzero:
    (``mesh_restore``): 10b's starting params checkpointed and restored by
    ``elastic_remesh`` onto ``surviving_mesh(0)``: every leaf a DTensor on
    the card with the rules' placements, equal by bits. 10d
-   (``mesh_dryrun``): ``python -m repro_torch.launch.dryrun --shape
+   (``dryrun_results``): ``python -m repro_torch.launch.dryrun --shape
    train_4k`` for qwen3-0.6b, moonshot-v1-16b-a3b and rwkv6-1.6b
    (``MESH_DRYRUN``), single-pod and ``--multi-pod``, each a subprocess
    (a fake process group cannot share a process with the nccl one), all
-   six at once: each ends, its ``peak_est_bytes`` below the card's memory,
+   six at once, started before phase 8 and run beside it without the card
+   at a lower CPU priority (``start_dryrun``), read here: each ends, its ``peak_est_bytes`` below the card's memory,
    the 16x16 run counts collectives, per-device flops times the ranks over
    ``model_flops`` within the arch's band on that mesh of
    ``MESH_FLOP_BANDS`` (qwen3 and moonshot; recorded for all); the
@@ -533,8 +546,9 @@ donated update that leaves the second moment as it was, a donated
 microbatch sum that skips the second microbatch, and, on the route
 ``PAST_CARD_ROUTE`` (the past-card golden file and the past-card runs'
 gradient checks, each such copy alone on the card), the MoE
-router's logits detached and a backward chunk that reads its keys from
-key 0, not from its window's first key; in the
+router's logits detached, a backward chunk that reads its keys from
+key 0, not from its window's first key, and a donated update whose flat
+blocks leave out a leaf's last partial block; in the
 sweep, ``CardFault`` caught at ``eval_job`` as an infeasible point, a
 verification on the captured route, and one that resolves the card to
 ``"torch-cpu"``; in the mesh layer, a DTensor attention that takes the
@@ -577,6 +591,7 @@ were planted.
 from __future__ import annotations
 
 import concurrent.futures
+import atexit
 import contextlib
 import gc
 import hashlib
@@ -589,6 +604,7 @@ import shutil
 import subprocess
 import sys
 import tempfile
+import threading
 import time
 import traceback
 import zlib
@@ -4375,8 +4391,16 @@ TRAIN_GOLDEN_FULL_WIDTH = os.path.join(ROOT, "tests", "golden",
 # at full width (card only), and Moonshot's smoke config
 TRAIN_GOLDEN_PAST_CARD = os.path.join(ROOT, "tests", "golden",
                                       "train_past_card_f32.json")
+# Qwen2.5-32B, DeepSeek-67B and Mixtral-8x22B at full width and 1 layer
+# (card only), and the Qwen2.5 and DeepSeek smoke configs at their
+# published GQA groups
+TRAIN_GOLDEN_PAST_CARD_LARGE = os.path.join(
+    ROOT, "tests", "golden", "train_past_card_large_f32.json")
 TRAIN_GOLDENS = (TRAIN_GOLDEN, TRAIN_GOLDEN_FAMILIES, TRAIN_GOLDEN_FULL_WIDTH,
-                 TRAIN_GOLDEN_PAST_CARD)
+                 TRAIN_GOLDEN_PAST_CARD, TRAIN_GOLDEN_PAST_CARD_LARGE)
+# the golden files whose full-width runs hold most of the card: route
+# "past_card" of train_checks, not route "golden"
+TRAIN_GOLDENS_PAST_CARD = (TRAIN_GOLDEN_PAST_CARD, TRAIN_GOLDEN_PAST_CARD_LARGE)
 # a batch's keys and dtypes in the golden files (a vlm's embeddings,
 # positions and labels; the others' tokens and labels)
 BATCH_DTYPES = {"tokens": np.int32, "labels": np.int32,
@@ -4453,12 +4477,28 @@ TRAIN_BF16_RUNS = (
     # GB (4: 77.13 GB, over the limit)
     dict(name="gemma2-27b", seed=0, batch=4, seq_len=5120, steps=3,
          opt=TRAIN_OPT, overrides=dict(n_layers=2)),
+    # Qwen2.5-32B: 40 query heads over 8 (a GQA group of 5), the q/k/v
+    # bias; one sequence of 2048 a microbatch (4 of them); 4 of 64 layers,
+    # 73.27 GB (3: 63.58 GB; 5 out of memory)
+    dict(name="qwen2.5-32b", seed=0, batch=4, seq_len=2048, steps=3,
+         opt=TRAIN_OPT, overrides=dict(n_layers=4)),
+    # DeepSeek-67B: 64 query heads over 8 (a group of 8); one sequence of
+    # 2048 a microbatch (8 of them); 2 of 95 layers, 64.59 GB (3: 78.43
+    # GB, over the limit)
+    dict(name="deepseek-67b", seed=0, batch=8, seq_len=2048, steps=3,
+         opt=TRAIN_OPT, overrides=dict(n_layers=2)),
+    # Mixtral-8x22B: top 2 of 8 experts of (6144, 16384), the aux loss;
+    # one sequence of 5120 a microbatch (4 of them), past its 4096 window;
+    # 1 of 56 layers, 61.36 GB (2 out of memory)
+    dict(name="mixtral-8x22b", seed=0, batch=4, seq_len=5120, steps=3,
+         opt=TRAIN_OPT, overrides=dict(n_layers=1)),
 )
 # the bf16 runs whose train state exceeds one card; --plant-faults runs
-# their gradient checks, and the past-card golden file, on a route of its
+# their gradient checks, and the past-card golden files, on a route of its
 # own ("past_card", its copies alone on the card)
 TRAIN_PAST_CARD_NAMES = ("moonshot-v1-16b-a3b", "recurrentgemma-9b",
-                         "gemma2-27b")
+                         "gemma2-27b", "qwen2.5-32b", "deepseek-67b",
+                         "mixtral-8x22b")
 # the most a bf16 run's step may hold on the card (max_memory_allocated
 # over what was allocated before the Trainer was built), 4 GB under the
 # H100's 80 GB for the allocator's own slack
@@ -4633,7 +4673,10 @@ def train_grad_errors(tr, want1: dict) -> tuple:
     that the two gradients differ by rounding alone; the choices the plain
     run would have made otherwise are counted, not held, as phase 7 counts
     them. The params and gradients are freed before the Trainer runs.
-    Returns (errors, row)."""
+    Memory, over what was allocated before the call: the init's peak over
+    the f32 params it leaves, held within ``INIT_PEAK_SLACK``, and the
+    check's own peak (its compute copy, two microbatches' gradients, the
+    plain run's scores), reported. Returns (errors, row)."""
     import torch
     from repro_torch.kernels import launch_counts, reset_launch_counts
     from repro_torch.models import build_model
@@ -4647,7 +4690,14 @@ def train_grad_errors(tr, want1: dict) -> tuple:
     batch = {k: torch.as_tensor(v, device=dev)
              for k, v in make_batch(tr.data_cfg, cfg, 0).items()}
     unreached = {"embed"} if "embeds" in batch else set()
-    params_c = compute_params(tr.init_params(), dt)
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    init = tr.init_params()
+    init_held = tree_bytes(init)
+    init_peak = torch.cuda.max_memory_allocated() - base - init_held
+    params_c = compute_params(init, dt)
+    del init
     plain = build_model(cfg, attention="torch") if pair else None
     moe = cfg.family == "moe"
     rel, bad, losses, repeat, differ, choices = {}, set(), [], {}, [], 0
@@ -4682,10 +4732,12 @@ def train_grad_errors(tr, want1: dict) -> tuple:
         losses.append((float(lk), float(lp)))
         del fk, fp, kept
     del params_c, batch
+    check_peak = torch.cuda.max_memory_allocated() - base
     gc.collect()
     torch.cuda.empty_cache()
     loss_rel = max(abs(a - b) / abs(b) for a, b in losses)
     errs = {f"{tag}.grads_nonzero": len(bad),
+            f"{tag}.init_peak": int(not init_peak <= INIT_PEAK_SLACK),
             f"{tag}.repeat_launches": int(any(
                 repeat.get(k, 0) != v for k, v in want1.items()))}
     if pair:
@@ -4703,7 +4755,10 @@ def train_grad_errors(tr, want1: dict) -> tuple:
                grad_rel_err_max=max(rel.values()) if rel else None,
                grad_rel_err_worst=sorted(rel.items(),
                                          key=lambda kv: -kv[1])[:3],
-               grad_limit=TRAIN_GRAD_TOL)
+               grad_limit=TRAIN_GRAD_TOL, init_held_mb=init_held / 1e6,
+               init_peak_over_held_mb=init_peak / 1e6,
+               init_peak_limit_mb=INIT_PEAK_SLACK / 1e6,
+               grad_check_peak_mb=check_peak / 1e6)
     if moe:
         row.update(router_choices=choices,
                    router_choices_differ=int(sum(int(x) for x in differ)))
@@ -4884,7 +4939,11 @@ def train_bf16_lines(row: dict, e: dict) -> None:
         f"{row['loss_plain']} (relative {row['loss_rel_err']}, limit "
         f"{row['loss_limit']}), gradients by norm worst "
         f"{row['grad_rel_err_worst']} (limit {row['grad_limit']}), "
-        f"unreached leaves {row['unreached_leaves']}; "
+        f"unreached leaves {row['unreached_leaves']}; the check's peak "
+        f"{row['grad_check_peak_mb']:.1f} MB, init's peak "
+        f"{row['init_peak_over_held_mb']:.1f} MB over the "
+        f"{row['init_held_mb']:.1f} MB of f32 params it leaves (limit "
+        f"{row['init_peak_limit_mb']:.0f} MB); "
         + (f"router choices of the plain run that differ from the "
            f"kernels' {row['router_choices_differ']} of "
            f"{row['router_choices']} (the plain run takes the kernels'); "
@@ -4911,7 +4970,7 @@ def train_checks(device, route: str = "all") -> tuple:
     """Phase 8: for route "all", every golden run of the golden files
     (``train_golden_errors``) and each bf16 run of ``TRAIN_BF16_RUNS``
     (``train_bf16``). Route "golden" runs the golden files but the
-    past-card one; route "past_card" that file and the gradient check
+    past-card ones; route "past_card" those files and the gradient check
     (``train_grad_errors``, no step) of each run of
     ``TRAIN_PAST_CARD_NAMES``. The goldens' numpy weights are drawn and
     hashed on ``GOLDEN_THREADS`` threads (one for route "golden", whose
@@ -4921,9 +4980,9 @@ def train_checks(device, route: str = "all") -> tuple:
     the runs)."""
     import torch
     errs, rows, launches = {}, [], {}
-    paths = {"all": TRAIN_GOLDENS, "past_card": (TRAIN_GOLDEN_PAST_CARD,),
+    paths = {"all": TRAIN_GOLDENS, "past_card": TRAIN_GOLDENS_PAST_CARD,
              "golden": tuple(p for p in TRAIN_GOLDENS
-                             if p != TRAIN_GOLDEN_PAST_CARD)}[route]
+                             if p not in TRAIN_GOLDENS_PAST_CARD)}[route]
     specs = {"all": TRAIN_BF16_RUNS, "golden": (),
              "past_card": tuple(r for r in TRAIN_BF16_RUNS
                                 if r["name"] in TRAIN_PAST_CARD_NAMES)}[route]
@@ -5650,24 +5709,20 @@ def mesh_restore(device, rules, model, params) -> tuple:
     return errs, dict(leaves=len(got), restore_s=secs)
 
 
-def mesh_dryrun() -> tuple:
-    """10d: ``python -m repro_torch.launch.dryrun`` on each cell of
-    ``MESH_DRYRUN``, single-pod and ``--multi-pod``, each in a subprocess
-    of its own (a fake process group cannot share a process with the
-    ``nccl`` one), all at once. Checks per cell and mesh: it runs to the
-    end; ``peak_est_bytes`` below the card's memory; on 16x16 it counts
-    collectives; per-device flops times the ranks over ``model_flops``
-    within ``MESH_FLOP_BANDS`` where the arch has a band on the mesh
-    (recorded for every cell). Prints flops, bytes and collective bytes
-    per device, the
-    roofline terms (``core/roofline.py::h100_terms``, the H100 data
-    sheet's rates) and the wall time."""
-    import torch
-    from repro_torch.analysis.roofline import model_flops
-    from repro_torch.configs import ARCHS
-    from repro_torch.core.roofline import h100_terms
+def start_dryrun() -> dict:
+    """10d's subprocesses, started: ``python -m repro_torch.launch.dryrun``
+    on each cell of ``MESH_DRYRUN``, single-pod and ``--multi-pod``, each
+    a process of its own (a fake process group cannot share a process with
+    the ``nccl`` one), all at once, their output into files. They need no
+    card (``CUDA_VISIBLE_DEVICES`` empty: no context on it) and run at a
+    lower CPU priority (nice 10), so that ``main`` starts them beside phase
+    8's training, which holds the card and leaves the host's cores idle,
+    and reads them in phase 10 (``dryrun_results``). Returns {(arch,
+    shape, multi-pod): (process, its JSON file, its output file, [its
+    start, its end on the host clock])}; ``stop_dryrun`` of it runs at
+    exit, so that no process outlives the run that started it."""
     tmp = tempfile.mkdtemp(prefix="chip_smoke_dryrun_")
-    env = dict(os.environ, PYTHONPATH=SRC)
+    env = dict(os.environ, PYTHONPATH=SRC, CUDA_VISIBLE_DEVICES="")
     procs = {}
     try:
         for arch, shape in MESH_DRYRUN:
@@ -5676,19 +5731,64 @@ def mesh_dryrun() -> tuple:
                 cmd = [sys.executable, "-m", "repro_torch.launch.dryrun",
                        "--arch", arch, "--shape", shape, "--out", out] + (
                            ["--multi-pod"] if mp else [])
-                procs[arch, shape, mp] = (subprocess.Popen(
-                    cmd, env=env, cwd=ROOT, stdout=subprocess.PIPE,
-                    stderr=subprocess.STDOUT, text=True), out,
-                    time.perf_counter())
+                with open(out + ".log", "w") as text:
+                    proc = subprocess.Popen(
+                        cmd, env=env, cwd=ROOT, stdout=text,
+                        stderr=subprocess.STDOUT)
+                os.setpriority(os.PRIO_PROCESS, proc.pid, 10)
+                times = [time.perf_counter()]
+                # each process's own end, whenever its results are read
+                threading.Thread(target=lambda p=proc, t=times: (
+                    p.wait(), t.append(time.perf_counter())),
+                    daemon=True).start()
+                procs[arch, shape, mp] = (proc, out, out + ".log", times)
+    finally:
+        # whatever ends the run first, none of them outlives it
+        atexit.register(stop_dryrun, procs)
+        if not procs:
+            shutil.rmtree(tmp, ignore_errors=True)
+    return procs
+
+
+def stop_dryrun(procs: dict) -> None:
+    """Kill what is left of ``start_dryrun``'s processes and remove their
+    files."""
+    for proc, _, _, _ in procs.values():
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+    for d in {os.path.dirname(out) for _, out, _, _ in procs.values()}:
+        shutil.rmtree(d, ignore_errors=True)
+
+
+def dryrun_results(procs: dict) -> tuple:
+    """10d: ``start_dryrun``'s processes, waited for (each within
+    ``MESH_DRYRUN_TIMEOUT`` of its start) and read. Checks per cell and
+    mesh: it runs to the end; ``peak_est_bytes`` below the card's memory;
+    on 16x16 it counts collectives; per-device flops times the ranks over
+    ``model_flops`` within ``MESH_FLOP_BANDS`` where the arch has a band on
+    the mesh (recorded for every cell). Prints flops, bytes and collective
+    bytes per device, the roofline terms (``core/roofline.py::
+    h100_terms``, the H100 data sheet's rates) and each process's wall
+    time, start to end."""
+    import torch
+    from repro_torch.analysis.roofline import model_flops
+    from repro_torch.configs import ARCHS
+    from repro_torch.core.roofline import h100_terms
+    try:
         res, errs = {}, {}
         total = torch.cuda.get_device_properties(0).total_memory
-        for (arch, shape, mp), (proc, out, t0) in procs.items():
-            text, _ = proc.communicate(timeout=MESH_DRYRUN_TIMEOUT)
-            wall = time.perf_counter() - t0
+        for (arch, shape, mp), (proc, out, text, times) in procs.items():
+            proc.wait(timeout=max(1.0, MESH_DRYRUN_TIMEOUT - (
+                time.perf_counter() - times[0])))
+            while len(times) < 2:       # its watcher notes the end
+                time.sleep(0.01)
+            wall = times[1] - times[0]
             mesh = "2x16x16" if mp else "16x16"
             tag = f"mesh.dryrun.{arch}.{shape}.{mesh}"
-            for line in text.splitlines():
-                log(f"  {line}")
+            with open(text) as f:
+                for line in f.read().splitlines():
+                    log(f"  {line}")
             r = json.load(open(out)) if os.path.exists(out) else {
                 "error": f"exit {proc.returncode}"}
             errs[f"{tag}.ran"] = int(proc.returncode != 0 or "error" in r)
@@ -5720,24 +5820,22 @@ def mesh_dryrun() -> tuple:
             log(f"dryrun {arch} x {shape} on {r['mesh']} ({r['chips']} "
                 f"ranks, the card's host): {json.dumps(row)}")
     finally:
-        for proc, _, _ in procs.values():
-            if proc.poll() is None:
-                proc.kill()
-                proc.wait()
-        shutil.rmtree(tmp, ignore_errors=True)
+        stop_dryrun(procs)
     return errs, res
 
 
 MESH_PARTS = ("serve", "train", "restore", "dryrun")
 
 
-def mesh_checks(device, parts=MESH_PARTS, lm_row=None) -> tuple:
+def mesh_checks(device, parts=MESH_PARTS, lm_row=None,
+                dryrun: dict = None) -> tuple:
     """Phase 10: the mesh layer on the card. Starts a one-rank ``nccl``
     process group and the (1, 1) mesh over ("data", "model") and runs
     ``parts`` in order: 10a ``mesh_serve``, 10b ``mesh_train``, 10c
     ``mesh_restore`` (on 10b's model and starting params, or a fresh init
-    of Qwen3-0.6B without 10b), 10d ``mesh_dryrun``; destroys the group.
-    Returns (errors, rows)."""
+    of Qwen3-0.6B without 10b), 10d ``dryrun_results`` of ``dryrun``
+    (``start_dryrun``'s processes, started earlier; here if not given);
+    destroys the group. Returns (errors, rows)."""
     import torch
     from repro_torch.launch.mesh import (destroy_process_group,
                                          init_process_group, make_mesh)
@@ -5762,7 +5860,7 @@ def mesh_checks(device, parts=MESH_PARTS, lm_row=None) -> tuple:
                         device=device).manual_seed(0), device))
                 e, rows[part] = mesh_restore(device, rules, *kept)
             else:
-                e, rows[part] = mesh_dryrun()
+                e, rows[part] = dryrun_results(dryrun or start_dryrun())
             errs.update(e)
             log(f"phase 10{'abcd'[MESH_PARTS.index(part)]} ({part}): "
                 f"{time.perf_counter() - t0:.1f} s, errors {e}")
@@ -6104,6 +6202,13 @@ PLANTED_FAULTS = {  # name: (route, file under src/repro_torch, text, stand-in)
         "                    a.add_(b.to(torch.float32))\n",
         "                    if i != 1:\n"
         "                        a.add_(b.to(torch.float32))\n"),
+    # the donated update's flat blocks without a leaf's last partial block:
+    # a leaf over DONATE_BLOCK values whose count is not a multiple of it
+    # keeps its tail's params and moments as they were
+    "train.donate_block_tail": (
+        "train", "train/optimizer.py",
+        "    return t.view(-1).split(DONATE_BLOCK)\n",
+        "    return t.view(-1).split(DONATE_BLOCK)[:t.numel() // DONATE_BLOCK]\n"),
     # the token shift under the rules one position off (no shift)
     "mesh_serve.shift_off_by_one": (
         "mesh_serve", "sharding/logical.py",
@@ -6125,7 +6230,8 @@ TRAIN_FAULT_KEYS = ("train",)
 # past-card golden file and the gradient checks of TRAIN_PAST_CARD_NAMES
 PAST_CARD_ROUTE = "train_past_card"
 PAST_CARD_FAULTS = ("train.moe_router_no_grad",
-                    "train.backward_window_dropped")
+                    "train.backward_window_dropped",
+                    "train.donate_block_tail")
 # routes whose copy holds most of the card (~53 GB): such a copy runs
 # alone, its golden draws on GOLDEN_THREADS threads
 HEAVY_FAULT_ROUTES = (PAST_CARD_ROUTE,)
@@ -6574,6 +6680,9 @@ def main(argv: list) -> int:
     log(f"phase 7: {time.perf_counter() - t0:.1f} s")
 
     # -- phase 8 ----------------------------------------------------------
+    # phase 10d's dry-runs need no card: they run on the host's idle cores
+    # beside phase 8's training, and phase 10 reads them
+    dryrun = start_dryrun()
     t0 = time.perf_counter()
     errs8, train_rows, train_launches = train_checks(dev)
     if any(errs8.values()):
@@ -6601,7 +6710,7 @@ def main(argv: list) -> int:
     t0 = time.perf_counter()
     lm_row = next(r for r in lm_rows if r.get("config") == MESH_SERVE["name"]
                   and r.get("dtype") == "bfloat16")
-    errs10, mesh_rows = mesh_checks(dev, lm_row=lm_row)
+    errs10, mesh_rows = mesh_checks(dev, lm_row=lm_row, dryrun=dryrun)
     if any(errs10.values()):
         raise AssertionError(f"phase 10 failed: {errs10}")
     log(f"phase 10: {time.perf_counter() - t0:.1f} s")
@@ -6680,7 +6789,10 @@ def main(argv: list) -> int:
                   "launches_train: phase 8's training "
                   "runs (the f32 golden runs and the bf16 Trainer steps "
                   "of Qwen3-0.6B, Qwen2-VL-2B, RWKV-6 1.6B and "
-                  "MusicGen-Large; by run in launches_by_train_run), "
+                  "MusicGen-Large, and of Moonshot-v1-16B-A3B, "
+                  "RecurrentGemma-9B, Gemma-2-27B, Qwen2.5-32B, "
+                  "DeepSeek-67B and Mixtral-8x22B at cut depth; by run in "
+                  "launches_by_train_run), "
                   "launches_cases: phase 5's"))
     log(json.dumps({"serve": serve_rows, "capture": capture_rows,
                     "live": live_rows, "profile": prof}))

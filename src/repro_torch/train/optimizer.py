@@ -65,27 +65,31 @@ def global_norm(tree) -> torch.Tensor:
     return torch.sqrt(total)
 
 
-# the donated update takes a leaf in blocks of its leading dim of at most
-# this many elements: a stacked leaf holds every layer (MusicGen-Large's
-# ffn weights, 805 M values), and the f32 temporaries of the update of a
-# whole one took ~19 GB on the card
+# the most values of a leaf the donated update holds at a time: the f32
+# temporaries of one block's update (about ten of its size) stay under 1
+# GB, whatever the leaf's shape. A whole 805 M-value leaf (MusicGen-Large's
+# stacked ffn weights, or Mixtral-8x22B's expert group at one layer, whose
+# leading dim is 1) took ~19 GB of temporaries on the card
 DONATE_BLOCK = 1 << 24
 
 
 def _blocks(t: torch.Tensor) -> tuple:
-    """Views of ``t`` that cover it, in blocks of its leading dim of at
-    most ``DONATE_BLOCK`` elements (at least one row); ``t`` itself for a
-    scalar or a vector."""
-    if t.dim() < 2 or t.numel() <= DONATE_BLOCK:
+    """Views of ``t`` that cover each of its values once, in memory order:
+    flat blocks of at most ``DONATE_BLOCK`` values; ``t`` itself where it
+    holds no more. ``t`` must be contiguous (the views are written
+    through), as the params, moments and gradients of a step are."""
+    if t.numel() <= DONATE_BLOCK:
         return (t,)
-    return torch.split(t, max(1, DONATE_BLOCK // (t.numel() // t.shape[0])))
+    assert t.is_contiguous(), f"a {tuple(t.shape)} leaf is not contiguous"
+    return t.view(-1).split(DONATE_BLOCK)
 
 
 def adamw_update(cfg: AdamWConfig, params, grads, state, donate=False):
     """Returns (new_params, new_state, metrics).
 
     ``donate=True`` writes the update over ``params`` and ``state``, a leaf
-    at a time, in blocks of its leading dim (``_blocks``): each block's new
+    at a time, in flat blocks of at most ``DONATE_BLOCK`` values
+    (``_blocks``): each block's new
     (p, mu, nu) are computed exactly as without (the same elementwise
     operations, so the same bits), copied into its tensors, and dropped
     before the next block, so the update holds one block's temporaries,

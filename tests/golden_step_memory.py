@@ -6,11 +6,13 @@ params' shapes alone.
 
     PYTHONPATH=src JAX_PLATFORMS=cpu python tests/golden_step_memory.py \\
         gemma2-27b --layers 2 --batch 4 [--seq-len 256] [--loss-chunks 1] \\
-        [--no-donate]
+        [--grad-accum N] [--no-donate]
 
 The step is ``make_train_step`` in f32 at the config's published width,
 jitted with ``donate_argnums=(0, 1)`` as the reference's ``Trainer`` jits
-it unless ``--no-donate``. Its peak is about the arguments plus the
+it unless ``--no-donate``; ``--grad-accum`` sets the config's
+``grad_accum`` (the microbatches of the reference's ``lax.scan``), else
+the published one stands. Its peak is about the arguments plus the
 temporaries (plus the outputs without donation). Prints one JSON line.
 Compiling a full-width config takes a minute and a few GB, not the step's
 memory. Not a test (pytest collects ``test_*.py`` only).
@@ -37,11 +39,14 @@ def main() -> None:
     ap.add_argument("--batch", type=int, required=True)
     ap.add_argument("--seq-len", type=int, default=256)
     ap.add_argument("--loss-chunks", type=int, default=None)
+    ap.add_argument("--grad-accum", type=int, default=None)
     ap.add_argument("--no-donate", action="store_true")
     a = ap.parse_args()
     over = dict(dtype="float32", n_layers=a.layers)
     if a.loss_chunks:
         over["loss_chunks"] = a.loss_chunks
+    if a.grad_accum:
+        over["grad_accum"] = a.grad_accum
     cfg = ARCHS[a.name].replace(**over)
     model = build_model(cfg)
 

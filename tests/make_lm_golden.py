@@ -64,7 +64,11 @@ each in f32:
 - ``gemma2-27b``'s smoke config with ``query_scale`` 12 ** -0.5, which is
   not ``head_dim ** -0.5`` (the smoke config's own 16 ** -0.5 is);
 - ``qwen2.5-32b``'s smoke config with 10 query heads over 2 KV heads, the
-  published GQA group of 5 (40 over 8).
+  published GQA group of 5 (40 over 8);
+- ``qwen2.5-32b`` at full width (d_model 5120, 40/8 heads of 128, the
+  q/k/v bias, d_ff 27648, vocab 152064, untied head) cut to
+  ``QWEN25_LAYERS`` of 64 (2.53 B parameters, 10.1 GB), 2 prompts of 64 tokens: on the
+  card only.
 
 ``--past-card`` writes ``golden/lm_session_past_card_f32.json`` (~3 min,
 ~13 GB at its peak here), runs each in f32, 2 prompts of 64 or 32 tokens,
@@ -146,6 +150,7 @@ MOE_LAYERS = 1
 VLM_LAYERS = 4
 AUDIO_LAYERS = 4
 GEMMA_LAYERS = 2
+QWEN25_LAYERS = 2
 PAST_CARD_LAYERS = 1
 TOP = 8
 RUNS = [
@@ -209,6 +214,9 @@ DENSE_LARGE_RUNS = [
     dict(name="qwen2.5-32b", smoke=True,
          overrides=dict(dtype="float32", n_heads=10, n_kv_heads=2),
          seed=0, prompt_seed=1, batch=2, prompt_len=32, steps=8),
+    dict(name="qwen2.5-32b", smoke=False,
+         overrides=dict(dtype="float32", n_layers=QWEN25_LAYERS),
+         seed=0, prompt_seed=1, batch=2, prompt_len=64, steps=8),
 ]
 PAST_CARD_RUNS = [
     dict(name="deepseek-67b", smoke=False,

@@ -6,6 +6,7 @@ batches that numpy makes from a seed.
     PYTHONPATH=src JAX_PLATFORMS=cpu python tests/make_train_golden.py --families
     PYTHONPATH=src JAX_PLATFORMS=cpu python tests/make_train_golden.py --full-width
     PYTHONPATH=src JAX_PLATFORMS=cpu python tests/make_train_golden.py --past-card
+    PYTHONPATH=src JAX_PLATFORMS=cpu python tests/make_train_golden.py --past-card-large
 
 Not a test (pytest collects ``test_*.py`` only). The first writes
 ``golden/train_f32.json`` (~1 min, ~6 GB at its peak), runs each in f32:
@@ -78,6 +79,26 @@ The step is jitted with ``donate_argnums=(0, 1)``, as the reference's
 buffers (``tests/golden_step_memory.py``) is 24.83, 32.85 and 46.25 GB
 donated and 29.82, 39.82 and 55.60 GB without: each peak sits within
 1.2 GB over the donated figure, so the CPU backend took the donation.
+
+``--past-card-large`` writes ``golden/train_past_card_large_f32.json``:
+the three configs whose train state exceeds one card that ``--past-card``
+left out, at their published widths cut to one layer (each has a pattern
+of one layer), the loss in one chunk, f32, each under its own
+``grad_accum``, lr 1e-4, card only:
+
+- ``qwen2.5-32b`` (40 query heads over 8, a GQA group of 5, the q/k/v
+  bias, vocab 152064, an untied head; 2.04 B parameters), batch 4 x 256
+  in 4 microbatches;
+- ``deepseek-67b`` (64 over 8, a group of 8, d_model 8192; 2.37 B),
+  batch 8 x 256 in 8;
+- ``mixtral-8x22b`` (8 experts of (6144, 16384), top 2, the aux loss,
+  a window of 4096; 2.91 B), batch 4 x 256 in 4, its router margin kept;
+- the smoke configs of ``qwen2.5-32b`` at 10 query heads over 2 (a group
+  of 5, the bias) and ``deepseek-67b`` at 16 over 2 (8), batch 2 x 32:
+  the runs the CPU tests afford.
+
+Run it alone: the Mixtral run's resident peak sits at the edge of a
+62 GB host (see ``PAST_CARD_LARGE_RUNS``).
 
 Every mode jits the step with that donation, which changes no value: the
 default mode's file is byte for byte the one made without it.
@@ -173,11 +194,41 @@ PAST_CARD_RUNS = [
          data=dict(seed=1, batch=2, seq_len=32), opt=OPT_FULL_WIDTH,
          steps=3),
 ]
+OUT_PAST_CARD_LARGE = os.path.join(GOLDEN, "train_past_card_large_f32.json")
+# one layer each (every one of the three has a pattern of one layer), the
+# loss in one chunk; each a microbatch of one sequence under its own
+# grad_accum (4, 8, 4). The peak of each step's buffers as XLA reckons it
+# (tests/golden_step_memory.py NAME --layers 1 --batch B --loss-chunks 1)
+# and the resident peak (VmRSS) measured here, on an 8-core x86 host with
+# 62 GB: Qwen2.5-32B 40.90 GB reckoned, 41.55 measured (134.2 s);
+# DeepSeek-67B 47.40, 48.41 (210.1 s); Mixtral-8x22B 58.14, 66.43 (212.8
+# s), at the edge of the host: it ran at its own grad_accum of 4 (at 1 and
+# batch 2 XLA reckons 53.15 GB: --grad-accum 1). The smoke runs 3.3 and
+# 3.0 s at 1.2 GB. Mixtral's router margin, 1.05e-6, is within a decade
+# of the f32 noise between two machines' router probabilities (~1e-7):
+# the card's run did not flip a choice
+PAST_CARD_LARGE_RUNS = [
+    dict(name=name, smoke=False,
+         overrides=dict(dtype="float32", n_layers=1, loss_chunks=1),
+         seed=0, data=dict(seed=1, batch=batch, seq_len=256),
+         opt=OPT_FULL_WIDTH, steps=3)
+    for name, batch in (("qwen2.5-32b", 4), ("deepseek-67b", 8),
+                        ("mixtral-8x22b", 4))] + [
+    # the smoke configs at the published GQA groups, 10 over 2 heads (5,
+    # with Qwen2.5's q/k/v bias) and 16 over 2 (8), as
+    # tests/make_lm_golden.py serves them
+    dict(name=name, smoke=True,
+         overrides=dict(dtype="float32", n_heads=heads, n_kv_heads=2),
+         seed=0, data=dict(seed=1, batch=2, seq_len=32), opt=OPT_FULL_WIDTH,
+         steps=3)
+    for name, heads in (("qwen2.5-32b", 10), ("deepseek-67b", 16))]
 # mode: (runs, file, whether a MoE run keeps its router_margin)
 MODES = {(): (RUNS, OUT, False),
          ("--families",): (FAMILY_RUNS, OUT_FAMILIES, False),
          ("--full-width",): (FULL_WIDTH_RUNS, OUT_FULL_WIDTH, False),
-         ("--past-card",): (PAST_CARD_RUNS, OUT_PAST_CARD, True)}
+         ("--past-card",): (PAST_CARD_RUNS, OUT_PAST_CARD, True),
+         ("--past-card-large",): (PAST_CARD_LARGE_RUNS, OUT_PAST_CARD_LARGE,
+                                  True)}
 METRICS = ("loss", "xent", "moe_aux", "grad_norm", "lr")
 
 
@@ -259,7 +310,7 @@ def golden_run(run: dict, margin: bool = False) -> dict:
 def main(argv: list) -> None:
     if tuple(argv[1:]) not in MODES:
         raise SystemExit(f"usage: {argv[0]} [--families | --full-width | "
-                         f"--past-card]")
+                         f"--past-card | --past-card-large]")
     specs, out_path, margin = MODES[tuple(argv[1:])]
     runs = []
     for r in specs:

@@ -5,8 +5,9 @@ The golden file ``tests/golden/lm_session_dense_large_f32.json`` holds the
 JAX package's runs in f32 (``tests/make_lm_golden.py --dense-large``):
 Gemma-2-27B at full width cut to one local and one global layer, which
 only the card runs (2.31 B numpy draws), Gemma-2's smoke config with a
-query scale that is not ``head_dim ** -0.5``, and Qwen2.5-32B's smoke
-config at its published GQA group of 5. The two smoke runs go through
+query scale that is not ``head_dim ** -0.5``, Qwen2.5-32B's smoke
+config at its published GQA group of 5, and Qwen2.5-32B at full width cut
+to 2 layers, which only the card runs (2.53 B numpy draws). The two smoke runs go through
 phase 7's ``golden_errors`` here, where the port's attention takes its
 plain forward: every check 0.
 
@@ -50,15 +51,18 @@ def test_dense_large_smoke_runs_hold_on_the_cpu(tag):
 
 
 def test_dense_large_runs_are_the_configs_they_claim():
-    """The file's three runs: Gemma-2-27B at full width (d_model 4608,
+    """The file's four runs: Gemma-2-27B at full width (d_model 4608,
     vocab 256000, f32) cut to one local and one global layer, 2 x 64
     tokens and 8 steps, its query scale 1/12; the smoke config with a query
     scale that is not ``head_dim ** -0.5``; Qwen2.5-32B's smoke config
-    with a GQA group of 5. The full-width run is not run here."""
+    with a GQA group of 5; Qwen2.5-32B at full width (d_model 5120, 40 / 8
+    heads of 128, the q/k/v bias, vocab 152064, f32) cut to 2 layers, 2 x
+    64 tokens and 8 steps. The full-width runs are not run here."""
     cs = _chip_smoke()
     runs = _runs(cs)
     assert set(runs) == {"gemma2-27b", "gemma2-27b-smoke-query_scale",
-                         "qwen2.5-32b-smoke-n_heads-n_kv_heads"}
+                         "qwen2.5-32b-smoke-n_heads-n_kv_heads",
+                         "qwen2.5-32b"}
     full = runs["gemma2-27b"]
     cfg = cs.lm_config(full)
     assert (cfg.name, cfg.d_model, cfg.vocab_size, cfg.dtype) == (
@@ -78,6 +82,18 @@ def test_dense_large_runs_are_the_configs_they_claim():
     assert scaled.query_scale != scaled.head_dim ** -0.5
     qwen = cs.lm_config(runs["qwen2.5-32b-smoke-n_heads-n_kv_heads"])
     assert (qwen.n_heads, qwen.n_kv_heads) == (10, 2) and qwen.qkv_bias
+    full = runs["qwen2.5-32b"]
+    cfg = cs.lm_config(full)
+    assert (cfg.name, cfg.d_model, cfg.vocab_size, cfg.dtype, cfg.n_layers) \
+        == ("qwen2.5-32b", 5120, 152064, "float32", 2)
+    assert (cfg.n_heads, cfg.n_kv_heads, cfg.head_dim, cfg.d_ff) == (
+        40, 8, 128, 27648)
+    assert cfg.qkv_bias and not cfg.tie_embeddings
+    assert (full["batch"], full["prompt_len"], full["steps"]) == (2, 64, 8)
+    assert cs.published_layers(full) == 64
+    n = sum(math.prod(s.shape)
+            for s in flatten_dict(model_specs(cfg)).values())
+    assert 2.53e9 < n < 2.54e9
 
 
 def test_dropped_query_scale_fails_only_the_new_golden(monkeypatch):

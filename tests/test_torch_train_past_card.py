@@ -1,7 +1,9 @@
 """``chip_smoke.py`` phase 8's training of the configs whose train state
 exceeds one card, rehearsed on the CPU.
 
-Phase 8 trains Moonshot-v1-16B-A3B, RecurrentGemma-9B and Gemma-2 27B at
+Phase 8 trains Moonshot-v1-16B-A3B, RecurrentGemma-9B and Gemma-2 27B,
+and Qwen2.5-32B, DeepSeek-67B and Mixtral-8x22B (whose golden file has
+tests of its own, ``tests/test_torch_train_past_card_large.py``), at
 full width and cut depth in bf16 through the donated ``Trainer``
 (``TRAIN_BF16_RUNS``), and holds the golden file
 ``tests/golden/train_past_card_f32.json`` (``tests/make_train_golden.py
@@ -27,7 +29,8 @@ CPU = torch.device("cpu")
 # each bf16 run's depth and attention launches a step (remat "full": each
 # attention layer's forward twice, per microbatch)
 RUNS = {"moonshot-v1-16b-a3b": (5, 20), "recurrentgemma-9b": (12, 16),
-        "gemma2-27b": (2, 16)}
+        "gemma2-27b": (2, 16), "qwen2.5-32b": (4, 32),
+        "deepseek-67b": (2, 32), "mixtral-8x22b": (1, 8)}
 # the train state a step holds, per parameter: f32 master weights and
 # AdamW's two moments, the f32 gradient sum, the bf16 compute copy
 STATE_BYTES = 4 + 8 + 4 + 2
@@ -62,7 +65,9 @@ def test_bf16_runs_are_their_published_configs(name):
     expects one ``mma`` launch an attention layer, twice under remat, per
     microbatch: 20 for Moonshot at 5 layers (5 x 2 x 2), 16 for
     RecurrentGemma at 12 (4 attention layers x 2 x 2), 16 for Gemma-2 at 2
-    (2 x 2 x 4). RecurrentGemma's and Gemma-2's sequences run past their
+    (2 x 2 x 4), 32 for Qwen2.5-32B at 4 (4 x 2 x 4), 32 for DeepSeek-67B
+    at 2 (2 x 2 x 8), 8 for Mixtral-8x22B at 1 (1 x 2 x 4).
+    RecurrentGemma's, Gemma-2's and Mixtral's sequences run past their
     windows."""
     cs = _chip_smoke()
     (spec,) = [r for r in cs.TRAIN_BF16_RUNS if r["name"] == name]
@@ -194,9 +199,9 @@ def test_backward_window_dropped_fails_past_the_window(monkeypatch):
 
 
 def test_past_card_route_runs_only_what_catches_its_faults():
-    """``--plant-faults`` runs the two past-card faults, and an unchanged
+    """``--plant-faults`` runs the past-card faults, and an unchanged
     control, on the route of ``train_checks``' "past_card" (the past-card
-    golden file and the gradient checks of the three runs), which phase 8
+    golden files and the gradient checks of the six runs), which phase 8
     holds whole; a copy of that route runs alone on the card (its
     gradient checks held 52.87 GB there, and a copy beside it ran the
     card out of memory), the others three at a time."""
@@ -204,7 +209,10 @@ def test_past_card_route_runs_only_what_catches_its_faults():
     assert set(cs.PAST_CARD_FAULTS) <= set(cs.PLANTED_FAULTS)
     assert all(cs.PLANTED_FAULTS[f][0] == "train"
                for f in cs.PAST_CARD_FAULTS)
-    assert cs.TRAIN_GOLDEN_PAST_CARD in cs.TRAIN_GOLDENS
+    assert "train.donate_block_tail" in cs.PAST_CARD_FAULTS
+    assert set(cs.TRAIN_GOLDENS_PAST_CARD) == {
+        cs.TRAIN_GOLDEN_PAST_CARD, cs.TRAIN_GOLDEN_PAST_CARD_LARGE}
+    assert set(cs.TRAIN_GOLDENS_PAST_CARD) <= set(cs.TRAIN_GOLDENS)
     assert set(cs.TRAIN_PAST_CARD_NAMES) == set(RUNS)
     heavy, fits = cs.PAST_CARD_ROUTE, cs.fault_copy_fits
     assert heavy in cs.HEAVY_FAULT_ROUTES
